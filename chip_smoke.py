@@ -6,11 +6,15 @@ each against its plain PyTorch version, drives LanczosSGD training of GPT-2
 
 Phases (any failure exits non-zero and prints no result line):
   1. require a CUDA device; print the card's name and power limit;
-  2. build every kernel from ops/csrc (nvcc, registers and spills printed);
+  2. build every kernel from ops/csrc (nvcc; registers and spills printed
+     by kernel name) and print pass 1's launch plan at the timed shapes,
+     with the resident blocks per SM the wrapper got from the occupancy API;
   3. rank-k kernels vs their plain versions at (10, 124,046,592) -- the
      trainer's shape -- and (35, 124,046,592), (35, 16384), (3, 20000),
      (5, 20001), f32 and bf16 bases, each also rerun for bitwise equality;
-     time kernel, plain version and a one-call library yardstick;
+     at the two 124M shapes, kernel and a one-call library yardstick timed
+     in turns (median and min-max, nvidia-smi sampled beside), then the
+     plain version;
   4. main path: 4 LanczosSGD steps of GPT-2 124M (bs8, seq512, k=10, bf16
      basis) via cli.train.main, with every launch count zeroed just before
      and read just after; each rank-k kernel must run once per step;
@@ -24,6 +28,7 @@ Imports torch and the port only (no JAX: the card machine has none).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -33,6 +38,8 @@ import time
 import torch
 
 P_124M = 124_046_592  # GPT-2 124M parameters at n_positions 512
+TIMED_DTYPES = (torch.bfloat16, torch.float32)
+TIMED_KS = (10, 35)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 KERNEL_SRC = "hessian_llm_vision_tpu_torch/ops/csrc/rank_k.cu"
@@ -61,36 +68,30 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call: CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
 def timings(kernel, plain, library, *, nbytes: float, flops: float) -> dict:
-    """Kernel, plain version and library call timed in turns (kernel,
-    plain, library, kernel) on one card, beside the bound."""
-    first = time_ms(kernel)
-    plain_ms = time_ms(plain, iters=5)
-    library_ms = time_ms(library)
-    second = time_ms(kernel)
+    """Kernel and library call timed in turns on one card: 10 warm-up
+    launches each, then 5 rounds of (kernel, library, library, kernel), 20
+    launches a timing, nvidia-smi sampled beside; median and min-max of the
+    10 timings of each.  Then the plain version, and the bound."""
+    from hessian_llm_vision_tpu_torch.utils.cuda_timing import in_turns, smi_samples, time_ms
+
+    with smi_samples() as smi:
+        t = in_turns({"kernel": kernel, "library": library}, rounds=5, iters=20, warmup=10)
+    plain_ms = time_ms(plain, iters=5, warmup=1)
     bound, bound_by = bound_ms(nbytes, flops)
-    return {"ms": (first + second) / 2, "ms_runs": [first, second], "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by}
+    return {"ms": t["kernel"]["ms"], "ms_spread": [t["kernel"]["min"], t["kernel"]["max"]],
+            "plain_ms": plain_ms, "library_ms": t["library"]["ms"],
+            "library_spread": [t["library"]["min"], t["library"]["max"]],
+            "bound_ms": bound, "bound_by": bound_by, "smi": smi}
+
+
+def without_smi(t: dict) -> dict:
+    return {key: v for key, v in t.items() if key != "smi"}
 
 
 def phase(n: int, title: str):
@@ -159,6 +160,7 @@ def step_breakdown() -> dict:
     from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss, hvp_fn
     from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from hessian_llm_vision_tpu_torch.models.losses import lm_loss_fn
+    from hessian_llm_vision_tpu_torch.utils.cuda_timing import time_ms
     from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
 
     dev = torch.device("cuda")
@@ -213,15 +215,20 @@ def main() -> int:
     t0 = phase(2, "build kernels")
     for res in kernels.build().values():
         print(f"built {res.path.name} in {res.seconds:.2f} s")
-        for line in res.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print("  " + line.strip())
+        for name, use in kernels.ptxas_usage(res.log).items():
+            print(f"  {name}: {use['registers']} registers, {use['spill_bytes']} bytes spilled")
+    for dtype in TIMED_DTYPES:
+        for k in TIMED_KS:
+            plan = kernels.dots_launch_plan(k, P_124M, dtype, "cuda")
+            print(json.dumps({"rank_k_dots_plan": {"dtype": str(dtype).removeprefix("torch."),
+                                                   "k": k, "P": P_124M,
+                                                   **dataclasses.asdict(plan)}}))
     print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(3, "rank-k kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     checks = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in TIMED_DTYPES:
         # (35, P): k*P > 2**31 needs 64-bit offsets; P = 20001 takes the
         # scalar-load path (P not a multiple of the 16-byte vector)
         for k, p in ((10, P_124M), (35, P_124M), (35, 16384), (3, 20000), (5, 20001)):
@@ -232,6 +239,13 @@ def main() -> int:
     failed = [key for key, r in checks.items() if not r["ok"]]
     if failed:
         raise SystemExit(f"rank-k kernel disagrees with its plain version at {failed}")
+    for dtype in TIMED_DTYPES:  # pass 1 and the pair, per timed shape
+        for k in TIMED_KS:
+            d, a = (checks[(dtype, k, P_124M)][n] for n in TPU_KERNELS)
+            print(f"{str(dtype).removeprefix('torch.'):8s} k={k:2d}: rank_k_dots "
+                  f"{d['ms']:.3f} ms [{d['ms_spread'][0]:.3f}-{d['ms_spread'][1]:.3f}] "
+                  f"library {d['library_ms']:.3f} bound {d['bound_ms']:.3f}; rank_k_axpy "
+                  f"{a['ms']:.3f} ms; pair {d['ms'] + a['ms']:.3f} ms")
     print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(4, "main path: LanczosSGD on GPT-2 124M through cli.train.main")
@@ -271,14 +285,15 @@ def main() -> int:
     print(json.dumps({"step_breakdown": step_breakdown()}))
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
-    main_checks = checks[(torch.bfloat16, 10, P_124M)]
-    f32_checks = checks[(torch.float32, 10, P_124M)]
     entries = []
     for name, replaces in TPU_KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": replaces,
                  "launches": launches[name]}
-        entry.update(main_checks[name])
-        entry.update({"dtype": "bfloat16", "shape": [10, P_124M], "f32": f32_checks[name],
+        entry.update(without_smi(checks[(torch.bfloat16, 10, P_124M)][name]))
+        entry.update({"dtype": "bfloat16", "shape": [10, P_124M],
+                      "f32": without_smi(checks[(torch.float32, 10, P_124M)][name]),
+                      "k35": {str(dt).removeprefix("torch."): without_smi(checks[(dt, 35, P_124M)][name])
+                              for dt in TIMED_DTYPES},
                       "checks_passed": len(checks)})
         entries.append(entry)
     print(json.dumps({"kernels": entries}))

@@ -11,6 +11,8 @@ Kernels (plain versions: ``ops/spectral.py::rank_k_dots_reference`` and
 ``rank_k_axpy_reference``):
 
 * ``rank_k_dots``  -- ``w = c ⊙ (V g)``, replaces the TPU ``_dots_kernel``;
+  its launch (grid, chunks, ring of stages) is :func:`dots_plan`, plain
+  Python that the CPU tests check;
 * ``rank_k_axpy``  -- ``out = g + Vᵀ w``, replaces the TPU ``_axpy_kernel``.
 
 Each wrapper runs the plain version when its tensors lie on the CPU.  On
@@ -26,12 +28,13 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -124,6 +127,30 @@ def build(names: Optional[Iterable[str]] = None) -> dict[str, BuildResult]:
     return results
 
 
+def ptxas_usage(log: str) -> dict[str, dict]:
+    """Registers and spilled bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, by kernel name (demangled with ``c++filt`` where it is installed)."""
+    usage: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1)
+            usage[name] = {"registers": None, "spill_bytes": 0}
+        elif name and (spill := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage[name]["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        elif name and (regs := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(regs.group(1))
+    if usage and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(usage), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+        short = [n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+                 for n in names]
+        if len(short) == len(usage):
+            usage = dict(zip(short, usage.values()))
+    return usage
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -137,8 +164,11 @@ def _rank_k_lib() -> ctypes.CDLL:
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             for dt in _SUFFIX.values():
                 dots = getattr(lib, f"rank_k_dots_{dt}")
-                dots.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, ptr]
+                dots.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32, i32, ptr]
                 dots.restype = i32
+                occupancy = getattr(lib, f"rank_k_dots_blocks_per_sm_{dt}")
+                occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
+                occupancy.restype = i32
                 axpy = getattr(lib, f"rank_k_axpy_{dt}")
                 axpy.argtypes = [ptr, ptr, ptr, ptr, i32, i64, i32, i32, ptr]
                 axpy.restype = i32
@@ -154,6 +184,94 @@ _THREADS = 256  # kThreads in rank_k.cu
 _MAX_K = 12288  # pass 2 keeps w in 48 KB of shared memory
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte load
+_MAX_ROWS = 16  # kMaxRows: rows of V per sweep of pass 1
+_BLOCK_SMEM = 232_448  # 227 KB: the shared memory one block may use on Hopper
+# rank_k_dots_kernel's static shared memory (16 mbarriers and the reduction
+# scratch, 640 bytes), rounded up
+_STATIC_SMEM = 1024
+# the ring: two stages of 2048 elements of P, the fastest shape measured
+# (PERF.md); fewer elements per stage where two such stages would not fit
+_CHUNK = 2048
+_STAGES = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DotsPlan:
+    """How ``rank_k_dots`` launches pass 1 for one (k, P, basis dtype).
+
+    ``bulk``: the shared-memory ring of bulk copies; else the scalar kernel
+    (V's rows not 16-byte aligned).  ``vec``: elements of V per 16 bytes (1
+    on the scalar path).  ``rows``: rows of V per sweep; each sweep streams g
+    again.  ``chunk``: elements of P per stage; ``stages``: stages in the
+    ring; ``smem_bytes``: the ring's dynamic shared memory, which the kernel
+    is launched with.  ``nblocks``: the grid, at most ``blocks_per_sm`` x the
+    SM count, so every block is resident at once.  Block b streams chunks b, b + nblocks, ... of P (the
+    scalar kernel: elements, grid-stride), so at any time the grid reads one
+    window of each row.
+    """
+
+    bulk: bool
+    vec: int
+    rows: int
+    chunk: int
+    stages: int
+    smem_bytes: int
+    nblocks: int
+    blocks_per_sm: int
+
+
+def dots_plan(
+    k: int, p: int, dtype: torch.dtype, *, ptrs: Iterable[int], sms: int,
+    blocks_per_sm: Callable[[bool, int], int],
+) -> DotsPlan:
+    """Pass 1's launch for a (k, P) basis of ``dtype`` whose V and g start at
+    ``ptrs``, on a card of ``sms`` SMs.  ``blocks_per_sm(bulk, smem_bytes)``
+    says how many blocks of the chosen kernel fit on one SM."""
+    es = 16 // _VEC[dtype]
+    rows = -(-k // -(-k // _MAX_ROWS))  # balanced sweeps of at most 16 rows
+    bulk = p % _VEC[dtype] == 0 and all(ptr % 16 == 0 for ptr in ptrs)
+    if not bulk:
+        resident = blocks_per_sm(False, 0)
+        nblocks = max(1, min(resident * sms, -(-p // _THREADS)))
+        return DotsPlan(False, 1, rows, 0, 0, 0, nblocks, resident)
+    vec = _VEC[dtype]
+    chunk = _CHUNK  # stays whole vectors: two stages of one vector take at most 576 bytes
+    while _STAGES * chunk * (4 + rows * es) > _BLOCK_SMEM - _STATIC_SMEM:
+        chunk //= 2
+    smem_bytes = _STAGES * chunk * (4 + rows * es)
+    resident = blocks_per_sm(True, smem_bytes)
+    if resident < 1:
+        raise RuntimeError(f"rank_k_dots: no block of {smem_bytes} bytes fits an SM")
+    nblocks = max(1, min(resident * sms, -(-p // chunk)))
+    return DotsPlan(True, vec, rows, chunk, _STAGES, smem_bytes, nblocks, resident)
+
+
+_resident: dict[tuple, int] = {}
+
+
+def _blocks_per_sm(device: torch.device, dtype: torch.dtype, bulk: bool, smem_bytes: int) -> int:
+    """The occupancy API's count of resident pass-1 blocks, once per kind."""
+    key = (device.index, dtype, bulk, smem_bytes)
+    if key not in _resident:
+        blocks = ctypes.c_int(0)
+        fn = getattr(_rank_k_lib(), f"rank_k_dots_blocks_per_sm_{_SUFFIX[dtype]}")
+        with torch.cuda.device(device):
+            _raise_on(fn(int(bulk), smem_bytes, ctypes.byref(blocks)), "rank_k_dots occupancy")
+        _resident[key] = blocks.value
+    return _resident[key]
+
+
+def dots_launch_plan(
+    k: int, p: int, dtype: torch.dtype, device, ptrs: Iterable[int] = (),
+) -> DotsPlan:
+    """:func:`dots_plan` on this CUDA card (its SMs, the occupancy API)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return dots_plan(
+        k, p, dtype, ptrs=ptrs, sms=torch.cuda.get_device_properties(device).multi_processor_count,
+        blocks_per_sm=lambda bulk, smem: _blocks_per_sm(device, dtype, bulk, smem),
+    )
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -177,7 +295,7 @@ def _check_operands(g: torch.Tensor, basis: torch.Tensor) -> None:
 
 
 def _launch_shape(basis: torch.Tensor, blocks_per_sm: int, *tensors: torch.Tensor):
-    """(vectorized, nblocks) for a grid-stride launch over P."""
+    """(vectorized, nblocks) for pass 2's grid-stride launch over P."""
     vec = _VEC[basis.dtype]
     p = basis.shape[1]
     vectorized = p % vec == 0 and all(t.data_ptr() % 16 == 0 for t in (basis, *tensors))
@@ -201,14 +319,14 @@ def rank_k_dots(g: torch.Tensor, basis: torch.Tensor, coeffs: torch.Tensor) -> t
     if coeffs.numel() != k:
         raise ValueError(f"rank_k_dots: {coeffs.numel()} coeffs for k={k}")
     c = coeffs.to(device=g.device, dtype=torch.float32).contiguous()
-    vectorized, nblocks = _launch_shape(basis, 4, g)
-    partials = torch.empty((k, nblocks), dtype=torch.float32, device=g.device)
+    plan = dots_launch_plan(k, p, basis.dtype, g.device, (basis.data_ptr(), g.data_ptr()))
+    partials = torch.empty((k, plan.nblocks), dtype=torch.float32, device=g.device)
     w = torch.empty(k, dtype=torch.float32, device=g.device)
     fn = getattr(_rank_k_lib(), f"rank_k_dots_{_SUFFIX[basis.dtype]}")
     with torch.cuda.device(g.device):
         err = fn(basis.data_ptr(), g.data_ptr(), c.data_ptr(), partials.data_ptr(),
-                 w.data_ptr(), k, p, nblocks, int(vectorized),
-                 torch.cuda.current_stream().cuda_stream)
+                 w.data_ptr(), k, p, plan.nblocks, int(plan.bulk), plan.chunk, plan.stages,
+                 plan.rows, plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "rank_k_dots")
     LAUNCHES["rank_k_dots"] += 1
     return w
