@@ -19,11 +19,23 @@ Phases (any failure exits non-zero and prints no result line):
      basis) via cli.train.main, with every launch count zeroed just before
      and read just after; each rank-k kernel must run once per step;
   5. the same trainer on gpt2-tiny, card against CPU, must agree;
-  6. device time of a 124M step's pieces (forward, gradient, HVP, update).
+  6. device time of a 124M step's pieces (forward, gradient, HVP, update);
+  7. spectrum: (a) cli.spectrum.main on gpt2-tiny, card against CPU, host
+     loop and in-core CGS2: lambda_max and lambda_min within 1e-5
+     relative, the first 3 alphas within 1e-5 of the spectrum's scale;
+     (b) the headline job through cli.spectrum.main -- GPT-2 124M, 4
+     batches x bs8 x seq512, 35 T-only iterations of the dataset-mean
+     Hessian -- with its gates (finite Ritz values, lambda_max > 0 >
+     lambda_min, weights summing to 1, |trace| <= 1e-2 lambda_max, the
+     artifact read back, no rank-k launch) and one {"spectrum": ...} JSON
+     line of its times and memory; (c) at that shape, the f32 HVP on (b)'s
+     start vector against a float64 central difference of reverse-mode
+     gradients on the card, and (b)'s alpha_1 against it; a TF32 HVP must
+     miss the same limit.
 Then it prints one JSON line of kernels, the card line, and finally
 {"ok": true, "device": {...}}.
 
-Imports torch and the port only (no JAX: the card machine has none).
+Imports torch, numpy and the port only (no JAX: the card machine has none).
 """
 
 from __future__ import annotations
@@ -31,10 +43,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 P_124M = 124_046_592  # GPT-2 124M parameters at n_positions 512
@@ -54,6 +70,29 @@ TRAIN_ARGV = [
     "--refresh_every", "2", "--lanczos_momentum", "0.9", "--max_steps", "4",
     "--seed", "0",
 ]
+# bench.py's headline job (4 batches x bs8 x seq512, 35 iterations, T-only
+# dataset-mean host loop; --fused_iter is bench.py's flag, one path here), in fp32
+SPECTRUM_ARGV = [
+    "--model", "gpt2", "--dataset", "random", "--num_batches", "4", "--batch_size", "8",
+    "--max_length", "512", "--attn_block_q", "512", "--loss_chunk", "512",
+    "--lanczos_iters", "35", "--host_loop", "--fused_iter", "--vector_seed", "997",
+]
+TINY_SPECTRUM_ARGV = [
+    "--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32", "--num_batches", "2",
+    "--lanczos_iters", "12", "--vector_seed", "5",
+]
+# the JAX package's committed 124M spectrum (3 probes, mixed precision, its own weights)
+JAX_SPECTRUM = "artifacts/slq_multiprobe_r3/spec.npz"
+# 7a: card against CPU on gpt2-tiny (readings 3.4e-7 and 2.6e-7 for the
+# extremes, PERF.md); the alphas only before late steps amplify rounding
+CARD_CPU_LAMBDA_RTOL = 1e-5
+CARD_CPU_EARLY_ALPHAS = 3
+CARD_CPU_ALPHA_TOL = 1e-5  # of max |lambda|
+# 7c: step along the unit start vector of the float64 central difference,
+# and the rel-L2 limit of the f32 HVP (and of alpha_1) against it: about
+# 10x the f32 reading 2.1e-6, 75x below the TF32 reading 1.5e-3 (PERF.md)
+FD_EPS = 1e-4
+HVP_FD_LIMIT = 2e-5
 
 
 def card_line() -> str:
@@ -198,12 +237,184 @@ def step_breakdown() -> dict:
     }
 
 
+def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+def spectrum_card_vs_cpu(spectrum_cli) -> dict:
+    """Phase 7a: the spectrum CLI on gpt2-tiny on the card and on the CPU,
+    same flags and probe vector, host loop and in-core CGS2.  The extreme
+    Ritz values are held to the card; the alphas only over the first
+    iterations, as late Lanczos steps amplify the two BLAS libraries'
+    rounding in the unconverged interior of T."""
+    out = {}
+    for name, mode in (("host_loop", ["--host_loop"]), ("incore_cgs2", [])):
+        (card, res_card), (cpu, res_cpu) = (spectrum_cli.main(TINY_SPECTRUM_ARGV + mode + extra)
+                                            for extra in ([], ["--cpu"]))
+        rel = {"lambda_max": abs(float(card.eigvals.max()) / float(cpu.eigvals.max()) - 1),
+               "lambda_min": abs(float(card.eigvals.min()) / float(cpu.eigvals.min()) - 1)}
+        a_card, a_cpu = res_card.alphas.cpu().numpy(), res_cpu.alphas.numpy()
+        scale = max(abs(float(cpu.eigvals.max())), abs(float(cpu.eigvals.min())))
+        n = CARD_CPU_EARLY_ALPHAS
+        early = np.abs(a_card[:n] - a_cpu[:n]) / scale
+        worst = int(np.argmax(np.abs(a_card - a_cpu) / np.abs(a_cpu)))
+        out[name] = {**rel, "early_alphas_err_over_scale": early.tolist(),
+                     "alphas_max_rel": max_rel(res_card.alphas, res_cpu.alphas),
+                     "alphas_worst": {"index": worst, "card": float(a_card[worst]),
+                                      "cpu": float(a_cpu[worst])}}
+        if max(rel.values()) > CARD_CPU_LAMBDA_RTOL or early.max() > CARD_CPU_ALPHA_TOL:
+            raise SystemExit(f"spectrum CLI on card and CPU disagree ({name}): {out[name]}")
+    return out
+
+
+def headline_spectrum(spectrum_cli, spectra, kernels, hvp_ms: float) -> dict:
+    """Phase 7b: the headline job through cli.spectrum.main, its gates and
+    its numbers."""
+    iter_s = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spec")
+        t0 = time.perf_counter()
+        spec, lres = spectrum_cli.main(SPECTRUM_ARGV + ["--out_spectrum", path],
+                                       on_iter=lambda i, sec: iter_s.append(sec))
+        main_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        back = spectra.load_spectrum(path)
+    launches = dict(kernels.LAUNCHES)
+    ev = spec.eigvals
+    lam_max, lam_min = float(ev.max()), float(ev.min())
+    trace = float(torch.dot(spec.eigvals, spec.gammas))
+    gamma_sum = float(spec.gammas.sum())
+    loop_s, hvps = sum(iter_s), 35 * 4
+    with np.load(JAX_SPECTRUM) as z:
+        jax_lam_max = float(z["eigvals"].max())
+    res = {
+        "hvps": hvps, "lanczos_loop_s": loop_s, "hvps_per_s": hvps / loop_s,
+        "s_per_hvp": loop_s / hvps, "phase6_hvp_s": hvp_ms / 1e3,
+        "loop_over_140_phase6_hvps": loop_s / (hvps * hvp_ms / 1e3),
+        "iter_s": {"median": statistics.median(iter_s), "min": min(iter_s),
+                   "max": max(iter_s), "first": iter_s[0],
+                   "max_after_first": max(iter_s[1:]), "n": len(iter_s)},
+        "main_s": main_s, "max_memory_allocated_bytes": peak,
+        "lambda_max": lam_max, "lambda_min": lam_min, "trace_estimate": trace,
+        "gamma_sum": gamma_sum, "alpha_1": float(lres.alphas[0]), "rank_k_launches": launches,
+        "jax_artifact_lambda_max": {
+            "value": jax_lam_max, "source": JAX_SPECTRUM,
+            "note": "reference point, other weights and precision, not a gate"},
+    }
+    print(json.dumps({"spectrum": res}))
+    gates = {
+        "35 iterations timed": len(iter_s) == 35,
+        "finite Ritz values": bool(torch.isfinite(ev).all()),
+        "lambda_max > 0 > lambda_min": lam_max > 0 > lam_min,
+        "gammas sum to 1 within 1e-3": abs(gamma_sum - 1) <= 1e-3,
+        "|trace| <= 1e-2 lambda_max": abs(trace) <= 1e-2 * lam_max,
+        "artifact reads back": all(torch.equal(a, b) for a, b in
+                                   ((back.eigvals, spec.eigvals), (back.gammas, spec.gammas))),
+        "no rank-k launch": all(n == 0 for n in launches.values()),
+    }
+    failed = [g for g, ok in gates.items() if not ok]
+    if failed:
+        raise SystemExit(f"headline spectrum failed its gates: {failed}")
+    return res
+
+
+def central_difference_hvp(loss_fn, params, batches, v: torch.Tensor, eps: float):
+    """float64 reference for the dataset-mean Hessian times ``v``: a
+    central difference of the batch-mean gradient, by reverse mode in
+    float64 (not the forward-over-reverse HVP).  Returns the fourth-order
+    difference (8 (g(+e) - g(-e)) - (g(+2e) - g(-2e))) / 12e and the
+    second-order (g(+e) - g(-e)) / 2e; their distance bounds the
+    truncation error of the reference."""
+    from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    fl = Flattener(params)
+    p64 = {n: t.double() for n, t in params.items()}
+    v64 = {n: t.double() for n, t in fl.unflatten(v).items()}
+
+    def mean_grad(step):
+        shifted = {n: p64[n] + step * v64[n] for n in p64}
+        g = torch.zeros(fl.size, dtype=torch.float64, device=v.device)
+        for batch in batches:
+            grads = grad_and_loss(loss_fn, shifted, batch)[1]
+            g += torch.cat([grads[n].reshape(-1) for n in fl.names])
+            del grads
+        return g / len(batches)
+
+    d1 = mean_grad(eps) - mean_grad(-eps)
+    d2 = mean_grad(2 * eps) - mean_grad(-2 * eps)
+    return (8 * d1 - d2) / (12 * eps), d1 / (2 * eps)
+
+
+def hvp_vs_central_difference(spectrum_cli, alpha_1: float) -> dict:
+    """Phase 7c: at the headline shape, the port's f32 dataset-mean HVP
+    (per-batch HVPs summed and scaled, as the host loop does) on 7b's start
+    vector against a float64 central difference of gradients on the card;
+    7b's alpha_1 against the difference's q1.Hq1.  A TF32 HVP must miss the
+    limit, which shows that the check can see reduced precision."""
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.curvature.operators import DatasetHessianOperator
+    from hessian_llm_vision_tpu_torch.krylov.lanczos import start_vector
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    args = spectrum_cli.build_parser().parse_args(SPECTRUM_ARGV)
+    wl = build_workload(args, dev)
+    dim = sum(p.numel() for p in wl.params.values())
+    # the CLI's first probe: drawn on the CPU, copied, normalised on the card
+    v0 = torch.randn(dim, generator=torch.Generator().manual_seed(args.vector_seed)).to(dev)
+    q1 = start_vector(v0, None, dim)
+
+    def port_hvp(precision):
+        return DatasetHessianOperator(wl.loss_fn, wl.params, wl.batches, normalization="mean",
+                                      precision=precision).matvec(q1)
+
+    hv = port_hvp("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        hv_tf32 = port_hvp(None)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref, ref2 = central_difference_hvp(wl.loss_fn, wl.params, wl.batches, q1, FD_EPS)
+    torch.cuda.synchronize()
+    ref_norm = float(torch.linalg.vector_norm(ref))
+    alpha_fd = float(torch.dot(q1.double(), ref))
+    res = {"eps": FD_EPS, "limit": HVP_FD_LIMIT, "hv_norm": ref_norm,
+           "rel_l2_hvp_vs_fd": rel_l2(hv, ref),
+           "rel_l2_tf32_hvp_vs_fd": rel_l2(hv_tf32, ref),
+           "rel_l2_fd2_vs_fd4": rel_l2(ref2, ref),
+           "alpha_1": alpha_1, "alpha_1_fd": alpha_fd,
+           "alpha_1_err_over_hv_norm": abs(alpha_1 - alpha_fd) / ref_norm,
+           "build_and_hvps_s": t1 - t0, "fd_s": time.perf_counter() - t1,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps({"hvp_vs_central_difference": res}))
+    gates = {
+        "f32 HVP within the limit": res["rel_l2_hvp_vs_fd"] <= HVP_FD_LIMIT,
+        "7b alpha_1 within the limit": res["alpha_1_err_over_hv_norm"] <= HVP_FD_LIMIT,
+        "reference's truncation within the limit": res["rel_l2_fd2_vs_fd4"] <= HVP_FD_LIMIT,
+        "TF32 HVP misses the limit": res["rel_l2_tf32_hvp_vs_fd"] > HVP_FD_LIMIT,
+    }
+    failed = [g for g, ok in gates.items() if not ok]
+    if failed:
+        raise SystemExit(f"HVP against the float64 central difference failed: {failed}")
+    return res
+
+
 def main() -> int:
     phase(1, "device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    from hessian_llm_vision_tpu_torch.cli import spectrum as spectrum_cli
     from hessian_llm_vision_tpu_torch.cli import train as train_cli
+    from hessian_llm_vision_tpu_torch.io import spectra
     from hessian_llm_vision_tpu_torch.ops import kernels, spectral
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -282,8 +493,21 @@ def main() -> int:
     print(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(6, "where a 124M training step's time goes")
-    print(json.dumps({"step_breakdown": step_breakdown()}))
+    breakdown = step_breakdown()
+    print(json.dumps({"step_breakdown": breakdown}))
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase(7, "spectrum: gpt2-tiny card vs CPU, the GPT-2 124M headline job, "
+                  "its HVP against a float64 central difference")
+    print(json.dumps({"spectrum_card_vs_cpu": spectrum_card_vs_cpu(spectrum_cli)}))
+    print(f"phase 7a took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    headline = headline_spectrum(spectrum_cli, spectra, kernels, breakdown["hvp_ms"])
+    print(f"phase 7b took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    hvp_vs_central_difference(spectrum_cli, headline["alpha_1"])
+    print(f"phase 7c took {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, replaces in TPU_KERNELS.items():

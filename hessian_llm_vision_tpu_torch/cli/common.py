@@ -1,0 +1,47 @@
+"""Shared CLI plumbing (port of ``cli/common.py``): the common flags, with
+the JAX CLI's names and defaults, and the device choice."""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def add_common_args(parser: argparse.ArgumentParser) -> None:
+    """The model/data flags of the JAX CLIs that this port accepts.  Values
+    outside the port exit with "not ported yet" in ``build_workload``."""
+    parser.add_argument("--model", default="gpt2-tiny", help="gpt2 | gpt2-tiny")
+    parser.add_argument("--dataset", default="random",
+                        help="random | markov | local:<path> (byte-level corpus "
+                        "from on-disk text); wikipedia is not ported yet")
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--subsample", type=float, default=1.0)
+    parser.add_argument("--max_length", type=int, default=64)
+    parser.add_argument("--num_batches", type=int, default=None,
+                        help="batch-count cap: synthetic datasets generate "
+                        "this many (default 4); local:<path> corpora are "
+                        "truncated to it (default: whole corpus)")
+    parser.add_argument("--random_mask", action="store_true",
+                        help="random attention masks on synthetic tokens")
+    parser.add_argument("--attn_block_q", type=int, default=None,
+                        help="query-block size of the attention loop; default dense")
+    parser.add_argument("--block_precision", default=None, help="not ported yet (ROADMAP A11)")
+    parser.add_argument("--loss_chunk", type=int, default=None,
+                        help="chunked-vocab LM loss: chunk size in sequence positions")
+    parser.add_argument("--experts", type=int, default=0, help="not ported yet (ROADMAP A12)")
+    parser.add_argument("--seed", type=int, default=0, help="parameter init seed")
+    parser.add_argument("--data_seed", type=int, default=42)
+    parser.add_argument("--checkpoint", default=None, help="not ported yet (ROADMAP A9)")
+    parser.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP A11)")
+    parser.add_argument("--cpu", action="store_true", help="run on the CPU")
+
+
+def device_for(cpu: bool) -> torch.device:
+    """The first CUDA device, or the CPU when asked; without ``--cpu`` and
+    without a card this exits and never continues on the CPU."""
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device available; pass --cpu to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())

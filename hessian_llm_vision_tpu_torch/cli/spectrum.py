@@ -1,0 +1,181 @@
+"""Post-hoc Hessian spectrum of a model (port of ``cli/spectrum.py``).
+
+Dataset-averaged (or single-batch, or layer-restricted) Hessian, seeded
+probe Lanczos with an optional Ritz basis, multi-probe SLQ averaging,
+per-iteration resumable T checkpoints, and the spectrum artifact with an
+optional stem plot.  Flag names and defaults are the JAX CLI's; flags of
+paths not ported yet are accepted by the parser and exit with "not ported
+yet", naming their ROADMAP item; their sub-options come with the slice that
+ports each path.
+
+Runs on the first CUDA device unless ``--cpu`` is given; without ``--cpu``
+and without a card it exits with an error.  Curvature is true fp32: TF32
+is off for cuBLAS and cuDNN.
+
+Examples:
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
+      --host_loop --lanczos_iters 8 --num_batches 2 --batch_size 4 \\
+      --max_length 32 --out_spectrum /tmp/s
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2 \\
+      --dataset random --num_batches 4 --batch_size 8 --max_length 512 \\
+      --attn_block_q 512 --loss_chunk 512 --lanczos_iters 35 --host_loop \\
+      --fused_iter --vector_seed 997 --out_spectrum spec
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Callable, Optional
+
+import torch
+
+from hessian_llm_vision_tpu_torch.cli.common import add_common_args, device_for
+from hessian_llm_vision_tpu_torch.cli.spectrum_flags import validate_flags
+from hessian_llm_vision_tpu_torch.cli.spectrum_paths import host_loop_main, incore_main
+from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+from hessian_llm_vision_tpu_torch.curvature.operators import (
+    DatasetHessianOperator,
+    HessianOperator,
+    LayerHessianOperator,
+)
+from hessian_llm_vision_tpu_torch.utils import trees
+
+# flags of paths the port does not have yet, with their ROADMAP item
+_UNPORTED_FLAGS = (
+    ("--thick_restart", "thick_restart", "A10a"),
+    ("--kpm", "kpm", "A10b"),
+    ("--hutchpp", "hutchpp", "A10c"),
+    ("--layerwise", "layerwise", "A10d"),
+    ("--linearized", "linearized", "A10e"),
+    ("--bigmodel", "bigmodel", "A10f"),
+    ("--probe_parallel", "probe_parallel", "A10g"),
+    ("--host_basis", "host_basis", "A10i"),
+    ("--precision_check", "precision_check", "A11"),
+)
+
+
+def _not_ported(item: str) -> str:
+    return f"not ported yet (ROADMAP {item})"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_common_args(p)
+    p.add_argument("--lanczos_iters", type=int, default=35)
+    p.add_argument("--basis", action="store_true",
+                   help="store the Krylov basis / save Ritz vectors")
+    p.add_argument("--normalization", default="dataset",
+                   help="mean | sum | dataset (artifact scaling convention)")
+    p.add_argument("--vector_seed", type=int, default=997,
+                   help="seed of the CPU generator every probe vector is drawn from")
+    p.add_argument("--probes", type=int, default=1,
+                   help=">1: multi-probe SLQ averaging, probes one after another")
+    p.add_argument("--hutchpp", type=int, default=0, metavar="M", help=_not_ported("A10c"))
+    p.add_argument("--kpm", type=int, default=0, metavar="M", help=_not_ported("A10b"))
+    p.add_argument("--layer", default=None,
+                   help="restrict to the parameters whose '/'-joined path "
+                   "contains this (e.g. h_0/attn)")
+    p.add_argument("--layerwise", action="store_true", help=_not_ported("A10d"))
+    p.add_argument("--t_checkpoint", default=None,
+                   help="save T (and, in-core, the full Lanczos state) every "
+                   "iteration (resumable)")
+    p.add_argument("--state_every", type=int, default=None,
+                   help="write the FULL resume state (2xP f32) only every N "
+                   "iterations; the tiny T stays per-iteration. Default: 1 "
+                   "below 1e8 params, 5 above")
+    p.add_argument("--resume_spectrum", default=None,
+                   help="resume an interrupted --t_checkpoint run from its "
+                   ".state.npz file")
+    p.add_argument("--host_basis", action="store_true", help=_not_ported("A10i"))
+    p.add_argument("--host_loop", action="store_true",
+                   help="host-driven T-only spectrum over per-batch HVPs "
+                   "(LLM scale: no (k,P) basis on the device)")
+    p.add_argument("--fused_step", action="store_true",
+                   help="with --host_loop + a single batch: HVP and recurrence "
+                   "in one step function, in place (two live P-vectors)")
+    p.add_argument("--fused_iter", action="store_true",
+                   help="accepted for the JAX CLI's flags; the port has one "
+                   "host-loop iteration (the per-batch HVPs summed in place, "
+                   "the scale, the recurrence), with or without this flag")
+    p.add_argument("--probe_parallel", action="store_true", help=_not_ported("A10g"))
+    p.add_argument("--linearized", action="store_true", help=_not_ported("A10e"))
+    p.add_argument("--qprev_bf16", action="store_true",
+                   help="with --fused_step: store the lagged Lanczos vector in "
+                   "bf16 (~1e-3 extreme-Ritz perturbation)")
+    p.add_argument("--bigmodel", action="store_true", help=_not_ported("A10f"))
+    p.add_argument("--operator", default="hessian",
+                   help="hessian (ggn | fisher: " + _not_ported("A10h") + ")")
+    p.add_argument("--thick_restart", type=int, default=0, metavar="K",
+                   help=_not_ported("A10a"))
+    p.add_argument("--no_reorth", action="store_true")
+    p.add_argument("--precision_check", action="store_true", help=_not_ported("A11"))
+    p.add_argument("--hvp_precision", default="high",
+                   choices=["auto", "high", "highest", "default", "mixed"],
+                   help="matmul precision of the HVPs: 'high' (the default "
+                   "here) and 'highest' are both true fp32. The JAX CLI's "
+                   "default 'auto', and 'mixed' and 'default', wait for the "
+                   "precision ladder (" + _not_ported("A11") + ")")
+    p.add_argument("--out_spectrum", default=None)
+    p.add_argument("--plot", default=None, help="save stem plot PNG")
+    p.add_argument("--compare_to", default=None,
+                   help="npz or reference torch .ckpt spectrum to compare "
+                   "against (prints max relative Ritz error)")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    for flag, attr, item in _UNPORTED_FLAGS:
+        if getattr(args, attr):
+            raise SystemExit(f"{flag}: {_not_ported(item)}")
+    if args.operator in ("ggn", "fisher"):
+        raise SystemExit(f"--operator {args.operator}: {_not_ported('A10h')}")
+    if args.operator != "hessian":
+        raise SystemExit(f"unknown --operator {args.operator!r}")
+    if args.hvp_precision not in ("high", "highest"):
+        raise SystemExit(f"--hvp_precision {args.hvp_precision}: {_not_ported('A11')}")
+
+
+def _make_operator(args, wl):
+    batches = wl.batches
+    n_total = len(batches) * wl.batch_size
+    single_norm = "mean" if args.normalization == "dataset" else args.normalization
+    if args.layer:
+        mask = trees.subtree_mask(wl.params, lambda label: args.layer in label)
+        n_sel = sum(mask.values())
+        if n_sel == 0:
+            raise SystemExit(f"--layer {args.layer!r} matches no parameters")
+        print(f"[layer] restricting to {n_sel} parameter leaves")
+        if len(batches) > 1:
+            print(f"[layer] single-batch operator: using batch 1 of {len(batches)} "
+                  "(combine with --num_batches 1 to silence)")
+        return LayerHessianOperator(wl.loss_fn, wl.params, batches[0], mask,
+                                    normalization=single_norm, batch_size=wl.batch_size)
+    if len(batches) == 1:
+        return HessianOperator(wl.loss_fn, wl.params, batches[0], normalization=single_norm,
+                               batch_size=wl.batch_size, dataset_size=n_total)
+    return DatasetHessianOperator(wl.loss_fn, wl.params, batches,
+                                  normalization=args.normalization,
+                                  batch_size=wl.batch_size, dataset_size=n_total)
+
+
+def main(argv=None, on_iter: Optional[Callable[[int, float], None]] = None):
+    """Run the spectrum job; returns ``(spectrum, lanczos_result)`` (the
+    last probe's result; None for multi-probe SLQ).  ``on_iter(i, seconds)``
+    receives each host-loop iteration's seconds, synchronised with the
+    device."""
+    args = build_parser().parse_args(argv)
+    validate_flags(args)
+    _refuse_unported(args)
+    device = device_for(args.cpu)
+    # curvature is true fp32: TF32 gives wrong extreme eigenvalues
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wl = build_workload(args, device)
+    if args.host_loop:
+        return host_loop_main(args, wl, device, on_iter)
+    return incore_main(args, wl, _make_operator, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,140 @@
+"""The spectrum CLI's two computation paths (port of
+``cli/spectrum_paths.py``):
+
+* :func:`host_loop_main` -- T-only host-driven spectra (the dataset loop,
+  ``--fused_step`` with ``--qprev_bf16``), LLM scale;
+* :func:`incore_main` -- the in-core operator paths (CGS2 Lanczos with an
+  optional Ritz basis, multi-probe SLQ, resumable checkpointing).
+
+Every probe's start vector is drawn from one CPU ``torch.Generator`` seeded
+with ``--vector_seed``, in probe order, and then copied to the device, so a
+card run and a CPU run start from the same vector.  Both paths end in
+``report_and_outputs`` and return ``(spectrum, lanczos_result)``, the
+result of the last probe (None for multi-probe SLQ).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import torch
+
+from hessian_llm_vision_tpu_torch.cli.spectrum_report import report_and_outputs
+from hessian_llm_vision_tpu_torch.io import spectra
+from hessian_llm_vision_tpu_torch.krylov import driver
+from hessian_llm_vision_tpu_torch.krylov.lanczos import lanczos, lanczos_checkpointed
+from hessian_llm_vision_tpu_torch.krylov.slq import Spectrum, ritz_decomposition, slq_multi_probe
+from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+
+def _single_batch_norm(normalization: str) -> str:
+    return "mean" if normalization == "dataset" else normalization
+
+
+def host_loop_main(args, wl, device: torch.device,
+                   on_iter: Optional[Callable[[int, float], None]] = None):
+    """--host_loop: T-only spectrum, sequential probes SLQ-averaged.
+
+    ``on_iter(i, seconds)`` receives each iteration's host-clock seconds,
+    taken after T is copied to the host, so they include the device work.
+    """
+    fl = Flattener(wl.params)
+    last = 0.0  # host clock at the end of the previous iteration
+
+    def cb(i, alphas, betas):
+        nonlocal last
+        if args.t_checkpoint:
+            spectra.save_tridiag(args.t_checkpoint, alphas, betas,
+                                 vector_seed=args.vector_seed, iter=i)
+        if on_iter is not None:
+            now = time.perf_counter()
+            on_iter(i, now - last)
+            last = now
+
+    # no callback without --t_checkpoint / on_iter: T stays on the device
+    # until the loop ends
+    callback = cb if (args.t_checkpoint or on_iter is not None) else None
+    gen = torch.Generator().manual_seed(args.vector_seed)
+    t0 = time.time()
+    all_ev, all_ga = [], []
+    for pi in range(max(args.probes, 1)):
+        v0 = torch.randn(fl.size, generator=gen).to(device)
+        last = time.perf_counter()
+        if args.fused_step:
+            if len(wl.batches) != 1 or args.operator != "hessian":
+                raise SystemExit("--fused_step needs a single batch (--num_batches 1) "
+                                 "and --operator hessian")
+            res = driver.single_batch_spectrum_host_fused(
+                wl.loss_fn, wl.params, wl.batches[0], args.lanczos_iters, v0=v0,
+                normalization=_single_batch_norm(args.normalization),
+                batch_size=wl.batch_size, precision=args.hvp_precision, flattener=fl,
+                qprev_bf16=args.qprev_bf16, callback=callback, progress=args.probes == 1,
+            )
+        else:
+            res = driver.dataset_spectrum_host(
+                wl.loss_fn, wl.params, wl.batches, args.lanczos_iters, v0=v0,
+                normalization=args.normalization, batch_size=wl.batch_size,
+                precision=args.hvp_precision, flattener=fl, callback=callback,
+                progress=args.probes == 1, operator=args.operator,
+            )
+        s = ritz_decomposition(res)
+        all_ev.append(s.eigvals)
+        all_ga.append(s.gammas)
+        if args.probes > 1:
+            print(f"probe {pi + 1}/{args.probes}: lambda_max {float(s.eigvals.max()):.4f}")
+    spec = Spectrum(eigvals=torch.cat(all_ev), gammas=torch.cat(all_ga) / len(all_ga))
+    wall = time.time() - t0
+    report_and_outputs(args, spec, wall, fl.size, len(wl.batches) * max(args.probes, 1))
+    return spec, res
+
+
+def incore_main(args, wl, make_operator, device: torch.device):
+    """In-core operator paths: stored-basis Lanczos, probes, checkpoints."""
+    op = make_operator(args, wl)
+    hvp_batches = 1 if (args.layer or len(wl.batches) == 1) else len(wl.batches)
+    gen = torch.Generator().manual_seed(args.vector_seed)
+
+    def v0():
+        return torch.randn(op.dim, generator=gen).to(device)
+
+    t0 = time.time()
+    res = None
+    if args.probes > 1:
+        spec = slq_multi_probe(op.matvec, op.dim, args.lanczos_iters, gen, args.probes,
+                               reorth=not args.no_reorth, device=device)
+    elif args.t_checkpoint or args.resume_spectrum:
+        t_path = args.t_checkpoint or (
+            args.resume_spectrum.replace(".state.npz", "").replace(".state", "")
+        )
+
+        def cb(i, alphas, betas):
+            spectra.save_tridiag(t_path, alphas, betas, vector_seed=args.vector_seed, iter=i)
+            print(f"step {i + 1}  T checkpointed")
+
+        # the full state is 2xP f32 (~1 GB at 124M), so it is written only
+        # every state_every iterations while T (KBs) is written every one
+        state_every = args.state_every
+        if state_every is None:
+            state_every = 5 if op.dim >= 10**8 else 1
+
+        def scb(i, st):
+            if (i + 1) % max(state_every, 1) == 0 or (i + 1) == args.lanczos_iters:
+                spectra.save_lanczos_state(t_path + ".state", **st)
+
+        resume = None
+        if args.resume_spectrum:
+            resume = spectra.load_lanczos_state(args.resume_spectrum)
+            print(f"resuming at iteration {len(resume['alphas'])} <- {args.resume_spectrum}")
+        res = lanczos_checkpointed(
+            op.matvec, op.dim, args.lanczos_iters, v0=None if resume else v0(),
+            callback=cb, state_callback=scb, resume_state=resume, device=device,
+        )
+        spec = ritz_decomposition(res)
+    else:
+        res = lanczos(op.matvec, op.dim, args.lanczos_iters, v0=v0(),
+                      reorth=not args.no_reorth, store_basis=args.basis or not args.no_reorth)
+        spec = ritz_decomposition(res, with_vectors=args.basis)
+    wall = time.time() - t0
+    report_and_outputs(args, spec, wall, op.dim, hvp_batches)
+    return spec, res

@@ -18,13 +18,14 @@ import argparse
 import time
 from typing import Callable, Optional
 
-import numpy as np
 import torch
+
+from hessian_llm_vision_tpu_torch.cli.common import device_for
+from hessian_llm_vision_tpu_torch.cli.workloads import _lm_batches
 
 _MODELS = ("gpt2", "gpt2-tiny")
 _OPTIMISERS = ("lanczos-host",)
 _DATASETS = ("random", "markov")
-DATA_SEED = 42  # the JAX CLI's --data_seed default: both packages draw the same tokens
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,38 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="optimizer steps, cycling over the batches "
                    "(0 = one pass over the batches)")
     p.add_argument("--seed", type=int, default=0, help="parameter init seed")
+    p.add_argument("--data_seed", type=int, default=42)
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     return p
-
-
-def _device(cpu: bool) -> torch.device:
-    if cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device available; pass --cpu to run on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
-
-
-def _lm_batches(args, vocab_size: int, device: torch.device) -> list[dict]:
-    from hessian_llm_vision_tpu_torch.data.synthetic import (
-        markov_token_batches,
-        random_token_batches,
-    )
-
-    n = max(1, int(args.num_batches or 4))
-    if args.dataset == "markov":
-        # learnable chain over a small vocab, as the JAX workload builds it
-        stacked = markov_token_batches(
-            n, args.batch_size, args.max_length, min(vocab_size, 512), seed=DATA_SEED
-        )
-    else:
-        stacked = random_token_batches(
-            n, args.batch_size, args.max_length, vocab_size, seed=DATA_SEED
-        )
-    return [
-        {k: torch.as_tensor(v[i].astype(np.int64), device=device) for k, v in stacked.items()}
-        for i in range(n)
-    ]
 
 
 def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> float:
@@ -101,7 +73,7 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> fl
     ):
         if value not in ported:
             raise SystemExit(f"{flag} {value}: not ported yet (ported: {', '.join(ported)})")
-    device = _device(args.cpu)
+    device = device_for(args.cpu)
     # curvature is true fp32: TF32 gives wrong extreme eigenvalues
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 _EPS = 1e-30
@@ -29,6 +30,10 @@ class LanczosResult(NamedTuple):
     betas: torch.Tensor
     basis: Optional[torch.Tensor]
 
+    @property
+    def num_iters(self) -> int:
+        return self.alphas.shape[0]
+
     def tridiag(self) -> torch.Tensor:
         """Dense (m, m) tridiagonal T."""
         return (
@@ -40,6 +45,17 @@ class LanczosResult(NamedTuple):
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(torch.linalg.vector_norm(v), min=_EPS)
+
+
+def start_vector(v0: Optional[torch.Tensor], generator: Optional[torch.Generator],
+                 dim: int) -> torch.Tensor:
+    """The unit f32 start vector: ``v0`` normalised, or a Gaussian draw from
+    ``generator`` on its device; exactly one of the two must be given."""
+    if (v0 is None) == (generator is None):
+        raise ValueError("pass exactly one of v0 / generator")
+    if v0 is None:
+        v0 = torch.randn(dim, generator=generator, device=generator.device)
+    return _normalize(v0.float())
 
 
 def host_recurrence_step(w, q_cur, q_prev, beta_prev):
@@ -68,13 +84,9 @@ def lanczos(
     ``generator`` (seeded random unit start on the generator's device)
     must be given.
     """
-    if (v0 is None) == (generator is None):
-        raise ValueError("pass exactly one of v0 / generator")
     if reorth and not store_basis:
         raise ValueError("reorth=True requires store_basis=True")
-    if v0 is None:
-        v0 = torch.randn(dim, generator=generator, device=generator.device)
-    q_cur = _normalize(v0.float())
+    q_cur = start_vector(v0, generator, dim)
     q_prev = torch.zeros_like(q_cur)
     beta_prev = torch.zeros((), dtype=torch.float32, device=q_cur.device)
     basis = None
@@ -100,3 +112,62 @@ def lanczos(
     return LanczosResult(
         alphas=torch.stack(alphas), betas=torch.stack(betas)[:-1], basis=basis
     )
+
+
+def stack_tridiag(alphas: list, betas: list) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lists of 0-d device scalars -> ``(alphas (m,), betas (m-1,))`` f32;
+    the last beta (the norm of the residual after the last step) is not
+    part of T."""
+    a = torch.stack(alphas).float()
+    b = torch.stack(betas[:-1]).float() if len(betas) > 1 else a.new_zeros(0)
+    return a, b
+
+
+def lanczos_checkpointed(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    dim: int,
+    num_iters: int,
+    *,
+    v0: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    callback: Optional[Callable[[int, np.ndarray, np.ndarray], None]] = None,
+    state_callback: Optional[Callable[[int, dict], None]] = None,
+    resume_state: Optional[dict] = None,
+    device: Optional[torch.device] = None,
+) -> LanczosResult:
+    """Host-driven T-only Lanczos with per-iteration callbacks, resumable.
+
+    ``callback(i, alphas, betas)`` receives host (numpy) copies of T so far;
+    ``state_callback(i, state)`` receives the full recurrence state
+    (``q_prev``, ``q_cur``, ``beta_prev``, ``alphas``, ``betas``) that
+    ``io.spectra.save_lanczos_state`` writes.  ``resume_state`` (as
+    ``io.spectra.load_lanczos_state`` reads it) continues an interrupted run
+    exactly where it stopped, with its vectors placed on ``device`` (the
+    CPU when None); otherwise exactly one of ``v0`` / ``generator`` starts
+    it.
+    """
+    if resume_state is None:
+        q_cur = start_vector(v0, generator, dim)
+        q_prev = torch.zeros_like(q_cur)
+        beta_prev = torch.zeros((), dtype=torch.float32, device=q_cur.device)
+        alphas, betas = [], []
+    else:
+        as_f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+        q_cur = as_f32(resume_state["q_cur"])
+        q_prev = as_f32(resume_state["q_prev"])
+        beta_prev = as_f32(resume_state["beta_prev"])
+        alphas = [as_f32(a) for a in resume_state["alphas"]]
+        betas = [as_f32(b) for b in resume_state["betas"]]
+    for i in range(len(alphas), num_iters):
+        alpha, beta, q_next = host_recurrence_step(matvec(q_cur), q_cur, q_prev, beta_prev)
+        q_prev, q_cur, beta_prev = q_cur, q_next, beta
+        alphas.append(alpha)
+        betas.append(beta)
+        if callback is not None:
+            a, b = stack_tridiag(alphas, betas)
+            callback(i, a.cpu().numpy(), b.cpu().numpy())
+        if state_callback is not None:
+            state_callback(i, {"q_prev": q_prev, "q_cur": q_cur, "beta_prev": beta_prev,
+                               "alphas": alphas, "betas": betas})
+    alphas, betas = stack_tridiag(alphas, betas)
+    return LanczosResult(alphas=alphas, betas=betas, basis=None)

@@ -22,11 +22,13 @@ import math
 
 import torch
 
+from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
+
 _NEG_INF = torch.finfo(torch.float32).min
 
 
 def _masked_softmax_attend(qb, k, v, mask, scale):
-    att = torch.einsum("bqhd,bkhd->bhqk", qb, k).float() * scale
+    att = at_least_f32(torch.einsum("bqhd,bkhd->bhqk", qb, k)) * scale
     att = torch.where(mask, att, _NEG_INF)
     att = torch.softmax(att, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", att, v)

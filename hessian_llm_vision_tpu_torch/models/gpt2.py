@@ -12,7 +12,8 @@ by name alone (``models/convert.py``):
   and ``wte`` is tied to the output projection.
 
 Curvature needs f32 masters and f32 compute: the model runs in float32
-only.  Dropout, the MoE MLP, the precision scopes and sequence sharding of
+(a float64 copy of the params runs it in float64, the reference of the
+on-card HVP checks; nothing runs it below f32).  Dropout, the MoE MLP, the precision scopes and sequence sharding of
 the JAX config are not ported; :class:`GPT2Config` raises on any
 non-default value of them.
 """

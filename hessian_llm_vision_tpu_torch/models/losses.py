@@ -21,14 +21,20 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """bf16/f16 -> f32; f32 and f64 stay as they are (a float64 copy of the
+    params gives a float64 loss, the reference of the HVP checks)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE over the batch, integer labels."""
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(at_least_f32(logits), dim=-1)
     return -logp.gather(-1, labels[:, None]).squeeze(-1).mean()
 
 
 def _token_log_likelihood(logits, targets):
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(at_least_f32(logits), dim=-1)
     return logp.gather(-1, targets[..., None]).squeeze(-1)
 
 
@@ -66,13 +72,13 @@ def chunked_causal_lm_loss(
     ported: under autodiff each chunk's logits stay live.
     """
     B, T, _ = hidden.shape
-    h = hidden[:, :-1].float()
+    h = at_least_f32(hidden[:, :-1])
     targets = input_ids[:, 1:]
     if attention_mask is not None and not include_padding:
         w = attention_mask[:, 1:].float()
     else:
         w = torch.ones(B, T - 1, device=hidden.device)
-    wk = out_kernel.float()
+    wk = at_least_f32(out_kernel)
     partials = []
     for s in range(0, T - 1, chunk):
         ll = _token_log_likelihood(h[:, s : s + chunk] @ wk, targets[:, s : s + chunk])
