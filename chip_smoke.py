@@ -31,19 +31,34 @@ Phases (any failure exits non-zero and prints no result line):
      line of its times and memory; (c) at that shape, the f32 HVP on (b)'s
      start vector against a float64 central difference of reverse-mode
      gradients on the card, and (b)'s alpha_1 against it; a TF32 HVP must
-     miss the same limit.
-Then it prints one JSON line of kernels, the card line, and finally
-{"ok": true, "device": {...}}.
+     miss the same limit;
+  8. the spectrum CLI's estimators beyond SLQ at GPT-2 124M, 1 batch x bs8
+     x seq512, through cli.spectrum.main: (a) --thick_restart 5 with a bf16
+     buffer: converged, an independent residual |H u - lambda u| per pair
+     from a fresh f32 HVP, the rows orthonormal, each rank-k kernel launched
+     twice per CGS2 call; (b) --host_loop --kpm 60 --kpm_deflate 4: spikes
+     converged and agreeing with the SLQ extreme, the deflated operator
+     annihilating each spike vector, the bulk range inside the SLQ range,
+     mu_0 = 1, 2 x 71 launches of each kernel in the KPM stage; (c) in-core
+     --hutchpp 30: a finite trace in the artifact; one {"spectrum_ext": ...}
+     JSON line of their times, matvecs and memory; (d) on gpt2-tiny, card
+     against CPU: thick restart, deflated KPM, Hutch++ and --host_basis.
+Phase 3 also checks and times (4, 124,046,592) and (16, 124,046,592) in
+bf16, the deflation projector's and the CGS2 pass's shapes.  Then it
+prints one JSON line of kernels (launches per path), the card line, and
+finally {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port only (no JAX: the card machine has none).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -56,6 +71,9 @@ import torch
 P_124M = 124_046_592  # GPT-2 124M parameters at n_positions 512
 TIMED_DTYPES = (torch.bfloat16, torch.float32)
 TIMED_KS = (10, 35)
+# the deflation projector's rows (--kpm_deflate 4) and the CGS2 pass's
+# widest (16 filled rows of the deflation's inner-16 buffer), in bf16
+PATH_SHAPES = ((torch.bfloat16, 4), (torch.bfloat16, 16))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 KERNEL_SRC = "hessian_llm_vision_tpu_torch/ops/csrc/rank_k.cu"
@@ -88,6 +106,29 @@ JAX_SPECTRUM = "artifacts/slq_multiprobe_r3/spec.npz"
 CARD_CPU_LAMBDA_RTOL = 1e-5
 CARD_CPU_EARLY_ALPHAS = 3
 CARD_CPU_ALPHA_TOL = 1e-5  # of max |lambda|
+# phase 8: GPT-2 124M, one batch of bs8 x seq512, true fp32 HVPs
+EXT_BASE = [
+    "--model", "gpt2", "--dataset", "random", "--num_batches", "1", "--batch_size", "8",
+    "--max_length", "512", "--attn_block_q", "512", "--loss_chunk", "512",
+    "--hvp_precision", "high", "--vector_seed", "997",
+]
+# artifacts/trlan124m_r3's protocol (random tokens, true fp32)
+TR_ARGV = EXT_BASE + ["--thick_restart", "5", "--lanczos_iters", "15", "--tr_dtype", "bfloat16",
+                      "--tr_tol", "2e-3"]
+# artifacts/kpm_deflate124m_r3's flags, cut to 1 x bs8 and 1 probe
+KPM_ARGV = EXT_BASE + ["--host_loop", "--lanczos_iters", "35", "--kpm", "60", "--kpm_probes",
+                       "1", "--kpm_deflate", "4", "--tr_dtype", "bfloat16", "--tr_tol", "2e-3"]
+HUTCHPP_ARGV = EXT_BASE + ["--lanczos_iters", "10", "--hutchpp", "30"]
+TR_RESIDUAL_LIMIT = 1e-2  # of max |lambda|, independent residual per pair
+TR_ORTHO_LIMIT = 5e-3  # max |V V^T - I|: the bf16 storage floor
+SPIKE_SLQ_RTOL = 1e-3
+BULK_WIDEN = 0.05  # of the SLQ range, on each side
+MU0_TOL = 1e-6
+KPM_STAGE_MATVECS = 12 + 59  # range estimate + 60 moments' recurrence
+# 8d: gpt2-tiny card against CPU
+TINY_EXT = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32", "--num_batches",
+            "2", "--vector_seed", "5"]
+EXT_EIG_RTOL, EXT_MOMENT_ATOL, EXT_HUTCHPP_RTOL = 1e-5, 1e-5, 1e-4
 # 7c: step along the unit start vector of the float64 central difference,
 # and the rel-L2 limit of the f32 HVP (and of alpha_1) against it: about
 # 10x the f32 reading 2.1e-6, 75x below the TF32 reading 1.5e-3 (PERF.md)
@@ -242,6 +283,12 @@ def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
 
 
+def check_gates(what: str, gates: dict) -> None:
+    failed = [g for g, ok in gates.items() if not ok]
+    if failed:
+        raise SystemExit(f"{what} failed its gates: {failed}")
+
+
 def spectrum_card_vs_cpu(spectrum_cli) -> dict:
     """Phase 7a: the spectrum CLI on gpt2-tiny on the card and on the CPU,
     same flags and probe vector, host loop and in-core CGS2.  The extreme
@@ -316,9 +363,7 @@ def headline_spectrum(spectrum_cli, spectra, kernels, hvp_ms: float) -> dict:
                                    ((back.eigvals, spec.eigvals), (back.gammas, spec.gammas))),
         "no rank-k launch": all(n == 0 for n in launches.values()),
     }
-    failed = [g for g, ok in gates.items() if not ok]
-    if failed:
-        raise SystemExit(f"headline spectrum failed its gates: {failed}")
+    check_gates("headline spectrum", gates)
     return res
 
 
@@ -401,10 +446,235 @@ def hvp_vs_central_difference(spectrum_cli, alpha_1: float) -> dict:
         "reference's truncation within the limit": res["rel_l2_fd2_vs_fd4"] <= HVP_FD_LIMIT,
         "TF32 HVP misses the limit": res["rel_l2_tf32_hvp_vs_fd"] > HVP_FD_LIMIT,
     }
-    failed = [g for g, ok in gates.items() if not ok]
-    if failed:
-        raise SystemExit(f"HVP against the float64 central difference failed: {failed}")
+    check_gates("HVP against the float64 central difference", gates)
     return res
+
+
+class _Tee:
+    """A stdout that also keeps what is written: the CLI's report lines."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(spectrum_cli, argv):
+    """``cli.spectrum.main(argv)`` with its report kept: (spectrum, result,
+    stdout lines, host seconds of the whole call, synchronised)."""
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        spec, res = spectrum_cli.main(argv)
+    torch.cuda.synchronize()
+    return spec, res, "".join(tee.parts).splitlines(), time.perf_counter() - t0
+
+
+def reported(lines, pattern: str) -> tuple:
+    """The groups of the last report line that matches ``pattern``."""
+    found = [m for line in lines if (m := re.search(pattern, line))]
+    if not found:
+        raise SystemExit(f"no report line matches {pattern!r}")
+    return found[-1].groups()
+
+
+def cli_wall_s(lines) -> float:
+    """The CLI's own 'wall-clock: <s>s' (the Lanczos / thick-restart part)."""
+    return float(reported(lines, r"^wall-clock: ([\d.]+)s")[0])
+
+
+def npz_meta(path: str) -> dict:
+    with np.load(path + ".npz") as z:
+        return {k[len("meta_"):]: z[k] for k in z.files if k.startswith("meta_")}
+
+
+def thick_restart_124m(spectrum_cli, kernels) -> dict:
+    """Phase 8a: --thick_restart 5 at GPT-2 124M with a bf16 buffer, each
+    CGS2 call counted; then an independent residual per pair from one fresh
+    f32 HVP, and the rows' orthonormality."""
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.curvature.operators import DatasetHessianOperator
+    from hessian_llm_vision_tpu_torch.krylov import thick_restart
+
+    orth_calls = 0
+    body = thick_restart._orth_body
+
+    def counted(*args):
+        nonlocal orth_calls
+        orth_calls += 1
+        return body(*args)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    thick_restart._orth_body = counted
+    try:
+        _, res, lines, main_s = run_cli(spectrum_cli, TR_ARGV)
+    finally:
+        thick_restart._orth_body = body
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    wall = cli_wall_s(lines)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    wl = build_workload(spectrum_cli.build_parser().parse_args(TR_ARGV), dev)
+    op = DatasetHessianOperator(wl.loss_fn, wl.params, wl.batches, precision="high")
+    scale = float(np.abs(res.eigvals).max())
+    resid = [float(torch.linalg.vector_norm(op.matvec(u) - float(lam) * u)) / scale
+             for u, lam in zip(res.vectors, res.eigvals)]
+    V = res.vectors.double()
+    ortho = float((V @ V.T - torch.eye(len(V), dtype=torch.float64, device=dev)).abs().max())
+    del wl, op, V
+    out = {
+        "eigvals": res.eigvals.tolist(), "residual_estimates": res.residuals.tolist(),
+        "independent_residual_over_max_lambda": resid, "max_abs_VVt_minus_I": ortho,
+        "converged": res.converged, "restarts": res.restarts, "matvecs": res.matvecs,
+        "cgs2_calls": orth_calls, "rank_k_launches": launches,
+        "cli_wall_s": wall, "hvps_per_s": res.matvecs / wall, "main_s": main_s,
+        "max_memory_allocated_bytes": peak, "residual_check_s": time.perf_counter() - t0,
+    }
+    print(json.dumps({"thick_restart_124m": out}))
+    check_gates("8a thick restart", {
+        "converged": res.converged,
+        "independent residuals within the limit": max(resid) <= TR_RESIDUAL_LIMIT,
+        "rows orthonormal": ortho <= TR_ORTHO_LIMIT,
+        "each kernel twice per CGS2 call": all(launches[n] == 2 * orth_calls for n in TPU_KERNELS),
+    })
+    return out
+
+
+def deflated_kpm_124m(spectrum_cli, kernels) -> dict:
+    """Phase 8b: the host-loop spectrum, then the two-scale density (thick
+    restart of the 4 largest |lambda|, KPM of the deflated operator); the
+    deflation basis and the launch counts at the start of the KPM stage
+    are taken where deflated_matvec builds the projector."""
+    from hessian_llm_vision_tpu_torch.krylov import deflate
+
+    seen = {}
+    build_projector = deflate.deflated_matvec
+
+    def capture(matvec, basis):
+        seen.update(launches=dict(kernels.LAUNCHES), basis=basis,
+                    mv=build_projector(matvec, basis))
+        return seen["mv"]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "kpm")
+        deflate.deflated_matvec = capture
+        try:
+            spec, _, lines, main_s = run_cli(spectrum_cli, KPM_ARGV + ["--out_spectrum", path])
+        finally:
+            deflate.deflated_matvec = build_projector
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        meta = npz_meta(path)
+    kpm_launches = {n: launches[n] - seen["launches"][n] for n in launches}
+    lam_max, lam_min = float(spec.eigvals.max()), float(spec.eigvals.min())
+    slq_extreme = max(abs(lam_max), abs(lam_min))
+    spikes = meta["kpm_deflate_eigvals"]
+    spike = float(np.abs(spikes).max())
+    annihilated = [float(torch.linalg.vector_norm(seen["mv"](u.float()))) / spike
+                   for u in seen["basis"]]
+    center, radius = float(meta["kpm_center"]), float(meta["kpm_radius"])
+    span = lam_max - lam_min
+    kpm_s, kpm_mv = reported(lines, r"\(([\d.]+)s, (\d+) matvecs\)$")
+    wall = cli_wall_s(lines)
+    out = {
+        "slq_lambda_max": lam_max, "slq_lambda_min": lam_min, "spikes": spikes.tolist(),
+        "spike_residuals": meta["kpm_deflate_residuals"].tolist(),
+        "spikes_converged": int(meta["kpm_deflate_converged"]),
+        "spike_vs_slq_extreme_rel": abs(spike / slq_extreme - 1),
+        "deflated_op_on_spike_over_max_lambda": annihilated,
+        "bulk_range": [center - radius, center + radius], "mu_0": float(meta["kpm_raw_moments"][0]),
+        "kpm_stage_launches": kpm_launches, "rank_k_launches": launches,
+        "host_loop_hvps": len(spec.eigvals), "host_loop_cli_wall_s": wall,
+        "deflate_and_kpm_s": float(kpm_s), "deflate_and_kpm_matvecs": int(kpm_mv),
+        "hvps_per_s": (len(spec.eigvals) + int(kpm_mv)) / (wall + float(kpm_s)), "main_s": main_s,
+        "max_memory_allocated_bytes": peak,
+    }
+    del seen
+    print(json.dumps({"deflated_kpm_124m": out}))
+    check_gates("8b deflated KPM", {
+        "spikes converged": out["spikes_converged"] == 1,
+        "largest spike = SLQ extreme": out["spike_vs_slq_extreme_rel"] <= SPIKE_SLQ_RTOL,
+        "deflated operator annihilates the spikes": max(annihilated) <= TR_RESIDUAL_LIMIT,
+        "bulk range inside the SLQ range": (center - radius >= lam_min - BULK_WIDEN * span
+                                            and center + radius <= lam_max + BULK_WIDEN * span),
+        "mu_0 = 1": abs(out["mu_0"] - 1) <= MU0_TOL,
+        "2 launches of each kernel per deflated matvec":
+            all(kpm_launches[n] == 2 * KPM_STAGE_MATVECS for n in TPU_KERNELS),
+    })
+    return out
+
+
+def hutchpp_124m(spectrum_cli, kernels) -> dict:
+    """Phase 8c: in-core Lanczos and the Hutch++ trace at GPT-2 124M."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hpp")
+        spec, _, lines, main_s = run_cli(spectrum_cli, HUTCHPP_ARGV + ["--out_spectrum", path])
+        peak = torch.cuda.max_memory_allocated()
+        meta = npz_meta(path)
+    trace = float(meta["hutchpp_trace"])
+    wall = cli_wall_s(lines)
+    hpp_s = float(reported(lines, r"^trace \(hutch\+\+ 30 matvecs\) = \S+ \(([\d.]+)s\)")[0])
+    out = {"hutchpp_trace": trace, "hutchpp_matvecs": int(meta["hutchpp_matvecs"]),
+           "lanczos_hvps": len(spec.eigvals), "lanczos_cli_wall_s": wall, "hutchpp_s": hpp_s,
+           "hvps_per_s": (len(spec.eigvals) + 30) / (wall + hpp_s), "main_s": main_s,
+           "max_memory_allocated_bytes": peak, "rank_k_launches": dict(kernels.LAUNCHES)}
+    print(json.dumps({"hutchpp_124m": out}))
+    check_gates("8c Hutch++", {"finite trace": math.isfinite(trace),
+                               "30 matvecs in the artifact": out["hutchpp_matvecs"] == 30})
+    return out
+
+
+def estimators_card_vs_cpu(spectrum_cli) -> dict:
+    """Phase 8d: gpt2-tiny on the card and on the CPU, the same draws (CPU
+    generators): thick restart with an f32 buffer; in-core --host_basis
+    Lanczos with --kpm/--kpm_deflate and --hutchpp."""
+    tr = TINY_EXT + ["--thick_restart", "3", "--lanczos_iters", "12"]
+    # 12 iterations, as 7a: at 10, gpt2-tiny's lambda_max is not converged
+    # and moves with the card's HVP rounding beyond the 1e-5 gate
+    ext = TINY_EXT + ["--lanczos_iters", "12", "--host_basis", "--kpm", "30", "--kpm_probes", "2",
+                      "--kpm_deflate", "2", "--hutchpp", "9"]
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        (_, tr_card), (_, tr_cpu) = (spectrum_cli.main(tr + extra) for extra in ([], ["--cpu"]))
+        with tempfile.TemporaryDirectory() as tmp:
+            specs, metas = [], []
+            for name, extra in (("card", []), ("cpu", ["--cpu"])):
+                path = os.path.join(tmp, name)
+                specs.append(spectrum_cli.main(ext + extra + ["--out_spectrum", path])[0])
+                metas.append(npz_meta(path))
+    (card, cpu), (m_card, m_cpu) = specs, metas
+    out = {
+        "thick_restart_eigvals_rel": max_rel(*map(torch.as_tensor, (tr_card.eigvals, tr_cpu.eigvals))),
+        "host_basis_extremes_rel": max_rel(torch.stack([card.eigvals.max(), card.eigvals.min()]),
+                                           torch.stack([cpu.eigvals.max(), cpu.eigvals.min()])),
+        "spikes_rel": max_rel(*(torch.as_tensor(m["kpm_deflate_eigvals"]) for m in metas)),
+        "moments_abs": float(np.abs(m_card["kpm_moments"] - m_cpu["kpm_moments"]).max()),
+        "hutchpp_rel": max_rel(*(torch.as_tensor(m["hutchpp_trace"]) for m in metas)),
+        "thick_restart_matvecs": [tr_card.matvecs, tr_cpu.matvecs],
+    }
+    print(json.dumps({"estimators_card_vs_cpu": out}))
+    check_gates("8d card against CPU", {
+        "thick-restart eigenvalues": out["thick_restart_eigvals_rel"] <= EXT_EIG_RTOL,
+        "host-basis extremes": out["host_basis_extremes_rel"] <= EXT_EIG_RTOL,
+        "spikes": out["spikes_rel"] <= EXT_EIG_RTOL,
+        "bulk moments": out["moments_abs"] <= EXT_MOMENT_ATOL,
+        "Hutch++ trace": out["hutchpp_rel"] <= EXT_HUTCHPP_RTOL,
+    })
+    return out
 
 
 def main() -> int:
@@ -447,16 +717,19 @@ def main() -> int:
                 kernels, spectral, dtype, k, p, gen, timed=(p == P_124M)
             )
             torch.cuda.empty_cache()
+    for dtype, k in PATH_SHAPES:
+        checks[(dtype, k, P_124M)] = check_rank_k(kernels, spectral, dtype, k, P_124M, gen, timed=True)
+        torch.cuda.empty_cache()
     failed = [key for key, r in checks.items() if not r["ok"]]
     if failed:
         raise SystemExit(f"rank-k kernel disagrees with its plain version at {failed}")
-    for dtype in TIMED_DTYPES:  # pass 1 and the pair, per timed shape
-        for k in TIMED_KS:
-            d, a = (checks[(dtype, k, P_124M)][n] for n in TPU_KERNELS)
-            print(f"{str(dtype).removeprefix('torch.'):8s} k={k:2d}: rank_k_dots "
-                  f"{d['ms']:.3f} ms [{d['ms_spread'][0]:.3f}-{d['ms_spread'][1]:.3f}] "
-                  f"library {d['library_ms']:.3f} bound {d['bound_ms']:.3f}; rank_k_axpy "
-                  f"{a['ms']:.3f} ms; pair {d['ms'] + a['ms']:.3f} ms")
+    timed = [(dtype, k) for dtype in TIMED_DTYPES for k in TIMED_KS] + list(PATH_SHAPES)
+    for dtype, k in timed:  # pass 1 and the pair, per timed shape
+        d, a = (checks[(dtype, k, P_124M)][n] for n in TPU_KERNELS)
+        print(f"{str(dtype).removeprefix('torch.'):8s} k={k:2d}: rank_k_dots "
+              f"{d['ms']:.3f} ms [{d['ms_spread'][0]:.3f}-{d['ms_spread'][1]:.3f}] "
+              f"library {d['library_ms']:.3f} bound {d['bound_ms']:.3f}; rank_k_axpy "
+              f"{a['ms']:.3f} ms; pair {d['ms'] + a['ms']:.3f} ms")
     print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(4, "main path: LanczosSGD on GPT-2 124M through cli.train.main")
@@ -509,6 +782,34 @@ def main() -> int:
     hvp_vs_central_difference(spectrum_cli, headline["alpha_1"])
     print(f"phase 7c took {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase(8, "spectrum estimators beyond SLQ at GPT-2 124M: thick restart, "
+                  "deflated KPM, Hutch++; gpt2-tiny card vs CPU")
+    ext = {"8a_thick_restart": thick_restart_124m(spectrum_cli, kernels)}
+    print(f"phase 8a took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ext["8b_deflated_kpm"] = deflated_kpm_124m(spectrum_cli, kernels)
+    print(f"phase 8b took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ext["8c_hutchpp"] = hutchpp_124m(spectrum_cli, kernels)
+    print(f"phase 8c took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    estimators_card_vs_cpu(spectrum_cli)
+    print(f"phase 8d took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"spectrum_ext": {
+        name: {key: r[key] for key in r if key.endswith(("_s", "matvecs", "hvps", "restarts",
+                                                         "per_s", "_bytes", "launches"))}
+        for name, r in ext.items()}}))
+    by_path = {"phase4_train_4_steps": launches,
+               "phase7b_spectrum": headline["rank_k_launches"],
+               "phase8a_thick_restart": ext["8a_thick_restart"]["rank_k_launches"],
+               "phase8b_host_loop_and_deflated_kpm": ext["8b_deflated_kpm"]["rank_k_launches"],
+               "phase8b_kpm_stage": ext["8b_deflated_kpm"]["kpm_stage_launches"],
+               "phase8c_hutchpp": ext["8c_hutchpp"]["rank_k_launches"]}
+    for path, counts in by_path.items():  # 7b and 8c take no rank-k apply
+        runs_kernels = not path.startswith(("phase7b", "phase8c"))
+        if runs_kernels and not all(counts[n] > 0 for n in TPU_KERNELS):
+            raise SystemExit(f"a rank-k kernel was never launched on {path}: {counts}")
+
     entries = []
     for name, replaces in TPU_KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": replaces,
@@ -518,6 +819,9 @@ def main() -> int:
                       "f32": without_smi(checks[(torch.float32, 10, P_124M)][name]),
                       "k35": {str(dt).removeprefix("torch."): without_smi(checks[(dt, 35, P_124M)][name])
                               for dt in TIMED_DTYPES},
+                      **{f"bfloat16_k{k}": without_smi(checks[(dt, k, P_124M)][name])
+                         for dt, k in PATH_SHAPES},
+                      "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
                       "checks_passed": len(checks)})
         entries.append(entry)
     print(json.dumps({"kernels": entries}))

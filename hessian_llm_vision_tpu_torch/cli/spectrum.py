@@ -1,11 +1,13 @@
 """Post-hoc Hessian spectrum of a model (port of ``cli/spectrum.py``).
 
 Dataset-averaged (or single-batch, or layer-restricted) Hessian, seeded
-probe Lanczos with an optional Ritz basis, multi-probe SLQ averaging,
-per-iteration resumable T checkpoints, and the spectrum artifact with an
-optional stem plot.  Flag names and defaults are the JAX CLI's; flags of
-paths not ported yet are accepted by the parser and exit with "not ported
-yet", naming their ROADMAP item; their sub-options come with the slice that
+probe Lanczos with an optional Ritz basis (on the device or in host
+memory), multi-probe SLQ averaging, per-iteration resumable T checkpoints,
+converged eigenpairs by thick restart, the KPM density (optionally
+deflated), the Hutch++ trace, and the spectrum artifact with an optional
+stem plot.  Flag names and defaults are the JAX CLI's; flags of paths not
+ported yet are accepted by the parser and exit with "not ported yet",
+naming their ROADMAP item; their sub-options come with the slice that
 ports each path.
 
 Runs on the first CUDA device unless ``--cpu`` is given; without ``--cpu``
@@ -16,6 +18,10 @@ Examples:
   python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
       --host_loop --lanczos_iters 8 --num_batches 2 --batch_size 4 \\
       --max_length 32 --out_spectrum /tmp/s
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
+      --thick_restart 4 --lanczos_iters 12 --out_spectrum /tmp/tr
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
+      --kpm 40 --kpm_deflate 3 --hutchpp 9 --out_spectrum /tmp/kpm
   python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2 \\
       --dataset random --num_batches 4 --batch_size 8 --max_length 512 \\
       --attn_block_q 512 --loss_chunk 512 --lanczos_iters 35 --host_loop \\
@@ -42,14 +48,10 @@ from hessian_llm_vision_tpu_torch.utils import trees
 
 # flags of paths the port does not have yet, with their ROADMAP item
 _UNPORTED_FLAGS = (
-    ("--thick_restart", "thick_restart", "A10a"),
-    ("--kpm", "kpm", "A10b"),
-    ("--hutchpp", "hutchpp", "A10c"),
     ("--layerwise", "layerwise", "A10d"),
     ("--linearized", "linearized", "A10e"),
     ("--bigmodel", "bigmodel", "A10f"),
     ("--probe_parallel", "probe_parallel", "A10g"),
-    ("--host_basis", "host_basis", "A10i"),
     ("--precision_check", "precision_check", "A11"),
 )
 
@@ -71,8 +73,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed of the CPU generator every probe vector is drawn from")
     p.add_argument("--probes", type=int, default=1,
                    help=">1: multi-probe SLQ averaging, probes one after another")
-    p.add_argument("--hutchpp", type=int, default=0, metavar="M", help=_not_ported("A10c"))
-    p.add_argument("--kpm", type=int, default=0, metavar="M", help=_not_ported("A10b"))
+    p.add_argument("--hutchpp", type=int, default=0, metavar="M",
+                   help="also estimate tr(H) with Hutch++ using M matvecs "
+                   "(krylov/trace.py; O(1/M) error vs SLQ's per-probe "
+                   "variance). In-core operator paths only")
+    p.add_argument("--kpm", type=int, default=0, metavar="M",
+                   help="also estimate the spectral DENSITY by the kernel "
+                   "polynomial method with M Jackson-damped Chebyshev "
+                   "moments (krylov/kpm.py; smooth whole-support density "
+                   "at 2 P-vectors of memory; range auto-estimated by a "
+                   "12-iter Lanczos probe). Moments land in the npz as "
+                   "meta_kpm_*. In-core operator paths only")
+    p.add_argument("--kpm_probes", type=int, default=4,
+                   help="Rademacher probes averaged per --kpm estimate")
+    p.add_argument("--kpm_deflate", type=int, default=0, metavar="K",
+                   help="with --kpm M: thick-restart the K largest-|lambda| "
+                   "eigenpairs to convergence first (EXACT spikes with "
+                   "residual certificates), then run KPM on the deflated "
+                   "operator (I-UU^T)A(I-UU^T) — the Chebyshev support "
+                   "shrinks to the bulk, improving bulk resolution by "
+                   "~(full range / bulk range) at the same moment count "
+                   "(krylov/deflate.py)")
     p.add_argument("--layer", default=None,
                    help="restrict to the parameters whose '/'-joined path "
                    "contains this (e.g. h_0/attn)")
@@ -87,7 +108,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume_spectrum", default=None,
                    help="resume an interrupted --t_checkpoint run from its "
                    ".state.npz file")
-    p.add_argument("--host_basis", action="store_true", help=_not_ported("A10i"))
+    p.add_argument("--host_basis", action="store_true",
+                   help="keep the Krylov basis in host RAM (basis > HBM; "
+                   "the reference's CPU-offload mode)")
     p.add_argument("--host_loop", action="store_true",
                    help="host-driven T-only spectrum over per-batch HVPs "
                    "(LLM scale: no (k,P) basis on the device)")
@@ -107,7 +130,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--operator", default="hessian",
                    help="hessian (ggn | fisher: " + _not_ported("A10h") + ")")
     p.add_argument("--thick_restart", type=int, default=0, metavar="K",
-                   help=_not_ported("A10a"))
+                   help="compute K CONVERGED extremal eigenpairs by "
+                   "thick-restart Lanczos (Wu & Simon) inside a fixed "
+                   "--lanczos_iters-vector basis buffer — converged "
+                   "eigenbases at bounded memory, beyond the reference's "
+                   "one-pass bases. In-core operator paths only")
+    p.add_argument("--tr_which", default="lm",
+                   choices=["lm", "la", "sa", "both"],
+                   help="which end of the spectrum --thick_restart targets "
+                   "(largest magnitude / algebraic ends / both)")
+    p.add_argument("--tr_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="basis-buffer storage dtype for --thick_restart "
+                   "(bfloat16 halves the (inner+1, P) buffer; recurrence "
+                   "arithmetic stays f32 — the --bigmodel_q convention)")
+    p.add_argument("--tr_tol", type=float, default=1e-6,
+                   help="relative residual tolerance for --thick_restart "
+                   "(scale = max|theta|; raise to ~2e-3 with bf16 storage)")
     p.add_argument("--no_reorth", action="store_true")
     p.add_argument("--precision_check", action="store_true", help=_not_ported("A11"))
     p.add_argument("--hvp_precision", default="high",
@@ -160,8 +199,9 @@ def _make_operator(args, wl):
 
 
 def main(argv=None, on_iter: Optional[Callable[[int, float], None]] = None):
-    """Run the spectrum job; returns ``(spectrum, lanczos_result)`` (the
-    last probe's result; None for multi-probe SLQ).  ``on_iter(i, seconds)``
+    """Run the spectrum job; returns ``(spectrum, result)``: the last
+    probe's ``LanczosResult`` (None for multi-probe SLQ), or the
+    ``ThickRestartResult`` of ``--thick_restart``.  ``on_iter(i, seconds)``
     receives each host-loop iteration's seconds, synchronised with the
     device."""
     args = build_parser().parse_args(argv)

@@ -1,15 +1,36 @@
 """Flag-combination checks of the spectrum CLI (port of
 ``cli/spectrum_flags.py``): a combination that would silently drop a flag
 exits with an error instead of running a job that never produces the
-asked-for output.  Only the ported flags are checked here; the sub-options
-and checks of each refused path come with the slice that ports it.
-``cli/spectrum.py`` runs these checks first, then refuses the flags that
-the port does not have yet ("not ported yet")."""
+asked-for output.  The messages are the JAX CLI's.  Only the ported flags
+are checked here; the sub-options and checks of each refused path come with
+the slice that ports it.  ``cli/spectrum.py`` runs these checks first, then
+refuses the flags that the port does not have yet ("not ported yet")."""
 
 from __future__ import annotations
 
 
 def validate_flags(args) -> None:
+    if args.kpm and (
+        args.layerwise or args.thick_restart
+        or (args.host_loop and args.operator != "hessian")
+        or args.bigmodel
+    ):
+        raise SystemExit(
+            "--kpm works on the in-core operator paths and on "
+            "--host_loop with --operator hessian (drop --layerwise/"
+            "--thick_restart/--bigmodel, or call krylov.kpm_density "
+            "directly on a program-backed matvec)"
+        )
+    if not args.kpm and args.kpm_probes != 4:
+        raise SystemExit("--kpm_probes has no effect without --kpm M")
+    if args.kpm_deflate and not args.kpm:
+        raise SystemExit("--kpm_deflate has no effect without --kpm M")
+    if args.hutchpp and (args.host_loop or args.layerwise):
+        raise SystemExit(
+            "--hutchpp applies to the in-core operator paths only "
+            "(drop --host_loop/--layerwise, or use krylov.trace directly "
+            "with a host-loop matvec)"
+        )
     if args.qprev_bf16 and not args.fused_step:
         raise SystemExit("--qprev_bf16 requires --fused_step (the plain "
                          "host loop keeps all flat vectors f32)")
@@ -17,15 +38,37 @@ def validate_flags(args) -> None:
         raise SystemExit(
             "--fused_iter needs --host_loop (and is exclusive with --fused_step)"
         )
-    if args.host_loop and args.basis:
+    if args.host_loop and (args.basis or args.host_basis):
         # the host-loop branch is the T-only memory plan: no stored Krylov
         # basis, Spectrum(ritz_vectors=None) -- silently dropping the flag
         # would hand --compare_to nothing to overlap against
         raise SystemExit(
             "--host_loop is T-only (no Ritz vectors / stored basis); drop "
-            "--basis, or use the in-core path (--basis)"
+            "--basis/--host_basis, or use the in-core path (--basis / "
+            "--host_basis) or --thick_restart K for converged eigenpairs"
         )
     if args.fused_step and not args.host_loop:
         # without --host_loop it would silently fall through to the flat
         # in-core paths and their P-vector copies
         raise SystemExit("--fused_step is a --host_loop mode; add --host_loop")
+    if args.thick_restart and (
+        args.host_loop or args.layerwise or args.fused_step or args.bigmodel
+    ):
+        raise SystemExit(
+            "--thick_restart applies to the in-core operator paths only "
+            "(drop --host_loop/--layerwise/--fused_step/--bigmodel)"
+        )
+    if not args.thick_restart and args.tr_which != "lm":
+        raise SystemExit(
+            "--tr_which has no effect without --thick_restart K "
+            "(--kpm_deflate always deflates largest-|lambda|)"
+        )
+    if (
+        not args.thick_restart
+        and not args.kpm_deflate
+        and (args.tr_dtype != "float32" or args.tr_tol != 1e-6)
+    ):
+        raise SystemExit(
+            "--tr_dtype/--tr_tol have no effect without --thick_restart K "
+            "or --kpm_deflate K"
+        )

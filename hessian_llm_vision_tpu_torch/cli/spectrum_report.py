@@ -6,6 +6,8 @@ place."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 from hessian_llm_vision_tpu_torch.io import spectra
@@ -13,10 +15,15 @@ from hessian_llm_vision_tpu_torch.krylov import compare
 from hessian_llm_vision_tpu_torch.krylov.slq import trace_estimate
 
 
-def report_and_outputs(args, spec, wall: float, dim: int, num_batches: int) -> None:
-    """Print the report; write ``--out_spectrum`` / ``--plot``; compare
-    with ``--compare_to``.  ``num_batches`` counts the HVPs of one matvec
-    (times the probes), so HVPs/s compares across paths."""
+def report_and_outputs(args, spec, wall: float, dim: int, num_batches: int,
+                       n_matvecs: Optional[int] = None, partial_measure: bool = False) -> None:
+    """Print the report; write ``--out_spectrum`` (with the producers'
+    ``args._extra_meta`` as ``meta_<key>``) / ``--plot``; compare with
+    ``--compare_to``.  ``num_batches`` counts the HVPs of one matvec (times
+    the probes), so HVPs/s compares across paths; ``n_matvecs`` replaces
+    ``--lanczos_iters`` as the matvec count (thick restart).
+    ``partial_measure``: the gammas cover only converged pairs, so no
+    ghost-cluster warning and no trace estimate is printed."""
     ev = np.sort(spec.eigvals.numpy())
     print(f"P = {dim}")
     print(f"lambda_max = {ev[-1]:.6f}  lambda_min = {ev[0]:.6f}")
@@ -25,7 +32,7 @@ def report_and_outputs(args, spec, wall: float, dim: int, num_batches: int) -> N
     # conditioning replicates a converged extreme into a cluster of
     # near-identical Ritz values while the estimate itself drifts; a
     # genuine SLQ top-5 has spread
-    if len(ev) >= 3:
+    if not partial_measure and len(ev) >= 3:
         top = ev[-3:]
         scale = max(abs(float(top[-1])), 1e-30)
         if float(top[-1] - top[0]) / scale < 1e-4:
@@ -37,8 +44,15 @@ def report_and_outputs(args, spec, wall: float, dim: int, num_batches: int) -> N
                 "percent. Use --thick_restart K for converged, residual-"
                 "certified extremes."
             )
-    print(f"trace estimate (E[lambda]) = {float(trace_estimate(spec)):.6e}")
-    hvps = args.lanczos_iters * num_batches
+    if partial_measure:
+        # the gammas cover only the converged pairs, not the full SLQ measure
+        print(f"partial E[lambda] over the {len(ev)} converged pairs = "
+              f"{float(trace_estimate(spec)):.6e} "
+              f"(weight sum {float(spec.gammas.sum()):.3e}; not a trace estimate)")
+    else:
+        print(f"trace estimate (E[lambda]) = {float(trace_estimate(spec)):.6e}")
+    # count HVPs, not matvecs, so HVPs/s compares across paths
+    hvps = (n_matvecs if n_matvecs is not None else args.lanczos_iters) * num_batches
     print(f"wall-clock: {wall:.2f}s ({hvps / wall:.2f} HVPs/s)")
 
     if args.out_spectrum:
@@ -47,7 +61,8 @@ def report_and_outputs(args, spec, wall: float, dim: int, num_batches: int) -> N
             print(f"spectrum (torch format) -> {args.out_spectrum}")
         else:
             spectra.save_spectrum(args.out_spectrum, spec, iters=args.lanczos_iters,
-                                  subsample=args.subsample, vector_seed=args.vector_seed)
+                                  subsample=args.subsample, vector_seed=args.vector_seed,
+                                  **getattr(args, "_extra_meta", {}))
             print(f"spectrum -> {args.out_spectrum}.npz"
                   if not args.out_spectrum.endswith(".npz")
                   else f"spectrum -> {args.out_spectrum}")

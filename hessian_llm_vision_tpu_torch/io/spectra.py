@@ -41,7 +41,7 @@ def save_spectrum(path: str, spectrum: Spectrum, **metadata) -> None:
     if spectrum.ritz_vectors is not None:
         arrays["V"] = _host(spectrum.ritz_vectors)
     for k, v in metadata.items():
-        arrays[f"meta_{k}"] = np.asarray(v)
+        arrays[f"meta_{k}"] = _host(v)
     np.savez(path, **arrays)
 
 

@@ -6,10 +6,13 @@ HVPs; no (k, P) basis is held, so memory is the params, a few P-vectors
 and one HVP's working set.  alpha and beta stay 0-d device tensors until
 the loop ends (a ``callback`` opts into a host copy per iteration).
 
-There is one iteration: the per-batch HVPs summed in place, the scale,
-then ``host_recurrence_step``.  The JAX package's ``fused=True`` folds that
-into one program to save TPU dispatch round trips; in eager PyTorch it
-would launch the same kernels in the same order, so it is not ported.
+There is one iteration: the per-batch HVPs summed in place, the scale
+(:func:`dataset_matvec`), then ``host_recurrence_step``.  The JAX package's
+``fused=True`` folds that into one program to save TPU dispatch round
+trips; in eager PyTorch it would launch the same kernels in the same order,
+so it is not ported.  :func:`dataset_thick_restart_host` runs thick-restart
+Lanczos over the same matvec, for the same reason without the JAX
+package's fused thick-restart step.
 """
 
 from __future__ import annotations
@@ -27,6 +30,10 @@ from hessian_llm_vision_tpu_torch.krylov.lanczos import (
     stack_tridiag,
     start_vector,
 )
+from hessian_llm_vision_tpu_torch.krylov.thick_restart import (
+    ThickRestartResult,
+    lanczos_thick_restart,
+)
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
 
 Callback = Callable[[int, np.ndarray, np.ndarray], None]
@@ -43,6 +50,32 @@ def dataset_norm(normalization: str, num_batches: int, batch_size: Optional[int]
             raise ValueError('normalization="sum" requires batch_size')
         return "mean", float(batch_size)
     raise ValueError(normalization)
+
+
+def dataset_matvec(
+    loss_fn: LossFn,
+    params,
+    batch_list: Sequence[Any],
+    *,
+    normalization: str = "dataset",
+    batch_size: Optional[int] = None,
+    precision: Optional[str] = "high",
+    flattener: Optional[Flattener] = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``q -> H q`` of the whole dataset (``dataset_norm``'s scaling): the
+    per-batch HVPs summed in place into one f32 P-vector, then scaled."""
+    fl = flattener or Flattener(params)
+    per_batch_norm, scale = dataset_norm(normalization, len(batch_list), batch_size)
+    _hvp = hvp_fn(loss_fn, normalization=per_batch_norm, precision=precision)
+
+    def matvec(q: torch.Tensor) -> torch.Tensor:
+        tangent = fl.unflatten(q)
+        w = torch.zeros(fl.size, dtype=torch.float32, device=q.device)
+        for batch in batch_list:
+            w.add_(fl.flatten(_hvp(params, batch, tangent)))
+        return w.mul_(scale)
+
+    return matvec
 
 
 def _iteration_end(i, num_iters, t0, q, alphas, betas, callback, progress):
@@ -85,26 +118,58 @@ def dataset_spectrum_host(
     if operator != "hessian":
         raise ValueError(f"unknown operator {operator!r}")
     fl = flattener or Flattener(params)
-    per_batch_norm, scale = dataset_norm(normalization, len(batch_list), batch_size)
-    _hvp = hvp_fn(loss_fn, normalization=per_batch_norm, precision=precision)
+    matvec = dataset_matvec(loss_fn, params, batch_list, normalization=normalization,
+                            batch_size=batch_size, precision=precision, flattener=fl)
     q_cur = start_vector(v0, generator, fl.size)
     q_prev = torch.zeros_like(q_cur)
     beta_prev = torch.zeros((), dtype=torch.float32, device=q_cur.device)
     alphas, betas = [], []
     for i in range(num_iters):
         t0 = time.perf_counter()
-        tangent = fl.unflatten(q_cur)
-        w = torch.zeros_like(q_cur)
-        for batch in batch_list:
-            w.add_(fl.flatten(_hvp(params, batch, tangent)))
-        w.mul_(scale)
-        alpha, beta, q_next = host_recurrence_step(w, q_cur, q_prev, beta_prev)
+        alpha, beta, q_next = host_recurrence_step(matvec(q_cur), q_cur, q_prev, beta_prev)
         q_prev, q_cur, beta_prev = q_cur, q_next, beta
         alphas.append(alpha)
         betas.append(beta)
         _iteration_end(i, num_iters, t0, q_cur, alphas, betas, callback, progress)
     alphas, betas = stack_tridiag(alphas, betas)
     return LanczosResult(alphas=alphas, betas=betas, basis=None)
+
+
+def dataset_thick_restart_host(
+    loss_fn: LossFn,
+    params,
+    batch_list: Sequence[Any],
+    k: int,
+    *,
+    generator: Optional[torch.Generator] = None,
+    v0: Optional[torch.Tensor] = None,
+    inner: Optional[int] = None,
+    normalization: str = "dataset",
+    batch_size: Optional[int] = None,
+    precision: Optional[str] = "high",
+    flattener: Optional[Flattener] = None,
+    store_dtype: torch.dtype = torch.float32,
+    which: str = "lm",
+    tol: float = 1e-6,
+    max_restarts: int = 100,
+    basis_sharding=None,
+    progress: bool = False,
+) -> ThickRestartResult:
+    """Converged k extremal eigenpairs of the dataset-mean Hessian:
+    ``lanczos_thick_restart`` over :func:`dataset_matvec`, with the
+    normalization of ``dataset_norm``.  Each inner iteration is the
+    dataset HVP, α, the CGS2 pass (the rank-k kernel pair on CUDA) and the
+    row write; α and β are fetched once per restart cycle.  A draw from
+    ``generator`` lands on the params' device."""
+    fl = flattener or Flattener(params)
+    matvec = dataset_matvec(loss_fn, params, batch_list, normalization=normalization,
+                            batch_size=batch_size, precision=precision, flattener=fl)
+    device = next(iter(params.values())).device
+    return lanczos_thick_restart(
+        matvec, fl.size, k, generator=generator, v0=v0, inner=inner,
+        max_restarts=max_restarts, tol=tol, which=which, store_dtype=store_dtype,
+        basis_sharding=basis_sharding, progress=progress, device=device,
+    )
 
 
 def single_batch_spectrum_host_fused(

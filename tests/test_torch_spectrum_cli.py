@@ -110,9 +110,9 @@ def test_other_ported_paths_run(tmp_path, extra, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--thick_restart", "3"], ["--kpm", "8"], ["--hutchpp", "4"], ["--layerwise"],
+    ["--layerwise"],
     ["--host_loop", "--linearized"], ["--host_loop", "--bigmodel"],
-    ["--host_loop", "--probes", "2", "--probe_parallel"], ["--host_basis"],
+    ["--host_loop", "--probes", "2", "--probe_parallel"],
     ["--precision_check"], ["--operator", "ggn"], ["--operator", "fisher"],
     ["--hvp_precision", "auto"], ["--hvp_precision", "mixed"], ["--hvp_precision", "default"],
     ["--model", "pythia-70m"], ["--experts", "2"], ["--bf16"], ["--checkpoint", "ck"],
