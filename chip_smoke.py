@@ -43,10 +43,23 @@ Phases (any failure exits non-zero and prints no result line):
      --hutchpp 30: a finite trace in the artifact; one {"spectrum_ext": ...}
      JSON line of their times, matvecs and memory; (d) on gpt2-tiny, card
      against CPU: thick restart, deflated KPM, Hutch++ and --host_basis.
-Phase 3 also checks and times (4, 124,046,592) and (16, 124,046,592) in
-bf16, the deflation projector's and the CGS2 pass's shapes.  Then it
-prints one JSON line of kernels (launches per path), the card line, and
-finally {"ok": true, "device": {...}}.
+  9. the rest of the single-card curvature at GPT-2 124M, 1 batch x bs8 x
+     seq512, through cli.spectrum.main / cli.train.main: (a) --layerwise
+     --layerwise_group block --host_loop: 12 block artifacts and the grid,
+     weights summing to 1, lambda_max > 0, per-block |trace| small, h_0's T
+     equal to an in-core LayerHessianOperator run; (b) --operator ggn
+     --host_loop: Ritz values >= 0, the GGN matvec against jvp, an explicit
+     float64 softmax Hessian and vjp; (c) --linearized against the plain
+     host loop; (d) --bigmodel with float32 and bfloat16 vectors against the
+     same plain run; (e) phase 4's training with --refresh_linearized; (f)
+     the empirical Fisher over 8 per-example gradients with a bf16 G, the
+     kernel pair against its plain versions and an f32 G; (g) every new
+     path on gpt2-tiny, card against CPU; one {"curvature_ext": ...} line.
+Phase 3 also checks and times (4, 124,046,592), (8, 124,046,592) and (16,
+124,046,592) in bf16, the deflation projector's, the empirical Fisher's
+and the CGS2 pass's shapes.  Then it prints one JSON line of kernels
+(launches per path), the card line, and finally {"ok": true, "device":
+{...}}.
 
 Imports torch, numpy and the port only (no JAX: the card machine has none).
 """
@@ -55,6 +68,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -71,9 +85,10 @@ import torch
 P_124M = 124_046_592  # GPT-2 124M parameters at n_positions 512
 TIMED_DTYPES = (torch.bfloat16, torch.float32)
 TIMED_KS = (10, 35)
-# the deflation projector's rows (--kpm_deflate 4) and the CGS2 pass's
-# widest (16 filled rows of the deflation's inner-16 buffer), in bf16
-PATH_SHAPES = ((torch.bfloat16, 4), (torch.bfloat16, 16))
+# the deflation projector's rows (--kpm_deflate 4), the empirical Fisher's
+# 8 per-example gradients and the CGS2 pass's widest (16 filled rows of the
+# deflation's inner-16 buffer), in bf16
+PATH_SHAPES = ((torch.bfloat16, 4), (torch.bfloat16, 8), (torch.bfloat16, 16))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 KERNEL_SRC = "hessian_llm_vision_tpu_torch/ops/csrc/rank_k.cu"
@@ -134,6 +149,26 @@ EXT_EIG_RTOL, EXT_MOMENT_ATOL, EXT_HUTCHPP_RTOL = 1e-5, 1e-5, 1e-4
 # 10x the f32 reading 2.1e-6, 75x below the TF32 reading 1.5e-3 (PERF.md)
 FD_EPS = 1e-4
 HVP_FD_LIMIT = 2e-5
+# phase 9: GPT-2 124M at EXT_BASE's 1 x bs8 x seq512
+LW_ARGV = EXT_BASE + ["--layerwise", "--layerwise_group", "block", "--host_loop",
+                      "--lanczos_iters", "10"]
+GGN_ARGV = EXT_BASE + ["--operator", "ggn", "--host_loop", "--lanczos_iters", "20"]
+PLAIN_ARGV = EXT_BASE + ["--host_loop", "--lanczos_iters", "20"]
+LW_TRACE_TOL = 1e-2  # |trace| over max(1, max |lambda|) per block (the golden test's)
+LW_T_RTOL = 1e-5  # h_0's T against the in-core operator, of max |T|
+GGN_PSD_TOL = 1e-4  # lowest Ritz value >= -tol * lambda_max
+# rel-L2 of the GGN matvec against the explicit product: about 10x the
+# first card reading, 2.1e-7 (PERF.md)
+GGN_INDEP_LIMIT = 2e-6
+LIN_RTOL = 1e-4  # linearized against the plain loop, extremes of max |lambda|
+BIG_RTOL = {"float32": 1e-5, "bfloat16": 2e-3}
+TRAIN_LIN_RTOL = 1e-3  # 9e loss and eig_max against phase 4's
+EF_N = 8
+EF_PLAIN_RTOL = 1e-5  # kernel pair against its f32 plain version, same G
+EF_BF16_RTOL = 2e-2  # against the JAX-rounding plain version and an f32 G
+EF_RECOMPUTED_RTOL = 1e-3  # a recomputed bf16 G may round a few entries apart
+TINY_NEW_RTOL = 1e-5  # 9g card against CPU, extremes of max |lambda|
+CARD = torch.device("cuda")
 
 
 def card_line() -> str:
@@ -464,14 +499,14 @@ class _Tee:
         self.out.flush()
 
 
-def run_cli(spectrum_cli, argv):
+def run_cli(spectrum_cli, argv, on_iter=None):
     """``cli.spectrum.main(argv)`` with its report kept: (spectrum, result,
     stdout lines, host seconds of the whole call, synchronised)."""
     tee = _Tee(sys.stdout)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
-        spec, res = spectrum_cli.main(argv)
+        spec, res = spectrum_cli.main(argv, on_iter=on_iter)
     torch.cuda.synchronize()
     return spec, res, "".join(tee.parts).splitlines(), time.perf_counter() - t0
 
@@ -677,6 +712,361 @@ def estimators_card_vs_cpu(spectrum_cli) -> dict:
     return out
 
 
+def extremes_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest gap of the two extremes, over b's max |lambda|."""
+    a, b = a.double().cpu(), b.double().cpu()
+    scale = float(b.abs().max())
+    return max(abs(float(a.max() - b.max())), abs(float(a.min() - b.min()))) / scale
+
+
+def layerwise_124m(spectrum_cli, spectra, kernels) -> dict:
+    """Phase 9a: the per-block sweep, 12 blocks x 10 masked HVPs, its
+    artifacts and gates; then h_0's T against an in-core LayerHessianOperator
+    T-only run from the same start vector (the generator's first draw)."""
+    from hessian_llm_vision_tpu_torch.cli import spectrum_layerwise
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.curvature.operators import LayerHessianOperator
+    from hessian_llm_vision_tpu_torch.krylov.lanczos import lanczos
+    from hessian_llm_vision_tpu_torch.utils import trees
+
+    seen = {}
+    sweep = spectrum_layerwise.layerwise_spectrum_host
+
+    def timed_sweep(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen["t"] = sweep(*args, **kw)
+        torch.cuda.synchronize()
+        seen["s"] = time.perf_counter() - t0
+        return seen["t"]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, plot = os.path.join(tmp, "lw"), os.path.join(tmp, "grid.png")
+        spectrum_layerwise.layerwise_spectrum_host = timed_sweep
+        try:
+            results, _, _, main_s = run_cli(spectrum_cli, LW_ARGV + ["--out_spectrum", out,
+                                                                      "--plot", plot])
+        finally:
+            spectrum_layerwise.layerwise_spectrum_host = sweep
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        names = sorted(os.path.basename(f) for f in glob.glob(out + "_*.npz"))
+        saved = {label: spectra.load_spectrum(f"{out}_{label}") for label in results}
+        grid = os.path.exists(plot) and os.path.getsize(plot) > 0
+    lam = {label: (float(sp.eigvals.max()), float(sp.eigvals.min())) for label, sp in saved.items()}
+    trace = {label: abs(float(torch.dot(sp.eigvals, sp.gammas)))
+             / max(1.0, float(sp.eigvals.abs().max())) for label, sp in saved.items()}
+    gsum = {label: abs(float(sp.gammas.sum()) - 1) for label, sp in saved.items()}
+    dev = CARD
+    wl = build_workload(spectrum_cli.build_parser().parse_args(LW_ARGV), dev)
+    labels, spans = trees.group_spans(*trees.partition_labels(wl.params), trees.BLOCK_GROUP_REGEX)
+    off, size = spans[0]
+    q = torch.zeros(sum(p.numel() for p in wl.params.values()), device=dev)
+    q[off:off + size] = torch.randn(size, generator=torch.Generator().manual_seed(997)).to(dev)
+    mask = trees.subtree_mask(wl.params, lambda n: n.startswith(labels[0] + "/"))
+    op = LayerHessianOperator(wl.loss_fn, wl.params, wl.batches[0], mask)
+    ref = lanczos(op.matvec, op.dim, 10, v0=q, reorth=False, store_basis=False)
+    got = seen["t"][labels[0]]
+    t_scale = float(torch.cat([ref.alphas, ref.betas]).abs().max())
+    t_err = max(float((got.alphas - ref.alphas).abs().max()),
+                float((got.betas - ref.betas).abs().max())) / t_scale
+    del wl, op, q
+    hvps = sum(r.num_iters for r in seen["t"].values())
+    out = {"blocks": list(results), "lambda_max_by_block": {k: v[0] for k, v in lam.items()},
+           "lambda_min_by_block": {k: v[1] for k, v in lam.items()},
+           "trace_over_max_lambda": max(trace.values()), "gamma_sum_err": max(gsum.values()),
+           "h_0_T_err_vs_incore": t_err, "masked_hvps": hvps, "sweep_s": seen["s"],
+           "hvps_per_s": hvps / seen["s"], "main_s": main_s, "max_memory_allocated_bytes": peak,
+           "rank_k_launches": launches}
+    print(json.dumps({"layerwise_124m": out}))
+    check_gates("9a layerwise block sweep", {
+        "12 block artifacts h_0..h_11": names == sorted(f"lw_h_{i}.npz" for i in range(12)),
+        "grid written": grid,
+        "weights sum to 1 per block": max(gsum.values()) <= 1e-3,
+        "lambda_max > 0 per block": all(v[0] > 0 for v in lam.values()),
+        "|trace| <= 1e-2 max(1, max |lambda|) per block": max(trace.values()) <= LW_TRACE_TOL,
+        "h_0's T = the in-core operator's": t_err <= LW_T_RTOL,
+        "no rank-k launch": all(n == 0 for n in launches.values()),
+    })
+    return out
+
+
+def ggn_124m(spectrum_cli, kernels, hvp_ms: float) -> dict:
+    """Phase 9b: the GGN host loop; then its matvec on the start vector
+    against an independent product: jvp of the logits, the softmax Hessian
+    (diag p - p p^T) / N_targets written out in float64 on the shifted
+    positions, vjp."""
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.krylov import driver
+    from hessian_llm_vision_tpu_torch.krylov.lanczos import start_vector
+    from hessian_llm_vision_tpu_torch.utils.cuda_timing import time_ms
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    iters = []
+    spec, _, lines, main_s = run_cli(spectrum_cli, GGN_ARGV,
+                                     on_iter=lambda i, sec: iters.append(sec))
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    lam_max, lam_min = float(spec.eigvals.max()), float(spec.eigvals.min())
+    dev = CARD
+    wl = build_workload(spectrum_cli.build_parser().parse_args(GGN_ARGV), dev)
+    fl = Flattener(wl.params)
+    batch = wl.batches[0]
+    q1 = start_vector(torch.randn(fl.size, generator=torch.Generator().manual_seed(997)).to(dev),
+                      None, fl.size)
+    matvec = driver.dataset_matvec(wl.loss_fn, wl.params, wl.batches, operator="ggn",
+                                   model_fn=wl.model_fn, out_loss_fn=wl.out_loss_fn)
+    w = matvec(q1)
+    ggn_ms = time_ms(lambda: matvec(q1), iters=3, warmup=1)
+
+    def f(p):
+        return wl.model_fn(p, batch)
+
+    with torch.no_grad():
+        tangent = fl.unflatten(q1)
+        logits, jq = torch.func.jvp(f, (dict(wl.params),), ({n: tangent[n] for n in wl.params},))
+        probs = torch.softmax(logits[:, :-1].double(), dim=-1)
+        u = jq[:, :-1].double()
+        del jq
+        wts = batch["attention_mask"][:, 1:].double()
+        hu = (probs * u - probs * (probs * u).sum(-1, keepdim=True)) * (wts / wts.sum())[..., None]
+        del probs, u
+        h_out = torch.zeros_like(logits)
+        h_out[:, :-1] = hu.float()
+        del hu, logits
+    _, vjp_fn = torch.func.vjp(f, dict(wl.params))
+    ref = fl.flatten(vjp_fn(h_out)[0])
+    err = rel_l2(w, ref)
+    del wl, matvec, vjp_fn, h_out, ref, w
+    out = {"lambda_max": lam_max, "lambda_min": lam_min, "matvecs": len(iters),
+           "iter_s_median": statistics.median(iters), "ggn_matvec_ms": ggn_ms,
+           "ggn_over_phase6_hvp": ggn_ms / hvp_ms, "cli_wall_s": cli_wall_s(lines),
+           "hvps_per_s": len(iters) / cli_wall_s(lines), "main_s": main_s,
+           "rel_l2_vs_explicit_softmax_hessian": err, "limit": GGN_INDEP_LIMIT,
+           "max_memory_allocated_bytes": peak, "rank_k_launches": launches}
+    print(json.dumps({"ggn_124m": out}))
+    check_gates("9b GGN host loop", {
+        "20 iterations": len(iters) == 20,
+        "Ritz values >= -1e-4 lambda_max": lam_min >= -GGN_PSD_TOL * lam_max,
+        "matvec = the explicit product": err <= GGN_INDEP_LIMIT,
+        "no rank-k launch": all(n == 0 for n in launches.values()),
+    })
+    return out
+
+
+def _peak_run(spectrum_cli, kernels, argv):
+    """A host-loop run from fresh memory and launch counts: (spectrum,
+    stdout lines, per-iteration host seconds, whole-call seconds, peak
+    bytes, launches).  An iteration's seconds end with T on the host."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    iters = []
+    spec, res, lines, main_s = run_cli(spectrum_cli, argv, on_iter=lambda i, sec: iters.append(sec))
+    return (spec, lines, iters, main_s, torch.cuda.max_memory_allocated(),
+            dict(kernels.LAUNCHES))
+
+
+def linearized_and_bigmodel_124m(spectrum_cli, kernels, hvp_ms: float) -> dict:
+    """Phases 9c and 9d: the plain host loop (20 HVPs), then --linearized
+    (at the first of bs8, bs4, bs2 whose residuals fit, with the plain loop
+    again at a cut batch), then --bigmodel with float32 and bfloat16
+    vectors, each against the plain run of its batch."""
+    plain, lines, iters, main_s, peak, launches = _peak_run(spectrum_cli, kernels, PLAIN_ARGV)
+    plain_iter = statistics.median(iters)
+    out = {"plain": {"lambda_max": float(plain.eigvals.max()),
+                     "lambda_min": float(plain.eigvals.min()), "iter_s_median": plain_iter,
+                     "cli_wall_s": cli_wall_s(lines), "main_s": main_s,
+                     "max_memory_allocated_bytes": peak, "rank_k_launches": launches}}
+    cut = []
+    for argv in (PLAIN_ARGV, PLAIN_ARGV + ["--batch_size", "4"], PLAIN_ARGV + ["--batch_size", "2"]):
+        bs = spectrum_cli.build_parser().parse_args(argv).batch_size
+        try:
+            lin, lines, iters, main_s, peak, launches = _peak_run(spectrum_cli, kernels,
+                                                                  argv + ["--linearized"])
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            cut.append({"batch_size": bs, "error": str(e).splitlines()[0]})
+            torch.cuda.empty_cache()
+    else:
+        raise SystemExit(f"9c: the linearized residuals fit at no batch size: {cut}")
+    nbytes, resid_s = reported(lines, r"^linearized residual pass: (\d+) bytes in ([\d.]+)s$")
+    tangent_s = statistics.median(iters[1:])  # the first also holds the residual pass
+    ref = plain if argv is PLAIN_ARGV else _peak_run(spectrum_cli, kernels, argv)[0]
+    out["linearized"] = {
+        "batch_size": bs, "oom_at": cut, "residual_bytes": int(nbytes),
+        "residual_pass_s": float(resid_s), "tangent_ms_median": 1e3 * tangent_s,
+        "tangent_over_phase6_hvp": 1e3 * tangent_s / hvp_ms,
+        "tangent_over_plain_iteration": tangent_s / plain_iter,
+        "extremes_rel_vs_plain": extremes_rel(lin.eigvals, ref.eigvals),
+        "cli_wall_s": cli_wall_s(lines), "main_s": main_s,
+        "hvps_per_s": 20 / cli_wall_s(lines), "max_memory_allocated_bytes": peak,
+        "rank_k_launches": launches}
+    for q in ("float32", "bfloat16"):
+        big, lines, iters, main_s, peak, launches = _peak_run(
+            spectrum_cli, kernels, PLAIN_ARGV + ["--bigmodel", "--bigmodel_q", q])
+        it = statistics.median(iters)
+        out[f"bigmodel_{q}"] = {
+            "extremes_rel_vs_plain": extremes_rel(big.eigvals, plain.eigvals),
+            "limit": BIG_RTOL[q], "iter_s_median": it, "iter_over_plain": it / plain_iter,
+            "cli_wall_s": cli_wall_s(lines), "hvps_per_s": 20 / cli_wall_s(lines),
+            "main_s": main_s, "max_memory_allocated_bytes": peak, "rank_k_launches": launches}
+    print(json.dumps({"linearized_and_bigmodel_124m": out}))
+    runs = [out["plain"], out["linearized"], out["bigmodel_float32"], out["bigmodel_bfloat16"]]
+    check_gates("9c/9d linearized and bigmodel", {
+        "linearized extremes = the plain loop's": out["linearized"]["extremes_rel_vs_plain"]
+        <= LIN_RTOL,
+        **{f"bigmodel {q} extremes = the plain loop's":
+           out[f"bigmodel_{q}"]["extremes_rel_vs_plain"] <= BIG_RTOL[q] for q in BIG_RTOL},
+        "no rank-k launch": all(n == 0 for r in runs for n in r["rank_k_launches"].values()),
+    })
+    return out
+
+
+def linearized_training(train_cli, kernels, phase4: list) -> dict:
+    """Phase 9e: phase 4's training with --refresh_linearized: 4 steps, loss
+    and eig_max as phase 4's, each rank-k kernel once per step."""
+    records = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    train_cli.main(TRAIN_ARGV + ["--refresh_linearized"],
+                   on_step=lambda step, rec: records.append(rec))
+    launches = dict(kernels.LAUNCHES)
+    rel = {k: max(abs(a[k] / b[k] - 1) for a, b in zip(records, phase4)) for k in ("loss",
+                                                                                  "eig_max")}
+    out = {"steps": records, "rel_vs_phase4": rel,
+           "refresh_step_s": [r["seconds"] for r in records[::2]],
+           "phase4_refresh_step_s": [r["seconds"] for r in phase4[::2]],
+           "frozen_step_s": [r["seconds"] for r in records[1::2]],
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "launches": launches}
+    print(json.dumps({"linearized_training": out}))
+    check_gates("9e linearized training", {
+        "4 steps": len(records) == 4,
+        "loss and eig_max as phase 4's": max(rel.values()) <= TRAIN_LIN_RTOL,
+        "each kernel once per step": all(launches[n] == 4 for n in TPU_KERNELS),
+    })
+    return out
+
+
+def empirical_fisher_124m(spectrum_cli, kernels, spectral) -> dict:
+    """Phase 9f: G = 8 per-example gradients of one bs8 x seq512 batch in
+    bf16; one matvec of EmpiricalFisherOperator counted (the kernel pair);
+    then on the same G the pair against its f32 plain version and the
+    JAX-rounding plain version, and against an f32 G; and the row blocks
+    of a G taller than one launch takes, against the plain version."""
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.curvature import ggn
+    from hessian_llm_vision_tpu_torch.krylov.lanczos import start_vector
+
+    dev = CARD
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wl = build_workload(spectrum_cli.build_parser().parse_args(EXT_BASE), dev)
+    batch = wl.batches[0]
+
+    def per_example(p, e):
+        return wl.loss_fn(p, {k: x[None] for k, x in e.items()})
+
+    dim = sum(p.numel() for p in wl.params.values())
+    q = start_vector(torch.randn(dim, generator=torch.Generator().manual_seed(997)).to(dev),
+                     None, dim)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op = ggn.EmpiricalFisherOperator(per_example, wl.params, batch, grad_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    w_op = op.matvec(q)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    del op
+    G = ggn.per_example_grads(per_example, wl.params, batch, grad_dtype=torch.bfloat16)
+    w = ggn.ef_apply(G, q, EF_N)
+    c = torch.full((EF_N,), 1.0 / EF_N, device=dev)
+    plain = spectral.rank_k_axpy_reference(torch.zeros_like(q), G,
+                                           spectral.rank_k_dots_reference(q, G, c))
+    dots = (G.float() @ q.to(G.dtype).float()).to(G.dtype).float()
+    jax_rounding = (dots @ G.float()) / EF_N
+    del G
+    G32 = ggn.per_example_grads(per_example, wl.params, batch)
+    w32 = ggn.ef_apply(G32, q, EF_N)
+    del G32
+    tall = torch.randn((kernels._MAX_K + 5, 4096), generator=torch.Generator(device=CARD)
+                       .manual_seed(3), device=dev)
+    v = torch.randn(4096, generator=torch.Generator(device=CARD).manual_seed(4), device=dev)
+    tall_err = rel_l2(ggn.ef_apply(tall, v, tall.shape[0]), (tall.T @ (tall @ v)) / tall.shape[0])
+    out = {"n": EF_N, "P": dim, "grads_s": grads_s,
+           "rel_l2_operator_vs_ef_apply": rel_l2(w_op, w),
+           "rel_l2_vs_f32_plain": rel_l2(w, plain), "rel_l2_vs_jax_rounding_plain":
+               rel_l2(w, jax_rounding), "rel_l2_vs_f32_G": rel_l2(w, w32),
+           "rel_l2_row_blocks": tall_err, "max_memory_allocated_bytes":
+               torch.cuda.max_memory_allocated(), "launches": launches}
+    del wl, tall
+    print(json.dumps({"empirical_fisher_124m": out}))
+    check_gates("9f empirical Fisher", {
+        "operator matvec ~ ef_apply on a recomputed G":
+            out["rel_l2_operator_vs_ef_apply"] <= EF_RECOMPUTED_RTOL,
+        "pair = f32 plain version": out["rel_l2_vs_f32_plain"] <= EF_PLAIN_RTOL,
+        "pair ~ JAX-rounding plain version": out["rel_l2_vs_jax_rounding_plain"] <= EF_BF16_RTOL,
+        "bf16 G ~ f32 G": out["rel_l2_vs_f32_G"] <= EF_BF16_RTOL,
+        "row blocks summed": tall_err <= EF_PLAIN_RTOL,
+        "each kernel once in the matvec": all(launches[n] == 1 for n in TPU_KERNELS),
+    })
+    return out
+
+
+def new_paths_card_vs_cpu(spectrum_cli, train_cli) -> dict:
+    """Phase 9g: gpt2-tiny, card against CPU, the same draws: the layerwise
+    block sweep (host loop) and an in-core leaf sweep, the GGN host loop and
+    in-core Fisher, --linearized, --bigmodel (f32 gated, bf16 read) and the
+    linearized trainer."""
+    it = ["--lanczos_iters", "12"]
+    one = TINY_EXT + ["--num_batches", "1", "--host_loop"] + it
+    runs = {
+        "layerwise_block_host_loop": TINY_EXT + it + ["--layerwise", "--layerwise_group",
+                                                      "block", "--host_loop"],
+        "layerwise_leaf_incore": TINY_EXT + it + ["--layerwise", "--group_regex",
+                                                  r"(h_1/mlp/c_\w+/kernel)"],
+        "ggn_host_loop": TINY_EXT + it + ["--operator", "ggn", "--host_loop"],
+        "fisher_incore": TINY_EXT + it + ["--operator", "fisher"],
+        "linearized": one + ["--linearized"],
+        "bigmodel_float32": one + ["--bigmodel", "--bigmodel_q", "float32"],
+        "bigmodel_bfloat16": one + ["--bigmodel"],
+    }
+    out = {}
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        for name, argv in runs.items():
+            card, cpu = (spectrum_cli.main(argv + extra)[0] for extra in ([], ["--cpu"]))
+            if isinstance(card, dict):  # layerwise: the worst block
+                out[name] = max(extremes_rel(card[k].eigvals, cpu[k].eigvals) for k in cpu)
+            else:
+                out[name] = extremes_rel(card.eigvals, cpu.eigvals)
+        tiny = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32", "--k", "4",
+                "--delta", "1e-2", "--refresh_every", "2", "--lanczos_momentum", "0.5",
+                "--max_steps", "3", "--no-basis_bf16", "--refresh_linearized"]
+        recs = ([], [])
+        for r, extra in zip(recs, ([], ["--cpu"])):
+            train_cli.main(tiny + extra, on_step=lambda s, rec, r=r: r.append(rec))
+    out["train_linearized_loss_rel"] = max(abs(a["loss"] / b["loss"] - 1) for a, b in zip(*recs))
+    out["train_linearized_eig_max_rel"] = max(abs(a["eig_max"] / b["eig_max"] - 1)
+                                              for a, b in zip(*recs))
+    print(json.dumps({"new_paths_card_vs_cpu": out}))
+    check_gates("9g card against CPU", {
+        **{name: out[name] <= (BIG_RTOL["bfloat16"] if name == "bigmodel_bfloat16"
+                               else TINY_NEW_RTOL) for name in runs},
+        "linearized trainer loss": out["train_linearized_loss_rel"] <= 1e-5,
+        "linearized trainer eig_max": out["train_linearized_eig_max_rel"] <= 1e-3,
+    })
+    return out
+
+
 def main() -> int:
     phase(1, "device")
     if not torch.cuda.is_available():
@@ -799,15 +1189,64 @@ def main() -> int:
         name: {key: r[key] for key in r if key.endswith(("_s", "matvecs", "hvps", "restarts",
                                                          "per_s", "_bytes", "launches"))}
         for name, r in ext.items()}}))
+
+    t0 = phase(9, "layerwise, GGN, linearized, bigmodel, linearized training and the "
+                  "empirical Fisher at GPT-2 124M; gpt2-tiny card vs CPU")
+    cur = {"9a_layerwise": layerwise_124m(spectrum_cli, spectra, kernels)}
+    print(f"phase 9a took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cur["9b_ggn"] = ggn_124m(spectrum_cli, kernels, breakdown["hvp_ms"])
+    print(f"phase 9b took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cur["9cd"] = linearized_and_bigmodel_124m(spectrum_cli, kernels, breakdown["hvp_ms"])
+    print(f"phase 9c/9d took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cur["9e_train"] = linearized_training(train_cli, kernels, records)
+    print(f"phase 9e took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cur["9f_ef"] = empirical_fisher_124m(spectrum_cli, kernels, spectral)
+    print(f"phase 9f took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    new_paths_card_vs_cpu(spectrum_cli, train_cli)
+    print(f"phase 9g took {time.perf_counter() - t0:.1f} s")
+    lin, cd = cur["9cd"]["linearized"], cur["9cd"]
+    print(json.dumps({"curvature_ext": {
+        "9a_layerwise": {k: cur["9a_layerwise"][k] for k in (
+            "masked_hvps", "sweep_s", "hvps_per_s", "main_s", "max_memory_allocated_bytes")},
+        "9b_ggn": {k: cur["9b_ggn"][k] for k in (
+            "matvecs", "ggn_matvec_ms", "ggn_over_phase6_hvp", "cli_wall_s", "hvps_per_s",
+            "max_memory_allocated_bytes")},
+        "9c_linearized": {k: lin[k] for k in (
+            "batch_size", "residual_bytes", "residual_pass_s", "tangent_ms_median",
+            "tangent_over_phase6_hvp", "cli_wall_s", "hvps_per_s", "max_memory_allocated_bytes")},
+        "9c_plain": {k: cd["plain"][k] for k in ("iter_s_median", "cli_wall_s",
+                                                 "max_memory_allocated_bytes")},
+        **{f"9d_bigmodel_{q}": {k: cd[f"bigmodel_{q}"][k] for k in (
+            "iter_s_median", "cli_wall_s", "hvps_per_s", "max_memory_allocated_bytes")}
+           for q in BIG_RTOL},
+        "9e_train": {k: cur["9e_train"][k] for k in ("refresh_step_s", "phase4_refresh_step_s",
+                                                     "frozen_step_s",
+                                                     "max_memory_allocated_bytes")},
+        "9f_ef": {k: cur["9f_ef"][k] for k in ("grads_s", "max_memory_allocated_bytes")},
+    }}))
     by_path = {"phase4_train_4_steps": launches,
                "phase7b_spectrum": headline["rank_k_launches"],
                "phase8a_thick_restart": ext["8a_thick_restart"]["rank_k_launches"],
                "phase8b_host_loop_and_deflated_kpm": ext["8b_deflated_kpm"]["rank_k_launches"],
                "phase8b_kpm_stage": ext["8b_deflated_kpm"]["kpm_stage_launches"],
-               "phase8c_hutchpp": ext["8c_hutchpp"]["rank_k_launches"]}
-    for path, counts in by_path.items():  # 7b and 8c take no rank-k apply
-        runs_kernels = not path.startswith(("phase7b", "phase8c"))
-        if runs_kernels and not all(counts[n] > 0 for n in TPU_KERNELS):
+               "phase8c_hutchpp": ext["8c_hutchpp"]["rank_k_launches"],
+               "phase9a_layerwise": cur["9a_layerwise"]["rank_k_launches"],
+               "phase9b_ggn_host_loop": cur["9b_ggn"]["rank_k_launches"],
+               "phase9c_linearized": lin["rank_k_launches"],
+               **{f"phase9d_bigmodel_{q}": cd[f"bigmodel_{q}"]["rank_k_launches"]
+                  for q in BIG_RTOL},
+               "phase9e_train_linearized": cur["9e_train"]["launches"],
+               "phase9f_empirical_fisher_matvec": cur["9f_ef"]["launches"]}
+    # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d) take no
+    # rank-k apply; every other path must have launched both kernels
+    t_only = ("phase7b", "phase8c", "phase9a", "phase9b", "phase9c", "phase9d")
+    for path, counts in by_path.items():
+        if not path.startswith(t_only) and not all(counts[n] > 0 for n in TPU_KERNELS):
             raise SystemExit(f"a rank-k kernel was never launched on {path}: {counts}")
 
     entries = []

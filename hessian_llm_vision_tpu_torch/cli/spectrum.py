@@ -1,11 +1,13 @@
-"""Post-hoc Hessian spectrum of a model (port of ``cli/spectrum.py``).
+"""Post-hoc curvature spectrum of a model (port of ``cli/spectrum.py``).
 
-Dataset-averaged (or single-batch, or layer-restricted) Hessian, seeded
-probe Lanczos with an optional Ritz basis (on the device or in host
-memory), multi-probe SLQ averaging, per-iteration resumable T checkpoints,
-converged eigenpairs by thick restart, the KPM density (optionally
-deflated), the Hutch++ trace, and the spectrum artifact with an optional
-stem plot.  Flag names and defaults are the JAX CLI's; flags of paths not
+Dataset-averaged (or single-batch, or layer-restricted) Hessian, or the
+single-batch Gauss-Newton / Fisher matrix, seeded probe Lanczos with an
+optional Ritz basis (on the device or in host memory), multi-probe SLQ
+averaging, per-iteration resumable T checkpoints, converged eigenpairs by
+thick restart, the KPM density (optionally deflated), the Hutch++ trace,
+per-leaf or per-block spectra, the linearized and the parameter-shaped
+low-precision host loops, and the spectrum artifact with an optional stem
+plot.  Flag names and defaults are the JAX CLI's; flags of paths not
 ported yet are accepted by the parser and exit with "not ported yet",
 naming their ROADMAP item; their sub-options come with the slice that
 ports each path.
@@ -22,6 +24,15 @@ Examples:
       --thick_restart 4 --lanczos_iters 12 --out_spectrum /tmp/tr
   python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
       --kpm 40 --kpm_deflate 3 --hutchpp 9 --out_spectrum /tmp/kpm
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
+      --layerwise --layerwise_group block --host_loop --lanczos_iters 8 \\
+      --out_spectrum /tmp/lw --plot /tmp/lw.png
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
+      --operator ggn --host_loop --lanczos_iters 8 --out_spectrum /tmp/ggn
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
+      --num_batches 1 --host_loop --linearized --lanczos_iters 8
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
+      --num_batches 1 --host_loop --bigmodel --bigmodel_q bfloat16
   python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2 \\
       --dataset random --num_batches 4 --batch_size 8 --max_length 512 \\
       --attn_block_q 512 --loss_chunk 512 --lanczos_iters 35 --host_loop \\
@@ -37,8 +48,10 @@ import torch
 
 from hessian_llm_vision_tpu_torch.cli.common import add_common_args, device_for
 from hessian_llm_vision_tpu_torch.cli.spectrum_flags import validate_flags
+from hessian_llm_vision_tpu_torch.cli.spectrum_layerwise import layerwise_main
 from hessian_llm_vision_tpu_torch.cli.spectrum_paths import host_loop_main, incore_main
 from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+from hessian_llm_vision_tpu_torch.curvature.ggn import FisherOperator, GGNOperator
 from hessian_llm_vision_tpu_torch.curvature.operators import (
     DatasetHessianOperator,
     HessianOperator,
@@ -48,9 +61,6 @@ from hessian_llm_vision_tpu_torch.utils import trees
 
 # flags of paths the port does not have yet, with their ROADMAP item
 _UNPORTED_FLAGS = (
-    ("--layerwise", "layerwise", "A10d"),
-    ("--linearized", "linearized", "A10e"),
-    ("--bigmodel", "bigmodel", "A10f"),
     ("--probe_parallel", "probe_parallel", "A10g"),
     ("--precision_check", "precision_check", "A11"),
 )
@@ -97,7 +107,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--layer", default=None,
                    help="restrict to the parameters whose '/'-joined path "
                    "contains this (e.g. h_0/attn)")
-    p.add_argument("--layerwise", action="store_true", help=_not_ported("A10d"))
+    p.add_argument("--layerwise", action="store_true",
+                   help="block-diagonal spectrum: one spectrum per leaf")
+    p.add_argument("--layerwise_group", default="leaf",
+                   choices=["leaf", "block"],
+                   help="'leaf': one spectrum per parameter leaf "
+                   "(gpt2_savehessian_layer.py); 'block': one per repeated "
+                   "transformer block h_i/blocks_i/layers_i, skipping "
+                   "embeddings/head (the visual-eigen.ipynb cell-12 sweep)")
+    p.add_argument("--group_regex", default=None,
+                   help="custom grouping regex for --layerwise (capture "
+                   "group 1 = block label); overrides --layerwise_group")
     p.add_argument("--t_checkpoint", default=None,
                    help="save T (and, in-core, the full Lanczos state) every "
                    "iteration (resumable)")
@@ -122,13 +142,26 @@ def build_parser() -> argparse.ArgumentParser:
                    "host-loop iteration (the per-batch HVPs summed in place, "
                    "the scale, the recurrence), with or without this flag")
     p.add_argument("--probe_parallel", action="store_true", help=_not_ported("A10g"))
-    p.add_argument("--linearized", action="store_true", help=_not_ported("A10e"))
+    p.add_argument("--linearized", action="store_true",
+                   help="with --host_loop + a single batch: pay the primal "
+                   "forward+backward ONCE and run every Lanczos iteration "
+                   "on the cached linearization (curvature/linearized.py); "
+                   "the residuals stay on the device for the whole run "
+                   "(curvature.linearized.residual_bytes counts them)")
     p.add_argument("--qprev_bf16", action="store_true",
                    help="with --fused_step: store the lagged Lanczos vector in "
                    "bf16 (~1e-3 extreme-Ritz perturbation)")
-    p.add_argument("--bigmodel", action="store_true", help=_not_ported("A10f"))
+    p.add_argument("--bigmodel", action="store_true",
+                   help="with --host_loop + a single batch: parameter-shaped "
+                   "Krylov vectors stored in --bigmodel_q, f32 arithmetic "
+                   "(no flat P-vector; the memory plan for models near the "
+                   "card's memory)")
+    p.add_argument("--bigmodel_q", default="bfloat16",
+                   choices=["bfloat16", "float32"],
+                   help="Krylov vector storage dtype for --bigmodel")
     p.add_argument("--operator", default="hessian",
-                   help="hessian (ggn | fisher: " + _not_ported("A10h") + ")")
+                   help="hessian | ggn | fisher (GGN = J^T H_out J, Fisher = "
+                   "GGN of the NLL — colaexp.py parity; single-batch)")
     p.add_argument("--thick_restart", type=int, default=0, metavar="K",
                    help="compute K CONVERGED extremal eigenpairs by "
                    "thick-restart Lanczos (Wu & Simon) inside a fixed "
@@ -167,18 +200,44 @@ def _refuse_unported(args) -> None:
     for flag, attr, item in _UNPORTED_FLAGS:
         if getattr(args, attr):
             raise SystemExit(f"{flag}: {_not_ported(item)}")
-    if args.operator in ("ggn", "fisher"):
-        raise SystemExit(f"--operator {args.operator}: {_not_ported('A10h')}")
-    if args.operator != "hessian":
+    if args.operator not in ("hessian", "ggn", "fisher"):
         raise SystemExit(f"unknown --operator {args.operator!r}")
     if args.hvp_precision not in ("high", "highest"):
         raise SystemExit(f"--hvp_precision {args.hvp_precision}: {_not_ported('A11')}")
+
+
+def _refuse_layerwise_drops(args) -> None:
+    """--layerwise runs one plain Hessian Lanczos per block: the flags it
+    would drop exit, with the JAX CLI's message."""
+    dropped = [flag for flag, set_ in [
+        ("--probes", args.probes > 1),
+        ("--basis", args.basis),
+        ("--t_checkpoint", bool(args.t_checkpoint)),
+        ("--resume_spectrum", bool(args.resume_spectrum)),
+        ("--compare_to", bool(args.compare_to)),
+        ("--operator " + args.operator, args.operator != "hessian"),
+        ("--fused_step", args.fused_step),
+        ("--bigmodel", args.bigmodel),
+        ("--host_basis", args.host_basis),
+    ] if set_]
+    if dropped:
+        raise SystemExit(f"--layerwise does not support {', '.join(dropped)}; "
+                         "each block runs a plain T-only (or in-core) Hessian Lanczos")
 
 
 def _make_operator(args, wl):
     batches = wl.batches
     n_total = len(batches) * wl.batch_size
     single_norm = "mean" if args.normalization == "dataset" else args.normalization
+    if args.operator in ("ggn", "fisher"):
+        if wl.model_fn is None:
+            raise SystemExit(f"--operator {args.operator} unsupported for "
+                             f"model {wl.name!r} (no model_fn)")
+        if len(batches) > 1:
+            print(f"[{args.operator}] single-batch operator: using batch 1 of {len(batches)}")
+        maker = GGNOperator if args.operator == "ggn" else FisherOperator
+        return maker(wl.model_fn, wl.out_loss_fn, wl.params, batches[0], damping=0.0,
+                     precision=args.hvp_precision)
     if args.layer:
         mask = trees.subtree_mask(wl.params, lambda label: args.layer in label)
         n_sel = sum(mask.values())
@@ -201,17 +260,22 @@ def _make_operator(args, wl):
 def main(argv=None, on_iter: Optional[Callable[[int, float], None]] = None):
     """Run the spectrum job; returns ``(spectrum, result)``: the last
     probe's ``LanczosResult`` (None for multi-probe SLQ), or the
-    ``ThickRestartResult`` of ``--thick_restart``.  ``on_iter(i, seconds)``
+    ``ThickRestartResult`` of ``--thick_restart``; for ``--layerwise``,
+    ``({label: Spectrum}, None)``.  ``on_iter(i, seconds)``
     receives each host-loop iteration's seconds, synchronised with the
     device."""
     args = build_parser().parse_args(argv)
     validate_flags(args)
     _refuse_unported(args)
+    if args.layerwise:
+        _refuse_layerwise_drops(args)
     device = device_for(args.cpu)
     # curvature is true fp32: TF32 gives wrong extreme eigenvalues
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     wl = build_workload(args, device)
+    if args.layerwise:
+        return layerwise_main(args, wl, device), None
     if args.host_loop:
         return host_loop_main(args, wl, device, on_iter)
     return incore_main(args, wl, _make_operator, device)

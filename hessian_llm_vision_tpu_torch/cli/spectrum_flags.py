@@ -2,8 +2,8 @@
 ``cli/spectrum_flags.py``): a combination that would silently drop a flag
 exits with an error instead of running a job that never produces the
 asked-for output.  The messages are the JAX CLI's.  Only the ported flags
-are checked here; the sub-options and checks of each refused path come with
-the slice that ports it.  ``cli/spectrum.py`` runs these checks first, then
+are checked here (``--probe_parallel`` and ``--precision_check`` wait for
+their slices).  ``cli/spectrum.py`` runs these checks first, then
 refuses the flags that the port does not have yet ("not ported yet")."""
 
 from __future__ import annotations
@@ -31,12 +31,26 @@ def validate_flags(args) -> None:
             "(drop --host_loop/--layerwise, or use krylov.trace directly "
             "with a host-loop matvec)"
         )
+    if args.linearized and (
+        not args.host_loop or args.fused_step or args.fused_iter
+        or args.bigmodel or args.probe_parallel or args.layerwise
+        or args.operator != "hessian"
+    ):
+        raise SystemExit(
+            "--linearized needs --host_loop with --operator hessian and is "
+            "exclusive with --fused_step/--fused_iter/--bigmodel/"
+            "--probe_parallel/--layerwise (the cached linearization "
+            "replaces the per-iteration HVP program)"
+        )
     if args.qprev_bf16 and not args.fused_step:
         raise SystemExit("--qprev_bf16 requires --fused_step (the plain "
                          "host loop keeps all flat vectors f32)")
-    if args.fused_iter and (not args.host_loop or args.fused_step):
+    if args.fused_iter and (
+        not args.host_loop or args.fused_step or args.bigmodel
+    ):
         raise SystemExit(
-            "--fused_iter needs --host_loop (and is exclusive with --fused_step)"
+            "--fused_iter needs --host_loop "
+            "(and is exclusive with --fused_step/--bigmodel)"
         )
     if args.host_loop and (args.basis or args.host_basis):
         # the host-loop branch is the T-only memory plan: no stored Krylov
@@ -47,10 +61,12 @@ def validate_flags(args) -> None:
             "--basis/--host_basis, or use the in-core path (--basis / "
             "--host_basis) or --thick_restart K for converged eigenpairs"
         )
-    if args.fused_step and not args.host_loop:
-        # without --host_loop it would silently fall through to the flat
+    if (args.bigmodel or args.fused_step) and not args.host_loop:
+        # without --host_loop these would silently fall through to the flat
         # in-core paths and their P-vector copies
-        raise SystemExit("--fused_step is a --host_loop mode; add --host_loop")
+        raise SystemExit(
+            "--bigmodel/--fused_step are --host_loop modes; add --host_loop"
+        )
     if args.thick_restart and (
         args.host_loop or args.layerwise or args.fused_step or args.bigmodel
     ):
@@ -71,4 +87,11 @@ def validate_flags(args) -> None:
         raise SystemExit(
             "--tr_dtype/--tr_tol have no effect without --thick_restart K "
             "or --kpm_deflate K"
+        )
+    if not args.layerwise and (
+        args.layerwise_group != "leaf" or args.group_regex
+    ):
+        raise SystemExit(
+            "--layerwise_group/--group_regex have no effect without "
+            "--layerwise"
         )

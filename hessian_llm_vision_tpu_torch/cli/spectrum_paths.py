@@ -1,8 +1,9 @@
 """The spectrum CLI's two computation paths (port of
 ``cli/spectrum_paths.py``):
 
-* :func:`host_loop_main` -- T-only host-driven spectra (the dataset loop,
-  ``--fused_step`` with ``--qprev_bf16``), LLM scale, and ``--kpm`` on the
+* :func:`host_loop_main` -- T-only host-driven spectra (the dataset loop
+  of the Hessian, GGN or Fisher, ``--fused_step`` with ``--qprev_bf16``,
+  ``--linearized``, ``--bigmodel``), LLM scale, and ``--kpm`` on the
   dataset operator;
 * :func:`incore_main` -- the in-core operator paths (CGS2 Lanczos with an
   optional Ritz basis, the basis in host memory, multi-probe SLQ,
@@ -48,6 +49,9 @@ def host_loop_main(args, wl, device: torch.device,
     ``on_iter(i, seconds)`` receives each iteration's host-clock seconds,
     taken after T is copied to the host, so they include the device work.
     """
+    if args.operator in ("ggn", "fisher") and wl.model_fn is None:
+        raise SystemExit(f"--operator {args.operator} unsupported for "
+                         f"model {wl.name!r} (no model_fn)")
     fl = Flattener(wl.params)
     last = 0.0  # host clock at the end of the previous iteration
 
@@ -70,15 +74,32 @@ def host_loop_main(args, wl, device: torch.device,
     for pi in range(max(args.probes, 1)):
         v0 = torch.randn(fl.size, generator=gen).to(device)
         last = time.perf_counter()
-        if args.fused_step:
+        single = dict(normalization=_single_batch_norm(args.normalization),
+                      batch_size=wl.batch_size, precision=args.hvp_precision,
+                      callback=callback, progress=args.probes == 1)
+        if args.linearized:
+            if len(wl.batches) != 1:
+                raise SystemExit("--linearized needs a single batch (--num_batches 1): "
+                                 "the cached residuals are per-batch (see "
+                                 "curvature.linearized.residual_bytes)")
+            res = driver.linearized_spectrum_host(wl.loss_fn, wl.params, wl.batches[0],
+                                                  args.lanczos_iters, v0=v0, flattener=fl,
+                                                  **single)
+        elif args.bigmodel:
+            if len(wl.batches) != 1 or args.operator != "hessian":
+                raise SystemExit("--bigmodel needs a single batch (--num_batches 1) "
+                                 "and --operator hessian")
+            q_dtype = torch.bfloat16 if args.bigmodel_q == "bfloat16" else torch.float32
+            res = driver.bigmodel_spectrum_host(wl.loss_fn, wl.params, wl.batches[0],
+                                                args.lanczos_iters, v0=fl.unflatten(v0),
+                                                q_dtype=q_dtype, **single)
+        elif args.fused_step:
             if len(wl.batches) != 1 or args.operator != "hessian":
                 raise SystemExit("--fused_step needs a single batch (--num_batches 1) "
                                  "and --operator hessian")
             res = driver.single_batch_spectrum_host_fused(
-                wl.loss_fn, wl.params, wl.batches[0], args.lanczos_iters, v0=v0,
-                normalization=_single_batch_norm(args.normalization),
-                batch_size=wl.batch_size, precision=args.hvp_precision, flattener=fl,
-                qprev_bf16=args.qprev_bf16, callback=callback, progress=args.probes == 1,
+                wl.loss_fn, wl.params, wl.batches[0], args.lanczos_iters, v0=v0, flattener=fl,
+                qprev_bf16=args.qprev_bf16, **single,
             )
         else:
             res = driver.dataset_spectrum_host(
@@ -86,6 +107,7 @@ def host_loop_main(args, wl, device: torch.device,
                 normalization=args.normalization, batch_size=wl.batch_size,
                 precision=args.hvp_precision, flattener=fl, callback=callback,
                 progress=args.probes == 1, operator=args.operator,
+                model_fn=wl.model_fn, out_loss_fn=wl.out_loss_fn,
             )
         s = ritz_decomposition(res)
         all_ev.append(s.eigvals)
@@ -123,9 +145,10 @@ def _thick_restart(args, wl, op, v0: torch.Tensor):
     tr_dtype = torch.bfloat16 if args.tr_dtype == "bfloat16" else torch.float32
     kw = dict(v0=v0, inner=args.lanczos_iters, which=args.tr_which, tol=args.tr_tol,
               store_dtype=tr_dtype, progress=True)
-    if not args.layer:
+    if args.operator == "hessian" and not args.layer:
         # the dataset HVP, CGS2 (the rank-k kernel pair on CUDA) and the row
-        # write per inner iteration, scalars fetched once per restart cycle
+        # write per inner iteration, scalars fetched once per restart cycle;
+        # the GGN / Fisher and --layer operators run through op.matvec
         res = driver.dataset_thick_restart_host(
             wl.loss_fn, wl.params, wl.batches, args.thick_restart,
             normalization=args.normalization, batch_size=wl.batch_size,
@@ -152,7 +175,8 @@ def incore_main(args, wl, make_operator, device: torch.device):
     """In-core operator paths: stored-basis Lanczos (on the device or in
     host memory), probes, checkpoints, thick restart, Hutch++, KPM."""
     op = make_operator(args, wl)
-    hvp_batches = 1 if (args.layer or len(wl.batches) == 1) else len(wl.batches)
+    single = args.layer or args.operator != "hessian" or len(wl.batches) == 1
+    hvp_batches = 1 if single else len(wl.batches)
     gen = torch.Generator().manual_seed(args.vector_seed)
 
     def v0():

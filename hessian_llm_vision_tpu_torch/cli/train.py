@@ -49,6 +49,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "params, off below)")
     p.add_argument("--refresh_batch_size", type=int, default=None,
                    help="run refresh HVPs on only the first N sequences")
+    p.add_argument("--refresh_linearized", action="store_true",
+                   help="lanczos-host: pay the refresh's primal fwd+bwd once "
+                   "per refresh, run the k Lanczos HVPs on the cached "
+                   "linearization (curvature/linearized.py); the residuals "
+                   "stay on the device during the refresh "
+                   "(curvature.linearized.residual_bytes counts them)")
     p.add_argument("--max_steps", type=int, default=0,
                    help="optimizer steps, cycling over the batches "
                    "(0 = one pass over the batches)")
@@ -66,6 +72,8 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> fl
     synchronised with the device).  Returns the final loss.
     """
     args = build_parser().parse_args(argv)
+    if args.refresh_linearized and args.optimiser != "lanczos-host":
+        raise SystemExit("--refresh_linearized applies to --optimiser lanczos-host")
     for flag, value, ported in (
         ("--model", args.model, _MODELS),
         ("--optimiser", args.optimiser, _OPTIMISERS),
@@ -106,6 +114,7 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> fl
         batch_size=args.batch_size,
         basis_dtype=torch.bfloat16 if basis_bf16 else torch.float32,
         refresh_batch_size=args.refresh_batch_size,
+        refresh_linearized=args.refresh_linearized,
     )
     state = trainer.init(params)
     loss = float("nan")

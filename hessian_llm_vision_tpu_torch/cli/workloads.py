@@ -1,5 +1,6 @@
 """Workload registry (port of ``cli/workloads.py``): the model, params,
-loss and batches a CLI runs on, for ``--model gpt2 | gpt2-tiny``.
+loss, batches and the GGN pieces (``model_fn`` -> logits, ``out_loss_fn``
+on them) a CLI runs on, for ``--model gpt2 | gpt2-tiny``.
 
 Weights are random from ``--seed`` (a torch generator, so they are not the
 JAX package's weights for the same seed); tokens come from the same numpy
@@ -9,7 +10,7 @@ generators as the JAX package's, so both packages see the same batches.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -25,6 +26,9 @@ class Workload:
     loss_fn: Callable[[Any, Any], torch.Tensor]
     batches: list  # list of batch dicts on the device
     batch_size: int
+    # GGN / Fisher: model_fn(params, batch) -> outputs, out_loss_fn(outputs, batch)
+    model_fn: Optional[Callable[[Any, Any], torch.Tensor]] = None
+    out_loss_fn: Optional[Callable[[torch.Tensor, Any], torch.Tensor]] = None
 
 
 def _lm_batches(args, vocab_size: int, device: torch.device) -> list[dict]:
@@ -91,7 +95,7 @@ def build_workload(args, device: torch.device) -> Workload:
     """GPT-2 (124M or tiny) at random init from ``--seed``, on ``device``,
     with its LM loss and the ``--dataset`` batches."""
     from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
-    from hessian_llm_vision_tpu_torch.models.losses import lm_loss_fn
+    from hessian_llm_vision_tpu_torch.models.losses import causal_lm_loss, lm_loss_fn
 
     _refuse_unported(args)
     if args.model == "gpt2-tiny":
@@ -102,7 +106,16 @@ def build_workload(args, device: torch.device) -> Workload:
         cfg = dataclasses.replace(cfg, attn_block_q=args.attn_block_q)
     model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(args.seed)).to(device)
     params = {n: p.detach() for n, p in model.named_parameters()}
+
+    # the dense logits: --loss_chunk does not apply to the GGN's model_fn
+    def lm_model_fn(p, b):
+        return torch.func.functional_call(model, p, (b["input_ids"],))
+
+    def lm_out_loss(logits, b):
+        return causal_lm_loss(logits, b["input_ids"], b.get("attention_mask"))
+
     return Workload(
         args.model, model, params, lm_loss_fn(model, loss_chunk=args.loss_chunk),
         _lm_batches(args, cfg.vocab_size, device), args.batch_size,
+        model_fn=lm_model_fn, out_loss_fn=lm_out_loss,
     )

@@ -1,10 +1,14 @@
-"""Host-driven T-only spectra at LLM scale (port of the dataset path of
-``krylov/driver.py``).
+"""Host-driven T-only spectra at LLM scale (port of ``krylov/driver.py``).
 
 A Python loop drives the Lanczos three-term recurrence over per-batch
-HVPs; no (k, P) basis is held, so memory is the params, a few P-vectors
-and one HVP's working set.  alpha and beta stay 0-d device tensors until
-the loop ends (a ``callback`` opts into a host copy per iteration).
+curvature products (Hessian, or GGN / Fisher); no (k, P) basis is held, so
+memory is the params, a few P-vectors and one product's working set.
+alpha and beta stay 0-d device tensors until the loop ends (a
+``callback`` opts into a host copy per iteration).  Beside the dataset
+loop: per-leaf or per-block spectra over one masked HVP
+(:func:`layerwise_spectrum_host`), the linearized single-batch loop
+(:func:`linearized_spectrum_host`) and the parameter-shaped loop with
+low-precision-stored vectors (:func:`bigmodel_spectrum_host`).
 
 There is one iteration: the per-batch HVPs summed in place, the scale
 (:func:`dataset_matvec`), then ``host_recurrence_step``.  The JAX package's
@@ -23,7 +27,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from hessian_llm_vision_tpu_torch.curvature.hvp import LossFn, hvp_fn
+from hessian_llm_vision_tpu_torch.curvature.hvp import LossFn, _precision_context, hvp_fn
 from hessian_llm_vision_tpu_torch.krylov.lanczos import (
     LanczosResult,
     host_recurrence_step,
@@ -34,7 +38,8 @@ from hessian_llm_vision_tpu_torch.krylov.thick_restart import (
     ThickRestartResult,
     lanczos_thick_restart,
 )
-from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+from hessian_llm_vision_tpu_torch.utils import trees
+from hessian_llm_vision_tpu_torch.utils.flatten import Flattener, flat_order
 
 Callback = Callable[[int, np.ndarray, np.ndarray], None]
 
@@ -52,6 +57,28 @@ def dataset_norm(normalization: str, num_batches: int, batch_size: Optional[int]
     raise ValueError(normalization)
 
 
+def _batch_product(operator, loss_fn, per_batch_norm, precision, model_fn, out_loss_fn):
+    """``(params, batch, vector dict) -> dict``: the per-batch HVP, or the
+    per-batch GGN ``Jᵀ H_out J v`` (Fisher = GGN of the NLL) for
+    ``operator="ggn" | "fisher"``, whose ``out_loss_fn`` is already a
+    per-batch mean."""
+    if operator in ("ggn", "fisher"):
+        if model_fn is None or out_loss_fn is None:
+            raise ValueError(f"operator={operator!r} needs model_fn+out_loss_fn")
+        from hessian_llm_vision_tpu_torch.curvature.ggn import ggn_product
+
+        _precision_context(precision)
+
+        def ggn(params, batch, vector):
+            with _precision_context(precision):
+                return ggn_product(model_fn, out_loss_fn, params, batch, vector)
+
+        return ggn
+    if operator != "hessian":
+        raise ValueError(f"unknown operator {operator!r}")
+    return hvp_fn(loss_fn, normalization=per_batch_norm, precision=precision)
+
+
 def dataset_matvec(
     loss_fn: LossFn,
     params,
@@ -61,31 +88,51 @@ def dataset_matvec(
     batch_size: Optional[int] = None,
     precision: Optional[str] = "high",
     flattener: Optional[Flattener] = None,
+    operator: str = "hessian",
+    model_fn: Optional[Callable] = None,
+    out_loss_fn: Optional[Callable] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``q -> H q`` of the whole dataset (``dataset_norm``'s scaling): the
-    per-batch HVPs summed in place into one f32 P-vector, then scaled."""
+    """``q -> A q`` of the whole dataset (``dataset_norm``'s scaling, the
+    same for every operator): the per-batch products summed in place into
+    one f32 P-vector, then scaled."""
     fl = flattener or Flattener(params)
     per_batch_norm, scale = dataset_norm(normalization, len(batch_list), batch_size)
-    _hvp = hvp_fn(loss_fn, normalization=per_batch_norm, precision=precision)
+    product = _batch_product(operator, loss_fn, per_batch_norm, precision, model_fn, out_loss_fn)
 
     def matvec(q: torch.Tensor) -> torch.Tensor:
         tangent = fl.unflatten(q)
         w = torch.zeros(fl.size, dtype=torch.float32, device=q.device)
         for batch in batch_list:
-            w.add_(fl.flatten(_hvp(params, batch, tangent)))
+            w.add_(fl.flatten(product(params, batch, tangent)))
         return w.mul_(scale)
 
     return matvec
 
 
-def _iteration_end(i, num_iters, t0, q, alphas, betas, callback, progress):
+def _t_only(matvec, q_cur, num_iters, callback, progress, label="lanczos") -> LanczosResult:
+    """The three-term recurrence from the unit ``q_cur``, T only."""
+    q_prev = torch.zeros_like(q_cur)
+    beta_prev = torch.zeros((), dtype=torch.float32, device=q_cur.device)
+    alphas, betas = [], []
+    for i in range(num_iters):
+        t0 = time.perf_counter()
+        alpha, beta, q_next = host_recurrence_step(matvec(q_cur), q_cur, q_prev, beta_prev)
+        q_prev, q_cur, beta_prev = q_cur, q_next, beta
+        alphas.append(alpha)
+        betas.append(beta)
+        _iteration_end(i, num_iters, t0, q_cur, alphas, betas, callback, progress, label)
+    alphas, betas = stack_tridiag(alphas, betas)
+    return LanczosResult(alphas=alphas, betas=betas, basis=None)
+
+
+def _iteration_end(i, num_iters, t0, q, alphas, betas, callback, progress, label="lanczos"):
     if callback is not None:
         a, b = stack_tridiag(alphas, betas)
         callback(i, a.cpu().numpy(), b.cpu().numpy())
     if progress:
         if q.is_cuda:
             torch.cuda.synchronize(q.device)
-        print(f"lanczos iter {i + 1}/{num_iters}  {time.perf_counter() - t0:.2f}s", flush=True)
+        print(f"{label} iter {i + 1}/{num_iters}  {time.perf_counter() - t0:.2f}s", flush=True)
 
 
 def dataset_spectrum_host(
@@ -103,36 +150,25 @@ def dataset_spectrum_host(
     callback: Optional[Callback] = None,
     progress: bool = False,
     operator: str = "hessian",
+    model_fn: Optional[Callable] = None,
+    out_loss_fn: Optional[Callable] = None,
 ) -> LanczosResult:
-    """T-only Lanczos of the dataset-mean Hessian, host-driven.
+    """T-only Lanczos of the dataset-mean curvature operator, host-driven.
 
-    ``batch_list``: equal-size batches on the params' device.  Exactly one
-    of ``v0`` / ``generator`` gives the start vector.  Returns a
-    :class:`LanczosResult` with ``basis=None``; feed it to
-    ``ritz_decomposition``.  ``callback(i, alphas, betas)`` receives host
-    copies of T each iteration (resumable checkpoints); ``progress`` prints
-    each iteration's seconds, synchronised with the device.
+    ``operator``: "hessian" (from ``loss_fn``) or "ggn" / "fisher" (from
+    ``model_fn`` + ``out_loss_fn``; Fisher == GGN of the NLL), with the
+    same ``dataset_norm`` scale.  ``batch_list``: equal-size batches on the
+    params' device.  Exactly one of ``v0`` / ``generator`` gives the start
+    vector.  Returns a :class:`LanczosResult` with ``basis=None``; feed it
+    to ``ritz_decomposition``.  ``callback(i, alphas, betas)`` receives
+    host copies of T each iteration (resumable checkpoints); ``progress``
+    prints each iteration's seconds, synchronised with the device.
     """
-    if operator in ("ggn", "fisher"):
-        raise NotImplementedError(f"operator={operator!r} is not ported yet (ROADMAP A10h)")
-    if operator != "hessian":
-        raise ValueError(f"unknown operator {operator!r}")
     fl = flattener or Flattener(params)
     matvec = dataset_matvec(loss_fn, params, batch_list, normalization=normalization,
-                            batch_size=batch_size, precision=precision, flattener=fl)
-    q_cur = start_vector(v0, generator, fl.size)
-    q_prev = torch.zeros_like(q_cur)
-    beta_prev = torch.zeros((), dtype=torch.float32, device=q_cur.device)
-    alphas, betas = [], []
-    for i in range(num_iters):
-        t0 = time.perf_counter()
-        alpha, beta, q_next = host_recurrence_step(matvec(q_cur), q_cur, q_prev, beta_prev)
-        q_prev, q_cur, beta_prev = q_cur, q_next, beta
-        alphas.append(alpha)
-        betas.append(beta)
-        _iteration_end(i, num_iters, t0, q_cur, alphas, betas, callback, progress)
-    alphas, betas = stack_tridiag(alphas, betas)
-    return LanczosResult(alphas=alphas, betas=betas, basis=None)
+                            batch_size=batch_size, precision=precision, flattener=fl,
+                            operator=operator, model_fn=model_fn, out_loss_fn=out_loss_fn)
+    return _t_only(matvec, start_vector(v0, generator, fl.size), num_iters, callback, progress)
 
 
 def dataset_thick_restart_host(
@@ -210,5 +246,187 @@ def single_batch_spectrum_host_fused(
         alphas.append(alpha)
         betas.append(beta)
         _iteration_end(i, num_iters, t0, q_cur, alphas, betas, callback, progress)
+    alphas, betas = stack_tridiag(alphas, betas)
+    return LanczosResult(alphas=alphas, betas=betas, basis=None)
+
+
+def masked_batch_hvp(loss_fn: LossFn, per_batch_norm: str, precision: Optional[str],
+                     fl: Flattener):
+    """One block-restricted HVP for every parameter block:
+    ``(v, start, size, params, batch) -> m ⊙ H (m ⊙ v)`` with ``m`` the
+    indicator of ``[start, start + size)`` of the flat vector."""
+    _hvp = hvp_fn(loss_fn, normalization=per_batch_norm, precision=precision)
+
+    def mhvp(v, start: int, size: int, params, batch) -> torch.Tensor:
+        masked = torch.zeros_like(v)
+        masked[start:start + size] = v[start:start + size]
+        out = fl.flatten(_hvp(params, batch, fl.unflatten(masked)))
+        res = torch.zeros_like(out)
+        res[start:start + size] = out[start:start + size]
+        return res
+
+    return mhvp
+
+
+def layerwise_spectrum_host(
+    loss_fn: LossFn,
+    params,
+    batch: Any,
+    num_iters: int,
+    *,
+    generator: Optional[torch.Generator] = None,
+    v0s: Optional[dict] = None,
+    normalization: str = "mean",
+    batch_size: Optional[int] = None,
+    precision: Optional[str] = "high",
+    flattener: Optional[Flattener] = None,
+    min_size: int = 2,
+    progress: bool = False,
+    group_regex: Optional[str] = None,
+) -> dict:
+    """Per-leaf block-diagonal spectra, host-driven: ``{label:
+    LanczosResult}`` in flatten order, T only.
+
+    One masked HVP (:func:`masked_batch_hvp`) serves every block.
+    ``group_regex`` merges leaves into one block per regex group (e.g.
+    ``trees.BLOCK_GROUP_REGEX``: one spectrum per transformer block);
+    non-matching leaves are skipped, as are blocks below ``min_size``.  A
+    block runs ``min(num_iters, size)`` iterations.  Start vectors: either
+    ``v0s[label]`` (the block's ``size`` entries) or a draw of ``size``
+    normals from ``generator`` per block, in label order; each lands on
+    the params' device.
+    """
+    if (v0s is None) == (generator is None):
+        raise ValueError("pass exactly one of v0s / generator")
+    fl = flattener or Flattener(params)
+    scale, per_batch_norm = 1.0, normalization
+    if normalization == "sum":
+        if batch_size is None:
+            raise ValueError('normalization="sum" requires batch_size')
+        per_batch_norm, scale = "mean", float(batch_size)
+    mhvp = masked_batch_hvp(loss_fn, per_batch_norm, precision, fl)
+    device = next(iter(params.values())).device
+    labels, spans = trees.partition_labels(params)
+    if group_regex is not None:
+        labels, spans = trees.group_spans(labels, spans, group_regex)
+    results = {}
+    for label, (off, size) in zip(labels, spans):
+        if size < min_size:
+            continue
+        block = v0s[label] if v0s is not None else torch.randn(size, generator=generator)
+        q = torch.zeros(fl.size, dtype=torch.float32, device=device)
+        q[off:off + size] = torch.as_tensor(block, dtype=torch.float32).to(device)
+
+        def matvec(v, off=off, size=size):
+            w = mhvp(v, off, size, params, batch)
+            return w.mul_(scale) if scale != 1.0 else w
+
+        results[label] = _t_only(matvec, start_vector(q, None, fl.size), min(num_iters, size),
+                                 None, False)
+        if progress:
+            from hessian_llm_vision_tpu_torch.krylov.slq import ritz_decomposition
+
+            ev = ritz_decomposition(results[label]).eigvals
+            print(f"{label:60s} P={size:9d} max={float(ev.max()):10.4f} "
+                  f"min={float(ev.min()):10.4f}", flush=True)
+    return results
+
+
+def linearized_spectrum_host(
+    loss_fn: LossFn,
+    params,
+    batch: Any,
+    num_iters: int,
+    *,
+    v0: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    normalization: str = "mean",
+    batch_size: Optional[int] = None,
+    precision: Optional[str] = "high",
+    flattener: Optional[Flattener] = None,
+    callback: Optional[Callback] = None,
+    progress: bool = False,
+) -> LanczosResult:
+    """T-only single-batch Lanczos over the linearized HVP: one residual
+    pass (``curvature/linearized.py``), then every iteration runs the
+    tangent map alone.  The residuals stay on the device for the whole
+    loop (``curvature.linearized.residual_bytes`` counts them)."""
+    from hessian_llm_vision_tpu_torch.curvature.linearized import (
+        concrete_residual_bytes,
+        linearized_hvp_programs,
+    )
+
+    fl = flattener or Flattener(params)
+    q0 = start_vector(v0, generator, fl.size)
+    resid_p, tangent_p = linearized_hvp_programs(loss_fn, normalization, precision, fl, batch_size)
+    t0 = time.perf_counter()
+    consts = resid_p(params, batch)
+    if progress:
+        if q0.is_cuda:
+            torch.cuda.synchronize(q0.device)
+        print(f"linearized residual pass: {concrete_residual_bytes(consts)} bytes in "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
+    res = _t_only(lambda q: tangent_p(q, consts), q0, num_iters, callback, progress,
+                  label="linearized lanczos")
+    del consts
+    return res
+
+
+def bigmodel_spectrum_host(
+    loss_fn: LossFn,
+    params,
+    batch: Any,
+    num_iters: int,
+    *,
+    v0: dict,
+    normalization: str = "mean",
+    batch_size: Optional[int] = None,
+    precision: Optional[str] = "high",
+    q_dtype: torch.dtype = torch.bfloat16,
+    callback: Optional[Callback] = None,
+    progress: bool = False,
+) -> LanczosResult:
+    """T-only single-batch Lanczos for models near the memory limit.
+
+    The Krylov vectors are parameter-shaped ``{name: tensor}`` dicts stored
+    in ``q_dtype`` (no flat P-vector exists); every dot, AXPY and norm is
+    f32, leaf by leaf, and each HVP output leaf is cast to ``q_dtype`` as
+    soon as the HVP returns (eager PyTorch materialises the whole f32
+    output dict first).  bf16 storage moves the extreme Ritz values by
+    about 1e-3 relative.  ``v0``: the start as a dict of leaves (any float
+    dtype, any device; normalised here).
+    """
+    device = next(iter(params.values())).device
+    names = flat_order(params)
+    _hvp = hvp_fn(loss_fn, normalization=normalization, batch_size=batch_size,
+                  precision=precision)
+
+    def tdot(a, b):
+        return sum(torch.dot(a[n].reshape(-1).float(), b[n].reshape(-1).float()) for n in names)
+
+    v0 = {n: v0[n].to(device=device, dtype=torch.float32) for n in names}
+    nrm = torch.clamp(torch.sqrt(tdot(v0, v0)), min=1e-30)
+    q_cur = {n: (v0[n] / nrm).to(q_dtype) for n in names}
+    del v0
+    q_prev = {n: torch.zeros_like(q_cur[n]) for n in names}
+    beta_prev = torch.zeros((), dtype=torch.float32, device=device)
+    alphas, betas = [], []
+    for i in range(num_iters):
+        t0 = time.perf_counter()
+        w = _hvp(params, batch, {n: q_cur[n].float() for n in names})
+        for n in names:  # each f32 leaf is freed as soon as it is cast
+            w[n] = w[n].to(q_dtype)
+        alpha = tdot(q_cur, w)
+        for n in names:
+            w[n] = (w[n].float() - alpha * q_cur[n].float()
+                    - beta_prev * q_prev[n].float()).to(q_dtype)
+        beta = torch.sqrt(tdot(w, w))
+        inv = 1.0 / torch.clamp(beta, min=1e-30)
+        q_prev, q_cur = q_cur, {n: (w[n].float() * inv).to(q_dtype) for n in names}
+        del w
+        beta_prev = beta
+        alphas.append(alpha)
+        betas.append(beta)
+        _iteration_end(i, num_iters, t0, beta, alphas, betas, callback, progress)
     alphas, betas = stack_tridiag(alphas, betas)
     return LanczosResult(alphas=alphas, betas=betas, basis=None)

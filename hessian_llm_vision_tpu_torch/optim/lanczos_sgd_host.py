@@ -2,7 +2,8 @@
 
 Per step: one gradient (optionally accumulated over micro-batches); every
 ``refresh_every`` steps a grad-seeded k-iteration Lanczos of the batch
-Hessian (k HVPs, three-term recurrence without reorthogonalization, rows
+Hessian (k HVPs, or with ``refresh_linearized`` one residual pass and k
+tangent maps; three-term recurrence without reorthogonalization, rows
 stored in ``basis_dtype``), a host ``numpy.linalg.eigh`` of T and the Ritz
 rotation; then the rank-k spectral adjustment of the gradient
 (``ops/spectral.py``, the CUDA kernel pair on a card) and an SGD step with
@@ -73,10 +74,13 @@ class HostLanczosSGDTrainer:
         ``refresh_precision``: "high" or "highest" (both true fp32 here).
         ``config.accum_steps > 1``: batch tensors carry a leading
         ``(accum, batch, ...)`` axis; the step averages the micro-batch
-        gradients and refreshes on the first micro-batch."""
-        if refresh_linearized:
-            raise NotImplementedError("refresh_linearized is not ported yet")
+        gradients and refreshes on the first micro-batch.
+        ``refresh_linearized``: pay the refresh's primal forward and
+        backward once per refresh (``curvature/linearized.py``) and run
+        the k Lanczos iterations on the tangent map; the residuals live on
+        the device during the refresh (``residual_bytes`` counts them)."""
         self.cfg = config
+        self.refresh_linearized = refresh_linearized
         self.basis_dtype = basis_dtype
         self.refresh_batch_size = refresh_batch_size
         self.loss_fn = loss_fn
@@ -85,6 +89,13 @@ class HostLanczosSGDTrainer:
             loss_fn, normalization=config.normalization, batch_size=batch_size,
             remat=config.remat, precision=refresh_precision,
         )
+        if refresh_linearized:
+            from hessian_llm_vision_tpu_torch.curvature.linearized import (
+                linearized_hvp_programs,
+            )
+
+            self._resid, self._tangent = linearized_hvp_programs(
+                loss_fn, config.normalization, refresh_precision, self.fl, batch_size)
 
     @property
     def precision_guard(self):
@@ -119,15 +130,22 @@ class HostLanczosSGDTrainer:
         q_cur = g_flat / torch.clamp(torch.linalg.vector_norm(g_flat), min=1e-30)
         q_prev = torch.zeros_like(q_cur)
         beta_prev = torch.zeros((), dtype=torch.float32, device=g_flat.device)
+        consts = None
+        if self.refresh_linearized:
+            # one primal forward+backward for all k iterations
+            consts = self._resid(params, batch)
+            matvec = lambda v: self._tangent(v, consts)  # noqa: E731
+        else:
+            matvec = lambda v: self._hvp_flat(v, params, batch)  # noqa: E731
         alphas, betas = [], []
         for i in range(k):
             basis[i] = q_cur  # in-place row write, cast to basis_dtype
-            w = self._hvp_flat(q_cur, params, batch)
+            w = matvec(q_cur)
             alpha, beta, q_next = host_recurrence_step(w, q_cur, q_prev, beta_prev)
             q_prev, q_cur, beta_prev = q_cur, q_next, beta
             alphas.append(float(alpha))
             betas.append(float(beta))
-        del q_prev, q_cur, w
+        del q_prev, q_cur, w, matvec, consts
         a = np.asarray(alphas)
         b = np.asarray(betas)[:-1]
         ev, evec = np.linalg.eigh(np.diag(a) + np.diag(b, 1) + np.diag(b, -1))

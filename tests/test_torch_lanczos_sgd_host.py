@@ -103,12 +103,69 @@ def test_refresh_batch_size_and_unported_options():
     torch.testing.assert_close(state.eigvals, ev_sub)
     ev_full, _ = full.refresh_spectrum(params, {"input_ids": ids}, g)
     assert not torch.allclose(ev_sub, ev_full)
-    with pytest.raises(NotImplementedError, match="refresh_linearized"):
-        HostLanczosSGDTrainer(loss_fn, params, cfg, refresh_linearized=True)
+    # the linearized refresh gives the same spectrum from one residual pass
+    lin = HostLanczosSGDTrainer(loss_fn, params, cfg, refresh_batch_size=2,
+                                refresh_linearized=True)
+    ev_lin, V_lin = lin.refresh_spectrum(params, {"input_ids": ids[:2]}, g)
+    torch.testing.assert_close(ev_lin, ev_sub, rtol=1e-5, atol=1e-6)
     with pytest.raises(NotImplementedError, match="precision guard"):
         trainer.precision_guard = object()
     with pytest.raises(NotImplementedError, match="not ported"):
         HostLayerwiseLanczosSGDTrainer(loss_fn, params, cfg)
+
+
+def test_linearized_refresh_matches_jax_and_the_standard_trainer():
+    """refresh_linearized=True: 4 steps against the JAX package's linearized
+    trainer at the bars of the test above, and against the port's standard
+    trainer (JAX ``test_linearized.py``: eigvals and params rtol 1e-4)."""
+    jmodel = JGPT2LMHead(JGPT2Config.tiny())
+    jparams = jmodel.init_params(jax.random.PRNGKey(9), seq_len=T)
+    jtrainer = JHostLanczosSGDTrainer(jlosses.lm_loss_fn(jmodel), jparams,
+                                      JLanczosSGDConfig(**CFG), batch_size=B,
+                                      refresh_linearized=True)
+    model = GPT2LMHead(GPT2Config.tiny())
+    trainers = [HostLanczosSGDTrainer(losses.lm_loss_fn(model), gpt2_params_from_jax(jparams),
+                                      LanczosSGDConfig(**CFG), batch_size=B,
+                                      refresh_linearized=lin) for lin in (True, False)]
+    jstate = jtrainer.init(jparams)
+    states = [t.init(gpt2_params_from_jax(jparams)) for t in trainers]
+    for ids in _batches(1):
+        jstate, jm = jtrainer.step(jstate, {"input_ids": jnp.asarray(ids)})
+        (state, m), (std, m_std) = (t.step(st, {"input_ids": torch.as_tensor(ids)})
+                                    for t, st in zip(trainers, states))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(m["eig_max"]), float(jm["eig_max"]), rtol=1e-3)
+        torch.testing.assert_close(state.eigvals, std.eigvals, rtol=1e-4, atol=1e-6)
+    for name, p in state.params.items():
+        torch.testing.assert_close(p, std.params[name], rtol=1e-4, atol=1e-6)
+    got = gpt2_params_to_jax(state.params)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jstate.params):
+        node = got
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_allclose(node, np.asarray(leaf), rtol=1e-3, atol=2e-5)
+
+
+def test_train_cli_refresh_linearized(capsys):
+    """The train CLI with --refresh_linearized walks the standard CLI's
+    steps (JAX ``test_linearized.py::test_train_cli_refresh_linearized``),
+    and refuses other optimisers with the JAX message."""
+    from hessian_llm_vision_tpu_torch.cli import train
+
+    argv = ["--model", "gpt2-tiny", "--batch_size", "2", "--max_length", "16",
+            "--num_batches", "2", "--max_steps", "2", "--k", "3", "--cpu"]
+    runs = []
+    for extra in (["--refresh_linearized"], []):
+        recs = []
+        train.main(argv + extra, on_step=lambda step, rec: recs.append(rec))
+        runs.append(recs)
+    assert "loss" in capsys.readouterr().out
+    for lin, std in zip(*runs, strict=True):
+        np.testing.assert_allclose(lin["loss"], std["loss"], rtol=1e-6)
+        np.testing.assert_allclose(lin["eig_max"], std["eig_max"], rtol=1e-4)
+    with pytest.raises(SystemExit, match="^--refresh_linearized applies to --optimiser "
+                                         "lanczos-host$"):
+        train.main(argv + ["--optimiser", "adam", "--refresh_linearized"])
 
 
 def test_sgd_momentum_matches_jax():

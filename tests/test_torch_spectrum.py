@@ -222,7 +222,8 @@ def test_driver_callback_and_refusals(pair):
     np.testing.assert_array_equal(seen[-1][1], res.alphas.numpy())
     np.testing.assert_array_equal(seen[-1][2], res.betas.numpy())
     assert seen[0][2].shape == (0,)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # operator="ggn" takes the model function and the output loss
+    with pytest.raises(ValueError, match="needs model_fn"):
         driver.dataset_spectrum_host(p["loss"], p["params"], p["batches"], 2,
                                      v0=torch.ones(p["fl"].size), operator="ggn")
     with pytest.raises(ValueError, match="exactly one"):

@@ -110,10 +110,8 @@ def test_other_ported_paths_run(tmp_path, extra, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--layerwise"],
-    ["--host_loop", "--linearized"], ["--host_loop", "--bigmodel"],
     ["--host_loop", "--probes", "2", "--probe_parallel"],
-    ["--precision_check"], ["--operator", "ggn"], ["--operator", "fisher"],
+    ["--precision_check"],
     ["--hvp_precision", "auto"], ["--hvp_precision", "mixed"], ["--hvp_precision", "default"],
     ["--model", "pythia-70m"], ["--experts", "2"], ["--bf16"], ["--checkpoint", "ck"],
     ["--block_precision", "high"], ["--dataset", "wikipedia"],
