@@ -1,6 +1,7 @@
 """On-card smoke test of the PyTorch port: builds the CUDA kernels, holds
-each against its plain PyTorch version, drives LanczosSGD training of GPT-2
-124M through the train CLI, and checks the result.
+each against its plain PyTorch version, drives LanczosSGD training, the
+spectrum paths and Adam training from and to checkpoints of GPT-2 124M
+through the CLIs, and checks the results.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -55,6 +56,21 @@ Phases (any failure exits non-zero and prints no result line):
      the empirical Fisher over 8 per-example gradients with a bf16 G, the
      kernel pair against its plain versions and an f32 G; (g) every new
      path on gpt2-tiny, card against CPU; one {"curvature_ext": ...} line.
+ 10. the trained-checkpoint path on GPT-2 124M, on the card machine's own
+     Python standard library as a byte corpus, every checkpoint in a
+     temporary directory: (a) Adam through cli.train.main over ADAM_N
+     batches, two epochs uninterrupted against one epoch with --save_state
+     and one resumed: step 0 near ln 50257, the loss halved, the states
+     reloading equal to the ones in memory with steps N and 2N, the resumed
+     losses tracking the uninterrupted ones; an Adam step's gradient and
+     update by CUDA events; (b) the host-loop spectrum of the checkpoint and
+     of the init on one batch (weights summing to 1, lambda_max above
+     init's) and the f32 HVP at the checkpoint against a float64 central
+     difference; (c) phase 4's LanczosSGD from the checkpoint: step 0's
+     loss equal to the checkpoint's, each rank-k kernel once per step; (d)
+     gpt2-tiny Adam with accumulation and linear decay, card against CPU,
+     and checkpoints loading across the two; one {"trained_checkpoint":
+     ...} line.
 Phase 3 also checks and times (4, 124,046,592), (8, 124,046,592) and (16,
 124,046,592) in bf16, the deflation projector's, the empirical Fisher's
 and the CGS2 pass's shapes.  Then it prints one JSON line of kernels
@@ -168,6 +184,33 @@ EF_PLAIN_RTOL = 1e-5  # kernel pair against its f32 plain version, same G
 EF_BF16_RTOL = 2e-2  # against the JAX-rounding plain version and an f32 G
 EF_RECOMPUTED_RTOL = 1e-3  # a recomputed bf16 G may round a few entries apart
 TINY_NEW_RTOL = 1e-5  # 9g card against CPU, extremes of max |lambda|
+# phase 10: the trained-checkpoint path on GPT-2 124M.  The corpus is the
+# card machine's own Python standard library as bytes, the corpus of the
+# JAX package's trained-124M protocol; 10a trains on ADAM_N of its batches.
+# 2 x ADAM_N = 1000 steps: on this corpus lambda_max first falls below the
+# init's (0.44x after 200 steps) and sharpens past it later (PERF.md)
+STDLIB = os.path.dirname(os.__file__)
+ADAM_N = 500
+ADAM_ARGV = ["--model", "gpt2", "--batch_size", "8", "--max_length", "512", "--attn_block_q",
+             "256", "--loss_chunk", "256", "--optimiser", "adam", "--lr", "1e-3",
+             "--num_batches", str(ADAM_N), "--dataset", f"local:{STDLIB}"]
+# 10a: the resumed run's per-step losses against the uninterrupted run's;
+# the first card reading was 0.0 (bit-identical over 200 steps), so the
+# gate allows only last-bit differences
+RESUME_LOSS_ATOL = 1e-6
+CKPT_SPECTRUM_ARGV = ["--model", "gpt2", "--dataset", f"local:{STDLIB}", "--num_batches", "1",
+                      "--batch_size", "8", "--max_length", "512", "--host_loop",
+                      "--lanczos_iters", "20"]
+# 10b: the f32 HVP at the 1000-step checkpoint against the float64
+# difference first read 6.45e-3, 320x 7c's limit at init, while the
+# difference's own truncation read 2.5e-7: a finding for the precision
+# ladder (ROADMAP A11), gated at 10x that reading
+CKPT_FD_LIMIT = 6.5e-2
+CKPT_LOSS_RTOL = 1e-5  # 10c step 0 against the checkpoint's loss computed directly
+TINY_ADAM_ARGV = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32",
+                  "--optimiser", "adam", "--num_batches", "5", "--accumulation_steps", "2",
+                  "--linear_decay_steps", "10"]
+TINY_ADAM_RTOL = 1e-5  # 10d card against CPU, per-step losses
 CARD = torch.device("cuda")
 
 
@@ -430,23 +473,22 @@ def central_difference_hvp(loss_fn, params, batches, v: torch.Tensor, eps: float
     return (8 * d1 - d2) / (12 * eps), d1 / (2 * eps)
 
 
-def hvp_vs_central_difference(spectrum_cli, alpha_1: float) -> dict:
-    """Phase 7c: at the headline shape, the port's f32 dataset-mean HVP
-    (per-batch HVPs summed and scaled, as the host loop does) on 7b's start
-    vector against a float64 central difference of gradients on the card;
-    7b's alpha_1 against the difference's q1.Hq1.  A TF32 HVP must miss the
-    limit, which shows that the check can see reduced precision."""
+def hvp_against_central_difference(spectrum_cli, argv) -> tuple[dict, float]:
+    """The port's f32 dataset-mean HVP (per-batch HVPs summed and scaled,
+    as the host loop does) and a TF32 one, on the CLI's first probe for
+    ``argv`` (drawn on the CPU, copied, normalised on the card), against a
+    float64 central difference of gradients on the card at the workload's
+    params.  Returns the readings and q1.Hq1 of the difference."""
     from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
     from hessian_llm_vision_tpu_torch.curvature.operators import DatasetHessianOperator
     from hessian_llm_vision_tpu_torch.krylov.lanczos import start_vector
 
-    dev = torch.device("cuda")
+    dev = CARD
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    args = spectrum_cli.build_parser().parse_args(SPECTRUM_ARGV)
+    args = spectrum_cli.build_parser().parse_args(argv)
     wl = build_workload(args, dev)
     dim = sum(p.numel() for p in wl.params.values())
-    # the CLI's first probe: drawn on the CPU, copied, normalised on the card
     v0 = torch.randn(dim, generator=torch.Generator().manual_seed(args.vector_seed)).to(dev)
     q1 = start_vector(v0, None, dim)
 
@@ -464,16 +506,23 @@ def hvp_vs_central_difference(spectrum_cli, alpha_1: float) -> dict:
     t1 = time.perf_counter()
     ref, ref2 = central_difference_hvp(wl.loss_fn, wl.params, wl.batches, q1, FD_EPS)
     torch.cuda.synchronize()
-    ref_norm = float(torch.linalg.vector_norm(ref))
-    alpha_fd = float(torch.dot(q1.double(), ref))
-    res = {"eps": FD_EPS, "limit": HVP_FD_LIMIT, "hv_norm": ref_norm,
+    res = {"eps": FD_EPS, "hv_norm": float(torch.linalg.vector_norm(ref)),
            "rel_l2_hvp_vs_fd": rel_l2(hv, ref),
            "rel_l2_tf32_hvp_vs_fd": rel_l2(hv_tf32, ref),
            "rel_l2_fd2_vs_fd4": rel_l2(ref2, ref),
-           "alpha_1": alpha_1, "alpha_1_fd": alpha_fd,
-           "alpha_1_err_over_hv_norm": abs(alpha_1 - alpha_fd) / ref_norm,
-           "build_and_hvps_s": t1 - t0, "fd_s": time.perf_counter() - t1,
-           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+           "build_and_hvps_s": t1 - t0, "fd_s": time.perf_counter() - t1}
+    return res, float(torch.dot(q1.double(), ref))
+
+
+def hvp_vs_central_difference(spectrum_cli, alpha_1: float) -> dict:
+    """Phase 7c: at the headline shape, the f32 HVP on 7b's start vector
+    against a float64 central difference of gradients on the card; 7b's
+    alpha_1 against the difference's q1.Hq1.  A TF32 HVP must miss the
+    limit, which shows that the check can see reduced precision."""
+    res, alpha_fd = hvp_against_central_difference(spectrum_cli, SPECTRUM_ARGV)
+    res.update({"limit": HVP_FD_LIMIT, "alpha_1": alpha_1, "alpha_1_fd": alpha_fd,
+                "alpha_1_err_over_hv_norm": abs(alpha_1 - alpha_fd) / res["hv_norm"],
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     print(json.dumps({"hvp_vs_central_difference": res}))
     gates = {
         "f32 HVP within the limit": res["rel_l2_hvp_vs_fd"] <= HVP_FD_LIMIT,
@@ -1048,9 +1097,10 @@ def new_paths_card_vs_cpu(spectrum_cli, train_cli) -> dict:
                 out[name] = max(extremes_rel(card[k].eigvals, cpu[k].eigvals) for k in cpu)
             else:
                 out[name] = extremes_rel(card.eigvals, cpu.eigvals)
-        tiny = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32", "--k", "4",
-                "--delta", "1e-2", "--refresh_every", "2", "--lanczos_momentum", "0.5",
-                "--max_steps", "3", "--no-basis_bf16", "--refresh_linearized"]
+        tiny = ["--model", "gpt2-tiny", "--optimiser", "lanczos-host", "--batch_size", "4",
+                "--max_length", "32", "--k", "4", "--delta", "1e-2", "--refresh_every", "2",
+                "--lanczos_momentum", "0.5", "--max_steps", "3", "--no-basis_bf16",
+                "--refresh_linearized"]
         recs = ([], [])
         for r, extra in zip(recs, ([], ["--cpu"])):
             train_cli.main(tiny + extra, on_step=lambda s, rec, r=r: r.append(rec))
@@ -1064,6 +1114,243 @@ def new_paths_card_vs_cpu(spectrum_cli, train_cli) -> dict:
         "linearized trainer loss": out["train_linearized_loss_rel"] <= 1e-5,
         "linearized trainer eig_max": out["train_linearized_eig_max_rel"] <= 1e-3,
     })
+    return out
+
+
+def _train(train_cli, argv) -> tuple[list, float]:
+    """``cli.train.main(argv)``: the per-step records and the host seconds
+    of the whole call."""
+    records = []
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_cli.main(argv, on_step=lambda s, r: records.append(r))
+    torch.cuda.synchronize()
+    return records, time.perf_counter() - t0
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        for key, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{key}")
+    else:
+        yield prefix, tree
+
+
+def _reloads_equal(load_checkpoint, path: str, state) -> bool:
+    """Every entry of the file at ``path`` equals ``state``, the state in
+    memory when it was saved (tensors by ``torch.equal``)."""
+    back = dict(_leaves(load_checkpoint(path, template=state)))
+    ref = dict(_leaves(state))
+    return back.keys() == ref.keys() and all(
+        torch.equal(back[k], v) if isinstance(v, torch.Tensor) else back[k] == v
+        for k, v in ref.items())
+
+
+def adam_update_vs_gradient(train_cli) -> dict:
+    """Device time of an Adam step's pieces at 10a's shapes by CUDA events:
+    one gradient (blockwise attention 256, chunked loss 256) and the update
+    (manual_adam's multi-tensor arithmetic and apply_updates), with the
+    update's byte bound: read p, g, m, v once, write p, m, v once."""
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss
+    from hessian_llm_vision_tpu_torch.optim.manual import apply_updates, manual_adam
+    from hessian_llm_vision_tpu_torch.utils.cuda_timing import time_ms
+
+    torch.cuda.empty_cache()
+    wl = build_workload(train_cli.build_parser().parse_args(ADAM_ARGV), CARD)
+    batch = wl.batches[0]
+    tx = manual_adam(1e-3)
+    state = tx.init(wl.params)
+    _, grads = grad_and_loss(wl.loss_fn, wl.params, batch)
+    state = tx.update(grads, state, wl.params)[1]  # nonzero moments
+
+    def update():
+        updates, _ = tx.update(grads, state, wl.params)
+        return apply_updates(wl.params, updates)
+
+    p = sum(t.numel() for t in wl.params.values())
+    out = {"grad_ms": time_ms(lambda: grad_and_loss(wl.loss_fn, wl.params, batch), iters=5,
+                              warmup=1),
+           "update_ms": time_ms(update, iters=10, warmup=2),
+           "update_bound_ms": bound_ms(7 * 4 * p, 0)[0], "tensors": len(wl.params), "P": p}
+    out["update_over_grad"] = out["update_ms"] / out["grad_ms"]
+    del wl, grads, state
+    return out
+
+
+def adam_save_resume_124m(train_cli, tmp: str) -> tuple[dict, str]:
+    """Phase 10a: Adam on GPT-2 124M over ADAM_N stdlib batches, (i) two
+    epochs uninterrupted, (ii) one epoch with --save_state, (iii) one
+    epoch resumed with --save_checkpoint; the state files reload equal to
+    the states in memory when they were saved.  Returns the readings and
+    the checkpoint's path."""
+    from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint
+
+    out = ["--out", os.path.join(tmp, "runs")]
+    S, S2, C = (os.path.join(tmp, name) for name in ("state1", "state2", "ckpt"))
+    saved = {}
+    save = train_cli.save_checkpoint
+
+    def capture(path, state):
+        save(path, state)
+        saved[path] = state
+
+    train_cli.save_checkpoint = capture
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        whole, whole_s = _train(train_cli, ADAM_ARGV + out + ["--epochs", "2"])
+        peak = torch.cuda.max_memory_allocated()
+        first, first_s = _train(train_cli, ADAM_ARGV + out + ["--epochs", "1", "--save_state", S])
+        reloads = [_reloads_equal(load_checkpoint, S, saved.pop(S))]
+        second, second_s = _train(train_cli, ADAM_ARGV + out + [
+            "--epochs", "1", "--resume_state", S, "--save_state", S2, "--save_checkpoint", C])
+        reloads.append(_reloads_equal(load_checkpoint, S2, saved.pop(S2)))
+        saved.clear()
+    finally:
+        train_cli.save_checkpoint = save
+    steps = [load_checkpoint(s)["step"] for s in (S, S2)]
+    state_bytes = os.path.getsize(S)
+    os.remove(S)
+    os.remove(S2)
+    losses = [r["loss"] for r in whole]
+    resumed = [r["loss"] for r in first + second]
+    diffs = [abs(a - b) for a, b in zip(resumed, losses)]
+    step_s = [r["seconds"] for r in whole[1:]]
+    res = {
+        "N": ADAM_N, "steps": [len(whole), len(first), len(second)],
+        "loss_step0": losses[0], "ln_vocab": math.log(50257),
+        "last10_mean": statistics.mean(losses[-10:]), "loss_every_50": losses[::50],
+        "resume_max_abs_loss_diff": max(diffs), "resume_first_diff_step":
+            next((i for i, d in enumerate(diffs) if d > 0), None),
+        "resume_loss_atol": RESUME_LOSS_ATOL,
+        "step_s_median": statistics.median(step_s), "step_s_min_max": [min(step_s), max(step_s)],
+        "first_step_s": whole[0]["seconds"], "max_memory_allocated_bytes": peak,
+        "run_s": [whole_s, first_s, second_s], "saved_steps": steps, "state_bytes": state_bytes,
+        "checkpoint_bytes": os.path.getsize(C), "reloads_equal": reloads,
+        "pieces": adam_update_vs_gradient(train_cli),
+    }
+    print(json.dumps({"adam_save_resume_124m": res}))
+    check_gates("10a Adam save and resume", {
+        "2N, N and N steps": res["steps"] == [2 * ADAM_N, ADAM_N, ADAM_N],
+        "step 0 loss within 0.5 of ln 50257": abs(losses[0] - math.log(50257)) <= 0.5,
+        "last 10 losses below half of step 0's": res["last10_mean"] < 0.5 * losses[0],
+        "states reload equal": all(reloads),
+        "saved steps N then 2N": steps == [ADAM_N, 2 * ADAM_N],
+        "resumed losses track the uninterrupted run": max(diffs) <= RESUME_LOSS_ATOL,
+    })
+    return res, C
+
+
+def checkpoint_spectrum_124m(spectrum_cli, ckpt: str) -> dict:
+    """Phase 10b: the host-loop spectrum of 10a's checkpoint and of the
+    random init on the same stdlib batch; then the f32 HVP at the
+    checkpoint's params against a float64 central difference."""
+    runs = {}
+    for name, extra in (("checkpoint", ["--checkpoint", ckpt]), ("init", [])):
+        torch.cuda.empty_cache()
+        spec, _, lines, main_s = run_cli(spectrum_cli, CKPT_SPECTRUM_ARGV + extra)
+        runs[name] = {"lambda_max": float(spec.eigvals.max()),
+                      "lambda_min": float(spec.eigvals.min()),
+                      "gamma_sum": float(spec.gammas.double().sum()),
+                      "trace_estimate": float(torch.dot(spec.eigvals, spec.gammas)),
+                      "cli_wall_s": cli_wall_s(lines), "main_s": main_s}
+    fd, _ = hvp_against_central_difference(spectrum_cli, CKPT_SPECTRUM_ARGV + ["--checkpoint",
+                                                                               ckpt])
+    res = {**runs, "lambda_max_ratio": runs["checkpoint"]["lambda_max"]
+           / runs["init"]["lambda_max"], "hvp_vs_central_difference": {**fd,
+                                                                        "limit": CKPT_FD_LIMIT}}
+    print(json.dumps({"checkpoint_spectrum_124m": res}))
+    check_gates("10b spectrum of the checkpoint", {
+        "weights sum to 1 within 1e-6": all(abs(r["gamma_sum"] - 1) <= 1e-6 for r in runs.values()),
+        "lambda_max above init's": res["lambda_max_ratio"] > 1,
+        "f32 HVP within the limit": fd["rel_l2_hvp_vs_fd"] <= CKPT_FD_LIMIT,
+    })
+    return res
+
+
+def lanczos_sgd_from_checkpoint(train_cli, kernels, ckpt: str, tmp: str) -> dict:
+    """Phase 10c: phase 4's LanczosSGD from 10a's checkpoint on stdlib
+    batches; step 0's loss against the checkpoint's loss on that batch,
+    computed directly; each rank-k kernel once per step."""
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+
+    argv = TRAIN_ARGV + ["--checkpoint", ckpt, "--dataset", f"local:{STDLIB}",
+                         "--out", os.path.join(tmp, "runs")]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    records, main_s = _train(train_cli, argv)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    wl = build_workload(train_cli.build_parser().parse_args(argv), CARD)
+    with torch.no_grad():
+        direct = float(wl.loss_fn(wl.params, wl.batches[0]))
+    del wl
+    res = {"steps": records, "checkpoint_loss_batch0": direct,
+           "step0_rel_vs_direct": abs(records[0]["loss"] / direct - 1), "main_s": main_s,
+           "max_memory_allocated_bytes": peak, "launches": launches}
+    print(json.dumps({"lanczos_sgd_from_checkpoint": res}))
+    check_gates("10c LanczosSGD from the checkpoint", {
+        "4 steps": len(records) == 4,
+        "finite losses and eigenvalues": all(math.isfinite(v) for r in records for v in r.values()),
+        "step 0 = the checkpoint's loss": res["step0_rel_vs_direct"] <= CKPT_LOSS_RTOL,
+        "each kernel once per step": all(launches[n] == 4 for n in TPU_KERNELS),
+    })
+    return res
+
+
+def tiny_adam_card_vs_cpu(train_cli, tmp: str) -> dict:
+    """Phase 10d: gpt2-tiny Adam with accumulation 2 and linear decay, card
+    against CPU; the card's checkpoint loads with --cpu and the CPU's on
+    the card, through the train CLI."""
+    out = ["--out", os.path.join(tmp, "tiny_runs")]
+    ck = {dev: os.path.join(tmp, f"tiny_{dev}") for dev in ("card", "cpu")}
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        card, _ = _train(train_cli, TINY_ADAM_ARGV + out + ["--save_checkpoint", ck["card"]])
+        cpu, _ = _train(train_cli, TINY_ADAM_ARGV + out + ["--save_checkpoint", ck["cpu"],
+                                                           "--cpu"])
+        one = ["--max_steps", "1"]
+        card_on_cpu, _ = _train(train_cli, TINY_ADAM_ARGV + out + one + ["--checkpoint",
+                                                                        ck["card"], "--cpu"])
+        cpu_on_card, _ = _train(train_cli, TINY_ADAM_ARGV + out + one + ["--checkpoint",
+                                                                        ck["cpu"]])
+    res = {"loss_rel": max(abs(a["loss"] / b["loss"] - 1) for a, b in zip(card, cpu)),
+           "steps": [len(card), len(cpu)],
+           "reloaded_loss_rel": abs(card_on_cpu[0]["loss"] / cpu_on_card[0]["loss"] - 1)}
+    print(json.dumps({"tiny_adam_card_vs_cpu": res}))
+    check_gates("10d gpt2-tiny Adam card against CPU", {
+        "5 steps each": res["steps"] == [5, 5],
+        "per-step losses": res["loss_rel"] <= TINY_ADAM_RTOL,
+        "checkpoints cross devices": res["reloaded_loss_rel"] <= TINY_ADAM_RTOL,
+    })
+    return res
+
+
+def trained_checkpoint(train_cli, spectrum_cli, kernels) -> dict:
+    """Phase 10: 10a-10d, with every checkpoint in a temporary directory
+    deleted at the end."""
+    from hessian_llm_vision_tpu_torch.data.text import load_local_corpus
+
+    corpus = load_local_corpus(STDLIB, max_length=512, batch_size=8)["input_ids"]
+    print(f"[10] corpus local:{STDLIB}: {corpus.size} bytes in {corpus.shape[0]} batches of "
+          f"8 x 512", flush=True)
+    out = {"corpus": {"path": STDLIB, "bytes": int(corpus.size), "batches": corpus.shape[0]}}
+    del corpus
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["10a"], ckpt = adam_save_resume_124m(train_cli, tmp)
+        print(f"phase 10a took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["10b"] = checkpoint_spectrum_124m(spectrum_cli, ckpt)
+        print(f"phase 10b took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["10c"] = lanczos_sgd_from_checkpoint(train_cli, kernels, ckpt, tmp)
+        print(f"phase 10c took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["10d"] = tiny_adam_card_vs_cpu(train_cli, tmp)
+        print(f"phase 10d took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1143,9 +1430,9 @@ def main() -> int:
     print(f"phase 4 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(5, "gpt2-tiny trainer: card vs CPU")
-    tiny = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32", "--k", "4",
-            "--delta", "1e-2", "--refresh_every", "2", "--lanczos_momentum", "0.5",
-            "--max_steps", "3", "--no-basis_bf16"]
+    tiny = ["--model", "gpt2-tiny", "--optimiser", "lanczos-host", "--batch_size", "4",
+            "--max_length", "32", "--k", "4", "--delta", "1e-2", "--refresh_every", "2",
+            "--lanczos_momentum", "0.5", "--max_steps", "3", "--no-basis_bf16"]
     on_card, on_cpu = [], []
     train_cli.main(tiny, on_step=lambda s, r: on_card.append(r))
     train_cli.main(tiny + ["--cpu"], on_step=lambda s, r: on_cpu.append(r))
@@ -1229,6 +1516,26 @@ def main() -> int:
                                                      "max_memory_allocated_bytes")},
         "9f_ef": {k: cur["9f_ef"][k] for k in ("grads_s", "max_memory_allocated_bytes")},
     }}))
+    t0 = phase(10, "the trained-checkpoint path on GPT-2 124M: Adam save and resume, the "
+                   "checkpoint's spectrum, LanczosSGD from it; gpt2-tiny Adam card vs CPU")
+    trained = trained_checkpoint(train_cli, spectrum_cli, kernels)
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    a, b = trained["10a"], trained["10b"]
+    print(json.dumps({"trained_checkpoint": {
+        "corpus": trained["corpus"],
+        "10a_adam": {k: a[k] for k in ("N", "loss_step0", "last10_mean", "resume_max_abs_loss_diff",
+                                       "step_s_median", "saved_steps", "state_bytes",
+                                       "max_memory_allocated_bytes")}
+        | {k: a["pieces"][k] for k in ("grad_ms", "update_ms", "update_bound_ms")},
+        "10b_spectrum": {"lambda_max": b["checkpoint"]["lambda_max"],
+                         "lambda_min": b["checkpoint"]["lambda_min"],
+                         "init_lambda_max": b["init"]["lambda_max"],
+                         "lambda_max_ratio": b["lambda_max_ratio"],
+                         "rel_l2_hvp_vs_fd": b["hvp_vs_central_difference"]["rel_l2_hvp_vs_fd"]},
+        "10c_lanczos_sgd": {"step0_rel_vs_direct": trained["10c"]["step0_rel_vs_direct"],
+                            "losses": [r["loss"] for r in trained["10c"]["steps"]]},
+        "10d_tiny": trained["10d"],
+    }}))
     by_path = {"phase4_train_4_steps": launches,
                "phase7b_spectrum": headline["rank_k_launches"],
                "phase8a_thick_restart": ext["8a_thick_restart"]["rank_k_launches"],
@@ -1241,7 +1548,8 @@ def main() -> int:
                **{f"phase9d_bigmodel_{q}": cd[f"bigmodel_{q}"]["rank_k_launches"]
                   for q in BIG_RTOL},
                "phase9e_train_linearized": cur["9e_train"]["launches"],
-               "phase9f_empirical_fisher_matvec": cur["9f_ef"]["launches"]}
+               "phase9f_empirical_fisher_matvec": cur["9f_ef"]["launches"],
+               "phase10c_lanczos_sgd_from_checkpoint": trained["10c"]["launches"]}
     # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d) take no
     # rank-k apply; every other path must have launched both kernels
     t_only = ("phase7b", "phase8c", "phase9a", "phase9b", "phase9c", "phase9d")

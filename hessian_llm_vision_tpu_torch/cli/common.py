@@ -32,8 +32,11 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--experts", type=int, default=0, help="not ported yet (ROADMAP A12)")
     parser.add_argument("--seed", type=int, default=0, help="parameter init seed")
     parser.add_argument("--data_seed", type=int, default=42)
-    parser.add_argument("--checkpoint", default=None, help="not ported yet (ROADMAP A9)")
+    parser.add_argument("--checkpoint", default=None,
+                        help="params saved by cli.train --save_checkpoint "
+                        "(io/checkpoints.py) in place of the random init")
     parser.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP A11)")
+    parser.add_argument("--out", default="runs", help="root of the run directories")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU")
 
 

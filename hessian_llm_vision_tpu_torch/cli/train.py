@@ -1,140 +1,186 @@
-"""Training CLI (port of ``cli/train.py``): host-driven LanczosSGD on GPT-2.
+"""Training CLI (port of ``cli/train.py``): SGD, Adam and raw-SGD baselines
+and host-driven LanczosSGD on GPT-2.
+
+Flag names and defaults are the JAX CLI's.  Ported: ``--optimiser
+sgd|adam|raw|lanczos-host`` with the loop (``--epochs``, ``--max_steps``
+counted per process inside the epochs, ``--accumulation_steps``,
+``--linear_decay_steps``, ``--log_every``), ``--save_checkpoint`` (the
+params), ``--save_state`` / ``--resume_state`` (the train state;
+lanczos-host keeps its params, momentum and step), ``--checkpoint`` and the
+run directory ``--out/<optimiser>/<subsample>/lr=..._delta=...`` holding
+``training_stats.pkl``.  The other optimisers exit with "not ported yet";
+the JAX CLI's ``--tensorboard``, ``--snapshot_*``, ``--post_spectrum_*``,
+``--damping``, ``--cg_iters`` and precision flags are not registered yet.
 
 Runs on the first CUDA device unless ``--cpu`` is given; without ``--cpu``
 and without a card it stops with an error and never continues on the CPU.
-Flag names are the JAX CLI's.  Only this slice is ported: ``--model
-gpt2|gpt2-tiny``, ``--optimiser lanczos-host``, ``--dataset
-random|markov``; anything else exits with "not ported yet".
 
-Example (GPT-2 124M, bs8/seq512, 4 steps on a card):
+Examples:
+  python -m hessian_llm_vision_tpu_torch.cli.train --model gpt2-tiny --cpu \\
+      --optimiser adam --lr 1e-3 --epochs 2 --save_state /tmp/st
+  python -m hessian_llm_vision_tpu_torch.cli.train --model gpt2 \\
+      --dataset local:<text dir> --batch_size 8 --max_length 512 \\
+      --attn_block_q 256 --loss_chunk 256 --optimiser adam --lr 1e-3 \\
+      --max_steps 1000 --log_every 100 --save_state st --save_checkpoint ck
   python -m hessian_llm_vision_tpu_torch.cli.train --model gpt2 \\
       --optimiser lanczos-host --batch_size 8 --max_length 512 --k 10 \\
-      --delta 1e-4 --refresh_every 2 --lanczos_momentum 0.9 --max_steps 4
+      --refresh_every 2 --lanczos_momentum 0.9 --max_steps 4
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
+import os
 import time
 from typing import Callable, Optional
 
 import torch
 
-from hessian_llm_vision_tpu_torch.cli.common import device_for
-from hessian_llm_vision_tpu_torch.cli.workloads import _lm_batches
-
-_MODELS = ("gpt2", "gpt2-tiny")
-_OPTIMISERS = ("lanczos-host",)
-_DATASETS = ("random", "markov")
+from hessian_llm_vision_tpu_torch.cli.common import add_common_args, device_for
+from hessian_llm_vision_tpu_torch.cli.train_optimizers import build_optimizer, check_optimiser
+from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint, save_checkpoint
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", default="gpt2-tiny", help="gpt2 | gpt2-tiny")
-    p.add_argument("--optimiser", default="lanczos-host", help="lanczos-host")
-    p.add_argument("--dataset", default="random", help="random | markov")
-    p.add_argument("--batch_size", type=int, default=8)
-    p.add_argument("--max_length", type=int, default=64)
-    p.add_argument("--num_batches", type=int, default=None,
-                   help="synthetic batches to generate (default 4)")
-    p.add_argument("--k", type=int, default=10)
-    p.add_argument("--delta", type=float, default=1e-4)
-    p.add_argument("--lr", type=float, default=1e-3)
-    p.add_argument("--momentum", type=float, default=0.9)
-    p.add_argument("--wd", type=float, default=0.0)
-    p.add_argument("--refresh_every", type=int, default=1)
-    p.add_argument("--lanczos_momentum", type=float, default=0.0)
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_common_args(p)
+    p.add_argument("--optimiser", default="sgd",
+                   help="sgd | adam | raw | lanczos-host; lanczos, lanczos-layer, "
+                   "lanczos-layer-host, gn and ngd are not ported yet")
     p.add_argument("--basis_bf16", action=argparse.BooleanOptionalAction, default=None,
-                   help="store the Ritz basis in bf16 (default: on at >= 1e8 "
-                   "params, off below)")
+                   help="lanczos-host: store the Ritz basis in bf16 (default: on at "
+                   ">= 1e8 params, off below)")
     p.add_argument("--refresh_batch_size", type=int, default=None,
-                   help="run refresh HVPs on only the first N sequences")
+                   help="lanczos-host: run refresh HVPs on only the first N sequences")
     p.add_argument("--refresh_linearized", action="store_true",
                    help="lanczos-host: pay the refresh's primal fwd+bwd once "
                    "per refresh, run the k Lanczos HVPs on the cached "
                    "linearization (curvature/linearized.py); the residuals "
                    "stay on the device during the refresh "
                    "(curvature.linearized.residual_bytes counts them)")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--beta2", type=float, default=0.999, help="Adam beta2")
+    p.add_argument("--wd", type=float, default=0.0)
+    p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--max_steps", type=int, default=0,
-                   help="optimizer steps, cycling over the batches "
-                   "(0 = one pass over the batches)")
-    p.add_argument("--seed", type=int, default=0, help="parameter init seed")
-    p.add_argument("--data_seed", type=int, default=42)
-    p.add_argument("--cpu", action="store_true", help="run on the CPU")
+                   help="stop after exactly N optimizer steps of this process "
+                   "across epochs (0 = run all epochs)")
+    p.add_argument("--k", type=int, default=10)
+    p.add_argument("--delta", type=float, default=None,
+                   help="LanczosSGD damping (default 1e-4) or, with --optimiser "
+                   "adam, the Adam eps (default 1e-8)")
+    p.add_argument("--accumulation_steps", type=int, default=1)
+    p.add_argument("--lanczos_momentum", type=float, default=0.0)
+    p.add_argument("--refresh_every", type=int, default=1)
+    p.add_argument("--linear_decay_steps", type=int, default=0)
+    p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--save_checkpoint", default=None, help="save the final params")
+    p.add_argument("--save_state", default=None,
+                   help="save the full train state (params+optimizer+step) for resume")
+    p.add_argument("--resume_state", default=None, help="resume from a --save_state file")
     return p
 
 
-def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> float:
-    """Train; prints one line per step and the final loss last.
+def _reporting(step_fn, on_step, device: torch.device):
+    """``step_fn`` that hands each step's floats and its host seconds
+    (synchronised with the device) to ``on_step(step, record)``."""
+    count = itertools.count()
 
-    ``on_step(step, record)`` receives each step's floats: ``loss``,
-    ``eig_min``, ``eig_max`` and ``seconds`` (host clock around the step,
-    synchronised with the device).  Returns the final loss.
-    """
-    args = build_parser().parse_args(argv)
-    if args.refresh_linearized and args.optimiser != "lanczos-host":
-        raise SystemExit("--refresh_linearized applies to --optimiser lanczos-host")
-    for flag, value, ported in (
-        ("--model", args.model, _MODELS),
-        ("--optimiser", args.optimiser, _OPTIMISERS),
-        ("--dataset", args.dataset, _DATASETS),
-    ):
-        if value not in ported:
-            raise SystemExit(f"{flag} {value}: not ported yet (ported: {', '.join(ported)})")
-    device = device_for(args.cpu)
-    # curvature is true fp32: TF32 gives wrong extreme eigenvalues
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
-    from hessian_llm_vision_tpu_torch.models.losses import lm_loss_fn
-    from hessian_llm_vision_tpu_torch.optim.lanczos_sgd import LanczosSGDConfig
-    from hessian_llm_vision_tpu_torch.optim.lanczos_sgd_host import HostLanczosSGDTrainer
-
-    if args.model == "gpt2-tiny":
-        cfg = GPT2Config.tiny(n_positions=max(64, args.max_length))
-    else:
-        cfg = GPT2Config.gpt2_124m(n_positions=max(args.max_length, 32))
-    model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(args.seed)).to(device)
-    params = {n: p.detach() for n, p in model.named_parameters()}
-    batches = _lm_batches(args, cfg.vocab_size, device)
-
-    basis_bf16 = args.basis_bf16
-    if basis_bf16 is None:
-        basis_bf16 = sum(p.numel() for p in params.values()) >= 10**8
-        if basis_bf16:
-            print("[train] >=1e8 params: bf16 Ritz basis on by default (--no-basis_bf16 for f32)")
-    trainer = HostLanczosSGDTrainer(
-        lm_loss_fn(model), params,
-        LanczosSGDConfig(
-            k=args.k, delta=args.delta, lr=args.lr, momentum=args.momentum,
-            weight_decay=args.wd, refresh_every=args.refresh_every,
-            lanczos_momentum=args.lanczos_momentum, normalization="sum",
-        ),
-        batch_size=args.batch_size,
-        basis_dtype=torch.bfloat16 if basis_bf16 else torch.float32,
-        refresh_batch_size=args.refresh_batch_size,
-        refresh_linearized=args.refresh_linearized,
-    )
-    state = trainer.init(params)
-    loss = float("nan")
-    for step in range(args.max_steps or len(batches)):
+    def step(state, batch):
         t0 = time.perf_counter()
-        state, metrics = trainer.step(state, batches[step % len(batches)])
+        state, metrics = step_fn(state, batch)
         record = {k: float(v) for k, v in metrics.items()}  # waits for the device
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         record["seconds"] = time.perf_counter() - t0
-        loss = record["loss"]
-        print(
-            f"step {step}  loss {loss:.4f}  eig_min {record['eig_min']:.6g}  "
-            f"eig_max {record['eig_max']:.6g}  {record['seconds']:.3f}s"
-        )
-        if on_step is not None:
-            on_step(step, record)
+        on_step(next(count), record)
+        return state, metrics
+
+    return step
+
+
+def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> float:
+    """Train; prints ``step N  loss X  ema Y  Ts`` at log points and the
+    final loss last.  Returns the final loss.
+
+    ``on_step(step, record)`` receives each step's scalar metrics as floats
+    (``loss``; ``eig_min`` and ``eig_max`` for lanczos-host, ``grad_norm``
+    otherwise) and ``seconds``; only with it does every step wait for the
+    device."""
+    from hessian_llm_vision_tpu_torch.io.runs import run_dir_name
+    from hessian_llm_vision_tpu_torch.obs.loggers import MultiLogger, PickleStatsLogger
+    from hessian_llm_vision_tpu_torch.optim.schedules import linear_decay
+    from hessian_llm_vision_tpu_torch.train.accumulate import to_microbatches
+    from hessian_llm_vision_tpu_torch.train.loop import train
+
+    args = build_parser().parse_args(argv)
+    if args.refresh_linearized and args.optimiser != "lanczos-host":
+        raise SystemExit("--refresh_linearized applies to --optimiser lanczos-host")
+    check_optimiser(args.optimiser)
+    device = device_for(args.cpu)
+    # curvature is true fp32: TF32 gives wrong extreme eigenvalues
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.delta is None:
+        args.delta = 1e-8 if args.optimiser == "adam" else 1e-4
+
+    wl = build_workload(args, device)
+    lr = linear_decay(args.lr, args.linear_decay_steps) if args.linear_decay_steps else args.lr
+    rundir = run_dir_name(
+        args.out, args.optimiser, args.subsample, lr=args.lr, delta=args.delta,
+        batchsize=args.batch_size, k=args.k, accum=args.accumulation_steps,
+        lanczosmomentum=args.lanczos_momentum,
+    )
+    os.makedirs(rundir, exist_ok=True)
+    logger = MultiLogger([PickleStatsLogger(os.path.join(rundir, "training_stats.pkl"))])
+
+    accum = args.accumulation_steps
+    init_fn, step_fn, trainer = build_optimizer(args, wl, lr, accum)
+    host_driven = trainer is not None
+    batches = wl.batches
+    if accum > 1:
+        batches = [to_microbatches(b, accum) for b in batches]
+
+    final = {"loss": float("nan")}
+
+    def on_log(step, metrics):
+        final.update(metrics)
+        logger.log(step, metrics)
+        print(f"step {step}  loss {metrics['loss']:.4f}  "
+              f"ema {metrics['ema_loss']:.4f}  {metrics['step_time']:.3f}s")
+
+    state0 = init_fn(wl.params)
+    if args.resume_state:
+        if host_driven:
+            # the host trainer's state is a mutable dataclass: its resumable core
+            core = load_checkpoint(args.resume_state, template={
+                "params": state0.params, "momentum": state0.momentum, "step": state0.step})
+            state0.params, state0.momentum = core["params"], core["momentum"]
+            state0.step = core["step"]
+        else:
+            state0 = load_checkpoint(args.resume_state, template=state0)
+        print(f"resumed train state <- {args.resume_state}")
+
+    if on_step is not None:
+        step_fn = _reporting(step_fn, on_step, device)
+    state = train(step_fn, state0, batches, num_epochs=args.epochs, max_steps=args.max_steps,
+                  log_every=args.log_every, on_log=on_log)
+    logger.close()
+
+    if args.save_checkpoint:
+        save_checkpoint(args.save_checkpoint, state.params)
+        print(f"checkpoint -> {args.save_checkpoint}")
+    if args.save_state:
+        save_checkpoint(args.save_state, {"params": state.params, "momentum": state.momentum,
+                                          "step": state.step} if host_driven else state)
+        print(f"train state -> {args.save_state}")
     # last stdout line is the final loss (the JAX CLI's contract)
-    print(loss)
-    return loss
+    print(final["loss"])
+    return final["loss"]
 
 
 if __name__ == "__main__":

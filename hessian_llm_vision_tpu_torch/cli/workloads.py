@@ -3,7 +3,8 @@ loss, batches and the GGN pieces (``model_fn`` -> logits, ``out_loss_fn``
 on them) a CLI runs on, for ``--model gpt2 | gpt2-tiny``.
 
 Weights are random from ``--seed`` (a torch generator, so they are not the
-JAX package's weights for the same seed); tokens come from the same numpy
+JAX package's weights for the same seed), or ``--checkpoint``'s params
+loaded with the random init as template; tokens come from the same numpy
 generators as the JAX package's, so both packages see the same batches.
 """
 
@@ -85,15 +86,16 @@ def _refuse_unported(args) -> None:
         ("--experts", bool(args.experts), "A12"),
         ("--bf16", args.bf16, "A11"),
         ("--block_precision", args.block_precision is not None, "A11"),
-        ("--checkpoint", args.checkpoint is not None, "A9"),
     ):
         if is_set:
             raise SystemExit(f"{flag}: not ported yet (ROADMAP {item})")
 
 
 def build_workload(args, device: torch.device) -> Workload:
-    """GPT-2 (124M or tiny) at random init from ``--seed``, on ``device``,
-    with its LM loss and the ``--dataset`` batches."""
+    """GPT-2 (124M or tiny) at random init from ``--seed`` or from
+    ``--checkpoint``, on ``device``, with its LM loss and the ``--dataset``
+    batches."""
+    from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint
     from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from hessian_llm_vision_tpu_torch.models.losses import causal_lm_loss, lm_loss_fn
 
@@ -106,6 +108,8 @@ def build_workload(args, device: torch.device) -> Workload:
         cfg = dataclasses.replace(cfg, attn_block_q=args.attn_block_q)
     model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(args.seed)).to(device)
     params = {n: p.detach() for n, p in model.named_parameters()}
+    if args.checkpoint:
+        params = load_checkpoint(args.checkpoint, template=params)
 
     # the dense logits: --loss_chunk does not apply to the GGN's model_fn
     def lm_model_fn(p, b):

@@ -1,1 +1,1 @@
-"""Spectrum artifact IO."""
+"""Spectrum artifacts, checkpoints and run directories."""

@@ -1,1 +1,2 @@
-"""Optimizers: torch-convention SGD and host-driven LanczosSGD."""
+"""Optimizers: SGD, Adam and raw SGD update rules, LR schedules, and
+host-driven LanczosSGD."""

@@ -26,8 +26,15 @@ def _one_torch_thread():
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "transformers", "hessian_llm_vision_tpu"}
-TINY = ["--model", "gpt2-tiny", "--batch_size", "2", "--max_length", "16", "--k", "3",
-        "--delta", "1e-2", "--refresh_every", "2", "--lanczos_momentum", "0.5"]
+TINY = ["--model", "gpt2-tiny", "--optimiser", "lanczos-host", "--batch_size", "2",
+        "--max_length", "16", "--k", "3", "--delta", "1e-2", "--refresh_every", "2",
+        "--lanczos_momentum", "0.5"]
+
+
+@pytest.fixture(autouse=True)
+def _run_dirs_in_tmp(tmp_path, monkeypatch):
+    """The train CLI writes its run directory under ./runs."""
+    monkeypatch.chdir(tmp_path)
 
 
 def test_cli_runs_two_steps_on_cpu(capsys):
@@ -55,7 +62,7 @@ def test_cli_without_cpu_flag_needs_a_card():
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("--model", "pythia-70m"), ("--optimiser", "adam"), ("--dataset", "wikipedia"),
+    ("--model", "pythia-70m"), ("--optimiser", "gn"), ("--dataset", "wikipedia"),
 ])
 def test_cli_unported_choices_exit(flag, value):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -146,14 +146,15 @@ def test_linearized_refresh_matches_jax_and_the_standard_trainer():
         np.testing.assert_allclose(node, np.asarray(leaf), rtol=1e-3, atol=2e-5)
 
 
-def test_train_cli_refresh_linearized(capsys):
+def test_train_cli_refresh_linearized(capsys, tmp_path):
     """The train CLI with --refresh_linearized walks the standard CLI's
     steps (JAX ``test_linearized.py::test_train_cli_refresh_linearized``),
     and refuses other optimisers with the JAX message."""
     from hessian_llm_vision_tpu_torch.cli import train
 
-    argv = ["--model", "gpt2-tiny", "--batch_size", "2", "--max_length", "16",
-            "--num_batches", "2", "--max_steps", "2", "--k", "3", "--cpu"]
+    argv = ["--model", "gpt2-tiny", "--optimiser", "lanczos-host", "--batch_size", "2",
+            "--max_length", "16", "--num_batches", "2", "--max_steps", "2", "--k", "3", "--cpu",
+            "--out", str(tmp_path)]
     runs = []
     for extra in (["--refresh_linearized"], []):
         recs = []

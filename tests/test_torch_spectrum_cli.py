@@ -1,5 +1,5 @@
 """Port spectrum CLI on the CPU: its artifacts equal the library calls from
-the same start vector, the JAX package reads them, checkpoints resume, and
+the same start vector, the JAX package reads them, T checkpoints resume, and
 every flag of a path not ported yet exits with "not ported yet"."""
 
 import numpy as np
@@ -113,7 +113,7 @@ def test_other_ported_paths_run(tmp_path, extra, capsys):
     ["--host_loop", "--probes", "2", "--probe_parallel"],
     ["--precision_check"],
     ["--hvp_precision", "auto"], ["--hvp_precision", "mixed"], ["--hvp_precision", "default"],
-    ["--model", "pythia-70m"], ["--experts", "2"], ["--bf16"], ["--checkpoint", "ck"],
+    ["--model", "pythia-70m"], ["--experts", "2"], ["--bf16"],
     ["--block_precision", "high"], ["--dataset", "wikipedia"],
 ], ids=lambda e: "_".join(e).lstrip("-"))
 def test_unported_flags_exit(extra):
