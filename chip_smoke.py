@@ -70,7 +70,25 @@ Phases (any failure exits non-zero and prints no result line):
      loss equal to the checkpoint's, each rank-k kernel once per step; (d)
      gpt2-tiny Adam with accumulation and linear decay, card against CPU,
      and checkpoints loading across the two; one {"trained_checkpoint":
-     ...} line.
+     ...} line.  Phases 7-10 pin --hvp_precision high: their gates hold
+     fp32 HVPs, and the CLI's default "auto" may pick a lower tier.
+ 11. the precision ladder, inside phase 10's temporary directory, on one
+     stdlib batch of bs8 x seq512: (a) at init and on the 1000-step
+     checkpoint, the reorthogonalised probe (10 iterations, CGS2 on the
+     rank-k pair) of the bf16, TF32 and "high" tiers against the "highest"
+     referee: bf16 and TF32 differ from fp32, bf16 errs more than TF32 at
+     init, "high" equals "highest" bit for bit, and an HVP with block 0 alone
+     at TF32 differs from all-fp32 and all-TF32; (b) cli.spectrum
+     --hvp_precision auto on the checkpoint: the plan names its arms, the
+     chosen one within 1e-3 or the referee, its file next to the checkpoint,
+     reused with no probe, probed again with --reprobe; and at init; (c)
+     --precision_check with --hvp_precision default warns iff its error
+     passes 2e-3; (d) the fp32 referee against blocks in float64 and
+     against the whole model in float64; (e) phase 4's LanczosSGD from the
+     checkpoint with --refresh_precision auto --precision_recheck 1: the
+     guard's events, each rank-k kernel once per step plus the probes' CGS2
+     launches; (f) gpt2-tiny card against CPU: --hvp_precision high with
+     --precision_check, and --bf16 Adam losses; one {"precision": ...} line.
 Phase 3 also checks and times (4, 124,046,592), (8, 124,046,592) and (16,
 124,046,592) in bf16, the deflation projector's, the empirical Fisher's
 and the CGS2 pass's shapes.  Then it prints one JSON line of kernels
@@ -121,14 +139,17 @@ TRAIN_ARGV = [
 ]
 # bench.py's headline job (4 batches x bs8 x seq512, 35 iterations, T-only
 # dataset-mean host loop; --fused_iter is bench.py's flag, one path here), in fp32
+# (every spectrum of phases 7-10 pins --hvp_precision high: the fp32 HVPs
+# its gates were set on; the CLI's default "auto" may pick bf16 or TF32)
 SPECTRUM_ARGV = [
     "--model", "gpt2", "--dataset", "random", "--num_batches", "4", "--batch_size", "8",
     "--max_length", "512", "--attn_block_q", "512", "--loss_chunk", "512",
     "--lanczos_iters", "35", "--host_loop", "--fused_iter", "--vector_seed", "997",
+    "--hvp_precision", "high",
 ]
 TINY_SPECTRUM_ARGV = [
     "--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32", "--num_batches", "2",
-    "--lanczos_iters", "12", "--vector_seed", "5",
+    "--lanczos_iters", "12", "--vector_seed", "5", "--hvp_precision", "high",
 ]
 # the JAX package's committed 124M spectrum (3 probes, mixed precision, its own weights)
 JAX_SPECTRUM = "artifacts/slq_multiprobe_r3/spec.npz"
@@ -158,7 +179,7 @@ MU0_TOL = 1e-6
 KPM_STAGE_MATVECS = 12 + 59  # range estimate + 60 moments' recurrence
 # 8d: gpt2-tiny card against CPU
 TINY_EXT = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32", "--num_batches",
-            "2", "--vector_seed", "5"]
+            "2", "--vector_seed", "5", "--hvp_precision", "high"]
 EXT_EIG_RTOL, EXT_MOMENT_ATOL, EXT_HUTCHPP_RTOL = 1e-5, 1e-5, 1e-4
 # 7c: step along the unit start vector of the float64 central difference,
 # and the rel-L2 limit of the f32 HVP (and of alpha_1) against it: about
@@ -198,9 +219,9 @@ ADAM_ARGV = ["--model", "gpt2", "--batch_size", "8", "--max_length", "512", "--a
 # the first card reading was 0.0 (bit-identical over 200 steps), so the
 # gate allows only last-bit differences
 RESUME_LOSS_ATOL = 1e-6
-CKPT_SPECTRUM_ARGV = ["--model", "gpt2", "--dataset", f"local:{STDLIB}", "--num_batches", "1",
-                      "--batch_size", "8", "--max_length", "512", "--host_loop",
-                      "--lanczos_iters", "20"]
+CKPT_BASE = ["--model", "gpt2", "--dataset", f"local:{STDLIB}", "--num_batches", "1",
+             "--batch_size", "8", "--max_length", "512", "--host_loop", "--lanczos_iters", "20"]
+CKPT_SPECTRUM_ARGV = CKPT_BASE + ["--hvp_precision", "high"]
 # 10b: the f32 HVP at the 1000-step checkpoint against the float64
 # difference first read 6.45e-3, 320x 7c's limit at init, while the
 # difference's own truncation read 2.5e-7: a finding for the precision
@@ -211,6 +232,19 @@ TINY_ADAM_ARGV = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "
                   "--optimiser", "adam", "--num_batches", "5", "--accumulation_steps", "2",
                   "--linear_decay_steps", "10"]
 TINY_ADAM_RTOL = 1e-5  # 10d card against CPU, per-step losses
+# phase 11: the precision ladder at the init and the 1000-step checkpoint,
+# GPT-2 124M, one stdlib batch of bs8 x seq512
+PROBE_ITERS = 10  # reorthogonalised Lanczos iterations per probe arm
+PROBE_ARMS = ("default", "TF32_TF32_F32", "high")  # against the "highest" referee
+AUTO_ARGV = CKPT_BASE + ["--hvp_precision", "auto"]
+AUTO_TOL = 1e-3  # the planner's bar on the chosen arm's extreme-Ritz error
+CHECK_BAR = 2e-3  # report_precision_probe's bar
+GUARD_RITZ_ITERS = 8  # RefreshPrecisionGuard's default probe depth
+# 11f: gpt2-tiny card against CPU; bf16 products round once per output on
+# both devices, so the losses may drift by a few bf16 ulps of the logits
+TINY_BF16_ARGV = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32",
+                  "--optimiser", "adam", "--num_batches", "3", "--bf16"]
+TINY_BF16_RTOL = 1e-3
 CARD = torch.device("cuda")
 
 
@@ -1328,8 +1362,277 @@ def tiny_adam_card_vs_cpu(train_cli, tmp: str) -> dict:
     return res
 
 
-def trained_checkpoint(train_cli, spectrum_cli, kernels) -> dict:
-    """Phase 10: 10a-10d, with every checkpoint in a temporary directory
+def run_cli_both(spectrum_cli, argv):
+    """``cli.spectrum.main(argv)`` with stdout and stderr kept: (spectrum,
+    stdout lines, stderr text, host seconds, synchronised)."""
+    out, err = _Tee(sys.stdout), _Tee(sys.stderr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        spec, _ = spectrum_cli.main(argv)
+    torch.cuda.synchronize()
+    return spec, "".join(out.parts).splitlines(), "".join(err.parts), time.perf_counter() - t0
+
+
+def _probe_workload(spectrum_cli, ckpt):
+    from hessian_llm_vision_tpu_torch.cli.precision import lm_loss_factory
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+
+    argv = CKPT_SPECTRUM_ARGV + (["--checkpoint", ckpt] if ckpt else [])
+    args = spectrum_cli.build_parser().parse_args(argv)
+    wl = build_workload(args, CARD)
+    return wl, lm_loss_factory(wl, args)
+
+
+def _probe(driver, wl, loss_fn, precision, **kw) -> dict:
+    stats = driver.matvec_precision_probe(
+        loss_fn, wl.params, wl.batches[0], generator=torch.Generator().manual_seed(997),
+        precision=precision, ritz_iters=PROBE_ITERS, reorth=True, **kw)
+    return {"rel_err": stats["rel_err"], "ritz_rel_err": stats["ritz_rel_err"],
+            "ms_per_hvp": 1e3 * stats["seconds_requested"],
+            "referee_ms_per_hvp": 1e3 * stats["seconds_referee"],
+            "extremes": stats["ritz_extremes_requested"],
+            "referee_extremes": stats["ritz_extremes_referee"]}
+
+
+def tier_map(spectrum_cli, kernels, ckpt: str) -> dict:
+    """Phase 11a: each tier against the "highest" referee by the
+    reorthogonalised probe, at init and at the checkpoint; then an HVP with
+    only block 0 at TF32 against all-fp32 and all-TF32 (the scope's reach)."""
+    from hessian_llm_vision_tpu_torch.krylov import driver
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    out = {}
+    kernels.reset_launch_counts()
+    for point, path in (("init", None), ("checkpoint", ckpt)):
+        torch.cuda.empty_cache()
+        wl, factory = _probe_workload(spectrum_cli, path)
+        out[point] = {arm: _probe(driver, wl, wl.loss_fn, arm) for arm in PROBE_ARMS}
+        if point == "checkpoint":
+            fl = Flattener(wl.params)
+            v = torch.randn(fl.size, generator=torch.Generator().manual_seed(5)).to(CARD)
+            block0 = ("TF32_TF32_F32",) + (None,) * (wl.model.config.n_layer - 1)
+
+            def hv(loss_fn, precision):
+                return driver.batch_hvp(loss_fn, precision, fl)(v, wl.params, wl.batches[0])
+
+            b0 = hv(factory(block0), "high")
+            out["block0_tf32"] = {"rel_l2_vs_fp32": rel_l2(b0, hv(wl.loss_fn, "high")),
+                                  "rel_l2_vs_all_tf32": rel_l2(b0, hv(wl.loss_fn,
+                                                                      "TF32_TF32_F32"))}
+        del wl, factory
+    out["launches"] = dict(kernels.LAUNCHES)
+    print(json.dumps({"tier_map": out}))
+    gates = {}
+    for point in ("init", "checkpoint"):
+        r = out[point]
+        gates[f"{point}: bf16 and TF32 differ from fp32"] = (
+            r["default"]["rel_err"] > 0 and r["TF32_TF32_F32"]["rel_err"] > 0)
+        gates[f"{point}: high equals highest bit for bit"] = (
+            r["high"]["rel_err"] == 0 and r["high"]["ritz_rel_err"] == 0)
+        gates[f"{point}: finite"] = all(math.isfinite(x) for a in r.values()
+                                        for x in (a["rel_err"], a["ritz_rel_err"]))
+    gates["init: bf16 errs more than TF32"] = (
+        out["init"]["default"]["rel_err"] > out["init"]["TF32_TF32_F32"]["rel_err"])
+    gates["block 0 at TF32 differs from all-fp32 and all-TF32"] = (
+        out["block0_tf32"]["rel_l2_vs_fp32"] > 0 and out["block0_tf32"]["rel_l2_vs_all_tf32"] > 0)
+    # 2 points x 3 arms x 2 Lanczos runs x PROBE_ITERS iterations x 2 CGS2 passes
+    n = 2 * len(PROBE_ARMS) * 2 * PROBE_ITERS * 2
+    gates[f"{n} CGS2 launches of each kernel"] = all(out["launches"][k] == n
+                                                      for k in TPU_KERNELS)
+    check_gates("11a the tier map", gates)
+    return out
+
+
+_PLAN = r"^auto precision plan: (.+) \(extreme-Ritz err ([\d.e+-]+) vs f32 referee\)"
+_ARM = r"^  probed (.+): err ([\d.e+-]+), (\d+) ms/HVP"
+_LOGGED = r"^\[auto-precision\] (.+): err ([\d.e+-]+), (\d+) ms/HVP"
+
+
+def auto_plan(spectrum_cli, kernels, ckpt: str) -> dict:
+    """Phase 11b: the spectrum CLI with --hvp_precision auto on the
+    checkpoint (the plan, its file, its reuse, --reprobe) and at init."""
+    out = {}
+    plan_path = ckpt + ".autoprec.json"
+    runs = (("checkpoint", ["--checkpoint", ckpt]),
+            ("reuse", ["--checkpoint", ckpt, "--lanczos_iters", "2"]),
+            ("reprobe", ["--checkpoint", ckpt, "--lanczos_iters", "2", "--reprobe"]),
+            ("init", []))
+    for name, extra in runs:
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        spec, lines, _, main_s = run_cli_both(spectrum_cli, AUTO_ARGV + extra)
+        text = "\n".join(lines)
+        arms = [(m.group(1), float(m.group(2)), int(m.group(3)))
+                for line in lines if (m := re.search(_ARM, line))]
+        logged = [m.group(1) for line in lines if (m := re.search(_LOGGED, line))]
+        plan = [(m.group(1), float(m.group(2))) for line in lines if (m := re.search(_PLAN, line))]
+        out[name] = {"plan": plan[-1] if plan else None, "arms": arms, "logged": logged,
+                     "skipped": [line for line in lines if "SKIPPED" in line],
+                     "probed": "[auto-precision] referee" in text,
+                     "reused": "reusing persisted plan" in text,
+                     "lambda_max": float(spec.eigvals.max()), "main_s": main_s,
+                     "launches": dict(kernels.LAUNCHES)}
+        if name == "checkpoint":
+            out["plan_file_written"] = os.path.isfile(plan_path)
+    print(json.dumps({"auto_plan": out}))
+    label, err = out["checkpoint"]["plan"]
+    check_gates("11b --hvp_precision auto", {
+        "the plan names each probed arm with error and speed":
+            [a[0] for a in out["checkpoint"]["arms"]] == out["checkpoint"]["logged"] != [],
+        "chosen arm within the bar, or the referee": err <= AUTO_TOL
+        or label.startswith("referee fallback"),
+        "plan file next to the checkpoint": out["plan_file_written"],
+        "second run reuses, no probe": out["reuse"]["reused"] and not out["reuse"]["probed"],
+        "--reprobe probes again": out["reprobe"]["probed"],
+        "init resolves a plan": out["init"]["plan"] is not None,
+        "no probe arm skipped": not any(out[name]["skipped"] for name, _ in runs),
+    })
+    return out
+
+
+def precision_check_default(spectrum_cli, ckpt: str) -> dict:
+    """Phase 11c: --precision_check with --hvp_precision default on the
+    checkpoint: the report line, and the warning iff the bar breaks."""
+    torch.cuda.empty_cache()
+    _, lines, err, main_s = run_cli_both(spectrum_cli, CKPT_BASE + [
+        "--checkpoint", ckpt, "--hvp_precision", "default", "--precision_check",
+        "--lanczos_iters", "2"])
+    ritz, matvec = (float(x) for x in reported(
+        lines, r"^\[precision\] HVP extreme-Ritz rel err vs f32 referee \(10 iters\): "
+               r"([\d.e+-]+)  \(matvec rel err ([\d.e+-]+);"))
+    warned = "exceeds the 0.002 parity bar" in err
+    res = {"ritz_rel_err": ritz, "rel_err": matvec, "warned": warned, "main_s": main_s}
+    if ritz <= CHECK_BAR:
+        res["finding"] = "--hvp_precision default stays within the 2e-3 bar at the checkpoint"
+    print(json.dumps({"precision_check_default": res}))
+    check_gates("11c --precision_check", {"warns iff the bar breaks": warned == (ritz > CHECK_BAR)})
+    return res
+
+
+def float64_arms(spectrum_cli, ckpt: str) -> dict:
+    """Phase 11d: the fp32 referee against blocks in float64 (head fp32)
+    and against the whole model in float64, at the checkpoint."""
+    from hessian_llm_vision_tpu_torch.krylov import driver
+
+    torch.cuda.empty_cache()
+    wl, factory = _probe_workload(spectrum_cli, ckpt)
+    arms = {"blocks_f64": factory("F64_F64_F64"),
+            "whole_f64": lambda p, b: wl.loss_fn({n: t.double() for n, t in p.items()}, b)}
+    out = {}
+    for name, loss in arms.items():
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = _probe(driver, wl, wl.loss_fn, "highest", referee_loss_fn=loss,
+                           referee_precision="highest")
+        out[name]["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+    del wl, factory, arms
+    print(json.dumps({"float64_arms": out}))
+    check_gates("11d float64 arms", {"finite": all(
+        math.isfinite(r["rel_err"]) and math.isfinite(r["ritz_rel_err"]) for r in out.values())})
+    return out
+
+
+def guarded_training(train_cli, kernels, ckpt: str, tmp: str) -> dict:
+    """Phase 11e: phase 4's LanczosSGD from the checkpoint with
+    --refresh_precision auto --precision_recheck 1: the guard's tier,
+    events and summary; each rank-k kernel once per step plus 2 x 2 x
+    GUARD_RITZ_ITERS CGS2 launches per probe."""
+    runs = os.path.join(tmp, "runs11")
+    argv = TRAIN_ARGV + ["--checkpoint", ckpt, "--dataset", f"local:{STDLIB}", "--out", runs,
+                         "--refresh_precision", "auto", "--precision_recheck", "1"]
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    records, main_s = _train(train_cli, argv)
+    launches = dict(kernels.LAUNCHES)
+    (path,) = glob.glob(os.path.join(runs, "**", "precision_guard.json"), recursive=True)
+    with open(path) as f:
+        summary = json.load(f)
+    probes = len(summary["events"])
+    res = {"steps": records, "main_s": main_s, "summary": summary, "launches": launches,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps({"guarded_training": res}))
+    expected = 4 + probes * 2 * 2 * GUARD_RITZ_ITERS
+    check_gates("11e the refresh precision guard", {
+        "4 steps": len(records) == 4,
+        "finite losses and eigenvalues": all(math.isfinite(v) for r in records for v in r.values()),
+        "an initial and a periodic probe": [e["trigger"] for e in summary["events"]][:1]
+        == ["initial"] and "periodic" in {e["trigger"] for e in summary["events"]},
+        f"each kernel once per step + CGS2 ({expected})": all(launches[k] == expected
+                                                              for k in TPU_KERNELS),
+    })
+    return res
+
+
+def precision_card_vs_cpu(spectrum_cli, train_cli, tmp: str) -> dict:
+    """Phase 11f: gpt2-tiny, card against CPU: --hvp_precision high with
+    --precision_check, and --bf16 Adam losses."""
+    reads = {}
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        for dev, extra in (("card", []), ("cpu", ["--cpu"])):
+            spec, lines, _, _ = run_cli_both(spectrum_cli, TINY_SPECTRUM_ARGV + [
+                "--host_loop", "--precision_check"] + extra)
+            ritz = float(reported(lines, r"referee \(10 iters\): ([\d.e+-]+)")[0])
+            recs, _ = _train(train_cli, TINY_BF16_ARGV + ["--out", os.path.join(tmp, "bf16")]
+                             + extra)
+            reads[dev] = (spec, ritz, [r["loss"] for r in recs])
+    (card, ritz_card, loss_card), (cpu, ritz_cpu, loss_cpu) = reads["card"], reads["cpu"]
+    res = {"high_extremes_rel": extremes_rel(card.eigvals, cpu.eigvals),
+           "check_ritz_rel_err": [ritz_card, ritz_cpu],
+           "bf16_loss_rel": max(abs(a / b - 1) for a, b in zip(loss_card, loss_cpu)),
+           "bf16_losses": [loss_card, loss_cpu]}
+    print(json.dumps({"precision_card_vs_cpu": res}))
+    check_gates("11f gpt2-tiny card against CPU", {
+        "high extremes": res["high_extremes_rel"] <= CARD_CPU_LAMBDA_RTOL,
+        "high against highest is 0 on both": ritz_card == ritz_cpu == 0,
+        "bf16 losses": res["bf16_loss_rel"] <= TINY_BF16_RTOL and len(loss_card) == 3,
+    })
+    return res
+
+
+def precision_ladder(train_cli, spectrum_cli, kernels, ckpt: str, tmp: str) -> dict:
+    """Phase 11: 11a-11f on phase 10's 1000-step checkpoint."""
+    out = {}
+    for name, run in (("11a", lambda: tier_map(spectrum_cli, kernels, ckpt)),
+                      ("11b", lambda: auto_plan(spectrum_cli, kernels, ckpt)),
+                      ("11c", lambda: precision_check_default(spectrum_cli, ckpt)),
+                      ("11d", lambda: float64_arms(spectrum_cli, ckpt)),
+                      ("11e", lambda: guarded_training(train_cli, kernels, ckpt, tmp)),
+                      ("11f", lambda: precision_card_vs_cpu(spectrum_cli, train_cli, tmp))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        out[name]["phase_s"] = time.perf_counter() - t0
+        print(f"phase {name} took {out[name]['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def precision_summary(prec: dict) -> dict:
+    """The {"precision": ...} line: phase 11's readings."""
+    a11 = prec["11a"]
+    return {
+        "11a_tiers": {point: {arm: {k: a11[point][arm][k] for k in (
+            "rel_err", "ritz_rel_err", "ms_per_hvp", "referee_ms_per_hvp")}
+            for arm in PROBE_ARMS} for point in ("init", "checkpoint")},
+        "11a_block0_tf32": a11["block0_tf32"],
+        "11b_auto": {name: {"plan": r["plan"], "arms": r["arms"], "reused": r["reused"]}
+                     for name, r in prec["11b"].items() if isinstance(r, dict)},
+        "11c_check_default": {k: prec["11c"][k] for k in ("ritz_rel_err", "rel_err", "warned")},
+        "11d_float64": {name: {k: r[k] for k in ("rel_err", "ritz_rel_err", "ms_per_hvp",
+                                                  "referee_ms_per_hvp",
+                                                  "max_memory_allocated_bytes")}
+                        for name, r in prec["11d"].items() if isinstance(r, dict)},
+        "11e_guard": {k: prec["11e"]["summary"][k] for k in ("final_tier", "final_precision",
+                                                             "escalations")}
+        | {"probes": len(prec["11e"]["summary"]["events"]),
+           "losses": [r["loss"] for r in prec["11e"]["steps"]]},
+        "11f_card_vs_cpu": {k: prec["11f"][k] for k in ("high_extremes_rel", "bf16_loss_rel")},
+        "phase_s": {name: r["phase_s"] for name, r in prec.items()},
+    }
+
+
+def trained_checkpoint(train_cli, spectrum_cli, kernels, after=None) -> dict:
+    """Phase 10: 10a-10d, then ``after(ckpt, tmp)`` (phase 11) as
+    ``out["after"]``, with every checkpoint in a temporary directory
     deleted at the end."""
     from hessian_llm_vision_tpu_torch.data.text import load_local_corpus
 
@@ -1351,6 +1654,8 @@ def trained_checkpoint(train_cli, spectrum_cli, kernels) -> dict:
         t0 = time.perf_counter()
         out["10d"] = tiny_adam_card_vs_cpu(train_cli, tmp)
         print(f"phase 10d took {time.perf_counter() - t0:.1f} s")
+        if after is not None:
+            out["after"] = after(ckpt, tmp)
     return out
 
 
@@ -1518,8 +1823,18 @@ def main() -> int:
     }}))
     t0 = phase(10, "the trained-checkpoint path on GPT-2 124M: Adam save and resume, the "
                    "checkpoint's spectrum, LanczosSGD from it; gpt2-tiny Adam card vs CPU")
-    trained = trained_checkpoint(train_cli, spectrum_cli, kernels)
-    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    t11 = []
+
+    def phase11(ckpt, tmp):
+        t11.append(phase(11, "the precision ladder at init and on the 1000-step checkpoint: "
+                             "tiers, auto plans, --precision_check, float64 arms, the "
+                             "refresh guard; gpt2-tiny card vs CPU"))
+        return precision_ladder(train_cli, spectrum_cli, kernels, ckpt, tmp)
+
+    trained = trained_checkpoint(train_cli, spectrum_cli, kernels, after=phase11)
+    prec = trained["after"]
+    print(f"phase 10 took {t11[0] - t0:.1f} s")
+    print(f"phase 11 took {time.perf_counter() - t11[0]:.1f} s")
     a, b = trained["10a"], trained["10b"]
     print(json.dumps({"trained_checkpoint": {
         "corpus": trained["corpus"],
@@ -1536,6 +1851,7 @@ def main() -> int:
                             "losses": [r["loss"] for r in trained["10c"]["steps"]]},
         "10d_tiny": trained["10d"],
     }}))
+    print(json.dumps({"precision": precision_summary(prec)}))
     by_path = {"phase4_train_4_steps": launches,
                "phase7b_spectrum": headline["rank_k_launches"],
                "phase8a_thick_restart": ext["8a_thick_restart"]["rank_k_launches"],
@@ -1549,7 +1865,10 @@ def main() -> int:
                   for q in BIG_RTOL},
                "phase9e_train_linearized": cur["9e_train"]["launches"],
                "phase9f_empirical_fisher_matvec": cur["9f_ef"]["launches"],
-               "phase10c_lanczos_sgd_from_checkpoint": trained["10c"]["launches"]}
+               "phase10c_lanczos_sgd_from_checkpoint": trained["10c"]["launches"],
+               "phase11a_probe_cgs2": prec["11a"]["launches"],
+               "phase11b_auto_plan_probes": prec["11b"]["checkpoint"]["launches"],
+               "phase11e_guarded_train": prec["11e"]["launches"]}
     # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d) take no
     # rank-k apply; every other path must have launched both kernels
     t_only = ("phase7b", "phase8c", "phase9a", "phase9b", "phase9c", "phase9d")

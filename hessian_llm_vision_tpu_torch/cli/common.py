@@ -7,6 +7,19 @@ import argparse
 
 import torch
 
+from hessian_llm_vision_tpu_torch.models.precision import PRESETS
+
+
+def _block_precision_arg(value: str) -> str:
+    """--block_precision values: the named tiers or one of the JAX
+    dot-algorithm presets the card runs (``models/precision.py``)."""
+    if value in ("default", "high", "highest") or value in PRESETS:
+        return value
+    raise argparse.ArgumentTypeError(
+        f"invalid block precision {value!r}: expected default | high | "
+        f"highest or one of the presets the card runs: {' | '.join(PRESETS)}"
+    )
+
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:
     """The model/data flags of the JAX CLIs that this port accepts.  Values
@@ -26,7 +39,13 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="random attention masks on synthetic tokens")
     parser.add_argument("--attn_block_q", type=int, default=None,
                         help="query-block size of the attention loop; default dense")
-    parser.add_argument("--block_precision", default=None, help="not ported yet (ROADMAP A11)")
+    parser.add_argument("--block_precision", default=None, type=_block_precision_arg,
+                        help="matmul precision of the transformer blocks only: "
+                        "default (bf16 operands) | high | highest (both fp32), or "
+                        "a JAX preset the card runs: TF32_TF32_F32, "
+                        "BF16_BF16_F32_X6 and F32_F32_F32 (fp32), BF16_BF16_F32, "
+                        "F64_F64_F64 (models/precision.py).  Mixed curvature "
+                        "mode = outer 'high' + blocks 'default'; unset inherits")
     parser.add_argument("--loss_chunk", type=int, default=None,
                         help="chunked-vocab LM loss: chunk size in sequence positions")
     parser.add_argument("--experts", type=int, default=0, help="not ported yet (ROADMAP A12)")
@@ -35,7 +54,19 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--checkpoint", default=None,
                         help="params saved by cli.train --save_checkpoint "
                         "(io/checkpoints.py) in place of the random init")
-    parser.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP A11)")
+    parser.add_argument("--precision_plan", default=None,
+                        help="persisted auto-precision plan file (default: "
+                        "<--checkpoint>.autoprec.json when --checkpoint is set); "
+                        "a fingerprint-matched plan resolves --hvp_precision/"
+                        "--refresh_precision auto with zero probe HVPs "
+                        "(krylov/precplan.py)")
+    parser.add_argument("--reprobe", action="store_true",
+                        help="ignore any persisted auto-precision plan and "
+                        "re-probe this checkpoint (overwrites the plan file)")
+    parser.add_argument("--bf16", action="store_true",
+                        help="compute in bfloat16 with f32 params, as flax's dtype "
+                        "(dense products and activations bf16, LayerNorm "
+                        "statistics f32, logits f32)")
     parser.add_argument("--out", default="runs", help="root of the run directories")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU")
 

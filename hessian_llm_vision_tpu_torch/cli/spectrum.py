@@ -13,13 +13,18 @@ naming their ROADMAP item; their sub-options come with the slice that
 ports each path.
 
 Runs on the first CUDA device unless ``--cpu`` is given; without ``--cpu``
-and without a card it exits with an error.  Curvature is true fp32: TF32
-is off for cuBLAS and cuDNN.
+and without a card it exits with an error.  Ambient matmuls are true fp32
+(TF32 off for cuBLAS and cuDNN).  ``--hvp_precision auto`` (the default)
+probes the checkpoint and may run the blocks in bf16 or TF32 where their
+extreme Ritz values stay within 1e-3 of fp32; ``--hvp_precision high``
+pins fp32 (``krylov/autoprec.py``, ``models/precision.py``).
 
 Examples:
   python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
       --host_loop --lanczos_iters 8 --num_batches 2 --batch_size 4 \\
       --max_length 32 --out_spectrum /tmp/s
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
+      --host_loop --checkpoint ck --precision_check --hvp_precision default
   python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
       --thick_restart 4 --lanczos_iters 12 --out_spectrum /tmp/tr
   python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
@@ -47,6 +52,12 @@ from typing import Callable, Optional
 import torch
 
 from hessian_llm_vision_tpu_torch.cli.common import add_common_args, device_for
+from hessian_llm_vision_tpu_torch.cli.precision import (
+    referee_loss_fn_for,
+    report_precision_probe,
+    resolve_auto_precision,
+    resolve_mixed_precision,
+)
 from hessian_llm_vision_tpu_torch.cli.spectrum_flags import validate_flags
 from hessian_llm_vision_tpu_torch.cli.spectrum_layerwise import layerwise_main
 from hessian_llm_vision_tpu_torch.cli.spectrum_paths import host_loop_main, incore_main
@@ -62,7 +73,6 @@ from hessian_llm_vision_tpu_torch.utils import trees
 # flags of paths the port does not have yet, with their ROADMAP item
 _UNPORTED_FLAGS = (
     ("--probe_parallel", "probe_parallel", "A10g"),
-    ("--precision_check", "precision_check", "A11"),
 )
 
 
@@ -181,13 +191,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="relative residual tolerance for --thick_restart "
                    "(scale = max|theta|; raise to ~2e-3 with bf16 storage)")
     p.add_argument("--no_reorth", action="store_true")
-    p.add_argument("--precision_check", action="store_true", help=_not_ported("A11"))
-    p.add_argument("--hvp_precision", default="high",
+    p.add_argument("--precision_check", action="store_true",
+                   help="before the spectrum, run a short T-only Lanczos on "
+                   "batch 1 in BOTH the requested precision and an fp32 "
+                   "referee (2x--precision_check_iters HVPs) and warn when "
+                   "the extreme Ritz values disagree beyond the 2e-3 parity "
+                   "bar: low-precision curvature error depends on the "
+                   "checkpoint (--operator hessian only)")
+    p.add_argument("--precision_check_iters", type=int, default=10,
+                   help="Lanczos iterations per arm of --precision_check, and "
+                   "of each probe arm of --hvp_precision auto")
+    p.add_argument("--hvp_precision", default="auto",
                    choices=["auto", "high", "highest", "default", "mixed"],
-                   help="matmul precision of the HVPs: 'high' (the default "
-                   "here) and 'highest' are both true fp32. The JAX CLI's "
-                   "default 'auto', and 'mixed' and 'default', wait for the "
-                   "precision ladder (" + _not_ported("A11") + ")")
+                   help="matmul precision of the curvature products. 'auto' "
+                   "(default) probes THIS checkpoint: short reorthogonalised "
+                   "Lanczos arms on one batch against the fp32 referee, "
+                   "mixed (blocks bf16) then blocks TF32, the first within the "
+                   "1e-3 extreme-Ritz bar wins, else fp32 (krylov/autoprec.py; "
+                   "a plan file next to --checkpoint is reused). 'high' and "
+                   "'highest' are true fp32; 'default' runs every product "
+                   "with bf16 operands; 'mixed' pins blocks 'default' + vocab "
+                   "head 'high' (LM models only; safe at init only)")
     p.add_argument("--out_spectrum", default=None)
     p.add_argument("--plot", default=None, help="save stem plot PNG")
     p.add_argument("--compare_to", default=None,
@@ -202,8 +226,35 @@ def _refuse_unported(args) -> None:
             raise SystemExit(f"{flag}: {_not_ported(item)}")
     if args.operator not in ("hessian", "ggn", "fisher"):
         raise SystemExit(f"unknown --operator {args.operator!r}")
-    if args.hvp_precision not in ("high", "highest"):
-        raise SystemExit(f"--hvp_precision {args.hvp_precision}: {_not_ported('A11')}")
+
+
+def _precision_check(args, wl) -> None:
+    """--precision_check: the requested-precision HVP against the fp32
+    referee on batch 1, reported by ``cli.precision.report_precision_probe``."""
+    if args.operator != "hessian":
+        # the probe gates the Hessian matvec; a GGN/Fisher job runs another
+        # program with its own precision sensitivity
+        raise SystemExit(
+            f"--precision_check supports --operator hessian only "
+            f"(the {args.operator} matvec is a different program; "
+            "probe it via krylov.matvec_precision_probe on a GGN "
+            "closure if needed)"
+        )
+    from hessian_llm_vision_tpu_torch.krylov.driver import matvec_precision_probe
+
+    stats = matvec_precision_probe(
+        wl.loss_fn, wl.params, wl.batches[0],
+        generator=torch.Generator().manual_seed(args.vector_seed),
+        precision=args.hvp_precision,
+        referee_loss_fn=referee_loss_fn_for(args, wl),
+        ritz_iters=args.precision_check_iters,
+    )
+    report_precision_probe(
+        stats, args.precision_check_iters, what="HVP",
+        hint="the spectrum's extreme eigenvalues will be unreliable; "
+             "rerun with --hvp_precision high (or highest) and without "
+             "--block_precision",
+    )
 
 
 def _refuse_layerwise_drops(args) -> None:
@@ -270,10 +321,17 @@ def main(argv=None, on_iter: Optional[Callable[[int, float], None]] = None):
     if args.layerwise:
         _refuse_layerwise_drops(args)
     device = device_for(args.cpu)
-    # curvature is true fp32: TF32 gives wrong extreme eigenvalues
+    # ambient matmuls are true fp32: TF32 and bf16 come only through the
+    # precision ladder (--hvp_precision, --block_precision)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    resolve_mixed_precision(args, "hvp_precision")
     wl = build_workload(args, device)
+    # --hvp_precision auto (the default): probe this checkpoint and resolve
+    # a concrete plan, after the flag checks
+    wl = resolve_auto_precision(args, wl)
+    if args.precision_check:
+        _precision_check(args, wl)
     if args.layerwise:
         return layerwise_main(args, wl, device), None
     if args.host_loop:

@@ -2,8 +2,8 @@
 ``cli/spectrum_flags.py``): a combination that would silently drop a flag
 exits with an error instead of running a job that never produces the
 asked-for output.  The messages are the JAX CLI's.  Only the ported flags
-are checked here (``--probe_parallel`` and ``--precision_check`` wait for
-their slices).  ``cli/spectrum.py`` runs these checks first, then
+are checked here (``--probe_parallel`` waits for its slice;
+``--precision_check`` refuses a non-Hessian operator where it runs).  ``cli/spectrum.py`` runs these checks first, then
 refuses the flags that the port does not have yet ("not ported yet")."""
 
 from __future__ import annotations

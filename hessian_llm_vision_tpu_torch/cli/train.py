@@ -8,9 +8,13 @@ counted per process inside the epochs, ``--accumulation_steps``,
 params), ``--save_state`` / ``--resume_state`` (the train state;
 lanczos-host keeps its params, momentum and step), ``--checkpoint`` and the
 run directory ``--out/<optimiser>/<subsample>/lr=..._delta=...`` holding
-``training_stats.pkl``.  The other optimisers exit with "not ported yet";
-the JAX CLI's ``--tensorboard``, ``--snapshot_*``, ``--post_spectrum_*``,
-``--damping``, ``--cg_iters`` and precision flags are not registered yet.
+``training_stats.pkl``, and the refresh precision of lanczos-host:
+``--refresh_precision`` (``auto`` resolves it by probing the starting
+params and installs the precision guard, ``optim/precision_guard.py``),
+``--precision_recheck`` and ``--precision_check``.  The other optimisers
+exit with "not ported yet"; the JAX CLI's ``--tensorboard``,
+``--snapshot_*``, ``--post_spectrum_*``, ``--damping`` and ``--cg_iters``
+are not registered yet.
 
 Runs on the first CUDA device unless ``--cpu`` is given; without ``--cpu``
 and without a card it stops with an error and never continues on the CPU.
@@ -25,12 +29,16 @@ Examples:
   python -m hessian_llm_vision_tpu_torch.cli.train --model gpt2 \\
       --optimiser lanczos-host --batch_size 8 --max_length 512 --k 10 \\
       --refresh_every 2 --lanczos_momentum 0.9 --max_steps 4
+  python -m hessian_llm_vision_tpu_torch.cli.train --model gpt2-tiny --cpu \\
+      --optimiser lanczos-host --checkpoint ck --refresh_precision auto \\
+      --precision_recheck 1 --max_steps 3
 """
 
 from __future__ import annotations
 
 import argparse
 import itertools
+import json
 import os
 import time
 from typing import Callable, Optional
@@ -38,6 +46,11 @@ from typing import Callable, Optional
 import torch
 
 from hessian_llm_vision_tpu_torch.cli.common import add_common_args, device_for
+from hessian_llm_vision_tpu_torch.cli.precision import (
+    referee_loss_fn_for,
+    report_precision_probe,
+    resolve_mixed_precision,
+)
 from hessian_llm_vision_tpu_torch.cli.train_optimizers import build_optimizer, check_optimiser
 from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
 from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint, save_checkpoint
@@ -61,6 +74,26 @@ def build_parser() -> argparse.ArgumentParser:
                    "linearization (curvature/linearized.py); the residuals "
                    "stay on the device during the refresh "
                    "(curvature.linearized.residual_bytes counts them)")
+    p.add_argument("--refresh_precision", default="high",
+                   choices=["high", "highest", "default", "mixed", "auto"],
+                   help="lanczos-host: matmul precision of the refresh HVPs. "
+                   "'high' and 'highest' are fp32; 'default' runs them with bf16 "
+                   "operands; 'mixed' = blocks 'default' + vocab head 'high' "
+                   "(LMs only).  'auto' resolves the tier by probing the "
+                   "STARTING params (post-resume) on the ladder mixed -> "
+                   "blocks TF32 -> fp32 and installs the precision guard "
+                   "(optim/precision_guard.py): periodic re-probes + "
+                   "λmax-growth-triggered escalation")
+    p.add_argument("--precision_recheck", type=int, default=0,
+                   help="lanczos-host: re-probe the refresh precision against "
+                   "the fp32 referee every N refreshes and escalate the tier on "
+                   "a breach (0 = off; --refresh_precision auto defaults this to "
+                   "10).  A 4x λmax growth since the last probe always triggers "
+                   "a re-probe when the guard is installed")
+    p.add_argument("--precision_check", action="store_true",
+                   help="lanczos-host: before training, probe the refresh-"
+                   "precision HVP against an fp32 referee at the starting params "
+                   "(2x10 HVPs) and warn above the 2e-3 extreme-Ritz bar")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--beta2", type=float, default=0.999, help="Adam beta2")
@@ -83,6 +116,92 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save the full train state (params+optimizer+step) for resume")
     p.add_argument("--resume_state", default=None, help="resume from a --save_state file")
     return p
+
+
+def _check_precision_flags(args) -> None:
+    """The JAX CLI's checks: the precision probes guard the host trainer's
+    refresh HVPs."""
+    if args.precision_check and args.optimiser != "lanczos-host":
+        raise SystemExit(
+            "--precision_check probes the HOST trainers' refresh HVPs; "
+            "use --optimiser lanczos-host/lanczos-layer-host (for spectrum "
+            "jobs use spectrum --precision_check)"
+        )
+    if ((args.refresh_precision == "auto" or args.precision_recheck > 0)
+            and args.optimiser != "lanczos-host"):
+        raise SystemExit(
+            "--refresh_precision auto / --precision_recheck guard the HOST "
+            "trainers' refresh HVPs; use --optimiser lanczos-host/"
+            "lanczos-layer-host"
+        )
+    if args.precision_recheck < 0:
+        raise SystemExit("--precision_recheck must be >= 0")
+
+
+def _refresh_probe_batch(args, wl, accum):
+    """The probe batch of the refresh's memory plan: one micro-batch,
+    further sliced by --refresh_batch_size."""
+    probe_n = None
+    if accum > 1:
+        probe_n = max(wl.batch_size // accum, 1)
+    if args.refresh_batch_size:
+        probe_n = min(probe_n or args.refresh_batch_size, args.refresh_batch_size)
+    batch = wl.batches[0]
+    if probe_n is not None:
+        batch = {k: v[:probe_n] for k, v in batch.items()}
+    return batch
+
+
+def _install_guard(args, wl, trainer, state0, accum):
+    """--refresh_precision auto / --precision_recheck N: the refresh
+    precision guard on the trainer, resolved at the starting params for
+    'auto', else guarding the pinned tier.  None when neither is set."""
+    if not (args.refresh_precision == "auto" or args.precision_recheck > 0):
+        return None
+    from hessian_llm_vision_tpu_torch.cli.precision import lm_loss_factory
+    from hessian_llm_vision_tpu_torch.optim.precision_guard import (
+        RefreshPrecisionGuard,
+        default_tiers,
+        tier_index_for,
+    )
+
+    factory = lm_loss_factory(wl, args)
+    tiers = default_tiers(factory, wl.loss_fn)
+    referee = factory(None) if factory is not None else wl.loss_fn
+    start = 0 if args.refresh_precision == "auto" else tier_index_for(
+        tiers, args.refresh_precision)
+    guard = RefreshPrecisionGuard(tiers, referee_loss_fn=referee,
+                                  recheck_every=args.precision_recheck or 10,
+                                  seed=args.seed + 7, start_index=start)
+    trainer.precision_guard = guard
+    if args.refresh_precision == "auto":
+        tier = guard.resolve_initial(trainer, state0.params,
+                                     _refresh_probe_batch(args, wl, accum), step=state0.step)
+        print(f"[precision-guard] refresh tier resolved: {tier.label} (outer "
+              f"{tier.precision}); re-probe every {guard.recheck_every} refreshes or on "
+              f"{guard.growth_factor}x λmax growth")
+    else:
+        # guard the pinned tier: no initial probe; escalations stack on it
+        trainer.set_refresh_tier(tiers[start])
+        print(f"[precision-guard] guarding pinned tier {tiers[start].label}: re-probe "
+              f"every {guard.recheck_every} refreshes / {guard.growth_factor}x λmax growth")
+    return guard
+
+
+def _precision_check(args, wl, trainer, state0, accum) -> None:
+    """--precision_check: the refresh HVP against the fp32 referee at the
+    starting params, reported by ``report_precision_probe``."""
+    from hessian_llm_vision_tpu_torch.optim.lanczos_sgd_host import refresh_precision_probe
+
+    stats = refresh_precision_probe(
+        trainer, state0.params, _refresh_probe_batch(args, wl, accum), seed=args.seed,
+        referee_loss_fn=referee_loss_fn_for(args, wl),
+    )
+    report_precision_probe(
+        stats, 10, what="refresh",
+        hint="LanczosSGD's Ritz pairs will be unreliable; use "
+             "--refresh_precision high (or highest)",
+    )
 
 
 def _reporting(step_fn, on_step, device: torch.device):
@@ -121,10 +240,14 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> fl
     if args.refresh_linearized and args.optimiser != "lanczos-host":
         raise SystemExit("--refresh_linearized applies to --optimiser lanczos-host")
     check_optimiser(args.optimiser)
+    _check_precision_flags(args)
     device = device_for(args.cpu)
-    # curvature is true fp32: TF32 gives wrong extreme eigenvalues
+    # ambient matmuls are true fp32: TF32 and bf16 come only through the
+    # precision ladder
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # refresh HVPs run blocks 'default' + vocab head 'high'
+    resolve_mixed_precision(args, "refresh_precision")
     if args.delta is None:
         args.delta = 1e-8 if args.optimiser == "adam" else 1e-4
 
@@ -165,11 +288,24 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> fl
             state0 = load_checkpoint(args.resume_state, template=state0)
         print(f"resumed train state <- {args.resume_state}")
 
+    # after --resume_state: the probes must see the params training starts from
+    guard = _install_guard(args, wl, trainer, state0, accum)
+    if args.precision_check:
+        _precision_check(args, wl, trainer, state0, accum)
+
     if on_step is not None:
         step_fn = _reporting(step_fn, on_step, device)
     state = train(step_fn, state0, batches, num_epochs=args.epochs, max_steps=args.max_steps,
                   log_every=args.log_every, on_log=on_log)
     logger.close()
+
+    if guard is not None:
+        summary = guard.summary()
+        guard_path = os.path.join(rundir, "precision_guard.json")
+        with open(guard_path, "w") as f:
+            json.dump(summary, f, indent=1)
+        print(f"[precision-guard] final tier {guard.tier.label} ({len(guard.events)} probes, "
+              f"{summary['escalations']} escalations) -> {guard_path}")
 
     if args.save_checkpoint:
         save_checkpoint(args.save_checkpoint, state.params)

@@ -55,6 +55,8 @@ def build_optimizer(args, wl, lr, accum):
         wl.loss_fn, wl.params, cfg, batch_size=wl.batch_size,
         basis_dtype=torch.bfloat16 if basis_bf16 else torch.float32,
         refresh_batch_size=args.refresh_batch_size,
+        # 'auto' resolves after --resume_state, through the precision guard
+        refresh_precision="high" if args.refresh_precision == "auto" else args.refresh_precision,
         refresh_linearized=args.refresh_linearized,
     )
     return trainer.init, trainer.step, trainer

@@ -82,19 +82,28 @@ def _refuse_unported(args) -> None:
     if args.model not in _MODELS:
         raise SystemExit(f"--model {args.model}: not ported yet (ROADMAP A12; "
                          f"ported: {', '.join(_MODELS)})")
-    for flag, is_set, item in (
-        ("--experts", bool(args.experts), "A12"),
-        ("--bf16", args.bf16, "A11"),
-        ("--block_precision", args.block_precision is not None, "A11"),
-    ):
-        if is_set:
-            raise SystemExit(f"{flag}: not ported yet (ROADMAP {item})")
+    if args.experts:
+        raise SystemExit("--experts: not ported yet (ROADMAP A12)")
+
+
+def _cfg_overrides(cfg, attn_blk, block_prec, bf16=False):
+    """Apply the shared LM config flags (the JAX CLI's one site).  Unlike
+    the JAX CLI, ``--bf16`` applies to gpt2-tiny too (its gpt2-tiny config
+    ignores the flag)."""
+    if bf16:
+        cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    if attn_blk:
+        cfg = dataclasses.replace(cfg, attn_block_q=attn_blk)
+    if block_prec:
+        cfg = dataclasses.replace(cfg, block_matmul_precision=block_prec)
+    return cfg
 
 
 def build_workload(args, device: torch.device) -> Workload:
     """GPT-2 (124M or tiny) at random init from ``--seed`` or from
     ``--checkpoint``, on ``device``, with its LM loss and the ``--dataset``
-    batches."""
+    batches; ``--bf16`` and ``--block_precision`` set the config's compute
+    dtype and block precision (the params stay f32)."""
     from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint
     from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from hessian_llm_vision_tpu_torch.models.losses import causal_lm_loss, lm_loss_fn
@@ -104,8 +113,7 @@ def build_workload(args, device: torch.device) -> Workload:
         cfg = GPT2Config.tiny(n_positions=max(64, args.max_length))
     else:
         cfg = GPT2Config.gpt2_124m(n_positions=max(args.max_length, 32))
-    if args.attn_block_q:
-        cfg = dataclasses.replace(cfg, attn_block_q=args.attn_block_q)
+    cfg = _cfg_overrides(cfg, args.attn_block_q, args.block_precision, args.bf16)
     model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(args.seed)).to(device)
     params = {n: p.detach() for n, p in model.named_parameters()}
     if args.checkpoint:

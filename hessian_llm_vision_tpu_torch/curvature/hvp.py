@@ -15,11 +15,12 @@ Loss normalizations (explicit, as in the JAX package):
 
 from __future__ import annotations
 
-import contextlib
 import enum
 from typing import Any, Callable, Mapping, Optional
 
 import torch
+
+from hessian_llm_vision_tpu_torch.models import precision as precision_tiers
 
 Params = Mapping[str, torch.Tensor]
 LossFn = Callable[[Params, Any], torch.Tensor]
@@ -50,29 +51,13 @@ def _scaled_loss_fn(loss_fn, batch, normalization, batch_size, dataset_size):
     return scaled
 
 
-@contextlib.contextmanager
-def _fp32_matmuls():
-    """True fp32 matmuls and convolutions (no TF32) inside the block."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
-def _precision_context(precision: Optional[str]):
-    """The JAX tiers "high" (bf16x3) and "highest" both map to true fp32;
-    ``None`` keeps the ambient settings.  The lower tiers wait for the
-    ported precision ladder."""
-    if precision is None:
-        return contextlib.nullcontext()
-    if precision in ("high", "highest"):
-        return _fp32_matmuls()
-    raise NotImplementedError(
-        f"precision={precision!r} is not ported yet (use 'high', 'highest' or None)"
-    )
+def _precision_context(prec: Optional[str]):
+    """The outer precision scope of a curvature product
+    (``models.precision.outer_precision``) for any of the JAX names,
+    validated here, when the context is made: "high" and "highest" are
+    both true fp32; ``None`` keeps the ambient settings."""
+    precision_tiers.tier_of(prec)
+    return precision_tiers.outer_precision(prec)
 
 
 def hvp_fn(

@@ -40,6 +40,7 @@ from hessian_llm_vision_tpu_torch.curvature.hvp import (
     _precision_context,
     _scaled_loss_fn,
 )
+from hessian_llm_vision_tpu_torch.models.precision import no_flag_switch
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
 
 
@@ -60,8 +61,14 @@ def _signature(params, batch) -> tuple:
     return tuple((k, tuple(t.shape), t.dtype, t.device) for k, t in (*params.items(), *batch.items()))
 
 
-def _trace_split(loss_fn, normalization, batch_size, dataset_size, params, batch) -> _Split:
-    """Trace the HVP on fake tensors and split it at the tangent."""
+def _trace_split(loss_fn, normalization, batch_size, dataset_size, params, batch,
+                 precision=None) -> _Split:
+    """Trace the HVP on fake tensors and split it at the tangent.
+
+    The trace runs inside ``precision``'s outer scope, so the graphs keep
+    every bf16 or float64 cast of the model's scopes; a scope that needs
+    the TF32 flag switched per product raises (the graphs replay under
+    the outer scope's flag alone)."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     names, bkeys = list(params), list(batch)
@@ -70,7 +77,7 @@ def _trace_split(loss_fn, normalization, batch_size, dataset_size, params, batch
     def hvp_of(flat_p, flat_b, flat_t):
         scaled = _scaled_loss_fn(loss_fn, dict(zip(bkeys, flat_b)), normalization,
                                  batch_size, dataset_size)
-        with fwAD.dual_level():
+        with _precision_context(precision), no_flag_switch("--linearized"), fwAD.dual_level():
             duals = {n: fwAD.make_dual(p, t) for n, p, t in zip(names, flat_p, flat_t)}
             grads = torch.func.grad(scaled)(duals)
             return [fwAD.unpack_dual(grads[n]).tangent for n in names]
@@ -147,7 +154,8 @@ def linearized_hvp_programs(
     def split_for(params, batch) -> _Split:
         key = _signature(params, batch)
         if key not in splits:
-            splits[key] = _trace_split(loss_fn, normalization, batch_size, None, params, batch)
+            splits[key] = _trace_split(loss_fn, normalization, batch_size, None, params, batch,
+                                       precision)
         return splits[key]
 
     def residual_program(params, batch) -> tuple:

@@ -8,7 +8,9 @@ alpha and beta stay 0-d device tensors until the loop ends (a
 loop: per-leaf or per-block spectra over one masked HVP
 (:func:`layerwise_spectrum_host`), the linearized single-batch loop
 (:func:`linearized_spectrum_host`) and the parameter-shaped loop with
-low-precision-stored vectors (:func:`bigmodel_spectrum_host`).
+low-precision-stored vectors (:func:`bigmodel_spectrum_host`), and the
+precision probe (:func:`matvec_precision_probe`) that the precision ladder
+gates on.
 
 There is one iteration: the per-batch HVPs summed in place, the scale
 (:func:`dataset_matvec`), then ``host_recurrence_step``.  The JAX package's
@@ -38,6 +40,7 @@ from hessian_llm_vision_tpu_torch.krylov.thick_restart import (
     ThickRestartResult,
     lanczos_thick_restart,
 )
+from hessian_llm_vision_tpu_torch.ops.spectral import project_out, project_out_reference
 from hessian_llm_vision_tpu_torch.utils import trees
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener, flat_order
 
@@ -77,6 +80,149 @@ def _batch_product(operator, loss_fn, per_batch_norm, precision, model_fn, out_l
     if operator != "hessian":
         raise ValueError(f"unknown operator {operator!r}")
     return hvp_fn(loss_fn, normalization=per_batch_norm, precision=precision)
+
+
+def batch_hvp(loss_fn: LossFn, precision: Optional[str], fl: Flattener):
+    """``(v, params, batch) -> H v`` on flat f32 vectors: one batch's HVP
+    of the batch-mean loss at ``precision`` (the probes' matvec)."""
+    _hvp = hvp_fn(loss_fn, normalization="mean", precision=precision)
+
+    def hv(v: torch.Tensor, params, batch) -> torch.Tensor:
+        return fl.flatten(_hvp(params, batch, fl.unflatten(v)))
+
+    return hv
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def matvec_precision_probe(
+    loss_fn: LossFn,
+    params,
+    batch: Any,
+    *,
+    vector: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    precision: Optional[str] = "high",
+    referee_precision: str = "highest",
+    referee_loss_fn: Optional[LossFn] = None,
+    flattener: Optional[Flattener] = None,
+    ritz_iters: int = 0,
+    reorth: bool = False,
+) -> dict:
+    """Measure the requested-precision HVP against an fp32 referee on one
+    batch (the JAX package's probe, same keys).
+
+    Low-precision curvature error depends on the checkpoint, not only on
+    the model: it grows as training sharpens the landscape.  For one unit
+    probe vector ``v`` (``vector``, or a draw from ``generator``), ``w = H v``
+    runs at ``precision`` and at ``referee_precision``; the result holds
+
+    * ``rel_err`` -- ``‖w_req − w_ref‖ / ‖w_ref‖``;
+    * ``alpha_rel_err`` -- relative error of the Rayleigh quotient ``vᵀw``
+      (meaningless near a zero mean curvature; reported, not gated);
+    * ``seconds_requested`` / ``seconds_referee`` -- one HVP each, timed
+      on the second call, synchronised with the device;
+    * with ``ritz_iters=N > 0``: ``ritz_rel_err``, the worst relative
+      disagreement of λmin and λmax between an N-iteration Lanczos in each
+      arm from ``v`` (:func:`_tiny_lanczos_extremes`), of the referee's
+      scale, and both arms' extremes.
+
+    ``ritz_rel_err`` gates a job, not ``rel_err``: extreme Ritz values are
+    robust to spectrally incoherent matvec noise.  ``reorth=True``
+    reorthogonalises the probe's Lanczos (CGS2); on ill-conditioned
+    trained checkpoints the plain recurrence measures trajectory
+    divergence rather than operator error.  ``referee_loss_fn``: a
+    separately built loss when the low precision is baked into the model
+    (``block_matmul_precision``); defaults to ``loss_fn``.
+    """
+    fl = flattener or Flattener(params)
+    if (vector is None) == (generator is None):
+        raise ValueError("pass exactly one of vector / generator")
+    device = next(iter(params.values())).device
+    if vector is None:
+        vector = torch.randn(fl.size, generator=generator, device=generator.device)
+    v = start_vector(vector.to(device), None, fl.size)
+    req = batch_hvp(loss_fn, precision, fl)
+    ref = batch_hvp(referee_loss_fn or loss_fn, referee_precision, fl)
+
+    def timed(hv):
+        w = hv(v, params, batch)  # warm-up; the second call is timed
+        _sync(w)
+        t0 = time.perf_counter()
+        _sync(hv(v, params, batch))
+        return w, time.perf_counter() - t0
+
+    w_req, t_req = timed(req)
+    w_ref, t_ref = timed(ref)
+    a_req, a_ref = float(torch.dot(v, w_req)), float(torch.dot(v, w_ref))
+    stats = {
+        "rel_err": float(torch.linalg.vector_norm(w_req - w_ref))
+        / max(float(torch.linalg.vector_norm(w_ref)), 1e-30),
+        "alpha_rel_err": abs(a_req - a_ref) / max(abs(a_ref), 1e-30),
+        "alpha_requested": a_req,
+        "alpha_referee": a_ref,
+        "seconds_requested": t_req,
+        "seconds_referee": t_ref,
+    }
+    del w_req, w_ref
+    if ritz_iters > 0:
+        lo_q, hi_q = _tiny_lanczos_extremes(req, v, params, batch, ritz_iters, reorth=reorth)
+        lo_r, hi_r = _tiny_lanczos_extremes(ref, v, params, batch, ritz_iters, reorth=reorth)
+        scale_r = max(abs(lo_r), abs(hi_r), 1e-30)
+        stats["ritz_rel_err"] = max(abs(hi_q - hi_r), abs(lo_q - lo_r)) / scale_r
+        stats["ritz_extremes_requested"] = (lo_q, hi_q)
+        stats["ritz_extremes_referee"] = (lo_r, hi_r)
+    return stats
+
+
+def _cgs2_pass(w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``w − rowsᵀ (rows w)``: on CUDA the rank-k kernel pair (w and the
+    coefficients f32, the rows streamed in their storage dtype); on the
+    CPU the plain f32 version with the rows upcast, the JAX probe's
+    arithmetic."""
+    if w.is_cuda:
+        return project_out(w, rows)
+    return project_out_reference(w, rows)
+
+
+def _tiny_lanczos_extremes(
+    hv, v0: torch.Tensor, params, batch: Any, num_iters: int, *, reorth: bool = False,
+    basis_dtype: torch.dtype = torch.bfloat16,
+) -> tuple[float, float]:
+    """(λmin, λmax) of an ``num_iters``-iteration Lanczos over one batch's
+    HVP ``hv(v, params, batch)`` from the unit ``v0``, host-driven.
+
+    ``reorth=True`` stores each Lanczos vector as a row of a (num_iters, P)
+    ``basis_dtype`` buffer (bf16: 2.5 GB at GPT-2 124M for 10 rows) and
+    CGS2-reorthogonalises every iterate against the rows filled so far:
+    two rank-k applies with c = −1 per iteration (:func:`_cgs2_pass`),
+    arithmetic f32."""
+    q_cur, q_prev = v0, torch.zeros_like(v0)
+    beta_prev = torch.zeros((), dtype=torch.float32, device=v0.device)
+    Q = (torch.zeros((num_iters, v0.shape[0]), dtype=basis_dtype, device=v0.device)
+         if reorth else None)
+    alphas, betas = [], []
+    for i in range(num_iters):
+        w = hv(q_cur, params, batch).float()
+        alpha = torch.dot(q_cur, w)
+        w = w - alpha * q_cur - beta_prev * q_prev
+        if Q is not None:
+            Q[i].copy_(q_cur)
+            for _ in range(2):
+                w = _cgs2_pass(w, Q[: i + 1])
+        beta = torch.linalg.vector_norm(w)
+        q_prev, q_cur = q_cur, w / torch.clamp(beta, min=1e-30)
+        beta_prev = beta
+        alphas.append(alpha)
+        betas.append(beta)
+    del Q
+    a = torch.stack(alphas).double().cpu().numpy()
+    b = torch.stack(betas[:-1]).double().cpu().numpy() if num_iters > 1 else np.zeros((0,))
+    ev = np.linalg.eigvalsh(np.diag(a) + np.diag(b, 1) + np.diag(b, -1))
+    return float(ev[0]), float(ev[-1])
 
 
 def dataset_matvec(

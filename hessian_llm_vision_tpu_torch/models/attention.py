@@ -1,7 +1,8 @@
 """Causal self-attention core (port of ``models/attention.py``).
 
 Written as explicit matmul -> masked softmax -> matmul so that it is twice
-differentiable under ``torch.func`` (forward-over-reverse HVPs).  SDPA is
+differentiable under ``torch.func`` (forward-over-reverse HVPs); both
+matmuls run at the innermost precision scope (``models/precision.py``).  SDPA is
 not used: it is a library kernel, and its fused backends have no second
 derivative.  The mask fills with ``finfo(float32).min`` through
 ``torch.where`` as the JAX package does; ``-inf`` would give NaN in the
@@ -22,16 +23,17 @@ import math
 
 import torch
 
+from hessian_llm_vision_tpu_torch.models import precision
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
 
 _NEG_INF = torch.finfo(torch.float32).min
 
 
 def _masked_softmax_attend(qb, k, v, mask, scale):
-    att = at_least_f32(torch.einsum("bqhd,bkhd->bhqk", qb, k)) * scale
+    att = at_least_f32(precision.einsum("bqhd,bkhd->bhqk", qb, k)) * scale
     att = torch.where(mask, att, _NEG_INF)
     att = torch.softmax(att, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", att, v)
+    return precision.einsum("bhqk,bkhd->bqhd", att, v)
 
 
 def causal_attention(

@@ -11,11 +11,16 @@ by name alone (``models/convert.py``):
 * ``wte`` (vocab, C) and ``wpe`` (positions, C) are top-level parameters,
   and ``wte`` is tied to the output projection.
 
-Curvature needs f32 masters and f32 compute: the model runs in float32
-(a float64 copy of the params runs it in float64, the reference of the
-on-card HVP checks; nothing runs it below f32).  Dropout, the MoE MLP, the precision scopes and sequence sharding of
-the JAX config are not ported; :class:`GPT2Config` raises on any
-non-default value of them.
+Curvature needs f32 masters: the params stay float32 (a float64 copy runs
+the model in float64, the reference of the on-card HVP checks).  The
+compute dtype is ``config.dtype``: float32, or bfloat16 for ``--bf16`` as
+flax runs it (dense operands and outputs in bf16, LayerNorm statistics in
+f32 with a bf16 result, the logits cast to f32).  The precision scopes are
+the JAX model's (``models/precision.py``): block -> attention / MLP
+sublayer -> attention scores, the innermost winning; every matmul runs
+through :func:`precision.matmul` / :func:`precision.einsum`.  Dropout, the
+MoE MLP, an untied head and sequence sharding of the JAX config are not
+ported; :class:`GPT2Config` raises on any non-default value of them.
 """
 
 from __future__ import annotations
@@ -28,17 +33,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hessian_llm_vision_tpu_torch.models import precision
 from hessian_llm_vision_tpu_torch.models.attention import causal_attention
+from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
 
 # JAX config fields the port does not implement, with the only value it takes
 _UNPORTED_DEFAULTS = {
     "dropout": 0.0,
-    "dtype": torch.float32,
     "tie_word_embeddings": True,
-    "block_matmul_precision": None,
-    "attn_matmul_precision": None,
-    "mlp_matmul_precision": None,
-    "attn_scores_precision": None,
     "n_experts": 0,
     "moe_top_k": 0,
     "seq_sharding": None,
@@ -54,14 +56,18 @@ class GPT2Config:
     n_head: int = 12
     # query-block size of the attention loop (None = dense (B,H,T,T) path)
     attn_block_q: Optional[int] = None
-    # not ported: any value other than the default raises
-    dropout: float = 0.0
+    # compute dtype (float32 or bfloat16); params always f32
     dtype: torch.dtype = torch.float32
-    tie_word_embeddings: bool = True
+    # matmul precision of the transformer blocks (None = the caller's):
+    # one name for every block or a per-block sequence (models/precision.py)
     block_matmul_precision: object = None
+    # within every block, innermost wins: block -> attn / mlp -> scores
     attn_matmul_precision: Optional[str] = None
     mlp_matmul_precision: Optional[str] = None
     attn_scores_precision: Optional[str] = None
+    # not ported: any value other than the default raises
+    dropout: float = 0.0
+    tie_word_embeddings: bool = True
     n_experts: int = 0
     moe_top_k: int = 0
     seq_sharding: object = None
@@ -73,6 +79,13 @@ class GPT2Config:
                     f"GPT2Config.{name}={getattr(self, name)!r} is not ported "
                     f"yet (only {default!r})"
                 )
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(
+                f"GPT2Config.dtype={self.dtype!r} is not ported yet (float32 or bfloat16)")
+        precision.per_layer_precision(self.block_matmul_precision, self.n_layer)
+        for p in (self.attn_matmul_precision, self.mlp_matmul_precision,
+                  self.attn_scores_precision):
+            precision.tier_of(p)
         if self.n_embd % self.n_head:
             raise ValueError(f"n_embd={self.n_embd} not divisible by n_head={self.n_head}")
 
@@ -100,7 +113,13 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x):
-        return x @ self.kernel + self.bias
+        return precision.matmul(x, _as(self.kernel, x)) + _as(self.bias, x)
+
+
+def _as(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A param in the bf16 compute dtype of ``x``; otherwise unchanged (a
+    float64 copy of the params stays float64)."""
+    return p.to(x.dtype) if x.dtype == torch.bfloat16 else p
 
 
 class LayerNorm(nn.Module):
@@ -111,7 +130,9 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        return F.layer_norm(x, x.shape[-1:], self.scale, self.bias, self.eps)
+        # flax: statistics and affine in at least f32, result in x's dtype
+        y = F.layer_norm(at_least_f32(x), x.shape[-1:], self.scale, self.bias, self.eps)
+        return y.to(x.dtype)
 
 
 class CausalSelfAttention(nn.Module):
@@ -126,10 +147,11 @@ class CausalSelfAttention(nn.Module):
         B, T, C = x.shape
         q, k, v = self.c_attn(x).split(C, dim=-1)
         heads = (B, T, cfg.n_head, cfg.head_dim)
-        y = causal_attention(
-            q.reshape(heads), k.reshape(heads), v.reshape(heads),
-            block_q=cfg.attn_block_q,
-        )
+        with precision.precision_scope(cfg.attn_scores_precision):
+            y = causal_attention(
+                q.reshape(heads), k.reshape(heads), v.reshape(heads),
+                block_q=cfg.attn_block_q,
+            )
         return self.c_proj(y.reshape(B, T, C))
 
 
@@ -146,14 +168,18 @@ class MLPBlock(nn.Module):
 class Block(nn.Module):
     def __init__(self, config: GPT2Config):
         super().__init__()
+        self.config = config
         self.ln_1 = LayerNorm(config.n_embd)
         self.attn = CausalSelfAttention(config)
         self.ln_2 = LayerNorm(config.n_embd)
         self.mlp = MLPBlock(config)
 
     def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+        cfg = self.config
+        with precision.precision_scope(cfg.attn_matmul_precision):
+            x = x + self.attn(self.ln_1(x))
+        with precision.precision_scope(cfg.mlp_matmul_precision):
+            return x + self.mlp(self.ln_2(x))
 
 
 class GPT2LMHead(nn.Module):
@@ -189,16 +215,23 @@ class GPT2LMHead(nn.Module):
                 )
 
     def forward(self, input_ids: torch.Tensor, return_hidden: bool = False):
+        cfg = self.config
         T = input_ids.shape[1]
-        x = self.wte[input_ids] + self.wpe[:T][None]
-        for i in range(self.config.n_layer):
-            x = getattr(self, f"h_{i}")(x)
+        if cfg.dtype == torch.bfloat16:
+            x = self.wte[input_ids].to(cfg.dtype) + self.wpe[:T][None].to(cfg.dtype)
+        else:
+            x = self.wte[input_ids] + self.wpe[:T][None]
+        per_prec = precision.per_layer_precision(cfg.block_matmul_precision, cfg.n_layer)
+        precision.ambient_for_blocks(per_prec)
+        for i in range(cfg.n_layer):
+            with precision.precision_scope(per_prec[i]):
+                x = getattr(self, f"h_{i}")(x)
         x = self.ln_f(x)
         if return_hidden:
             # final pre-logit states; pair with output_kernel() for the
             # chunked-vocab loss (losses.chunked_causal_lm_loss)
             return x
-        return torch.einsum("btc,vc->btv", x, self.wte)
+        return at_least_f32(precision.einsum("btc,vc->btv", x, _as(self.wte, x)))
 
     @staticmethod
     def output_kernel(params: Mapping[str, torch.Tensor]) -> torch.Tensor:

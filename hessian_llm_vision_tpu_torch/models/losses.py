@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from hessian_llm_vision_tpu_torch.models import precision
+
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     """bf16/f16 -> f32; f32 and f64 stay as they are (a float64 copy of the
@@ -81,7 +83,8 @@ def chunked_causal_lm_loss(
     wk = at_least_f32(out_kernel)
     partials = []
     for s in range(0, T - 1, chunk):
-        ll = _token_log_likelihood(h[:, s : s + chunk] @ wk, targets[:, s : s + chunk])
+        ll = _token_log_likelihood(precision.matmul(h[:, s : s + chunk], wk),
+                                   targets[:, s : s + chunk])
         partials.append((ll * w[:, s : s + chunk]).sum())
     return -torch.stack(partials).sum() / torch.clamp(w.sum(), min=1.0)
 

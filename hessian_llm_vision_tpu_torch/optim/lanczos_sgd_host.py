@@ -71,7 +71,12 @@ class HostLanczosSGDTrainer:
         """``basis_dtype=torch.bfloat16`` halves the stored (k, P) basis;
         the Lanczos recurrence stays f32.  ``refresh_batch_size``: run the
         refresh HVPs on only the first N sequences of the batch.
-        ``refresh_precision``: "high" or "highest" (both true fp32 here).
+        ``refresh_precision``: the outer precision of the refresh HVPs, any
+        tier of ``models/precision.py`` ("high" and "highest" are both true
+        fp32).  ``precision_guard`` (an
+        ``optim.precision_guard.RefreshPrecisionGuard``, None by default)
+        is consulted before every refresh; its escalations land through
+        :meth:`set_refresh_tier`.
         ``config.accum_steps > 1``: batch tensors carry a leading
         ``(accum, batch, ...)`` axis; the step averages the micro-batch
         gradients and refreshes on the first micro-batch.
@@ -84,26 +89,34 @@ class HostLanczosSGDTrainer:
         self.basis_dtype = basis_dtype
         self.refresh_batch_size = refresh_batch_size
         self.loss_fn = loss_fn
+        self._batch_size = batch_size
         self.fl = Flattener(params_template)
+        self.precision_guard = None
+        self._refresh_count = 0
+        self._build_refresh_hvp(loss_fn, refresh_precision)
+
+    def _build_refresh_hvp(self, loss_fn, precision: str) -> None:
+        """(Re)build the refresh HVP for a precision tier: at construction
+        and when the precision guard escalates."""
         self._hvp = hvp_fn(
-            loss_fn, normalization=config.normalization, batch_size=batch_size,
-            remat=config.remat, precision=refresh_precision,
+            loss_fn, normalization=self.cfg.normalization, batch_size=self._batch_size,
+            remat=self.cfg.remat, precision=precision,
         )
-        if refresh_linearized:
+        if self.refresh_linearized:
             from hessian_llm_vision_tpu_torch.curvature.linearized import (
                 linearized_hvp_programs,
             )
 
             self._resid, self._tangent = linearized_hvp_programs(
-                loss_fn, config.normalization, refresh_precision, self.fl, batch_size)
+                loss_fn, self.cfg.normalization, precision, self.fl, self._batch_size)
+        self.refresh_precision = precision
+        #: the loss the refresh HVPs differentiate (a tier's rebuilt model;
+        #: the gradient keeps ``loss_fn``)
+        self.refresh_loss_fn = loss_fn
 
-    @property
-    def precision_guard(self):
-        return None
-
-    @precision_guard.setter
-    def precision_guard(self, guard):
-        raise NotImplementedError("the refresh precision guard is not ported yet")
+    def set_refresh_tier(self, tier) -> None:
+        """Apply a precision-guard tier (``optim.precision_guard.GuardTier``)."""
+        self._build_refresh_hvp(tier.loss_fn, tier.precision)
 
     def init(self, params: Params) -> HostLanczosSGDState:
         device = next(iter(params.values())).device
@@ -198,6 +211,15 @@ class HostLanczosSGDTrainer:
             rbatch = batch
             if self.refresh_batch_size is not None:
                 rbatch = _map_batch(lambda x: x[: self.refresh_batch_size], batch)
+            if self.precision_guard is not None:
+                # pre-refresh drift check; λmax of the previous refresh is
+                # the sharpening signal (the eigvals outlive a freed basis)
+                self.precision_guard.maybe_recheck(
+                    self, state.params, rbatch, step=state.step,
+                    refresh_index=self._refresh_count,
+                    eig_max=float(state.eigvals[-1]) if self._refresh_count > 0 else None,
+                )
+            self._refresh_count += 1
             new_ev, new_V = self.refresh_spectrum(state.params, rbatch, g_flat)
             if use_ema:
                 state.eigvals = m * state.eigvals + (1 - m) * new_ev
@@ -213,6 +235,27 @@ class HostLanczosSGDTrainer:
             "eig_min": state.eigvals[0],
         }
         return state, metrics
+
+
+def refresh_precision_probe(
+    trainer: HostLanczosSGDTrainer, params: Params, batch, *, seed: int = 0,
+    ritz_iters: int = 10, referee_loss_fn: Optional[Callable] = None,
+) -> dict:
+    """The trainer's refresh HVP at ``refresh_precision`` against the fp32
+    referee at these params, on one batch (``krylov.matvec_precision_probe``,
+    about 2 x ``ritz_iters`` HVPs; the probe vector drawn from a CPU
+    generator seeded with ``seed``).  ``referee_loss_fn``: a clean-model
+    loss when the low precision is baked into the model
+    (``--refresh_precision mixed``, ``block_matmul_precision``); without it
+    both arms would run the low-precision blocks."""
+    from hessian_llm_vision_tpu_torch.krylov.driver import matvec_precision_probe
+
+    return matvec_precision_probe(
+        trainer.refresh_loss_fn, params, batch,
+        generator=torch.Generator().manual_seed(seed),
+        precision=trainer.refresh_precision, flattener=trainer.fl,
+        ritz_iters=ritz_iters, referee_loss_fn=referee_loss_fn,
+    )
 
 
 class HostLayerwiseLanczosSGDTrainer:

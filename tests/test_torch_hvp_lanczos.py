@@ -91,8 +91,10 @@ def test_hvp_matches_jax_highest(pair, normalization):
 def test_hvp_fn_rejects_unported_options(pair):
     with pytest.raises(NotImplementedError, match="remat"):
         hvp_fn(pair["loss"], remat=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        hvp_fn(pair["loss"], precision="default")
+    # every tier of the JAX names is ported; a preset the card has no
+    # counterpart for is refused, naming the ones it runs
+    with pytest.raises(ValueError, match="TF32_TF32_F32"):
+        hvp_fn(pair["loss"], precision="BF16_BF16_F32_X3")
     with pytest.raises(ValueError, match="batch_size"):
         hvp(pair["loss"], pair["params"], pair["batch"], pair["params"], normalization="sum")
 

@@ -37,8 +37,9 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+# fp32 HVPs pinned: the CLI default "auto" may pick a bf16 or TF32 arm
 TINY = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "16",
-        "--num_batches", "3", "--lanczos_iters", "6", "--cpu"]
+        "--hvp_precision", "high", "--num_batches", "3", "--lanczos_iters", "6", "--cpu"]
 ONE = TINY + ["--num_batches", "1", "--host_loop"]
 CPU = torch.device("cpu")
 EIG_RTOL = 1e-5  # card-free paths against their library calls / the plain loop

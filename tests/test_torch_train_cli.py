@@ -4,6 +4,7 @@ port checkpoint through both CLIs gives the same per-step losses and EMAs
 steps inside ``--epochs`` as JAX does; save and resume continue bit for bit
 with JAX's step count; the defaults, refusals and run directories."""
 
+import argparse
 import glob
 import os
 import re
@@ -25,6 +26,7 @@ from hessian_llm_vision_tpu_torch.cli import train
 from hessian_llm_vision_tpu_torch.cli.train_optimizers import NOT_PORTED
 from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint, save_checkpoint
 from hessian_llm_vision_tpu_torch.models.convert import gpt2_params_from_jax
+from hessian_llm_vision_tpu_torch.models.precision import PRESETS
 from hessian_llm_vision_tpu_torch.obs.loggers import PickleStatsLogger
 
 
@@ -140,6 +142,18 @@ def test_lanczos_host_state_keeps_params_momentum_step(tmp_path, capsys):
     assert any(not torch.equal(first["params"][n], second["params"][n]) for n in first["params"])
 
 
+def _same_block_precision_verdicts(ours, ref):
+    """--block_precision's validators (one function per package): the same
+    verdict on every name the card runs and on lower-case non-names (the
+    port also refuses upper-case presets it has no tier for)."""
+    for value in ("default", "high", "highest", *PRESETS):
+        assert ours(value) == ref(value) == value
+    for bad in ("mixed", "fast", "bf16"):
+        for validate in (ours, ref):
+            with pytest.raises(argparse.ArgumentTypeError):
+                validate(bad)
+
+
 def test_defaults_and_flags_are_the_jax_clis(tmp_path):
     ours = {a.option_strings[0]: a for a in train.build_parser()._actions if a.option_strings}
     ref = {a.option_strings[0]: a for a in jtrain.build_parser()._actions if a.option_strings}
@@ -148,6 +162,9 @@ def test_defaults_and_flags_are_the_jax_clis(tmp_path):
         if flag == "-h" or "not ported yet" in (action.help or ""):
             continue
         for attr in ("default", "type", "choices", "nargs", "const"):
+            if (flag, attr) == ("--block_precision", "type"):
+                _same_block_precision_verdicts(action.type, ref[flag].type)
+                continue
             assert getattr(action, attr) == getattr(ref[flag], attr), (flag, attr)
     # --delta resolves per optimiser, as the run directory shows
     for extra, optim, delta in (([], "sgd", 1e-4), (["--optimiser", "adam"], "adam", 1e-8),

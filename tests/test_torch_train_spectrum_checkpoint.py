@@ -43,7 +43,9 @@ def test_spectrum_of_a_trained_checkpoint_matches_jax(tmp_path):
                         "--dataset", "markov", "--out", str(tmp_path / "runs"),
                         "--save_checkpoint", jck])
     save_checkpoint(ck, gpt2_params_from_jax(jload_checkpoint(jck)))
-    argv = BASE + ["--host_loop", "--lanczos_iters", str(ITERS), "--dataset", "markov"]
+    # fp32 HVPs pinned: the CLI default "auto" may pick a bf16 or TF32 arm
+    argv = BASE + ["--host_loop", "--lanczos_iters", str(ITERS), "--dataset", "markov",
+                   "--hvp_precision", "high"]
     spec, res = spectrum.main(argv + ["--checkpoint", ck])
     init, _ = spectrum.main(argv)
     jwl = jbuild_workload(jspectrum.build_parser().parse_args(argv + ["--checkpoint", jck]))
