@@ -240,11 +240,18 @@ AUTO_ARGV = CKPT_BASE + ["--hvp_precision", "auto"]
 AUTO_TOL = 1e-3  # the planner's bar on the chosen arm's extreme-Ritz error
 CHECK_BAR = 2e-3  # report_precision_probe's bar
 GUARD_RITZ_ITERS = 8  # RefreshPrecisionGuard's default probe depth
-# 11f: gpt2-tiny card against CPU; bf16 products round once per output on
-# both devices, so the losses may drift by a few bf16 ulps of the logits
+# 11f: gpt2-tiny --bf16 Adam, card against CPU.  Step 0 is one forward of
+# the same params: bf16 products round once per output on both devices
+# (the card matched the CPU bit for bit), while the f32 loss lies 1.7e-5
+# from the bf16 one, so the limit tells --bf16 from a card that ignored it
+# (the f32 control run is gated to miss it).  Adam's normalised update
+# turns the devices' rare rounding flips into lr-sized steps (1.6e-5 after
+# 2 steps), as large as the bf16/f32 gap: the later steps are held to a
+# drift bound, not to the control.
 TINY_BF16_ARGV = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32",
                   "--optimiser", "adam", "--num_batches", "3", "--bf16"]
-TINY_BF16_RTOL = 1e-3
+TINY_BF16_STEP0_RTOL = 2e-6
+TINY_BF16_DRIFT_RTOL = 1e-4
 CARD = torch.device("cuda")
 
 
@@ -1374,7 +1381,9 @@ def run_cli_both(spectrum_cli, argv):
     return spec, "".join(out.parts).splitlines(), "".join(err.parts), time.perf_counter() - t0
 
 
-def _probe_workload(spectrum_cli, ckpt):
+def _probe_workload(spectrum_cli, ckpt) -> tuple:
+    """(workload, loss factory) of GPT-2 124M at init (``ckpt`` None) or
+    at the checkpoint, for 11a, 11b and 11d."""
     from hessian_llm_vision_tpu_torch.cli.precision import lm_loss_factory
     from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
 
@@ -1395,7 +1404,7 @@ def _probe(driver, wl, loss_fn, precision, **kw) -> dict:
             "referee_extremes": stats["ritz_extremes_referee"]}
 
 
-def tier_map(spectrum_cli, kernels, ckpt: str) -> dict:
+def tier_map(kernels, wls: dict) -> dict:
     """Phase 11a: each tier against the "highest" referee by the
     reorthogonalised probe, at init and at the checkpoint; then an HVP with
     only block 0 at TF32 against all-fp32 and all-TF32 (the scope's reach)."""
@@ -1404,9 +1413,9 @@ def tier_map(spectrum_cli, kernels, ckpt: str) -> dict:
 
     out = {}
     kernels.reset_launch_counts()
-    for point, path in (("init", None), ("checkpoint", ckpt)):
+    for point in ("init", "checkpoint"):
         torch.cuda.empty_cache()
-        wl, factory = _probe_workload(spectrum_cli, path)
+        wl, factory = wls[point]
         out[point] = {arm: _probe(driver, wl, wl.loss_fn, arm) for arm in PROBE_ARMS}
         if point == "checkpoint":
             fl = Flattener(wl.params)
@@ -1420,7 +1429,6 @@ def tier_map(spectrum_cli, kernels, ckpt: str) -> dict:
             out["block0_tf32"] = {"rel_l2_vs_fp32": rel_l2(b0, hv(wl.loss_fn, "high")),
                                   "rel_l2_vs_all_tf32": rel_l2(b0, hv(wl.loss_fn,
                                                                       "TF32_TF32_F32"))}
-        del wl, factory
     out["launches"] = dict(kernels.LAUNCHES)
     print(json.dumps({"tier_map": out}))
     gates = {}
@@ -1449,30 +1457,49 @@ _ARM = r"^  probed (.+): err ([\d.e+-]+), (\d+) ms/HVP"
 _LOGGED = r"^\[auto-precision\] (.+): err ([\d.e+-]+), (\d+) ms/HVP"
 
 
-def auto_plan(spectrum_cli, kernels, ckpt: str) -> dict:
+def _resolved(spectrum_cli, argv, wl) -> list:
+    """``cli.precision.resolve_auto_precision`` on a built workload, as
+    the spectrum CLI calls it: its stdout lines."""
+    from hessian_llm_vision_tpu_torch.cli.precision import resolve_auto_precision
+
+    out = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(out):
+        resolve_auto_precision(spectrum_cli.build_parser().parse_args(argv), wl)
+    return "".join(out.parts).splitlines()
+
+
+def auto_plan(spectrum_cli, kernels, ckpt: str, wls: dict) -> dict:
     """Phase 11b: the spectrum CLI with --hvp_precision auto on the
-    checkpoint (the plan, its file, its reuse, --reprobe) and at init."""
+    checkpoint (the plan and its file); then the CLI's resolution alone on
+    11a's workloads: the plan's reuse, --reprobe, and the plan at init."""
     out = {}
     plan_path = ckpt + ".autoprec.json"
-    runs = (("checkpoint", ["--checkpoint", ckpt]),
-            ("reuse", ["--checkpoint", ckpt, "--lanczos_iters", "2"]),
-            ("reprobe", ["--checkpoint", ckpt, "--lanczos_iters", "2", "--reprobe"]),
-            ("init", []))
-    for name, extra in runs:
+    runs = (("checkpoint", ["--checkpoint", ckpt], None),
+            ("reuse", ["--checkpoint", ckpt], "checkpoint"),
+            ("reprobe", ["--checkpoint", ckpt, "--reprobe"], "checkpoint"),
+            ("init", [], "init"))
+    for name, extra, point in runs:
         torch.cuda.empty_cache()
         kernels.reset_launch_counts()
-        spec, lines, _, main_s = run_cli_both(spectrum_cli, AUTO_ARGV + extra)
+        if point is None:
+            spec, lines, _, main_s = run_cli_both(spectrum_cli, AUTO_ARGV + extra)
+            out[name] = {"lambda_max": float(spec.eigvals.max()), "main_s": main_s}
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lines = _resolved(spectrum_cli, AUTO_ARGV + extra, wls[point][0])
+            torch.cuda.synchronize()
+            out[name] = {"resolve_s": time.perf_counter() - t0}
         text = "\n".join(lines)
-        arms = [(m.group(1), float(m.group(2)), int(m.group(3)))
-                for line in lines if (m := re.search(_ARM, line))]
-        logged = [m.group(1) for line in lines if (m := re.search(_LOGGED, line))]
         plan = [(m.group(1), float(m.group(2))) for line in lines if (m := re.search(_PLAN, line))]
-        out[name] = {"plan": plan[-1] if plan else None, "arms": arms, "logged": logged,
-                     "skipped": [line for line in lines if "SKIPPED" in line],
-                     "probed": "[auto-precision] referee" in text,
-                     "reused": "reusing persisted plan" in text,
-                     "lambda_max": float(spec.eigvals.max()), "main_s": main_s,
-                     "launches": dict(kernels.LAUNCHES)}
+        out[name] |= {"plan": plan[-1] if plan else None,
+                      "arms": [(m.group(1), float(m.group(2)), int(m.group(3)))
+                               for line in lines if (m := re.search(_ARM, line))],
+                      "logged": [m.group(1) for line in lines if (m := re.search(_LOGGED, line))],
+                      "skipped": [line for line in lines if "SKIPPED" in line],
+                      "probed": "[auto-precision] referee" in text,
+                      "reused": "reusing persisted plan" in text,
+                      "launches": dict(kernels.LAUNCHES)}
         if name == "checkpoint":
             out["plan_file_written"] = os.path.isfile(plan_path)
     print(json.dumps({"auto_plan": out}))
@@ -1486,7 +1513,7 @@ def auto_plan(spectrum_cli, kernels, ckpt: str) -> dict:
         "second run reuses, no probe": out["reuse"]["reused"] and not out["reuse"]["probed"],
         "--reprobe probes again": out["reprobe"]["probed"],
         "init resolves a plan": out["init"]["plan"] is not None,
-        "no probe arm skipped": not any(out[name]["skipped"] for name, _ in runs),
+        "no probe arm skipped": not any(out[name]["skipped"] for name, _, _ in runs),
     })
     return out
 
@@ -1510,13 +1537,13 @@ def precision_check_default(spectrum_cli, ckpt: str) -> dict:
     return res
 
 
-def float64_arms(spectrum_cli, ckpt: str) -> dict:
+def float64_arms(wls: dict) -> dict:
     """Phase 11d: the fp32 referee against blocks in float64 (head fp32)
     and against the whole model in float64, at the checkpoint."""
     from hessian_llm_vision_tpu_torch.krylov import driver
 
     torch.cuda.empty_cache()
-    wl, factory = _probe_workload(spectrum_cli, ckpt)
+    wl, factory = wls["checkpoint"]
     arms = {"blocks_f64": factory("F64_F64_F64"),
             "whole_f64": lambda p, b: wl.loss_fn({n: t.double() for n, t in p.items()}, b)}
     out = {}
@@ -1526,7 +1553,7 @@ def float64_arms(spectrum_cli, ckpt: str) -> dict:
                            referee_precision="highest")
         out[name]["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
-    del wl, factory, arms
+    del arms
     print(json.dumps({"float64_arms": out}))
     check_gates("11d float64 arms", {"finite": all(
         math.isfinite(r["rel_err"]) and math.isfinite(r["ritz_rel_err"]) for r in out.values())})
@@ -1566,7 +1593,8 @@ def guarded_training(train_cli, kernels, ckpt: str, tmp: str) -> dict:
 
 def precision_card_vs_cpu(spectrum_cli, train_cli, tmp: str) -> dict:
     """Phase 11f: gpt2-tiny, card against CPU: --hvp_precision high with
-    --precision_check, and --bf16 Adam losses."""
+    --precision_check, and --bf16 Adam losses, with the card's f32 run as
+    the control that the step-0 limit must tell apart."""
     reads = {}
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
         for dev, extra in (("card", []), ("cpu", ["--cpu"])):
@@ -1576,33 +1604,50 @@ def precision_card_vs_cpu(spectrum_cli, train_cli, tmp: str) -> dict:
             recs, _ = _train(train_cli, TINY_BF16_ARGV + ["--out", os.path.join(tmp, "bf16")]
                              + extra)
             reads[dev] = (spec, ritz, [r["loss"] for r in recs])
+        f32, _ = _train(train_cli, [a for a in TINY_BF16_ARGV if a != "--bf16"]
+                        + ["--out", os.path.join(tmp, "f32")])
     (card, ritz_card, loss_card), (cpu, ritz_cpu, loss_cpu) = reads["card"], reads["cpu"]
+    rel = [abs(a / b - 1) for a, b in zip(loss_card, loss_cpu)]
     res = {"high_extremes_rel": extremes_rel(card.eigvals, cpu.eigvals),
            "check_ritz_rel_err": [ritz_card, ritz_cpu],
-           "bf16_loss_rel": max(abs(a / b - 1) for a, b in zip(loss_card, loss_cpu)),
-           "bf16_losses": [loss_card, loss_cpu]}
+           "bf16_step0_rel": rel[0], "bf16_loss_rel": max(rel),
+           "f32_control_step0_rel": abs(f32[0]["loss"] / loss_cpu[0] - 1),
+           "bf16_losses": [loss_card, loss_cpu], "f32_control_losses": [r["loss"] for r in f32]}
     print(json.dumps({"precision_card_vs_cpu": res}))
     check_gates("11f gpt2-tiny card against CPU", {
         "high extremes": res["high_extremes_rel"] <= CARD_CPU_LAMBDA_RTOL,
         "high against highest is 0 on both": ritz_card == ritz_cpu == 0,
-        "bf16 losses": res["bf16_loss_rel"] <= TINY_BF16_RTOL and len(loss_card) == 3,
+        "bf16 step-0 loss": res["bf16_step0_rel"] <= TINY_BF16_STEP0_RTOL,
+        "the f32 control misses the step-0 limit":
+            res["f32_control_step0_rel"] > TINY_BF16_STEP0_RTOL,
+        "bf16 Adam drift": res["bf16_loss_rel"] <= TINY_BF16_DRIFT_RTOL and len(loss_card) == 3,
     })
     return res
 
 
 def precision_ladder(train_cli, spectrum_cli, kernels, ckpt: str, tmp: str) -> dict:
-    """Phase 11: 11a-11f on phase 10's 1000-step checkpoint."""
+    """Phase 11: 11a-11f on phase 10's 1000-step checkpoint; 11a, 11b and
+    11d share one workload at init and one at the checkpoint."""
+    t0 = time.perf_counter()
+    wls = {"init": _probe_workload(spectrum_cli, None),
+           "checkpoint": _probe_workload(spectrum_cli, ckpt)}
+    workloads_s = time.perf_counter() - t0
+    print(f"phase 11 workloads took {workloads_s:.1f} s", flush=True)
+    steps = (("11a", lambda: tier_map(kernels, wls)),
+             ("11b", lambda: auto_plan(spectrum_cli, kernels, ckpt, wls)),
+             ("11c", lambda: precision_check_default(spectrum_cli, ckpt)),
+             ("11d", lambda: float64_arms(wls)),
+             ("11e", lambda: guarded_training(train_cli, kernels, ckpt, tmp)),
+             ("11f", lambda: precision_card_vs_cpu(spectrum_cli, train_cli, tmp)))
     out = {}
-    for name, run in (("11a", lambda: tier_map(spectrum_cli, kernels, ckpt)),
-                      ("11b", lambda: auto_plan(spectrum_cli, kernels, ckpt)),
-                      ("11c", lambda: precision_check_default(spectrum_cli, ckpt)),
-                      ("11d", lambda: float64_arms(spectrum_cli, ckpt)),
-                      ("11e", lambda: guarded_training(train_cli, kernels, ckpt, tmp)),
-                      ("11f", lambda: precision_card_vs_cpu(spectrum_cli, train_cli, tmp))):
+    for name, run in steps:
         t0 = time.perf_counter()
         out[name] = run()
         out[name]["phase_s"] = time.perf_counter() - t0
         print(f"phase {name} took {out[name]['phase_s']:.1f} s", flush=True)
+        if name == "11d":
+            wls.clear()
+    out["11a"]["workloads_s"] = workloads_s
     return out
 
 
@@ -1625,7 +1670,8 @@ def precision_summary(prec: dict) -> dict:
                                                              "escalations")}
         | {"probes": len(prec["11e"]["summary"]["events"]),
            "losses": [r["loss"] for r in prec["11e"]["steps"]]},
-        "11f_card_vs_cpu": {k: prec["11f"][k] for k in ("high_extremes_rel", "bf16_loss_rel")},
+        "11f_card_vs_cpu": {k: prec["11f"][k] for k in (
+            "high_extremes_rel", "bf16_step0_rel", "bf16_loss_rel", "f32_control_step0_rel")},
         "phase_s": {name: r["phase_s"] for name, r in prec.items()},
     }
 

@@ -47,9 +47,11 @@ import torch
 
 from hessian_llm_vision_tpu_torch.cli.common import add_common_args, device_for
 from hessian_llm_vision_tpu_torch.cli.precision import (
+    lm_loss_factory,
     referee_loss_fn_for,
     report_precision_probe,
     resolve_mixed_precision,
+    traced_ladder,
 )
 from hessian_llm_vision_tpu_torch.cli.train_optimizers import build_optimizer, check_optimiser
 from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
@@ -158,7 +160,6 @@ def _install_guard(args, wl, trainer, state0, accum):
     'auto', else guarding the pinned tier.  None when neither is set."""
     if not (args.refresh_precision == "auto" or args.precision_recheck > 0):
         return None
-    from hessian_llm_vision_tpu_torch.cli.precision import lm_loss_factory
     from hessian_llm_vision_tpu_torch.optim.precision_guard import (
         RefreshPrecisionGuard,
         default_tiers,
@@ -167,6 +168,9 @@ def _install_guard(args, wl, trainer, state0, accum):
 
     factory = lm_loss_factory(wl, args)
     tiers = default_tiers(factory, wl.loss_fn)
+    if args.refresh_linearized:
+        tiers = traced_ladder(tiers, lambda t: (t.label, t.loss_fn, t.precision),
+                              "precision-guard")
     referee = factory(None) if factory is not None else wl.loss_fn
     start = 0 if args.refresh_precision == "auto" else tier_index_for(
         tiers, args.refresh_precision)

@@ -51,13 +51,15 @@ def _scaled_loss_fn(loss_fn, batch, normalization, batch_size, dataset_size):
     return scaled
 
 
-def _precision_context(prec: Optional[str]):
+def _precision_context(prec: Optional[str], loss_fn: Optional[LossFn] = None):
     """The outer precision scope of a curvature product
     (``models.precision.outer_precision``) for any of the JAX names,
     validated here, when the context is made: "high" and "highest" are
-    both true fp32; ``None`` keeps the ambient settings."""
+    both true fp32; ``None`` keeps the ambient settings.  The model config
+    that an LM loss closure carries (``losses.lm_loss_fn``) sets the
+    ambient TF32 flag."""
     precision_tiers.tier_of(prec)
-    return precision_tiers.outer_precision(prec)
+    return precision_tiers.outer_precision(prec, getattr(loss_fn, "model_config", None))
 
 
 def hvp_fn(
@@ -80,7 +82,7 @@ def hvp_fn(
         scaled = _scaled_loss_fn(loss_fn, batch, normalization, batch_size, dataset_size)
         primals = dict(params)
         tangents = {n: vector[n] for n in primals}  # torch pytrees compare key order
-        with _precision_context(precision):
+        with _precision_context(precision, loss_fn):
             return torch.func.jvp(torch.func.grad(scaled), (primals,), (tangents,))[1]
 
     return _hvp

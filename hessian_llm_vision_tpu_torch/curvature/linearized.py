@@ -77,7 +77,8 @@ def _trace_split(loss_fn, normalization, batch_size, dataset_size, params, batch
     def hvp_of(flat_p, flat_b, flat_t):
         scaled = _scaled_loss_fn(loss_fn, dict(zip(bkeys, flat_b)), normalization,
                                  batch_size, dataset_size)
-        with _precision_context(precision), no_flag_switch("--linearized"), fwAD.dual_level():
+        with (_precision_context(precision, loss_fn), no_flag_switch("--linearized"),
+              fwAD.dual_level()):
             duals = {n: fwAD.make_dual(p, t) for n, p, t in zip(names, flat_p, flat_t)}
             grads = torch.func.grad(scaled)(duals)
             return [fwAD.unpack_dual(grads[n]).tangent for n in names]
@@ -160,7 +161,7 @@ def linearized_hvp_programs(
 
     def residual_program(params, batch) -> tuple:
         sp = split_for(params, batch)
-        with torch.no_grad(), _precision_context(precision):
+        with torch.no_grad(), _precision_context(precision, loss_fn):
             consts = sp.residual(*(params[n] for n in sp.names),
                                  *(batch[k] for k in sp.batch_keys))
         return (sp, tuple(consts))
@@ -168,7 +169,7 @@ def linearized_hvp_programs(
     def tangent_program(v: torch.Tensor, consts, params=None, batch=None) -> torch.Tensor:
         sp, residuals = consts
         tangents = fl.unflatten(v.float())
-        with torch.no_grad(), _precision_context(precision):
+        with torch.no_grad(), _precision_context(precision, loss_fn):
             out = sp.tangent(*residuals, *(tangents[n] for n in sp.names))
         return fl.flatten(dict(zip(sp.names, out)))
 

@@ -222,7 +222,6 @@ class GPT2LMHead(nn.Module):
         else:
             x = self.wte[input_ids] + self.wpe[:T][None]
         per_prec = precision.per_layer_precision(cfg.block_matmul_precision, cfg.n_layer)
-        precision.ambient_for_blocks(per_prec)
         for i in range(cfg.n_layer):
             with precision.precision_scope(per_prec[i]):
                 x = getattr(self, f"h_{i}")(x)

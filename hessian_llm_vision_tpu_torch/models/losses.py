@@ -118,4 +118,7 @@ def lm_loss_fn(
             include_padding=include_padding,
         )
 
-    return loss_chunked if loss_chunk else loss
+    fn = loss_chunked if loss_chunk else loss
+    # the outer precision scope sets the ambient TF32 flag from it
+    fn.model_config = getattr(model, "config", None)
+    return fn

@@ -48,10 +48,11 @@ tier when they run and fix it for that product:
   Function whose forward, backward and jvp each set the flag they need.
   Products whose tier equals the ambient flag run plain: the whole
   ``jvp(grad)`` call runs inside the one outer scope, so the flag the
-  reverse pass sees is the one the forward saw.  The model moves the
-  ambient flag to its blocks' majority tier at the start of its forward
-  (:func:`ambient_for_blocks`), so blocks-TF32 under an fp32 head runs
-  its block products plain.
+  reverse pass sees is the one the forward saw.  The outer scope sets
+  the ambient flag once, to what most of the model's fp32/TF32 products
+  want (:func:`outer_precision` reads the config that the loss closure
+  carries), so blocks-TF32 under an fp32 head runs its block products
+  plain and only the head switches.
 """
 
 from __future__ import annotations
@@ -170,53 +171,71 @@ def precision_scope(prec: Optional[str]):
 @contextlib.contextmanager
 def _flags(tf32: bool):
     """cuBLAS and cuDNN TF32 flags inside the block; bf16 products reduce
-    in f32.  Restored on exit, so the block owns the ambient flag
-    (:func:`ambient_for_blocks` may move it)."""
+    in f32.  Restored on exit."""
     m = torch.backends.cuda.matmul
     saved = (m.allow_tf32, torch.backends.cudnn.allow_tf32,
              m.allow_bf16_reduced_precision_reduction)
     m.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
     m.allow_bf16_reduced_precision_reduction = False
-    _local.owners = getattr(_local, "owners", 0) + 1
     try:
         yield
     finally:
-        _local.owners -= 1
         (m.allow_tf32, torch.backends.cudnn.allow_tf32,
          m.allow_bf16_reduced_precision_reduction) = saved
 
 
+def _product_tiers(config, outer: Optional[str]) -> list:
+    """The tier of each kind of product of a GPT-2 ``config`` under the
+    outer tier ``outer``: per block its attention dense, attention score
+    and MLP products (innermost scope wins), then the vocab head."""
+
+    def inner(p, t):
+        return tier_of(p) if p is not None else t
+
+    tiers = []
+    for p in per_layer_precision(config.block_matmul_precision, config.n_layer):
+        block = inner(p, outer)
+        attn = inner(config.attn_matmul_precision, block)
+        tiers += [attn, inner(config.attn_scores_precision, attn),
+                  inner(config.mlp_matmul_precision, block)]
+    return tiers + [outer]
+
+
+def _ambient_tf32(tiers) -> bool:
+    flagged = [t == TF32 for t in tiers if t in (TF32, FP32)]
+    return 2 * sum(flagged) > len(flagged)
+
+
+def tf32_switches(config, prec: Optional[str]) -> bool:
+    """Whether some product of a model with this config, run inside
+    ``outer_precision(prec, config)``, needs the TF32 flag switched per
+    product (:class:`_FlagEinsum`): its fp32 and TF32 products mix.  A
+    graph traced by ``make_fx`` cannot keep such a switch.  ``config``
+    None (a model without scopes): never."""
+    if config is None:
+        return False
+    tiers = {FP32 if t is None else t for t in _product_tiers(config, tier_of(prec))}
+    return {TF32, FP32} <= tiers
+
+
 @contextlib.contextmanager
-def outer_precision(prec: Optional[str]):
+def outer_precision(prec: Optional[str], config=None):
     """The curvature code's outer scope (``hvp_fn(precision=...)``): the
-    ambient TF32 flag of the tier (on for TF32, off otherwise) and the
     tier itself, which products outside any model scope (the vocab head,
-    the loss) and blocks at ``None`` inherit.  ``None`` keeps the ambient
-    settings."""
+    the loss) and blocks at ``None`` inherit, and the ambient TF32 flag.
+    The flag is the tier's (on for TF32, off otherwise) or, given the
+    model's ``config``, what most of its fp32/TF32 products want, so that
+    only the rest take :class:`_FlagEinsum`, whose host cost per call
+    (torch.func wraps each custom Function call) outweighs the products at
+    GPT-2 scale.  ``None`` keeps the ambient settings."""
     if prec is None:
         yield
         return
     tier = tier_of(prec)
-    with _flags(tier == TF32), _pushed(tier):
+    tf32 = tier == TF32 if config is None else _ambient_tf32(_product_tiers(config, tier))
+    with _flags(tf32), _pushed(tier):
         yield
-
-
-def ambient_for_blocks(per_block: Sequence[Optional[str]]) -> None:
-    """Move the ambient TF32 flag to what most of the blocks' fp32/TF32
-    products want, so that they run plain and only the rest (the vocab
-    head, say) take :class:`_FlagEinsum`, whose host cost per call
-    (torch.func wraps each custom Function call) outweighs the products at
-    GPT-2 scale.  Only inside an outer scope, which restores the flag when
-    it exits, and never while a graph is traced (:func:`no_flag_switch`).
-    The model calls it at the start of its forward, before any product."""
-    if not getattr(_local, "owners", 0) or getattr(_tracing, "why", None) is not None:
-        return
-    outer = current_tier()
-    tiers = [tier_of(p) if p is not None else outer for p in per_block]
-    flagged = [t == TF32 for t in tiers if t in (TF32, FP32)]
-    if flagged:
-        torch.backends.cuda.matmul.allow_tf32 = 2 * sum(flagged) > len(flagged)
 
 
 _tracing = threading.local()

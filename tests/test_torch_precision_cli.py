@@ -105,6 +105,20 @@ def test_auto_is_the_default_and_its_plan_persists(jax_checkpoint, tmp_path):
     assert os.path.isfile(other)
 
 
+def test_linearized_runs_under_the_default_auto():
+    """--linearized with the default auto: the blocks-TF32 rung, whose
+    TF32 blocks under an fp32 head a traced graph cannot keep, is dropped
+    before any probe, and the plan's arm runs (on the CPU the bf16 arm
+    misses the bar, so the fp32 referee: the spectrum of 'high')."""
+    lin = ["--num_batches", "1", "--linearized"]
+    (spec, _), out = _run(TINY + lin)
+    assert ("[auto-precision] blocks-TF32 + head high: dropped under --linearized" in out)
+    assert "probed blocks-TF32" not in out and "probed mixed (all blocks 1-pass bf16)" in out
+    assert "auto precision plan: referee fallback (highest)" in out
+    (high, _), _ = _run(TINY + lin + ["--hvp_precision", "high"])
+    torch.testing.assert_close(spec.eigvals, high.eigvals)
+
+
 def test_auto_resolves_to_high_off_the_hessian():
     (spec, _), out = _run(TINY + ["--operator", "ggn"])
     assert "--operator ggn: the probe gates the Hessian program only; resolving to 'high'" in out
@@ -181,6 +195,20 @@ def test_train_auto_guard_runs_three_steps(tmp_path, capsys):
     assert summary["recheck_every"] == 1
     assert [e["trigger"] for e in summary["events"]][-2:] == ["periodic", "periodic"]
     assert summary["events"][0]["trigger"] == "initial"
+
+
+def test_train_refresh_linearized_with_the_auto_guard(tmp_path, capsys):
+    """--refresh_linearized --refresh_precision auto: the guard's ladder
+    drops the blocks-TF32 rung and the traced refreshes run."""
+    records = []
+    train.main(["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "16", "--cpu",
+                "--optimiser", "lanczos-host", "--k", "3", "--refresh_every", "1",
+                "--max_steps", "2", "--refresh_linearized", "--refresh_precision", "auto",
+                "--out", str(tmp_path)], on_step=lambda s, r: records.append(r))
+    out = capsys.readouterr().out
+    assert "[precision-guard] blocks-TF32 + head high: dropped under --linearized" in out
+    assert "[precision-guard] refresh tier resolved:" in out
+    assert len(records) == 2 and all(np.isfinite(v) for r in records for v in r.values())
 
 
 @pytest.mark.parametrize("extra,match", [

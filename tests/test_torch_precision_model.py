@@ -104,8 +104,8 @@ def test_block_tiers_reach_every_pass_of_the_hvp():
     # all blocks bf16: only the head's products stay fp32
     allb = _hvp_kinds(block_matmul_precision="default")
     assert allb["bf16"] == 3 * per_block and allb["fp32"] == baseline["fp32"] - 3 * per_block
-    # all blocks TF32: the model moves the ambient flag to TF32 and the head
-    # keeps fp32 through the flag-switching product; the flag is restored
+    # all blocks TF32: the outer scope sets the ambient flag to TF32 and the
+    # head keeps fp32 through the flag-switching product; the flag is restored
     allt = _hvp_kinds(block_matmul_precision="TF32_TF32_F32")
     assert allt == Counter({"tf32": 3 * per_block, "fp32": baseline["fp32"] - 3 * per_block})
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -192,6 +192,34 @@ def test_linearized_keeps_dtype_tiers_and_refuses_a_tf32_switch():
     # a uniform TF32 outer scope needs no switch: it traces
     model, params, batch = _model()
     linearized_matvec(losses.lm_loss_fn(model), params, batch, precision="TF32_TF32_F32")
+
+
+@pytest.mark.parametrize("overrides,outer,switches", [
+    ({}, "high", False),
+    ({"block_matmul_precision": "TF32_TF32_F32"}, "high", True),
+    ({}, "TF32_TF32_F32", False),
+    ({"block_matmul_precision": "default"}, "high", False),
+    ({"block_matmul_precision": ("default", "TF32_TF32_F32", None)}, "high", True),
+    ({"block_matmul_precision": ("F64_F64_F64", None, None)}, "high", False),
+    ({"block_matmul_precision": "default", "attn_scores_precision": "TF32_TF32_F32"},
+     "default", False),
+    ({"mlp_matmul_precision": "TF32_TF32_F32"}, "high", True),
+], ids=["fp32", "blocks_tf32_head_fp32", "all_tf32", "mixed", "per_block", "f64_block",
+        "tf32_scores_in_bf16", "tf32_mlp"])
+def test_tf32_switches_predicts_the_flag_switching_products(overrides, outer, switches,
+                                                            monkeypatch):
+    """``tf32_switches`` (which the CLIs read to drop rungs under
+    --linearized) says exactly when an HVP inside the outer scope that
+    reads the loss's config runs some product through ``_FlagEinsum``."""
+    model, params, batch = _model(**overrides)
+    calls = []
+    apply = precision._FlagEinsum.apply
+    monkeypatch.setattr(precision._FlagEinsum, "apply",
+                        lambda *a: calls.append(a[0]) or apply(*a))
+    v = {n: torch.ones_like(p) for n, p in params.items()}
+    hvp_fn(losses.lm_loss_fn(model), precision=outer)(params, batch, v)
+    assert precision.tf32_switches(model.config, outer) is switches
+    assert bool(calls) is switches
 
 
 def test_flag_einsum_gradients_equal_plain_einsum():
