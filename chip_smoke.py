@@ -1,7 +1,8 @@
 """On-card smoke test of the PyTorch port: builds the CUDA kernels, holds
 each against its plain PyTorch version, drives LanczosSGD training, the
-spectrum paths and Adam training from and to checkpoints of GPT-2 124M
-through the CLIs, and checks the results.
+spectrum paths, Adam training from and to checkpoints and the rest of the
+train CLI's optimisers on GPT-2 124M through the CLIs, and checks the
+results.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -59,9 +60,10 @@ Phases (any failure exits non-zero and prints no result line):
  10. the trained-checkpoint path on GPT-2 124M, on the card machine's own
      Python standard library as a byte corpus, every checkpoint in a
      temporary directory: (a) Adam through cli.train.main over ADAM_N
-     batches, two epochs uninterrupted against one epoch with --save_state
-     and one resumed: step 0 near ln 50257, the loss halved, the states
-     reloading equal to the ones in memory with steps N and 2N, the resumed
+     batches for two epochs, saving the checkpoint: step 0 near ln 50257,
+     the loss halved; then over RESUME_N batches, two epochs uninterrupted
+     against one epoch with --save_state and one resumed: the states
+     reloading equal to the ones in memory with steps M and 2M, the resumed
      losses tracking the uninterrupted ones; an Adam step's gradient and
      update by CUDA events; (b) the host-loop spectrum of the checkpoint and
      of the init on one batch (weights summing to 1, lambda_max above
@@ -89,11 +91,30 @@ Phases (any failure exits non-zero and prints no result line):
      guard's events, each rank-k kernel once per step plus the probes' CGS2
      launches; (f) gpt2-tiny card against CPU: --hvp_precision high with
      --precision_check, and --bf16 Adam losses; one {"precision": ...} line.
+ 12. the rest of training on GPT-2 124M at phase 4's batches, fp32: (a)
+     phase 4's run with --optimiser lanczos (the fused step, CGS2, an f32
+     (10, P) basis): each kernel once per step at (10, P) f32, step 0's
+     loss and eig_max as phase 4's; (b) --optimiser gn and ngd, 2 steps at
+     --damping 1e-3 --cg_iters 20: finite, cg_iters <= 20, no rank-k
+     launch, and a GN step's reported CG residual recomputed from a fresh
+     GGN matvec; (c) HostLayerwiseLanczosSGDTrainer on wte and the 24 MLP
+     kernels (bf16 bases, k=4, refresh_every 2, 2 steps): 25 launches of
+     each kernel per step, finite Ritz values, lambda_max > 0 on wte, the
+     frozen step equal to a plain-version replay; (d) the fused layer-wise
+     step on wte alone: its extremes as (c)'s; (e) Adam with
+     --snapshot_every 1 and --post_spectrum_iters 10: the T files and the
+     eigenspace read back; (f) project_gradients and frozen_spectral_adjust
+     with an orthonormal (10, P) basis in f32 and bf16 against the plain
+     version; (g) torch.profiler around one HVP, summarized by
+     obs.trace_summary; (h) gpt2-tiny card against CPU for every new
+     optimiser and flag, and --tensorboard (or its exit naming the missing
+     package); one {"train_ext": ...} line.
 Phase 3 also checks and times (4, 124,046,592), (8, 124,046,592) and (16,
 124,046,592) in bf16, the deflation projector's, the empirical Fisher's
-and the CGS2 pass's shapes.  Then it prints one JSON line of kernels
-(launches per path), the card line, and finally {"ok": true, "device":
-{...}}.
+and the CGS2 pass's shapes, and phase 12's per-leaf shapes (4, 2,359,296)
+and (4, 38,597,376) in both dtypes, and checks small leaves at unaligned
+offsets of g.  Then it prints one JSON line of kernels (launches per
+path), the card line, and finally {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port only (no JAX: the card machine has none).
 """
@@ -217,8 +238,11 @@ ADAM_ARGV = ["--model", "gpt2", "--batch_size", "8", "--max_length", "512", "--a
              "--num_batches", str(ADAM_N), "--dataset", f"local:{STDLIB}"]
 # 10a: the resumed run's per-step losses against the uninterrupted run's;
 # the first card reading was 0.0 (bit-identical over 200 steps), so the
-# gate allows only last-bit differences
+# gate allows only last-bit differences.  The save/resume split runs on the
+# first RESUME_N batches (2 x RESUME_N steps, split at an epoch), beside the
+# 2 x ADAM_N-step run that makes the checkpoint.
 RESUME_LOSS_ATOL = 1e-6
+RESUME_N = 20
 CKPT_BASE = ["--model", "gpt2", "--dataset", f"local:{STDLIB}", "--num_batches", "1",
              "--batch_size", "8", "--max_length", "512", "--host_loop", "--lanczos_iters", "20"]
 CKPT_SPECTRUM_ARGV = CKPT_BASE + ["--hvp_precision", "high"]
@@ -252,6 +276,56 @@ TINY_BF16_ARGV = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "
                   "--optimiser", "adam", "--num_batches", "3", "--bf16"]
 TINY_BF16_STEP0_RTOL = 2e-6
 TINY_BF16_DRIFT_RTOL = 1e-4
+# phase 12: the rest of training on GPT-2 124M at TRAIN_ARGV's batches
+# (random tokens, bs8 x seq512, seed 0), fp32 HVPs as in phases 7-10
+FUSED_ARGV = [a if a != "lanczos-host" else "lanczos" for a in TRAIN_ARGV]
+FUSED_LOSS_RTOL = 1e-5  # 12a step 0 against phase 4's step 0 (same params and batch)
+FUSED_EIG_RTOL = 1e-3  # 12a step 0's eig_max (CGS2) against phase 4's (no reorthogonalization)
+SECOND_ORDER_ARGV = ["--model", "gpt2", "--dataset", "random", "--batch_size", "8",
+                     "--max_length", "512", "--num_batches", "2", "--max_steps", "2",
+                     "--seed", "0"]  # --damping 1e-3 --cg_iters 20, the defaults
+CG_MAX_ITERS = 20
+CG_RESIDUAL_RTOL = 1e-3  # reported ‖r‖ against ‖(G + λI)x − g‖ from a fresh matvec
+# 12c/12d: min_leaf_size 2,000,000 keeps wte and the 24 MLP kernels (2,359,296
+# each); 3,000,000 keeps wte alone (38,597,376)
+LAYER_MIN_LEAF = 2_000_000
+WTE_MIN_LEAF = 3_000_000
+LAYER_LEAVES = 25
+LAYER_K = 4
+REPLAY_RTOL = 1e-5  # 12c frozen step's update against a plain-version replay
+WTE_RITZ_RTOL = 1e-3  # 12d wte extremes against 12c's
+SNAPSHOT_ARGV = SECOND_ORDER_ARGV + ["--optimiser", "adam", "--snapshot_every", "1",
+                                     "--snapshot_iters", "10", "--post_spectrum_iters", "10"]
+PROJECTION_RTOL = 1e-5  # 12f kernel against the plain version
+PROJECTION_LEAK = 1e-3  # ‖V g_out‖ / ‖g‖ after project_gradients
+TRACE_TOP = 10
+# 12h: gpt2-tiny, card against CPU, knobs as tests/test_torch_train_ext_cli.py
+TINY_TRAIN_EXT = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32",
+                  "--num_batches", "2", "--log_every", "1"]
+TINY_TRAIN_CASES = {
+    "lanczos": ["--optimiser", "lanczos", "--k", "4", "--delta", "10", "--lr", "0.01",
+                "--refresh_every", "2", "--lanczos_momentum", "0.5", "--max_steps", "3"],
+    "lanczos-layer": ["--optimiser", "lanczos-layer", "--k", "3", "--delta", "10", "--lr",
+                      "0.01", "--max_steps", "2"],
+    "lanczos-layer-host": ["--optimiser", "lanczos-layer-host", "--k", "3", "--delta", "10",
+                           "--lr", "0.01", "--refresh_every", "2", "--lanczos_momentum", "0.5",
+                           "--max_steps", "3"],
+    "gn": ["--optimiser", "gn", "--lr", "0.5", "--damping", "1", "--cg_iters", "8",
+           "--max_steps", "2"],
+    "ngd": ["--optimiser", "ngd", "--lr", "0.5", "--damping", "1", "--cg_iters", "8",
+            "--max_steps", "2"],
+    "adam_snapshots": ["--optimiser", "adam", "--max_steps", "2", "--snapshot_every", "1",
+                       "--snapshot_iters", "6", "--post_spectrum_iters", "6"],
+}
+TINY_TRAIN_LOSS_RTOL = 1e-5
+TINY_TRAIN_RITZ_RTOL = 1e-3
+# phase 3: the per-leaf shapes of phase 12 -- k=4 on an MLP kernel and on
+# wte, timed in both dtypes -- and small leaves at unaligned offsets of a
+# flat gradient (gpt2-tiny's 768- and 2304-wide rows, a 2-entry leaf)
+LEAF_TIMED = ((4, 2_359_296), (4, 38_597_376))
+LEAF_CHECKED = ((torch.float32, 10, 768, 1), (torch.bfloat16, 10, 768, 1),
+                (torch.float32, 10, 2304, 3), (torch.bfloat16, 10, 2304, 3),
+                (torch.float32, 2, 2, 1), (torch.bfloat16, 4, 2_359_296, 5))
 CARD = torch.device("cuda")
 
 
@@ -298,11 +372,14 @@ def phase(n: int, title: str):
     return time.perf_counter()
 
 
-def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool) -> dict:
-    """Kernel vs plain versions on one shape; timings when ``timed``."""
+def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool, g_offset: int = 0) -> dict:
+    """Kernel vs plain versions on one shape; timings when ``timed``.
+    ``g_offset``: g is a view that many elements into a larger tensor, as
+    a per-leaf slice of a flat gradient is (not 16-byte aligned unless the
+    offset is a multiple of 4)."""
     dev = torch.device("cuda")
     V = torch.randn((k, p), generator=gen, device=dev, dtype=dtype).mul_(1.0 / math.sqrt(p))
-    g = torch.randn(p, generator=gen, device=dev)
+    g = torch.randn(p + g_offset, generator=gen, device=dev)[g_offset:]
     c = torch.randn(k, generator=gen, device=dev)
     w = kernels.rank_k_dots(g, V, c)
     out = kernels.rank_k_axpy(g, V, w)
@@ -315,7 +392,7 @@ def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool) -> dict:
     axpy_ref = spectral.rank_k_axpy_reference(g, V, w_ref)
     out_same_w = kernels.rank_k_axpy(g, V, w_ref)
     res = {
-        "dtype": str(dtype).removeprefix("torch."), "k": k, "P": p,
+        "dtype": str(dtype).removeprefix("torch."), "k": k, "P": p, "g_offset": g_offset,
         "rel_l2_vs_reference": rel_l2(out, ref),
         "rel_l2_dots": rel_l2(w, w_ref),
         "dots_max_abs_err": float((w - w_ref).abs().max()),
@@ -1223,14 +1300,15 @@ def adam_update_vs_gradient(train_cli) -> dict:
 
 
 def adam_save_resume_124m(train_cli, tmp: str) -> tuple[dict, str]:
-    """Phase 10a: Adam on GPT-2 124M over ADAM_N stdlib batches, (i) two
-    epochs uninterrupted, (ii) one epoch with --save_state, (iii) one
-    epoch resumed with --save_checkpoint; the state files reload equal to
-    the states in memory when they were saved.  Returns the readings and
-    the checkpoint's path."""
+    """Phase 10a: Adam on GPT-2 124M over ADAM_N stdlib batches for two
+    epochs, saving the checkpoint; then on the first RESUME_N batches, (i)
+    two epochs uninterrupted, (ii) one epoch with --save_state, (iii) one
+    epoch resumed; the state files reload equal to the states in memory
+    when they were saved.  Returns the readings and the checkpoint's path."""
     from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint
 
     out = ["--out", os.path.join(tmp, "runs")]
+    split = ADAM_ARGV + out + ["--num_batches", str(RESUME_N)]
     S, S2, C = (os.path.join(tmp, name) for name in ("state1", "state2", "ckpt"))
     saved = {}
     save = train_cli.save_checkpoint
@@ -1239,15 +1317,16 @@ def adam_save_resume_124m(train_cli, tmp: str) -> tuple[dict, str]:
         save(path, state)
         saved[path] = state
 
+    torch.cuda.reset_peak_memory_stats()
+    whole, whole_s = _train(train_cli, ADAM_ARGV + out + ["--epochs", "2", "--save_checkpoint", C])
+    peak = torch.cuda.max_memory_allocated()
     train_cli.save_checkpoint = capture
     try:
-        torch.cuda.reset_peak_memory_stats()
-        whole, whole_s = _train(train_cli, ADAM_ARGV + out + ["--epochs", "2"])
-        peak = torch.cuda.max_memory_allocated()
-        first, first_s = _train(train_cli, ADAM_ARGV + out + ["--epochs", "1", "--save_state", S])
+        ref, ref_s = _train(train_cli, split + ["--epochs", "2"])
+        first, first_s = _train(train_cli, split + ["--epochs", "1", "--save_state", S])
         reloads = [_reloads_equal(load_checkpoint, S, saved.pop(S))]
-        second, second_s = _train(train_cli, ADAM_ARGV + out + [
-            "--epochs", "1", "--resume_state", S, "--save_state", S2, "--save_checkpoint", C])
+        second, second_s = _train(train_cli, split + [
+            "--epochs", "1", "--resume_state", S, "--save_state", S2])
         reloads.append(_reloads_equal(load_checkpoint, S2, saved.pop(S2)))
         saved.clear()
     finally:
@@ -1258,10 +1337,11 @@ def adam_save_resume_124m(train_cli, tmp: str) -> tuple[dict, str]:
     os.remove(S2)
     losses = [r["loss"] for r in whole]
     resumed = [r["loss"] for r in first + second]
-    diffs = [abs(a - b) for a, b in zip(resumed, losses)]
+    diffs = [abs(a - b["loss"]) for a, b in zip(resumed, ref)]
     step_s = [r["seconds"] for r in whole[1:]]
     res = {
-        "N": ADAM_N, "steps": [len(whole), len(first), len(second)],
+        "N": ADAM_N, "resume_N": RESUME_N,
+        "steps": [len(whole), len(ref), len(first), len(second)],
         "loss_step0": losses[0], "ln_vocab": math.log(50257),
         "last10_mean": statistics.mean(losses[-10:]), "loss_every_50": losses[::50],
         "resume_max_abs_loss_diff": max(diffs), "resume_first_diff_step":
@@ -1269,17 +1349,18 @@ def adam_save_resume_124m(train_cli, tmp: str) -> tuple[dict, str]:
         "resume_loss_atol": RESUME_LOSS_ATOL,
         "step_s_median": statistics.median(step_s), "step_s_min_max": [min(step_s), max(step_s)],
         "first_step_s": whole[0]["seconds"], "max_memory_allocated_bytes": peak,
-        "run_s": [whole_s, first_s, second_s], "saved_steps": steps, "state_bytes": state_bytes,
-        "checkpoint_bytes": os.path.getsize(C), "reloads_equal": reloads,
-        "pieces": adam_update_vs_gradient(train_cli),
+        "run_s": [whole_s, ref_s, first_s, second_s], "saved_steps": steps,
+        "state_bytes": state_bytes, "checkpoint_bytes": os.path.getsize(C),
+        "reloads_equal": reloads, "pieces": adam_update_vs_gradient(train_cli),
     }
     print(json.dumps({"adam_save_resume_124m": res}))
     check_gates("10a Adam save and resume", {
-        "2N, N and N steps": res["steps"] == [2 * ADAM_N, ADAM_N, ADAM_N],
+        "2N, 2M, M and M steps": res["steps"] == [2 * ADAM_N, 2 * RESUME_N, RESUME_N, RESUME_N],
+        "the split starts as the checkpoint's run": ref[0]["loss"] == losses[0],
         "step 0 loss within 0.5 of ln 50257": abs(losses[0] - math.log(50257)) <= 0.5,
         "last 10 losses below half of step 0's": res["last10_mean"] < 0.5 * losses[0],
         "states reload equal": all(reloads),
-        "saved steps N then 2N": steps == [ADAM_N, 2 * ADAM_N],
+        "saved steps M then 2M": steps == [RESUME_N, 2 * RESUME_N],
         "resumed losses track the uninterrupted run": max(diffs) <= RESUME_LOSS_ATOL,
     })
     return res, C
@@ -1404,10 +1485,48 @@ def _probe(driver, wl, loss_fn, precision, **kw) -> dict:
             "referee_extremes": stats["ritz_extremes_referee"]}
 
 
+def _tier_probes(driver, wl) -> dict:
+    """:func:`_probe` of every arm of PROBE_ARMS with the "highest" referee
+    run once for all of them: the probe's vector, its timed HVPs (the
+    second of two calls) and its reorthogonalised extremes, as
+    ``krylov.driver.matvec_precision_probe`` computes them."""
+    from hessian_llm_vision_tpu_torch.krylov.lanczos import start_vector
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    fl, batch = Flattener(wl.params), wl.batches[0]
+    v = start_vector(torch.randn(fl.size, generator=torch.Generator().manual_seed(997)).to(CARD),
+                     None, fl.size)
+
+    def run(precision):
+        hv = driver.batch_hvp(wl.loss_fn, precision, fl)
+        w = hv(v, wl.params, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hv(v, wl.params, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return w, seconds, driver._tiny_lanczos_extremes(hv, v, wl.params, batch, PROBE_ITERS,
+                                                         reorth=True)
+
+    w_ref, s_ref, (lo_r, hi_r) = run("highest")
+    scale = max(abs(lo_r), abs(hi_r), 1e-30)
+    out = {}
+    for arm in PROBE_ARMS:
+        w, secs, (lo, hi) = run(arm)
+        out[arm] = {"rel_err": float(torch.linalg.vector_norm(w - w_ref))
+                    / max(float(torch.linalg.vector_norm(w_ref)), 1e-30),
+                    "ritz_rel_err": max(abs(hi - hi_r), abs(lo - lo_r)) / scale,
+                    "ms_per_hvp": 1e3 * secs, "referee_ms_per_hvp": 1e3 * s_ref,
+                    "extremes": (lo, hi), "referee_extremes": (lo_r, hi_r)}
+        del w
+    return out
+
+
 def tier_map(kernels, wls: dict) -> dict:
     """Phase 11a: each tier against the "highest" referee by the
-    reorthogonalised probe, at init and at the checkpoint; then an HVP with
-    only block 0 at TF32 against all-fp32 and all-TF32 (the scope's reach)."""
+    reorthogonalised probe (one referee run per point), at init and at the
+    checkpoint; then an HVP with only block 0 at TF32 against all-fp32 and
+    all-TF32 (the scope's reach)."""
     from hessian_llm_vision_tpu_torch.krylov import driver
     from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
 
@@ -1416,7 +1535,7 @@ def tier_map(kernels, wls: dict) -> dict:
     for point in ("init", "checkpoint"):
         torch.cuda.empty_cache()
         wl, factory = wls[point]
-        out[point] = {arm: _probe(driver, wl, wl.loss_fn, arm) for arm in PROBE_ARMS}
+        out[point] = _tier_probes(driver, wl)
         if point == "checkpoint":
             fl = Flattener(wl.params)
             v = torch.randn(fl.size, generator=torch.Generator().manual_seed(5)).to(CARD)
@@ -1444,8 +1563,8 @@ def tier_map(kernels, wls: dict) -> dict:
         out["init"]["default"]["rel_err"] > out["init"]["TF32_TF32_F32"]["rel_err"])
     gates["block 0 at TF32 differs from all-fp32 and all-TF32"] = (
         out["block0_tf32"]["rel_l2_vs_fp32"] > 0 and out["block0_tf32"]["rel_l2_vs_all_tf32"] > 0)
-    # 2 points x 3 arms x 2 Lanczos runs x PROBE_ITERS iterations x 2 CGS2 passes
-    n = 2 * len(PROBE_ARMS) * 2 * PROBE_ITERS * 2
+    # 2 points x (3 arms + the referee) x PROBE_ITERS iterations x 2 CGS2 passes
+    n = 2 * (len(PROBE_ARMS) + 1) * PROBE_ITERS * 2
     gates[f"{n} CGS2 launches of each kernel"] = all(out["launches"][k] == n
                                                       for k in TPU_KERNELS)
     check_gates("11a the tier map", gates)
@@ -1705,6 +1824,433 @@ def trained_checkpoint(train_cli, spectrum_cli, kernels, after=None) -> dict:
     return out
 
 
+def _rel(a: float, b: float) -> float:
+    return abs(a / b - 1) if b else abs(a)
+
+
+def fused_lanczos_124m(train_cli, kernels, phase4: list) -> dict:
+    """Phase 12a: phase 4's training with --optimiser lanczos (the fused
+    step: CGS2 Lanczos, an f32 (10, P) basis), each adjust's basis shape
+    recorded."""
+    from hessian_llm_vision_tpu_torch.optim import lanczos_sgd
+
+    shapes = []
+    adjust = lanczos_sgd.spectral_adjust
+
+    def recording(g, basis, eigvals, delta):
+        shapes.append([*basis.shape, str(basis.dtype).removeprefix("torch.")])
+        return adjust(g, basis, eigvals, delta)
+
+    lanczos_sgd.spectral_adjust = recording
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        records, run_s = _train(train_cli, FUSED_ARGV)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        lanczos_sgd.spectral_adjust = adjust
+    out = {"steps": records, "run_s": run_s, "launches": launches, "adjust_shapes": shapes,
+           "loss_rel_vs_phase4": _rel(records[0]["loss"], phase4[0]["loss"]),
+           "eig_max_rel_vs_phase4": _rel(records[0]["eig_max"], phase4[0]["eig_max"]),
+           "refresh_step_s": [r["seconds"] for r in records[::2]],
+           "frozen_step_s": [r["seconds"] for r in records[1::2]],
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps({"fused_lanczos_124m": out}))
+    check_gates("12a fused LanczosSGD", {
+        "4 steps": len(records) == 4,
+        "finite": all(math.isfinite(v) for r in records for v in r.values()),
+        "each kernel once per step": all(launches[n] == 4 for n in TPU_KERNELS),
+        "every adjust at (10, P) f32": shapes == [[10, P_124M, "float32"]] * 4,
+        "step 0 loss as phase 4's": out["loss_rel_vs_phase4"] <= FUSED_LOSS_RTOL,
+        "step 0 eig_max as phase 4's": out["eig_max_rel_vs_phase4"] <= FUSED_EIG_RTOL,
+    })
+    return out
+
+
+def second_order_124m(train_cli, kernels) -> dict:
+    """Phase 12b: --optimiser gn and ngd, 2 steps each at the defaults; then
+    one GN step called directly, its reported CG residual against
+    ‖(G + λI)x − g‖ recomputed from a fresh GGN matvec and gradient."""
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.curvature.ggn import GGNOperator
+    from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss
+    from hessian_llm_vision_tpu_torch.optim.second_order import make_gauss_newton_step
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    out = {}
+    for opt in ("gn", "ngd"):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        records, run_s = _train(train_cli, SECOND_ORDER_ARGV + ["--optimiser", opt])
+        out[opt] = {"steps": records, "run_s": run_s, "launches": dict(kernels.LAUNCHES),
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    args = train_cli.build_parser().parse_args(SECOND_ORDER_ARGV + ["--optimiser", "gn"])
+    wl = build_workload(args, CARD)
+    fl, batch = Flattener(wl.params), wl.batches[0]
+    step = make_gauss_newton_step(wl.model_fn, wl.out_loss_fn, wl.loss_fn, wl.params, lr=1.0,
+                                  damping=args.damping, cg_iters=args.cg_iters)
+    new, metrics = step(wl.params, batch)
+    x = fl.flatten(wl.params) - fl.flatten(new)  # lr 1: the CG solution
+    del new
+    g = fl.flatten(grad_and_loss(wl.loss_fn, wl.params, batch)[1])
+    op = GGNOperator(wl.model_fn, wl.out_loss_fn, wl.params, batch, damping=args.damping,
+                     flattener=fl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    residual = float(torch.linalg.vector_norm(op.matvec(x) - g))
+    out["residual"] = {"reported": float(metrics["cg_residual"]), "recomputed": residual,
+                       "cg_iters": metrics["cg_iters"], "g_norm": float(
+                           torch.linalg.vector_norm(g)), "matvec_s": time.perf_counter() - t0}
+    out["residual"]["rel"] = _rel(out["residual"]["reported"], residual)
+    del wl, x, g, op
+    print(json.dumps({"second_order_124m": out}))
+    check_gates("12b Gauss-Newton and natural gradient", {
+        **{f"{opt}: 2 steps, finite loss": len(out[opt]["steps"]) == 2 and all(
+            math.isfinite(r["loss"]) for r in out[opt]["steps"]) for opt in ("gn", "ngd")},
+        **{f"{opt}: cg_iters <= {CG_MAX_ITERS}": all(
+            1 <= r["cg_iters"] <= CG_MAX_ITERS for r in out[opt]["steps"]) for opt in ("gn", "ngd")},
+        **{f"{opt}: no rank-k launch": not any(out[opt]["launches"].values())
+           for opt in ("gn", "ngd")},
+        "the CG residual recomputed": out["residual"]["rel"] <= CG_RESIDUAL_RTOL,
+    })
+    return out
+
+
+def layerwise_training_124m(train_cli, kernels, spectral) -> dict:
+    """Phases 12c, 12d and 12f on one GPT-2 124M workload (TRAIN_ARGV's
+    params and first batch).  12d: the fused layer-wise step on wte alone,
+    one step from the init.  12c: HostLayerwiseLanczosSGDTrainer on wte and
+    the 24 MLP kernels (bf16 bases), k=4, refresh_every 2, 2 steps from the
+    init, each step's launches counted; the frozen step replayed with the
+    plain rank-k apply.  12f: the frozen-spectrum transforms on 12c's
+    gradient with an orthonormal (10, P) basis."""
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.optim import LanczosSGDConfig
+    from hessian_llm_vision_tpu_torch.optim.lanczos_sgd import make_layerwise_lanczos_sgd_step
+    from hessian_llm_vision_tpu_torch.optim.lanczos_sgd_host import HostLayerwiseLanczosSGDTrainer
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    torch.cuda.empty_cache()
+    wl = build_workload(train_cli.build_parser().parse_args(TRAIN_ARGV), CARD)
+    batch, fl = wl.batches[0], Flattener(wl.params)
+    cfg = LanczosSGDConfig(k=LAYER_K, delta=1e-4, lr=1e-3, momentum=0.9, refresh_every=2,
+                           normalization="sum")
+    out = {}
+    # 12d, before 12c's trainer moves the params in place
+    init, step = make_layerwise_lanczos_sgd_step(wl.loss_fn, wl.params, cfg,
+                                                 batch_size=wl.batch_size,
+                                                 min_leaf_size=WTE_MIN_LEAF)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, m = step(init(wl.params), batch)
+    torch.cuda.synchronize()
+    out["12d"] = {"seconds": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES),
+                  "layer_eig_max": m["layer_eig_max"].tolist(),
+                  "layer_eig_min": m["layer_eig_min"].tolist(),
+                  "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del st, m, init, step
+    # 12c
+    trainer = HostLayerwiseLanczosSGDTrainer(wl.loss_fn, wl.params, cfg, batch_size=wl.batch_size,
+                                             basis_dtype=torch.bfloat16,
+                                             min_leaf_size=LAYER_MIN_LEAF)
+    state = trainer.init(wl.params)
+    grads = []
+    grad = trainer._grad
+
+    def keep_grad(params, b):
+        loss, g = grad(params, b)
+        grads[:] = [g]
+        return loss, g
+
+    trainer._grad = keep_grad
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        if i == 1:
+            p_old, buf_old = fl.flatten(state.params), fl.flatten(state.momentum)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        steps.append({"seconds": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES),
+                      "loss": float(m["loss"])})
+        if i == 0:
+            ritz = {label: ev.tolist() for (label, *_), ev in zip(trainer.active, state.eigvals)}
+    g = grads[0]
+    adj = g.clone()
+    for (_, off, size, _), V, ev in zip(trainer.active, state.bases, state.eigvals):
+        adj[off:off + size] = spectral.spectral_adjust_reference(g[off:off + size], V, ev,
+                                                                 cfg.delta)
+    replay = p_old - cfg.lr * (cfg.momentum * buf_old + adj)
+    update = fl.flatten(state.params) - p_old
+    out["12c"] = {"leaves": [a[0] for a in trainer.active], "steps": steps, "ritz": ritz,
+                  "replay_rel": rel_l2(update, replay - p_old),
+                  "refresh_masked_hvps": sum(a[3] for a in trainer.active),
+                  "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del adj, replay, update, p_old, buf_old
+    wte = ritz["wte"]
+    out["12d"]["rel_vs_12c"] = max(_rel(out["12d"]["layer_eig_max"][0], wte[-1]),
+                                   _rel(out["12d"]["layer_eig_min"][0], wte[0]))
+    out["12f"] = projections_124m(kernels, spectral, fl, g)
+    print(json.dumps({"layerwise_training_124m": out}))
+    check_gates("12c/12d layer-wise LanczosSGD", {
+        f"{LAYER_LEAVES} leaves": len(trainer.active) == LAYER_LEAVES,
+        f"{LAYER_LEAVES} launches of each kernel per step": all(
+            s["launches"][n] == LAYER_LEAVES for s in steps for n in TPU_KERNELS),
+        "finite Ritz values": all(math.isfinite(v) for ev in ritz.values() for v in ev),
+        "wte lambda_max > 0": wte[-1] > 0,
+        "frozen step = plain-version replay": out["12c"]["replay_rel"] <= REPLAY_RTOL,
+        "12d: one leaf, each kernel once": out["12d"]["launches"] == {n: 1 for n in TPU_KERNELS}
+        and len(out["12d"]["layer_eig_max"]) == 1,
+        "12d: wte extremes as 12c's": out["12d"]["rel_vs_12c"] <= WTE_RITZ_RTOL,
+    })
+    del trainer, state, wl, g
+    return out
+
+
+def projections_124m(kernels, spectral, fl, g: torch.Tensor) -> dict:
+    """Phase 12f: project_gradients and frozen_spectral_adjust with an
+    orthonormal (10, P) basis (CGS2 rows of a seeded draw) in f32 and bf16,
+    against the plain version; the projection's leak ‖V g_out‖ / ‖g‖."""
+    from hessian_llm_vision_tpu_torch.optim.projection import (
+        frozen_spectral_adjust,
+        project_gradients,
+    )
+
+    gen = torch.Generator(device=CARD).manual_seed(12)
+    Q = torch.empty((10, fl.size), device=CARD)
+    for i in range(10):
+        v = torch.randn(fl.size, generator=gen, device=CARD)
+        for _ in range(2):
+            v -= Q[:i].T @ (Q[:i] @ v)
+        Q[i] = v / torch.linalg.vector_norm(v)
+    eigvals = torch.linspace(-2.0, 50.0, 10, device=CARD)
+    out = {}
+    for dtype in TIMED_DTYPES:
+        V = Q.to(dtype)
+        kernels.reset_launch_counts()
+        tx = project_gradients(V, fl)
+        proj = fl.flatten(tx.update(fl.unflatten(g), tx.init(None))[0])
+        tx = frozen_spectral_adjust(V, eigvals, 1e-4, fl)
+        frozen = fl.flatten(tx.update(fl.unflatten(g), tx.init(None))[0])
+        launches = dict(kernels.LAUNCHES)
+        name = str(dtype).removeprefix("torch.")
+        out[name] = {
+            "launches": launches,
+            "project_rel_vs_plain": rel_l2(proj, spectral.project_out_reference(g, V)),
+            "leak": float(torch.linalg.vector_norm(V.float() @ proj)
+                          / torch.linalg.vector_norm(g)),
+            "frozen_equals_spectral_adjust": torch.equal(
+                frozen, spectral.spectral_adjust(g, V, eigvals, 1e-4)),
+            "frozen_rel_vs_plain": rel_l2(frozen, spectral.spectral_adjust_reference(
+                g, V, eigvals, 1e-4)),
+        }
+        del V, proj, frozen
+    del Q
+    check_gates("12f frozen-spectrum transforms", {
+        **{f"{d}: kernel as plain": r["project_rel_vs_plain"] <= PROJECTION_RTOL
+           and r["frozen_rel_vs_plain"] <= PROJECTION_RTOL for d, r in out.items()},
+        **{f"{d}: leak": r["leak"] <= PROJECTION_LEAK for d, r in out.items()},
+        **{f"{d}: frozen adjust = spectral_adjust": r["frozen_equals_spectral_adjust"]
+           for d, r in out.items()},
+        **{f"{d}: each kernel twice": r["launches"] == {n: 2 for n in TPU_KERNELS}
+           for d, r in out.items()},
+    })
+    return out
+
+
+def snapshots_124m(train_cli, kernels, spectra) -> dict:
+    """Phase 12e: Adam, 2 steps, with a 10-iteration T-only snapshot after
+    each and a 10-iteration reorthogonalised post-training spectrum (the
+    format's full read-back is tests/test_torch_train_ext_cli.py's)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        records, run_s = _train(train_cli, SNAPSHOT_ARGV + ["--out", tmp])
+        launches = dict(kernels.LAUNCHES)
+        tfiles = sorted(glob.glob(os.path.join(tmp, "**", "T_step*.npz"), recursive=True))
+        tri = [spectra.load_tridiag(f) for f in tfiles]
+        (eig,) = glob.glob(os.path.join(tmp, "**", "eigenspace.npz"), recursive=True)
+        # eigenvalues and weights read back; the 5 GB of Ritz vectors by their header
+        with np.load(eig) as z:
+            eigvals, gammas = z["eigvals"], z["gammas"]
+            with z.zip.open("V.npy") as f:
+                np.lib.format.read_magic(f)
+                v_shape = np.lib.format.read_array_header_1_0(f)[0]
+    out = {"steps": records, "run_s": run_s, "launches": launches,
+           "snapshots": [os.path.basename(f) for f in tfiles],
+           "snapshot_shapes": [[len(a), len(b)] for a, b in tri],
+           "lambda_max": float(eigvals.max()), "lambda_min": float(eigvals.min()),
+           "gamma_sum": float(gammas.astype(np.float64).sum()),
+           "ritz_vectors_shape": list(v_shape),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps({"snapshots_124m": out}))
+    check_gates("12e snapshots and post-training spectrum", {
+        "two T files read back": out["snapshots"] == ["T_step000000.npz", "T_step000001.npz"]
+        and out["snapshot_shapes"] == [[10, 9]] * 2,
+        "finite": all(math.isfinite(v) for a, b in tri for v in (*a, *b)),
+        "weights sum to 1": abs(out["gamma_sum"] - 1) <= 1e-5,
+        "lambda_max > 0": out["lambda_max"] > 0,
+        "ritz vectors (10, P)": out["ritz_vectors_shape"] == [10, P_124M],
+        "no rank-k launch": not any(launches.values()),
+    })
+    return out
+
+
+def hvp_trace_124m() -> dict:
+    """Phase 12g: torch.profiler around one GPT-2 124M HVP (phase 6's
+    shapes), read back by obs.trace_summary: the top device ops and their
+    share of the traced wall (first to last event)."""
+    from hessian_llm_vision_tpu_torch.curvature.hvp import hvp_fn
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from hessian_llm_vision_tpu_torch.models.losses import lm_loss_fn
+    from hessian_llm_vision_tpu_torch.obs import profile_trace, summarize_trace, trace_summary
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    torch.cuda.empty_cache()
+    B, T = 8, 512
+    cfg = GPT2Config.gpt2_124m(n_positions=T)
+    model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0)).to(CARD)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=CARD).manual_seed(7)
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=CARD)
+    batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids)}
+    fl = Flattener(params)
+    v = fl.unflatten(torch.randn(fl.size, generator=gen, device=CARD) / math.sqrt(fl.size))
+    hvp = hvp_fn(lm_loss_fn(model), normalization="sum", batch_size=B)
+    hvp(params, batch, v)  # warm-up
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp):
+            t0 = time.perf_counter()
+            hvp(params, batch, v)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        events = trace_summary.load_trace_events(tmp)
+        rows, found = trace_summary.device_rows(events)
+        top = summarize_trace(tmp, top=TRACE_TOP)
+        read_s = time.perf_counter() - t0
+        trace_bytes = os.path.getsize(trace_summary.find_trace_file(tmp))
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("ph") == "X" and "dur" in e]
+    wall_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+    device_ms = sum(e["dur"] for e in rows) / 1e3
+    out = {"host_s": host_s, "traced_wall_ms": wall_ms, "device_ms": device_ms,
+           "device_share": device_ms / wall_ms, "device_rows": len(rows),
+           "found_by": found, "events": len(events), "trace_bytes": trace_bytes,
+           "read_s": read_s,
+           "top": [{"name": name[:120], "ms": ms, "share_of_wall": ms / wall_ms}
+                   for name, ms, _ in top]}
+    print(json.dumps({"hvp_trace_124m": out}))
+    check_gates("12g the HVP's trace", {
+        "device rows found": len(rows) > 0,
+        "device time within the traced wall": device_ms <= wall_ms,
+    })
+    return out
+
+
+def _records_rel(a: list, b: list, key: str) -> float:
+    vals = [(x, y) for ra, rb in zip(a, b, strict=True)
+            for x, y in zip(np.ravel(ra[key]), np.ravel(rb[key]), strict=True)]
+    return max(_rel(x, y) for x, y in vals)
+
+
+def train_ext_card_vs_cpu(train_cli) -> dict:
+    """Phase 12h: gpt2-tiny through cli.train.main, card against CPU: every
+    new optimiser and the snapshot and post-spectrum flags (their draws
+    differ between the two generators, so only losses are held); then
+    --tensorboard, or its exit naming the package where it is missing."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, open(os.devnull, "w") as null, \
+            contextlib.redirect_stdout(null):
+        for name, argv in TINY_TRAIN_CASES.items():
+            recs = ([], [])
+            for r, extra in zip(recs, (["--out", os.path.join(tmp, "card")],
+                                       ["--cpu", "--out", os.path.join(tmp, "cpu")])):
+                train_cli.main(TINY_TRAIN_EXT + argv + extra,
+                               on_step=lambda s, rec, r=r: r.append(rec))
+            out[name] = {"loss_rel": _records_rel(*recs, "loss"), "steps": len(recs[0])}
+            ritz = [k for k in ("eig_max", "eig_min", "layer_eig_max", "layer_eig_min")
+                    if k in recs[0][0]]
+            if ritz:
+                out[name]["ritz_rel"] = max(_records_rel(*recs, k) for k in ritz)
+        out["snapshot_files"] = len(glob.glob(os.path.join(tmp, "**", "T_step*.npz"),
+                                              recursive=True))
+        tb = TINY_TRAIN_EXT + ["--optimiser", "sgd", "--max_steps", "1", "--tensorboard",
+                               "--out", tmp]
+        try:
+            import torch.utils.tensorboard  # noqa: F401
+        except ImportError:
+            try:
+                train_cli.main(tb)
+                out["tensorboard"] = "ran without the package"
+            except SystemExit as e:
+                out["tensorboard"] = f"exit: {e}"
+        else:
+            train_cli.main(tb)
+            out["tensorboard"] = "event files: " + str(len(glob.glob(
+                os.path.join(tmp, "**", "events.out.tfevents.*"), recursive=True)))
+    print(json.dumps({"train_ext_card_vs_cpu": out}))
+    cases = [n for n in TINY_TRAIN_CASES]
+    check_gates("12h card against CPU", {
+        **{f"{n}: losses": out[n]["loss_rel"] <= TINY_TRAIN_LOSS_RTOL for n in cases},
+        **{f"{n}: Ritz extremes": out[n]["ritz_rel"] <= TINY_TRAIN_RITZ_RTOL
+           for n in cases if "ritz_rel" in out[n]},
+        "Ritz values compared for the three LanczosSGD modes": sum(
+            "ritz_rel" in out[n] for n in cases) == 3,
+        "snapshot files (2 steps x card and CPU)": out["snapshot_files"] == 4,
+        "--tensorboard ran or named the package": out["tensorboard"].startswith(
+            ("event files: ", "exit: --tensorboard needs the 'tensorboard' package"))
+        and out["tensorboard"] != "event files: 0",
+    })
+    return out
+
+
+def rest_of_training(train_cli, kernels, spectral, spectra, phase4: list) -> dict:
+    """Phase 12: 12a-12h, each part timed."""
+    parts = (("12a", lambda: fused_lanczos_124m(train_cli, kernels, phase4)),
+             ("12b", lambda: second_order_124m(train_cli, kernels)),
+             ("12cdf", lambda: layerwise_training_124m(train_cli, kernels, spectral)),
+             ("12e", lambda: snapshots_124m(train_cli, kernels, spectra)),
+             ("12g", hvp_trace_124m),
+             ("12h", lambda: train_ext_card_vs_cpu(train_cli)))
+    out = {}
+    for name, run in parts:
+        t0 = time.perf_counter()
+        out[name] = run()
+        out[name + "_s"] = time.perf_counter() - t0
+        print(f"phase {name} took {out[name + '_s']:.1f} s", flush=True)
+    return out
+
+
+def train_ext_summary(ext: dict) -> dict:
+    """The {"train_ext": ...} line: phase 12's readings."""
+    a, b, lw, e, g = ext["12a"], ext["12b"], ext["12cdf"], ext["12e"], ext["12g"]
+    return {
+        "phase_s": {k: v for k, v in ext.items() if k.endswith("_s")},
+        "12a_fused": {"refresh_step_s": a["refresh_step_s"], "frozen_step_s": a["frozen_step_s"],
+                      "eig_max_rel_vs_phase4": a["eig_max_rel_vs_phase4"],
+                      "max_memory_allocated_bytes": a["max_memory_allocated_bytes"]},
+        "12b": {opt: {"step_s": [r["seconds"] for r in b[opt]["steps"]],
+                      "cg_iters": [r["cg_iters"] for r in b[opt]["steps"]],
+                      "max_memory_allocated_bytes": b[opt]["max_memory_allocated_bytes"]}
+                for opt in ("gn", "ngd")} | {"residual_rel": b["residual"]["rel"]},
+        "12c_host_layerwise": {"step_s": [s["seconds"] for s in lw["12c"]["steps"]],
+                               "masked_hvps": lw["12c"]["refresh_masked_hvps"],
+                               "replay_rel": lw["12c"]["replay_rel"],
+                               "max_memory_allocated_bytes":
+                                   lw["12c"]["max_memory_allocated_bytes"]},
+        "12d_fused_layerwise_wte": {k: lw["12d"][k] for k in ("seconds", "rel_vs_12c")},
+        "12e": {"run_s": e["run_s"], "lambda_max": e["lambda_max"]},
+        "12f_leak": {d: r["leak"] for d, r in lw["12f"].items()},
+        "12g_trace": {k: g[k] for k in ("traced_wall_ms", "device_ms", "device_share",
+                                        "found_by", "top")},
+    }
+
+
 def main() -> int:
     phase(1, "device")
     if not torch.cuda.is_available():
@@ -1735,7 +2281,7 @@ def main() -> int:
     print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(3, "rank-k kernels vs plain versions")
-    gen = torch.Generator(device="cuda").manual_seed(1234)
+    gen = torch.Generator(device=CARD).manual_seed(1234)
     checks = {}
     for dtype in TIMED_DTYPES:
         # (35, P): k*P > 2**31 needs 64-bit offsets; P = 20001 takes the
@@ -1748,6 +2294,13 @@ def main() -> int:
     for dtype, k in PATH_SHAPES:
         checks[(dtype, k, P_124M)] = check_rank_k(kernels, spectral, dtype, k, P_124M, gen, timed=True)
         torch.cuda.empty_cache()
+    for dtype in TIMED_DTYPES:
+        for k, p in LEAF_TIMED:
+            checks[(dtype, k, p)] = check_rank_k(kernels, spectral, dtype, k, p, gen, timed=True)
+    for dtype, k, p, offset in LEAF_CHECKED:
+        checks[(dtype, k, p, offset)] = check_rank_k(kernels, spectral, dtype, k, p, gen,
+                                                     timed=False, g_offset=offset)
+    torch.cuda.empty_cache()
     failed = [key for key, r in checks.items() if not r["ok"]]
     if failed:
         raise SystemExit(f"rank-k kernel disagrees with its plain version at {failed}")
@@ -1758,6 +2311,13 @@ def main() -> int:
               f"{d['ms']:.3f} ms [{d['ms_spread'][0]:.3f}-{d['ms_spread'][1]:.3f}] "
               f"library {d['library_ms']:.3f} bound {d['bound_ms']:.3f}; rank_k_axpy "
               f"{a['ms']:.3f} ms; pair {d['ms'] + a['ms']:.3f} ms")
+    for dtype in TIMED_DTYPES:  # the per-leaf shapes of phase 12
+        for k, p in LEAF_TIMED:
+            d, a = (checks[(dtype, k, p)][n] for n in TPU_KERNELS)
+            print(f"{str(dtype).removeprefix('torch.'):8s} k={k} P={p}: rank_k_dots "
+                  f"{d['ms']:.3f} ms library {d['library_ms']:.3f} bound {d['bound_ms']:.3f}; "
+                  f"rank_k_axpy {a['ms']:.3f} ms library {a['library_ms']:.3f} "
+                  f"bound {a['bound_ms']:.3f}")
     print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(4, "main path: LanczosSGD on GPT-2 124M through cli.train.main")
@@ -1898,6 +2458,14 @@ def main() -> int:
         "10d_tiny": trained["10d"],
     }}))
     print(json.dumps({"precision": precision_summary(prec)}))
+
+    t0 = phase(12, "the rest of training on GPT-2 124M: fused LanczosSGD, GN and NGD, "
+                   "layer-wise LanczosSGD, snapshots, projections, an HVP's trace; "
+                   "gpt2-tiny card vs CPU")
+    rest = rest_of_training(train_cli, kernels, spectral, spectra, records)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"train_ext": train_ext_summary(rest)}))
+    lw = rest["12cdf"]
     by_path = {"phase4_train_4_steps": launches,
                "phase7b_spectrum": headline["rank_k_launches"],
                "phase8a_thick_restart": ext["8a_thick_restart"]["rank_k_launches"],
@@ -1914,10 +2482,21 @@ def main() -> int:
                "phase10c_lanczos_sgd_from_checkpoint": trained["10c"]["launches"],
                "phase11a_probe_cgs2": prec["11a"]["launches"],
                "phase11b_auto_plan_probes": prec["11b"]["checkpoint"]["launches"],
-               "phase11e_guarded_train": prec["11e"]["launches"]}
-    # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d) take no
-    # rank-k apply; every other path must have launched both kernels
-    t_only = ("phase7b", "phase8c", "phase9a", "phase9b", "phase9c", "phase9d")
+               "phase11e_guarded_train": prec["11e"]["launches"],
+               "phase12a_fused_lanczos_4_steps": rest["12a"]["launches"],
+               "phase12b_gn_2_steps": rest["12b"]["gn"]["launches"],
+               "phase12b_ngd_2_steps": rest["12b"]["ngd"]["launches"],
+               "phase12c_host_layerwise_step0": lw["12c"]["steps"][0]["launches"],
+               "phase12c_host_layerwise_step1": lw["12c"]["steps"][1]["launches"],
+               "phase12d_fused_layerwise_wte": lw["12d"]["launches"],
+               "phase12e_snapshots": rest["12e"]["launches"],
+               **{f"phase12f_frozen_transforms_{d}": r["launches"]
+                  for d, r in lw["12f"].items()}}
+    # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d), GN/NGD
+    # and Adam with snapshots take no rank-k apply; every other path must
+    # have launched both kernels
+    t_only = ("phase7b", "phase8c", "phase9a", "phase9b", "phase9c", "phase9d", "phase12b",
+              "phase12e")
     for path, counts in by_path.items():
         if not path.startswith(t_only) and not all(counts[n] > 0 for n in TPU_KERNELS):
             raise SystemExit(f"a rank-k kernel was never launched on {path}: {counts}")
@@ -1933,6 +2512,9 @@ def main() -> int:
                               for dt in TIMED_DTYPES},
                       **{f"bfloat16_k{k}": without_smi(checks[(dt, k, P_124M)][name])
                          for dt, k in PATH_SHAPES},
+                      **{f"{str(dt).removeprefix('torch.')}_k{k}_P{p}":
+                         without_smi(checks[(dt, k, p)][name])
+                         for dt in TIMED_DTYPES for k, p in LEAF_TIMED},
                       "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
                       "checks_passed": len(checks)})
         entries.append(entry)

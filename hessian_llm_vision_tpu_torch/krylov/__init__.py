@@ -1,5 +1,4 @@
-"""Krylov solvers on flat f32 vectors.  The JAX package's names, where the
-port has them (``power_iteration`` and ``cg_solve`` come with A8b)."""
+"""Krylov solvers on flat f32 vectors, under the JAX package's names."""
 
 from hessian_llm_vision_tpu_torch.krylov.autoprec import (
     AutoPrecisionPlan,
@@ -11,6 +10,7 @@ from hessian_llm_vision_tpu_torch.krylov.autoprec import (
     prefix_block_spec,
     spec_to_overrides,
 )
+from hessian_llm_vision_tpu_torch.krylov.cg import CGResult, cg_solve
 from hessian_llm_vision_tpu_torch.krylov.compare import (
     density_overlap,
     ritz_relative_error,
@@ -41,6 +41,7 @@ from hessian_llm_vision_tpu_torch.krylov.lanczos import (
     lanczos,
     lanczos_checkpointed,
 )
+from hessian_llm_vision_tpu_torch.krylov.power import power_iteration
 from hessian_llm_vision_tpu_torch.krylov.precplan import (
     checkpoint_fingerprint,
     default_plan_path,
@@ -64,6 +65,9 @@ from hessian_llm_vision_tpu_torch.krylov.thick_restart import (
 from hessian_llm_vision_tpu_torch.krylov.trace import hutchinson_trace, hutchpp_trace
 
 __all__ = [
+    "cg_solve",
+    "CGResult",
+    "power_iteration",
     "lanczos",
     "LanczosResult",
     "lanczos_checkpointed",

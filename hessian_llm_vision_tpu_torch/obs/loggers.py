@@ -1,13 +1,33 @@
-"""Metric loggers (port of ``obs/loggers.py``): append-mode pickle stats,
-flushed every few records so partial stats survive a crash, in the JAX
-package's file format.  The TensorBoard logger is not ported yet (ROADMAP
-A8b, with ``--tensorboard``)."""
+"""Metric loggers (port of ``obs/loggers.py``): TensorBoard scalars, and
+append-mode pickle stats, flushed every few records so partial stats
+survive a crash, in the JAX package's file format."""
 
 from __future__ import annotations
 
 import os
 import pickle
 from typing import Dict, Sequence
+
+import numpy as np
+
+
+class TensorBoardLogger:
+    """Scalars through ``torch.utils.tensorboard`` (needs the
+    ``tensorboard`` package, imported here and not at module import)."""
+
+    def __init__(self, logdir: str):
+        from torch.utils.tensorboard import SummaryWriter
+
+        os.makedirs(logdir, exist_ok=True)
+        self._writer = SummaryWriter(logdir)
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        for k, v in metrics.items():
+            if np.asarray(v).size == 1:  # vector metrics go to the pickle only
+                self._writer.add_scalar(k, v, step)
+
+    def close(self) -> None:
+        self._writer.close()
 
 
 class PickleStatsLogger:

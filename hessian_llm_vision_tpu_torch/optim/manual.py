@@ -30,6 +30,24 @@ class GradientTransformation(NamedTuple):
     update: Callable
 
 
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    """Apply ``transforms`` in order (optax's ``chain``): each one's
+    updates are the next one's gradients; the state is the tuple of
+    theirs."""
+
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(grads, state, params=None):
+        states = []
+        for t, s in zip(transforms, state, strict=True):
+            grads, s = t.update(grads, s, params)
+            states.append(s)
+        return grads, tuple(states)
+
+    return GradientTransformation(init, update)
+
+
 def apply_updates(params: dict, updates: dict) -> dict:
     """``p + u`` per name (optax's ``apply_updates``); new tensors."""
     names = list(params)

@@ -2,6 +2,8 @@
 GPT-2: 4 steps covering a refresh, a frozen step, an EMA refresh and another
 frozen step, with the JAX package's own host-vs-fused bars."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -111,8 +113,9 @@ def test_refresh_batch_size_and_unported_options():
     # the precision guard is ported: the attribute takes a guard
     trainer.precision_guard = guard = object()
     assert trainer.precision_guard is guard
-    with pytest.raises(NotImplementedError, match="not ported"):
-        HostLayerwiseLanczosSGDTrainer(loss_fn, params, cfg)
+    # the layer-wise trainer is ported; like the JAX CLI it takes no accumulation
+    with pytest.raises(ValueError, match="accum_steps > 1 is not supported"):
+        HostLayerwiseLanczosSGDTrainer(loss_fn, params, dataclasses.replace(cfg, accum_steps=2))
 
 
 def test_linearized_refresh_matches_jax_and_the_standard_trainer():
