@@ -9,14 +9,19 @@ results.
 Phases (any failure exits non-zero and prints no result line):
   1. require a CUDA device; print the card's name and power limit;
   2. build every kernel from ops/csrc (nvcc; registers and spills printed
-     by kernel name) and print pass 1's launch plan at the timed shapes,
-     with the resident blocks per SM the wrapper got from the occupancy API;
+     by kernel name) and print pass 1's and pass 2's launch plans at the
+     timed shapes, with the resident blocks per SM the wrapper got from the
+     occupancy API;
   3. rank-k kernels vs their plain versions at (10, 124,046,592) -- the
      trainer's shape -- and (35, 124,046,592), (35, 16384), (3, 20000),
-     (5, 20001), f32 and bf16 bases, each also rerun for bitwise equality;
+     (5, 20001), f32 and bf16 bases, each also rerun for bitwise equality
+     and pass 2 also on its other path (ring or direct), bit for bit equal;
      at the two 124M shapes, kernel and a one-call library yardstick timed
      in turns (median and min-max, nvidia-smi sampled beside), then the
-     plain version;
+     plain version; at every timed shape each call's wall (those events),
+     host time (perf_counter over back-to-back calls) and device time (the
+     kernel rows of a torch.profiler trace), for both kernels and their
+     library calls;
   4. main path: 4 LanczosSGD steps of GPT-2 124M (bs8, seq512, k=10, bf16
      basis) via cli.train.main, with every launch count zeroed just before
      and read just after; each rank-k kernel must run once per step;
@@ -100,20 +105,23 @@ Phases (any failure exits non-zero and prints no result line):
      GGN matvec; (c) HostLayerwiseLanczosSGDTrainer on wte and the 24 MLP
      kernels (bf16 bases, k=4, refresh_every 2, 2 steps): 25 launches of
      each kernel per step, finite Ritz values, lambda_max > 0 on wte, the
-     frozen step equal to a plain-version replay; (d) the fused layer-wise
-     step on wte alone: its extremes as (c)'s; (e) Adam with
-     --snapshot_every 1 and --post_spectrum_iters 10: the T files and the
-     eigenspace read back; (f) project_gradients and frozen_spectral_adjust
+     frozen step equal to a plain-version replay, and the plan (path,
+     alignment of g) of each of a step's 25 per-leaf launches printed; (d)
+     the fused layer-wise step on wte alone: its extremes as (c)'s; (e)
+     Adam with --snapshot_every 1 and --post_spectrum_iters 10: the T files
+     and the eigenspace read back; (f) project_gradients and frozen_spectral_adjust
      with an orthonormal (10, P) basis in f32 and bf16 against the plain
      version; (g) torch.profiler around one HVP, summarized by
      obs.trace_summary; (h) gpt2-tiny card against CPU for every new
      optimiser and flag, and --tensorboard (or its exit naming the missing
      package); one {"train_ext": ...} line.
-Phase 3 also checks and times (4, 124,046,592), (8, 124,046,592) and (16,
-124,046,592) in bf16, the deflation projector's, the empirical Fisher's
-and the CGS2 pass's shapes, and phase 12's per-leaf shapes (4, 2,359,296)
-and (4, 38,597,376) in both dtypes, and checks small leaves at unaligned
-offsets of g.  Then it prints one JSON line of kernels (launches per
+Phase 3 also checks and times (4, 124,046,592) in both dtypes, (8,
+124,046,592) and (16, 124,046,592) in bf16, the deflation projector's, the
+empirical Fisher's and the CGS2 pass's shapes, and phase 12's per-leaf
+shapes (4, 2,359,296) and (4, 38,597,376) in both dtypes; it checks small
+leaves at unaligned offsets of g, the bf16 MLP leaf with g 1-7 elements
+off 16 bytes, and (256, 2**24) bf16, whose pass 2 sweeps each chunk's rows
+in 22 stages.  Then it prints one JSON line of kernels (launches per
 path), the card line, and finally {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port only (no JAX: the card machine has none).
@@ -142,9 +150,11 @@ TIMED_DTYPES = (torch.bfloat16, torch.float32)
 TIMED_KS = (10, 35)
 # the deflation projector's rows (--kpm_deflate 4), the empirical Fisher's
 # 8 per-example gradients and the CGS2 pass's widest (16 filled rows of the
-# deflation's inner-16 buffer), in bf16
-PATH_SHAPES = ((torch.bfloat16, 4), (torch.bfloat16, 8), (torch.bfloat16, 16))
+# deflation's inner-16 buffer), in bf16; k = 4 also in f32, so every timed k
+# is read in both dtypes
+PATH_SHAPES = ((torch.bfloat16, 4), (torch.float32, 4), (torch.bfloat16, 8), (torch.bfloat16, 16))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+COST_CALLS = 200  # calls per host-time reading (a quarter of it at P = 124M)
 FP32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 KERNEL_SRC = "hessian_llm_vision_tpu_torch/ops/csrc/rank_k.cu"
 TPU_KERNELS = {
@@ -325,7 +335,11 @@ TINY_TRAIN_RITZ_RTOL = 1e-3
 LEAF_TIMED = ((4, 2_359_296), (4, 38_597_376))
 LEAF_CHECKED = ((torch.float32, 10, 768, 1), (torch.bfloat16, 10, 768, 1),
                 (torch.float32, 10, 2304, 3), (torch.bfloat16, 10, 2304, 3),
-                (torch.float32, 2, 2, 1), (torch.bfloat16, 4, 2_359_296, 5))
+                (torch.float32, 2, 2, 1),
+                *((torch.bfloat16, 4, 2_359_296, offset) for offset in range(1, 8)))
+# a basis of many rows on the ring: its stages hold 12 of the 256 rows, so
+# pass 2 sweeps each chunk 22 times (256 x 2**24 bf16 = 8.6 GB)
+ROW_SWEEP = (torch.bfloat16, 256, 1 << 24)
 CARD = torch.device("cuda")
 
 
@@ -363,6 +377,41 @@ def timings(kernel, plain, library, *, nbytes: float, flops: float) -> dict:
             "bound_ms": bound, "bound_by": bound_by, "smi": smi}
 
 
+def call_costs(fns: dict, *, calls: int, traced: int = 20) -> dict:
+    """Where one call's time goes, per candidate: ``host_us``, the host's
+    time per call by ``time.perf_counter`` over ``calls`` calls issued
+    back to back (after a synchronise, so the launch queue starts empty and
+    stays far from full), and ``device_us``, the device rows of a
+    ``torch.profiler`` trace of ``traced`` calls (read by
+    obs.trace_summary, as phase 12g reads them): per kernel name its mean
+    row times its rows per call (rounded: a trace may miss a row at its
+    edges), summed over the names, with ``device_rows`` per call."""
+    from hessian_llm_vision_tpu_torch.obs import profile_trace, trace_summary
+
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_us = 1e6 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile_trace(tmp):
+                for _ in range(traced):
+                    fn()
+                torch.cuda.synchronize()
+            rows, _ = trace_summary.device_rows(trace_summary.load_trace_events(tmp))
+        by_name: dict[str, list[float]] = {}
+        for e in rows:
+            by_name.setdefault(e["name"], []).append(e["dur"])
+        device_us = sum(statistics.fmean(d) * max(1, round(len(d) / traced))
+                        for d in by_name.values())
+        out[name] = {"host_us": host_us, "device_us": device_us, "device_rows": len(rows) / traced}
+    return out
+
+
 def without_smi(t: dict) -> dict:
     return {key: v for key, v in t.items() if key != "smi"}
 
@@ -373,7 +422,8 @@ def phase(n: int, title: str):
 
 
 def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool, g_offset: int = 0) -> dict:
-    """Kernel vs plain versions on one shape; timings when ``timed``.
+    """Kernel vs plain versions on one shape, each kernel rerun for the
+    same bits and pass 2 also on its other path; timings when ``timed``.
     ``g_offset``: g is a view that many elements into a larger tensor, as
     a per-leaf slice of a flat gradient is (not 16-byte aligned unless the
     offset is a multiple of 4)."""
@@ -391,6 +441,11 @@ def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool, g_offset: int
     ref = spectral.rank_k_apply_reference(g, V, c)
     axpy_ref = spectral.rank_k_axpy_reference(g, V, w_ref)
     out_same_w = kernels.rank_k_axpy(g, V, w_ref)
+    plan = kernels.axpy_launch_plan(k, p, dtype, dev, (V.data_ptr(), g.data_ptr()))
+    # pass 2's other path gives the same bits (the ring only for aligned rows)
+    other_path = (not plan.ring,) if plan.vec_v and p % plan.vec == 0 else ()
+    paths_equal = all(torch.equal(kernels.rank_k_axpy(g, V, w_ref, ring=ring), out_same_w)
+                      for ring in other_path)
     res = {
         "dtype": str(dtype).removeprefix("torch."), "k": k, "P": p, "g_offset": g_offset,
         "rel_l2_vs_reference": rel_l2(out, ref),
@@ -398,8 +453,11 @@ def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool, g_offset: int
         "dots_max_abs_err": float((w - w_ref).abs().max()),
         "axpy_max_abs_err": float((out_same_w - axpy_ref).abs().max()),
         "bitwise_repeatable": repeatable,
+        "axpy_plan": dataclasses.asdict(plan),
+        "axpy_paths_bitwise_equal": paths_equal,
     }
-    ok = repeatable and res["rel_l2_vs_reference"] <= 1e-5 and res["rel_l2_dots"] <= 1e-5
+    ok = (repeatable and paths_equal and res["rel_l2_vs_reference"] <= 1e-5
+          and res["rel_l2_dots"] <= 1e-5)
     if dtype == torch.bfloat16:
         res["rel_l2_vs_bf16_plain"] = rel_l2(out, spectral.rank_k_apply_bf16(g, V, c))
         ok = ok and res["rel_l2_vs_bf16_plain"] <= 2e-3
@@ -421,11 +479,48 @@ def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool, g_offset: int
             lambda: torch.addmv(gl, V.t(), wl),
             nbytes=k * p * es + 8 * p + 4 * k, flops=2 * k * p + p,
         )
+        costs = call_costs({
+            "rank_k_dots": lambda: kernels.rank_k_dots(g, V, c),
+            "rank_k_dots_library": lambda: torch.mv(V, gl),
+            "rank_k_axpy": lambda: kernels.rank_k_axpy(g, V, w_ref),
+            "rank_k_axpy_library": lambda: torch.addmv(gl, V.t(), wl),
+        }, calls=COST_CALLS if p < P_124M else COST_CALLS // 4)
         for name in ("rank_k_dots", "rank_k_axpy"):
             res[name]["max_abs_err"] = res[f"{name.split('_')[-1]}_max_abs_err"]
+            res[name].update(costs[name])
+            res[name].update({f"library_{key}": v for key, v in costs[f"{name}_library"].items()})
     res["ok"] = bool(ok)
     print(json.dumps(res), flush=True)
     return res
+
+
+def streaming_rates_torch() -> dict:
+    """TB/s that the card gives PyTorch's own elementwise kernels on f32
+    vectors of P: a copy (one read, one write), an add (two reads, one
+    write) and a sum (reads only), timed in turns."""
+    from hessian_llm_vision_tpu_torch.utils.cuda_timing import in_turns
+
+    a, b = torch.randn(P_124M, device=CARD), torch.randn(P_124M, device=CARD)
+    c = torch.empty_like(a)
+    t = in_turns({"copy": lambda: c.copy_(a), "add": lambda: torch.add(a, b, out=c),
+                  "sum": lambda: a.sum()}, rounds=3, iters=20, warmup=5)
+    moved = {"copy": 8 * P_124M, "add": 12 * P_124M, "sum": 4 * P_124M}
+    del a, b, c
+    torch.cuda.empty_cache()
+    return {f"torch_{n}": moved[n] / (1e9 * r["ms"]) for n, r in t.items()}
+
+
+def streaming_rates(checks: dict) -> dict:
+    """TB/s of each pass at (10, P) -- the bytes of its bound over its time
+    -- beside :func:`streaming_rates_torch`.  Pass 2 mixes reads and writes
+    as the add does; pass 1 only reads."""
+    out = streaming_rates_torch()
+    for dtype in TIMED_DTYPES:
+        for name in TPU_KERNELS:
+            r = checks[(dtype, 10, P_124M)][name]
+            out[f"{name}_{str(dtype).removeprefix('torch.')}"] = (
+                r["bound_ms"] * HBM_BYTES_PER_S / (1e12 * r["ms"]))
+    return out
 
 
 def step_breakdown() -> dict:
@@ -1980,6 +2075,18 @@ def layerwise_training_124m(train_cli, kernels, spectral) -> dict:
         if i == 0:
             ritz = {label: ev.tolist() for (label, *_), ev in zip(trainer.active, state.eigvals)}
     g = grads[0]
+    # the plans the step's 25 per-leaf launches took: the wrappers' pure,
+    # cached plan of each leaf's basis and slice of the flat gradient
+    plans = []
+    for (label, off, size, _), V in zip(trainer.active, state.bases):
+        ptrs = (V.data_ptr(), g.data_ptr() + 4 * off)
+        dots = kernels.dots_launch_plan(V.shape[0], size, V.dtype, CARD, ptrs)
+        axpy = kernels.axpy_launch_plan(V.shape[0], size, V.dtype, CARD, ptrs)
+        plans.append({"leaf": label, "k": V.shape[0], "P": size, "g_byte_offset": 4 * off,
+                      "g_aligned": ptrs[1] % 16 == 0, "dots_bulk": dots.bulk,
+                      "axpy": {f: getattr(axpy, f) for f in ("ring", "vec_v", "vec_g", "rows",
+                                                              "nblocks")}})
+    print(json.dumps({"12c_launch_plans": plans}))
     adj = g.clone()
     for (_, off, size, _), V, ev in zip(trainer.active, state.bases, state.eigvals):
         adj[off:off + size] = spectral.spectral_adjust_reference(g[off:off + size], V, ev,
@@ -1989,6 +2096,10 @@ def layerwise_training_124m(train_cli, kernels, spectral) -> dict:
     out["12c"] = {"leaves": [a[0] for a in trainer.active], "steps": steps, "ritz": ritz,
                   "replay_rel": rel_l2(update, replay - p_old),
                   "refresh_masked_hvps": sum(a[3] for a in trainer.active),
+                  "launch_plans": {"g_aligned": sum(p["g_aligned"] for p in plans),
+                                   "dots_bulk": sum(p["dots_bulk"] for p in plans),
+                                   "axpy_ring": sum(p["axpy"]["ring"] for p in plans),
+                                   "leaves": len(plans)},
                   "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     del adj, replay, update, p_old, buf_old
     wte = ritz["wte"]
@@ -2272,12 +2383,12 @@ def main() -> int:
         print(f"built {res.path.name} in {res.seconds:.2f} s")
         for name, use in kernels.ptxas_usage(res.log).items():
             print(f"  {name}: {use['registers']} registers, {use['spill_bytes']} bytes spilled")
-    for dtype in TIMED_DTYPES:
-        for k in TIMED_KS:
-            plan = kernels.dots_launch_plan(k, P_124M, dtype, "cuda")
-            print(json.dumps({"rank_k_dots_plan": {"dtype": str(dtype).removeprefix("torch."),
-                                                   "k": k, "P": P_124M,
-                                                   **dataclasses.asdict(plan)}}))
+    for dtype in TIMED_DTYPES:  # pass 1's and pass 2's plans at the timed shapes
+        for k, p in [(k, P_124M) for k in TIMED_KS] + list(LEAF_TIMED):
+            for name, plan in (("rank_k_dots_plan", kernels.dots_launch_plan(k, p, dtype, CARD)),
+                               ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dtype, CARD))):
+                print(json.dumps({name: {"dtype": str(dtype).removeprefix("torch."), "k": k,
+                                         "P": p, **dataclasses.asdict(plan)}}))
     print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(3, "rank-k kernels vs plain versions")
@@ -2300,10 +2411,14 @@ def main() -> int:
     for dtype, k, p, offset in LEAF_CHECKED:
         checks[(dtype, k, p, offset)] = check_rank_k(kernels, spectral, dtype, k, p, gen,
                                                      timed=False, g_offset=offset)
+    checks[ROW_SWEEP] = check_rank_k(kernels, spectral, *ROW_SWEEP, gen, timed=False)
     torch.cuda.empty_cache()
     failed = [key for key, r in checks.items() if not r["ok"]]
     if failed:
         raise SystemExit(f"rank-k kernel disagrees with its plain version at {failed}")
+    sweep_plan = checks[ROW_SWEEP]["axpy_plan"]
+    if not (sweep_plan["ring"] and sweep_plan["rows"] < ROW_SWEEP[1]):
+        raise SystemExit(f"the many-row check did not reach pass 2's row sweeps: {sweep_plan}")
     timed = [(dtype, k) for dtype in TIMED_DTYPES for k in TIMED_KS] + list(PATH_SHAPES)
     for dtype, k in timed:  # pass 1 and the pair, per timed shape
         d, a = (checks[(dtype, k, P_124M)][n] for n in TPU_KERNELS)
@@ -2311,13 +2426,16 @@ def main() -> int:
               f"{d['ms']:.3f} ms [{d['ms_spread'][0]:.3f}-{d['ms_spread'][1]:.3f}] "
               f"library {d['library_ms']:.3f} bound {d['bound_ms']:.3f}; rank_k_axpy "
               f"{a['ms']:.3f} ms; pair {d['ms'] + a['ms']:.3f} ms")
-    for dtype in TIMED_DTYPES:  # the per-leaf shapes of phase 12
-        for k, p in LEAF_TIMED:
-            d, a = (checks[(dtype, k, p)][n] for n in TPU_KERNELS)
-            print(f"{str(dtype).removeprefix('torch.'):8s} k={k} P={p}: rank_k_dots "
-                  f"{d['ms']:.3f} ms library {d['library_ms']:.3f} bound {d['bound_ms']:.3f}; "
-                  f"rank_k_axpy {a['ms']:.3f} ms library {a['library_ms']:.3f} "
-                  f"bound {a['bound_ms']:.3f}")
+    # per call, µs: wall (events, in turns), host (perf_counter), device (trace)
+    for key in [(dt, k, P_124M) for dt, k in timed] + [(dt, k, p) for dt in TIMED_DTYPES
+                                                       for k, p in LEAF_TIMED]:
+        for name in TPU_KERNELS:
+            t = checks[key][name]
+            print(f"{str(key[0]).removeprefix('torch.'):8s} k={key[1]:2d} P={key[2]:>9d} {name}: "
+                  f"wall {1e3 * t['ms']:.1f} host {t['host_us']:.1f} device {t['device_us']:.1f}"
+                  f" | library wall {1e3 * t['library_ms']:.1f} host {t['library_host_us']:.1f}"
+                  f" device {t['library_device_us']:.1f} | bound {1e3 * t['bound_ms']:.1f}")
+    print(json.dumps({"streaming_rate_tb_s": streaming_rates(checks)}))
     print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(4, "main path: LanczosSGD on GPT-2 124M through cli.train.main")
@@ -2510,8 +2628,8 @@ def main() -> int:
                       "f32": without_smi(checks[(torch.float32, 10, P_124M)][name]),
                       "k35": {str(dt).removeprefix("torch."): without_smi(checks[(dt, 35, P_124M)][name])
                               for dt in TIMED_DTYPES},
-                      **{f"bfloat16_k{k}": without_smi(checks[(dt, k, P_124M)][name])
-                         for dt, k in PATH_SHAPES},
+                      **{f"{str(dt).removeprefix('torch.')}_k{k}":
+                         without_smi(checks[(dt, k, P_124M)][name]) for dt, k in PATH_SHAPES},
                       **{f"{str(dt).removeprefix('torch.')}_k{k}_P{p}":
                          without_smi(checks[(dt, k, p)][name])
                          for dt in TIMED_DTYPES for k, p in LEAF_TIMED},

@@ -5,7 +5,8 @@
 //                  a (k_pad, 128) VMEM accumulator)  -> rank_k_dots_kernel
 //                                                      + rank_k_dots_finalize
 //   _axpy_kernel  (:155, pass 2, out[tile] = g[tile] + sum_j c_j V[j, tile])
-//                                                    -> rank_k_axpy_kernel
+//                                                    -> rank_k_axpy_ring
+//                                                     / rank_k_axpy_direct
 //
 // Bound: memory bandwidth.  Each pass does 2 flops per element of V it reads,
 // far below the ~20 flops/byte at which an H100 stops being bandwidth-bound,
@@ -43,13 +44,37 @@
 // bytes, are ops/kernels.py::dots_plan's; the launch only checks that the
 // ring it is given fits the bytes it is given.
 //
-// Pass 2 (rank_k_axpy_kernel) is an elementwise grid-stride loop with w in
-// shared memory, 16-byte loads where P and the pointers allow, and an f32
-// accumulator.  The ragged end of P needs no padding in either pass.  (The
-// TPU wrapper padded V, a full copy of V per call.)
-// * Offsets into V are 64-bit: k * P exceeds 2^31 at k = 35, P = 124M.
+// Pass 2 design.  out = g + V^T w reads k*P*es bytes of V and 4P of g and
+// writes 4P of out; 2k flops per element leave it bound by bytes, so the
+// design's one job is to keep enough bytes in flight on every SM at every
+// shape the paths launch ((10, 124M) down to a (4, 2.36M) leaf of the
+// layer-wise trainer, and up to k = 12288 rows in ef_apply).
+// * rank_k_axpy_ring, for large P: one wave of persistent blocks (grid from
+//   the occupancy API), each streaming chunks b, b + grid, ... of P through a
+//   ring of shared-memory stages filled by bulk copies, like pass 1.  A stage
+//   holds g[chunk] and `rows` rows of V[., chunk]; where all k rows of a
+//   chunk wider than the consumers' 16-byte groups do not fit, the chunk is
+//   swept in ceil(k / rows) stages while the consumers keep the partial
+//   sums of out in registers, so no byte is read twice.
+// * rank_k_axpy_direct, for small P, unaligned V and as the other candidate:
+//   tiles of kAxpyUnroll groups per thread, each row's loads issued before
+//   its FMAs, streaming (evict-first) loads.  For a small P the grid is
+//   sized to P (one tile per block) rather than to the occupancy.
+// * Alignment is per operand.  out is the wrapper's, always aligned.  V's
+//   rows are read in 16-byte vectors whenever V's base and P * es are
+//   aligned; g, which may be a slice of a flat gradient, is read in 16-byte
+//   vectors (or bulk copies) when it is aligned and one element at a time
+//   otherwise -- its phase against V's groups cannot be fixed by a head.
+//   Only an unaligned V drops V's loads to one element at a time.
+// * Every path sums w[j] V[j, p] in f32 in row order and then adds g[p], so
+//   results repeat bit for bit and do not depend on the plan.  The ragged
+//   end of P needs no padding in either pass (the TPU wrapper padded V, a
+//   full copy of V per call); offsets into V are 64-bit (k * P > 2^31 at
+//   k = 35, P = 124M).
 // * The bf16 kernels read bf16 V but keep g and w in f32, so they are MORE
 //   exact than the plain rank_k_apply_bf16, which also rounds g and w to bf16.
+// The path, grid, chunk, rows, stages and shared-memory bytes are
+// ops/kernels.py::axpy_plan's; the launch only checks that they fit.
 //
 // Plain C interface (loaded with ctypes): each entry point launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
@@ -68,37 +93,14 @@ constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kRingThreads = 32 + kConsumers;  // warp 0 produces
 constexpr int kMaxStages = 8;
 
-// VEC consecutive f32 values of g (VEC = 1, 4 or 8).
+// One element of g, or of a row of V widened to f32 (pass 1's scalar kernel;
+// VEC is 1 there).
 template <int VEC>
 __device__ __forceinline__ void load_f32(const float* __restrict__ p, float (&x)[VEC]) {
-  if constexpr (VEC == 1) {
-    x[0] = __ldg(p);
-  } else {
-#pragma unroll
-    for (int q = 0; q < VEC / 4; ++q) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(p) + q);
-      x[4 * q + 0] = v.x;
-      x[4 * q + 1] = v.y;
-      x[4 * q + 2] = v.z;
-      x[4 * q + 3] = v.w;
-    }
-  }
+  static_assert(VEC == 1, "the scalar kernel loads one element at a time");
+  x[0] = __ldg(p);
 }
 
-template <int VEC>
-__device__ __forceinline__ void store_f32(float* __restrict__ p, const float (&x)[VEC]) {
-  if constexpr (VEC == 1) {
-    p[0] = x[0];
-  } else {
-#pragma unroll
-    for (int q = 0; q < VEC / 4; ++q) {
-      reinterpret_cast<float4*>(p)[q] =
-          make_float4(x[4 * q + 0], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
-    }
-  }
-}
-
-// VEC consecutive elements of a row of V, widened to f32: one 16-byte load.
 template <int VEC>
 __device__ __forceinline__ void load_row(const float* __restrict__ p, float (&x)[VEC]) {
   load_f32<VEC>(p, x);
@@ -106,22 +108,11 @@ __device__ __forceinline__ void load_row(const float* __restrict__ p, float (&x)
 
 template <int VEC>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p, float (&x)[VEC]) {
-  if constexpr (VEC == 1) {
-    x[0] = __bfloat162float(p[0]);
-  } else {
-    static_assert(VEC == 8, "bf16 rows load 8 elements (16 bytes) at a time");
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 f = __bfloat1622float2(h[q]);
-      x[2 * q + 0] = f.x;
-      x[2 * q + 1] = f.y;
-    }
-  }
+  static_assert(VEC == 1, "the scalar kernel loads one element at a time");
+  x[0] = __bfloat162float(p[0]);
 }
 
-// The same 16-byte vectors, read from a shared-memory stage.
+// 16-byte vectors of a row, read from a shared-memory stage (both rings).
 template <int VEC>
 __device__ __forceinline__ void lds_row(const float* p, float (&x)[VEC]) {
 #pragma unroll
@@ -376,34 +367,254 @@ rank_k_dots_finalize(const float* __restrict__ partials, const float* __restrict
   if (threadIdx.x == 0) w[j] = c[j] * red[0];
 }
 
-// Pass 2: out[p] = g[p] + sum_j w[j] * V[j, p].
+// ---- Pass 2: out[p] = g[p] + sum_j w[j] * V[j, p] ---------------------------
+//
+// Every path sums w[j] * V[j, p] in f32 in row order (fmaf), then adds g[p]:
+// the same operations on every element, so all paths and plans give the same
+// bits.  Elements go in groups of VEC (one 16-byte vector of a row of V);
+// out is allocated by the wrapper, so its groups are always 16-byte aligned.
+
+// The low 16 bits of `bits` as a bf16, widened to f32 (exact).
+__device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// A group of VEC elements of a row of V (or of g), widened to f32, by
+// streaming (evict-first) loads -- every element of V and g is read once:
+// one 16-byte load per 16 bytes when kVec, else one load per element (a
+// pointer that is not 16-byte aligned).
+template <int VEC, bool kVec>
+__device__ __forceinline__ void ldcs_group(const float* __restrict__ p, float (&x)[VEC]) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(p) + q);
+      x[4 * q + 0] = v.x;
+      x[4 * q + 1] = v.y;
+      x[4 * q + 2] = v.z;
+      x[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) x[q] = __ldcs(p + q);
+  }
+}
+
+template <int VEC, bool kVec>
+__device__ __forceinline__ void ldcs_group(const __nv_bfloat16* __restrict__ p, float (&x)[VEC]) {
+  static_assert(VEC == 8, "bf16 groups are 8 elements (16 bytes)");
+  if constexpr (kVec) {
+    const uint4 raw = __ldcs(reinterpret_cast<const uint4*>(p));
+    const uint32_t h[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      x[2 * q + 0] = bf16_bits_to_f32(h[q] & 0xffffu);
+      x[2 * q + 1] = __uint_as_float(h[q] & 0xffff0000u);
+    }
+  } else {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) x[q] = bf16_bits_to_f32(__ldcs(u + q));
+  }
+}
+
+__device__ __forceinline__ float ldcs_one(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float ldcs_one(const __nv_bfloat16* p) {
+  return bf16_bits_to_f32(__ldcs(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// out[e .. e + VEC) = g + acc, 16-byte streaming stores.
+template <int VEC>
+__device__ __forceinline__ void stcs_sum(float* __restrict__ out, const float (&gv)[VEC],
+                                         const float (&acc)[VEC]) {
+#pragma unroll
+  for (int q = 0; q < VEC / 4; ++q) {
+    __stcs(reinterpret_cast<float4*>(out) + q,
+           make_float4(gv[4 * q + 0] + acc[4 * q + 0], gv[4 * q + 1] + acc[4 * q + 1],
+                       gv[4 * q + 2] + acc[4 * q + 2], gv[4 * q + 3] + acc[4 * q + 3]));
+  }
+}
+
+// The last P mod VEC elements, one thread each, by the grid's last block.
 template <typename T, int VEC>
+__device__ __forceinline__ void axpy_tail(const T* __restrict__ V, const float* __restrict__ g,
+                                          const float* ws, float* __restrict__ out, int k,
+                                          int64_t P, int t) {
+  const int64_t i = P / VEC * VEC + t;
+  if (blockIdx.x != gridDim.x - 1 || i >= P) return;
+  float acc = 0.f;
+  for (int j = 0; j < k; ++j) acc = fmaf(ws[j], ldcs_one(V + static_cast<int64_t>(j) * P + i), acc);
+  out[i] = __ldcs(g + i) + acc;
+}
+
+constexpr int kAxpyUnroll = 2;  // groups per thread per tile of the direct path
+
+// Pass 2, direct path: block b takes tiles b, b + grid, ... of kAxpyUnroll x
+// kThreads groups; each thread issues its kAxpyUnroll loads of a row before
+// the row's FMAs (the row loop is unrolled twice), so a warp keeps
+// 2 x 512 bytes of every row in flight.  kVecV / kVecG: V's rows / g in
+// 16-byte loads.  w in shared memory (k <= 12288: 48 KB).
+template <typename T, int VEC, bool kVecV, bool kVecG>
 __global__ void __launch_bounds__(kThreads)
-rank_k_axpy_kernel(const T* __restrict__ V, const float* __restrict__ g,
+rank_k_axpy_direct(const T* __restrict__ V, const float* __restrict__ g,
                    const float* __restrict__ w, float* __restrict__ out, int k, int64_t P) {
   extern __shared__ float ws[];
   for (int j = threadIdx.x; j < k; j += kThreads) ws[j] = w[j];
   __syncthreads();
-  const int64_t nvec = P / VEC;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < nvec;
-       i += stride) {
-    float acc[VEC];
+  const int64_t ngroups = P / VEC;
+  constexpr int64_t kTile = static_cast<int64_t>(kAxpyUnroll) * kThreads;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x; base < ngroups;
+       base += static_cast<int64_t>(gridDim.x) * kTile) {
+    int64_t e[kAxpyUnroll];
+    bool live[kAxpyUnroll];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-#pragma unroll 4
+    for (int u = 0; u < kAxpyUnroll; ++u) {
+      live[u] = base + u * kThreads < ngroups;
+      e[u] = (base + u * kThreads) * VEC;
+    }
+    float acc[kAxpyUnroll][VEC];
+#pragma unroll
+    for (int u = 0; u < kAxpyUnroll; ++u)
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc[u][q] = 0.f;
+#pragma unroll 2
     for (int j = 0; j < k; ++j) {
-      float vv[VEC];
-      load_row<VEC>(V + static_cast<int64_t>(j) * P + i * VEC, vv);
+      const T* row = V + static_cast<int64_t>(j) * P;
+      float vv[kAxpyUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kAxpyUnroll; ++u)
+        if (live[u]) ldcs_group<VEC, kVecV>(row + e[u], vv[u]);
       const float wj = ws[j];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wj, vv[e], acc[e]);
-    }
-    float gv[VEC];
-    load_f32<VEC>(g + i * VEC, gv);
+      for (int u = 0; u < kAxpyUnroll; ++u)
+        if (live[u]) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] = gv[e] + acc[e];
-    store_f32<VEC>(out + i * VEC, acc);
+          for (int q = 0; q < VEC; ++q) acc[u][q] = fmaf(wj, vv[u][q], acc[u][q]);
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < kAxpyUnroll; ++u)
+      if (live[u]) {
+        float gv[VEC];
+        ldcs_group<VEC, kVecG>(g + e[u], gv);
+        stcs_sum<VEC>(out + e[u], gv, acc[u]);
+      }
+  }
+  axpy_tail<T, VEC>(V, g, ws, out, k, P, threadIdx.x);
+}
+
+constexpr int kRingVecs = 2;  // most 16-byte groups of a stage row per consumer
+
+// Pass 2, ring path: one wave of persistent blocks; block b takes chunks b,
+// b + grid, ... of P.  Warp 0's first thread streams each chunk into the ring
+// with bulk copies: g[chunk] (kBulkG) with the first sweep, then `rows` rows
+// of V[., chunk] per stage, ceil(k / rows) sweeps per chunk.  Eight consumer
+// warps keep their groups' sums in registers across the sweeps, add g and
+// store out with 16-byte streaming stores.  Needs P a multiple of VEC and V
+// (and, with kBulkG, g) 16-byte aligned; g otherwise comes from global
+// memory, one load per element.  Shared memory: w (k floats, rounded up to
+// 128 bytes), then `stages` stages of [g[chunk] if kBulkG][rows x chunk].
+template <typename T, int VEC, bool kBulkG>
+__global__ void __launch_bounds__(kRingThreads)
+rank_k_axpy_ring(const T* __restrict__ V, const float* __restrict__ g,
+                 const float* __restrict__ w, float* __restrict__ out, int k, int64_t P,
+                 int chunk, int stages, int rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ __align__(8) uint64_t empty[kMaxStages];
+  float* ws = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + ((static_cast<size_t>(k) * sizeof(float) + 127) / 128) * 128;
+  const size_t g_bytes = kBulkG ? static_cast<size_t>(chunk) * sizeof(float) : 0;
+  const size_t stage_bytes = g_bytes + static_cast<size_t>(rows) * chunk * sizeof(T);
+  const int64_t nchunks = (P + chunk - 1) / chunk;
+
+  for (int j = threadIdx.x; j < k; j += kRingThreads) ws[j] = w[j];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {  // producer warp: one thread issues every copy
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int64_t c = blockIdx.x; c < nchunks; c += gridDim.x) {
+        const int64_t pos = c * chunk;
+        const uint32_t n = static_cast<uint32_t>(P - pos < chunk ? P - pos : chunk);
+        for (int r0 = 0; r0 < k; r0 += rows) {
+          const int nr = min(rows, k - r0);
+          mbar_wait(&empty[s], phase ^ 1);  // first pass over the ring: free
+          unsigned char* st = ring + s * stage_bytes;
+          T* vs = reinterpret_cast<T*>(st + g_bytes);
+          const bool with_g = kBulkG && r0 == 0;
+          mbar_arrive_expect_tx(&full[s], n * static_cast<uint32_t>(nr * sizeof(T) +
+                                                                  (with_g ? sizeof(float) : 0)));
+          if (with_g) bulk_load(st, g + pos, n * sizeof(float), &full[s]);
+          for (int r = 0; r < nr; ++r) {
+            bulk_load(vs + static_cast<size_t>(r) * chunk, V + static_cast<int64_t>(r0 + r) * P + pos,
+                      n * sizeof(T), &full[s]);
+          }
+          if (++s == stages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int t = threadIdx.x - 32;  // consumer index
+  int s = 0;
+  uint32_t phase = 0;
+  for (int64_t c = blockIdx.x; c < nchunks; c += gridDim.x) {
+    const int64_t pos = c * chunk;
+    const int n = static_cast<int>(P - pos < chunk ? P - pos : chunk);
+    float acc[kRingVecs][VEC];
+    float gv[kRingVecs][VEC];
+#pragma unroll
+    for (int u = 0; u < kRingVecs; ++u)
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc[u][q] = 0.f;
+    for (int r0 = 0; r0 < k; r0 += rows) {
+      const int nr = min(rows, k - r0);
+      mbar_wait(&full[s], phase);
+      const unsigned char* st = ring + s * stage_bytes;
+      const T* vs = reinterpret_cast<const T*>(st + g_bytes);
+#pragma unroll
+      for (int u = 0; u < kRingVecs; ++u) {
+        const int e = (u * kConsumers + t) * VEC;
+        if (e < n) {
+          if (kBulkG && r0 == 0) lds_row<VEC>(reinterpret_cast<const float*>(st) + e, gv[u]);
+#pragma unroll 4
+          for (int r = 0; r < nr; ++r) {
+            float vv[VEC];
+            lds_row<VEC>(vs + static_cast<size_t>(r) * chunk + e, vv);
+            const float wr = ws[r0 + r];
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) acc[u][q] = fmaf(wr, vv[q], acc[u][q]);
+          }
+        }
+      }
+      __syncwarp();
+      if ((t & 31) == 0) mbar_arrive(&empty[s]);
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRingVecs; ++u) {
+      const int e = (u * kConsumers + t) * VEC;
+      if (e < n) {
+        if (!kBulkG) ldcs_group<VEC, false>(g + pos + e, gv[u]);
+        stcs_sum<VEC>(out + pos + e, gv[u], acc[u]);
+      }
+    }
   }
 }
 
@@ -451,13 +662,84 @@ int dots_blocks_per_sm(int bulk, int smem_bytes, int* blocks) {
       blocks, rank_k_dots_kernel<T, VEC>, kRingThreads, smem_bytes));
 }
 
-template <typename T, int VEC>
-int launch_axpy(const void* V, const void* g, const void* w, void* out, int k, int64_t P,
-                int nblocks, cudaStream_t s) {
-  rank_k_axpy_kernel<T, VEC><<<nblocks, kThreads, k * sizeof(float), s>>>(
-      static_cast<const T*>(V), static_cast<const float*>(g), static_cast<const float*>(w),
-      static_cast<float*>(out), k, P);
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int (&allowed)[16]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 16 && allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 16) allowed[dev] = bytes;
+  return err;
+}
+
+template <typename T, int VEC, bool kBulkG>
+int launch_axpy_ring(const T* V, const float* g, const float* w, float* out, int k, int64_t P,
+                     int nblocks, int chunk, int stages, int rows, int smem_bytes, cudaStream_t s) {
+  static int allowed[16] = {0};
+  cudaError_t err = allow_smem(rank_k_axpy_ring<T, VEC, kBulkG>, smem_bytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rank_k_axpy_ring<T, VEC, kBulkG><<<nblocks, kRingThreads, smem_bytes, s>>>(V, g, w, out, k, P,
+                                                                            chunk, stages, rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC, bool kVecV, bool kVecG>
+int launch_axpy_direct(const T* V, const float* g, const float* w, float* out, int k, int64_t P,
+                       int nblocks, int smem_bytes, cudaStream_t s) {
+  rank_k_axpy_direct<T, VEC, kVecV, kVecG><<<nblocks, kThreads, smem_bytes, s>>>(V, g, w, out, k,
+                                                                                P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 2's launch as ops/kernels.py::axpy_plan made it.  The launch only
+// checks that the plan fits what it is given: the ring's stages in
+// `smem_bytes`, its chunks in whole 16-byte groups, its rows within k.
+template <typename T, int VEC>
+int launch_axpy(const void* Vp, const void* gp, const void* wp, void* outp, int k, int64_t P,
+                int nblocks, int ring, int vec_v, int vec_g, int chunk, int stages, int rows,
+                int smem_bytes, cudaStream_t s) {
+  const T* V = static_cast<const T*>(Vp);
+  const float* g = static_cast<const float*>(gp);
+  const float* w = static_cast<const float*>(wp);
+  float* out = static_cast<float*>(outp);
+  const int64_t w_bytes = (static_cast<int64_t>(k) * 4 + 127) / 128 * 128;
+  if (nblocks < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (ring) {
+    const int64_t stage = (vec_g ? static_cast<int64_t>(chunk) * 4 : 0) +
+                          static_cast<int64_t>(rows) * chunk * static_cast<int64_t>(sizeof(T));
+    if (!vec_v || P % VEC != 0 || stages < 1 || stages > kMaxStages || chunk < VEC ||
+        chunk % VEC != 0 || chunk > kRingVecs * kConsumers * VEC || rows < 1 || rows > k ||
+        w_bytes + stages * stage > smem_bytes)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return vec_g ? launch_axpy_ring<T, VEC, true>(V, g, w, out, k, P, nblocks, chunk, stages, rows,
+                                                  smem_bytes, s)
+                 : launch_axpy_ring<T, VEC, false>(V, g, w, out, k, P, nblocks, chunk, stages, rows,
+                                                   smem_bytes, s);
+  }
+  if (static_cast<int64_t>(k) * 4 > smem_bytes || smem_bytes > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec_v) {
+    return vec_g ? launch_axpy_direct<T, VEC, true, true>(V, g, w, out, k, P, nblocks, smem_bytes, s)
+                 : launch_axpy_direct<T, VEC, true, false>(V, g, w, out, k, P, nblocks, smem_bytes, s);
+  }
+  return vec_g ? launch_axpy_direct<T, VEC, false, true>(V, g, w, out, k, P, nblocks, smem_bytes, s)
+               : launch_axpy_direct<T, VEC, false, false>(V, g, w, out, k, P, nblocks, smem_bytes, s);
+}
+
+// Blocks of the chosen pass-2 kernel that fit on one SM at once.
+template <typename T, int VEC>
+int axpy_blocks_per_sm(int ring, int smem_bytes, int* blocks) {
+  if (!ring) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, rank_k_axpy_direct<T, VEC, true, true>, kThreads, smem_bytes));
+  }
+  static int allowed[16] = {0};
+  cudaError_t err = allow_smem(rank_k_axpy_ring<T, VEC, true>, smem_bytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, rank_k_axpy_ring<T, VEC, true>, kRingThreads, smem_bytes));
 }
 
 }  // namespace
@@ -490,20 +772,30 @@ int rank_k_dots_blocks_per_sm_bf16(int bulk, int smem_bytes, int* blocks) {
   return dots_blocks_per_sm<__nv_bfloat16, 8>(bulk, smem_bytes, blocks);
 }
 
-// vectorized != 0: 16-byte loads (P a multiple of 4 (f32) / 8 (bf16) and all
-// pointers 16-byte aligned, checked by the caller); else scalar loads.
+// Pass 2.  ring != 0: the bulk-copy ring (V 16-byte aligned, P a multiple of
+// 4 (f32) / 8 (bf16); vec_g: g also aligned and copied in bulk); else the
+// direct kernel (vec_v / vec_g: V's rows / g in 16-byte loads).  Plan:
+// ops/kernels.py::axpy_plan.
 int rank_k_axpy_f32(const void* V, const void* g, const void* w, void* out, int k, long long P,
-                    int nblocks, int vectorized, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vectorized ? launch_axpy<float, 4>(V, g, w, out, k, P, nblocks, s)
-                    : launch_axpy<float, 1>(V, g, w, out, k, P, nblocks, s);
+                    int nblocks, int ring, int vec_v, int vec_g, int chunk, int stages, int rows,
+                    int smem_bytes, void* stream) {
+  return launch_axpy<float, 4>(V, g, w, out, k, P, nblocks, ring, vec_v, vec_g, chunk, stages,
+                               rows, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 int rank_k_axpy_bf16(const void* V, const void* g, const void* w, void* out, int k, long long P,
-                     int nblocks, int vectorized, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vectorized ? launch_axpy<__nv_bfloat16, 8>(V, g, w, out, k, P, nblocks, s)
-                    : launch_axpy<__nv_bfloat16, 1>(V, g, w, out, k, P, nblocks, s);
+                     int nblocks, int ring, int vec_v, int vec_g, int chunk, int stages, int rows,
+                     int smem_bytes, void* stream) {
+  return launch_axpy<__nv_bfloat16, 8>(V, g, w, out, k, P, nblocks, ring, vec_v, vec_g, chunk,
+                                       stages, rows, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int rank_k_axpy_blocks_per_sm_f32(int ring, int smem_bytes, int* blocks) {
+  return axpy_blocks_per_sm<float, 4>(ring, smem_bytes, blocks);
+}
+
+int rank_k_axpy_blocks_per_sm_bf16(int ring, int smem_bytes, int* blocks) {
+  return axpy_blocks_per_sm<__nv_bfloat16, 8>(ring, smem_bytes, blocks);
 }
 
 }  // extern "C"

@@ -13,7 +13,13 @@ Kernels (plain versions: ``ops/spectral.py::rank_k_dots_reference`` and
 * ``rank_k_dots``  -- ``w = c ⊙ (V g)``, replaces the TPU ``_dots_kernel``;
   its launch (grid, chunks, ring of stages) is :func:`dots_plan`, plain
   Python that the CPU tests check;
-* ``rank_k_axpy``  -- ``out = g + Vᵀ w``, replaces the TPU ``_axpy_kernel``.
+* ``rank_k_axpy``  -- ``out = g + Vᵀ w``, replaces the TPU ``_axpy_kernel``;
+  its launch (ring or direct kernel, grid, rows per stage, stages) is
+  :func:`axpy_plan`.
+
+Each plan is made once per (device, dtype, k, P, alignment of V and g) and
+cached with the SM count and the occupancy, so a call does its checks,
+allocates its outputs and makes one ctypes call.
 
 Each wrapper runs the plain version when its tensors lie on the CPU.  On
 CUDA tensors it checks its operands, allocates outputs with
@@ -170,8 +176,12 @@ def _rank_k_lib() -> ctypes.CDLL:
                 occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
                 occupancy.restype = i32
                 axpy = getattr(lib, f"rank_k_axpy_{dt}")
-                axpy.argtypes = [ptr, ptr, ptr, ptr, i32, i64, i32, i32, ptr]
+                axpy.argtypes = [ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32, i32, i32,
+                                 i32, ptr]
                 axpy.restype = i32
+                occupancy = getattr(lib, f"rank_k_axpy_blocks_per_sm_{dt}")
+                occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
+                occupancy.restype = i32
             _libs["rank_k"] = lib
         return lib
 
@@ -186,8 +196,8 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte load
 _MAX_ROWS = 16  # kMaxRows: rows of V per sweep of pass 1
 _BLOCK_SMEM = 232_448  # 227 KB: the shared memory one block may use on Hopper
-# rank_k_dots_kernel's static shared memory (16 mbarriers and the reduction
-# scratch, 640 bytes), rounded up
+# the rings' static shared memory (pass 1: 16 mbarriers and the reduction
+# scratch, 640 bytes; pass 2: 16 mbarriers, 128 bytes), rounded up
 _STATIC_SMEM = 1024
 # the ring: two stages of 2048 elements of P, the fastest shape measured
 # (PERF.md); fewer elements per stage where two such stages would not fit
@@ -246,36 +256,172 @@ def dots_plan(
     return DotsPlan(True, vec, rows, chunk, _STAGES, smem_bytes, nblocks, resident)
 
 
+# pass 2 (rank_k.cu: kAxpyUnroll; kRingVecs bounds _RING_GROUPS, kMaxStages _RING_STAGES)
+_AXPY_UNROLL = 2  # 16-byte groups per thread per tile of the direct path
+_CONSUMERS = 256  # ring consumer threads (eight warps)
+# the ring: two 16-byte groups of each stage row per consumer (8 KB bulk
+# copies), up to four stages; from 2**23 elements of P on, where it beat the
+# direct kernel (PERF.md), which below takes P with a grid sized to P
+_RING_GROUPS = 2
+_RING_STAGES = 4
+_RING_MIN_P = 1 << 23
+_DIRECT_SMEM_MAX = 48 * 1024  # w of the direct path, static limit
+
+
+@dataclasses.dataclass(frozen=True)
+class AxpyPlan:
+    """How ``rank_k_axpy`` launches pass 2 for one (k, P, basis dtype) and
+    alignment of V and g.
+
+    ``ring``: the bulk-copy ring (V's rows 16-byte aligned, P at least
+    ``_RING_MIN_P``); else the direct kernel.  ``vec_v`` / ``vec_g``: V's
+    rows / g read in 16-byte vectors (on the ring, ``vec_g`` means g comes in
+    bulk copies too); the other operand still may.  ``vec``: elements per
+    16-byte group.  ``chunk``: elements of P per stage (ring) or per tile of
+    a block (direct: ``_AXPY_UNROLL`` groups per thread); ``rows``: rows of
+    V per stage, ``ceil(k / rows)`` stages per chunk (direct: k);
+    ``stages``: stages in the ring; ``smem_bytes``: the dynamic shared memory
+    (w, then the ring).  ``nblocks``: at most ``blocks_per_sm`` x the SM
+    count, and no more than there are chunks or tiles.
+    """
+
+    ring: bool
+    vec_v: bool
+    vec_g: bool
+    vec: int
+    rows: int
+    chunk: int
+    stages: int
+    smem_bytes: int
+    nblocks: int
+    blocks_per_sm: int
+
+
+def axpy_plan(
+    k: int, p: int, dtype: torch.dtype, *, ptrs: Iterable[int], sms: int,
+    blocks_per_sm: Callable[[bool, int], int], ring: Optional[bool] = None,
+) -> AxpyPlan:
+    """Pass 2's launch for a (k, P) basis of ``dtype`` whose V and g start at
+    ``ptrs`` (V first), on a card of ``sms`` SMs.  ``blocks_per_sm(ring,
+    smem_bytes)`` says how many blocks of the chosen kernel fit on one SM.
+    ``ring`` forces a path (the ring only where V's rows are aligned)."""
+    vec = _VEC[dtype]
+    es = 16 // vec
+    v_ptr, g_ptr = ptrs
+    vec_v = v_ptr % 16 == 0 and (k == 1 or p % vec == 0)
+    vec_g = g_ptr % 16 == 0
+    w_bytes = -(-4 * k // 128) * 128
+    can_ring = vec_v and p % vec == 0
+    if ring is None:
+        ring = can_ring and p >= _RING_MIN_P
+    elif ring and not can_ring:
+        raise ValueError(f"rank_k_axpy: no ring for V's rows at k={k}, P={p}, V at {v_ptr:#x}")
+    if not ring:
+        chunk = _AXPY_UNROLL * _THREADS * vec
+        smem_bytes = 4 * k
+        if smem_bytes > _DIRECT_SMEM_MAX:
+            raise ValueError(f"rank_k_axpy: w of k={k} rows does not fit {_DIRECT_SMEM_MAX} bytes")
+        resident = blocks_per_sm(False, smem_bytes)
+        if resident < 1:
+            raise RuntimeError(f"rank_k_axpy: no block of {smem_bytes} bytes fits an SM")
+        nblocks = max(1, min(resident * sms, -(-(p // vec) // (_AXPY_UNROLL * _THREADS))))
+        return AxpyPlan(False, vec_v, vec_g, vec, k, chunk, 1, smem_bytes, nblocks, resident)
+    chunk = _RING_GROUPS * _CONSUMERS * vec
+    room = _BLOCK_SMEM - _STATIC_SMEM - w_bytes
+    g_bytes = 4 * chunk if vec_g else 0
+    fit = (room // 2 - g_bytes) // (chunk * es)  # rows of two stages that fit
+    if fit < 1:
+        raise RuntimeError(f"rank_k_axpy: two ring stages of one row do not fit at k={k}")
+    rows = -(-k // -(-k // fit))  # balanced sweeps of at most `fit` rows
+    stage = g_bytes + rows * chunk * es
+    stages = min(_RING_STAGES, room // stage)
+    smem_bytes = w_bytes + stages * stage
+    resident = blocks_per_sm(True, smem_bytes)
+    if resident < 1:
+        raise RuntimeError(f"rank_k_axpy: no block of {smem_bytes} bytes fits an SM")
+    nblocks = max(1, min(resident * sms, -(-p // chunk)))
+    return AxpyPlan(True, vec_v, vec_g, vec, rows, chunk, stages, smem_bytes, nblocks, resident)
+
+
+# ----------------------------------------------------------------------------
+# launch path: per call, the checks, the outputs and one ctypes call; the SM
+# count, the occupancy and each plan are looked up once per process
+# ----------------------------------------------------------------------------
+
+_sm_counts: dict[int, int] = {}
 _resident: dict[tuple, int] = {}
+_plans: dict[tuple, object] = {}
+_fns: dict[tuple, object] = {}
 
 
-def _blocks_per_sm(device: torch.device, dtype: torch.dtype, bulk: bool, smem_bytes: int) -> int:
-    """The occupancy API's count of resident pass-1 blocks, once per kind."""
-    key = (device.index, dtype, bulk, smem_bytes)
+def _device_index(device) -> int:
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def _sms(index: int) -> int:
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
+def _occupancy(kernel: str, index: int, dtype: torch.dtype, flag: bool, smem_bytes: int) -> int:
+    """The occupancy API's count of resident blocks of a kernel, once per kind."""
+    key = (kernel, index, dtype, flag, smem_bytes)
     if key not in _resident:
         blocks = ctypes.c_int(0)
-        fn = getattr(_rank_k_lib(), f"rank_k_dots_blocks_per_sm_{_SUFFIX[dtype]}")
-        with torch.cuda.device(device):
-            _raise_on(fn(int(bulk), smem_bytes, ctypes.byref(blocks)), "rank_k_dots occupancy")
+        fn = _fn(f"{kernel}_blocks_per_sm", dtype)
+        with torch.cuda.device(index):
+            _raise_on(fn(int(flag), smem_bytes, ctypes.byref(blocks)), f"{kernel} occupancy")
         _resident[key] = blocks.value
     return _resident[key]
+
+
+def _plan(kind: str, index: int, dtype: torch.dtype, k: int, p: int, ptrs: tuple[int, ...],
+          **force):
+    """The plan of ``kind`` ("dots" or "axpy"), made once per (device, dtype,
+    k, P, alignment of each pointer, forced path)."""
+    key = (kind, index, dtype, k, p, tuple([ptr % 16 == 0 for ptr in ptrs]), *force.values())
+    plan = _plans.get(key)
+    if plan is None:
+        make = dots_plan if kind == "dots" else axpy_plan
+        kernel = f"rank_k_{kind}"
+        plan = _plans[key] = make(
+            k, p, dtype, ptrs=ptrs, sms=_sms(index),
+            blocks_per_sm=lambda flag, smem: _occupancy(kernel, index, dtype, flag, smem),
+            **force,
+        )
+    return plan
+
+
+def _fn(name: str, dtype: torch.dtype):
+    """The bound C entry point ``<name>_<f32|bf16>``, looked up once."""
+    fn = _fns.get((name, dtype))
+    if fn is None:
+        fn = _fns[(name, dtype)] = getattr(_rank_k_lib(), f"{name}_{_SUFFIX[dtype]}")
+    return fn
 
 
 def dots_launch_plan(
     k: int, p: int, dtype: torch.dtype, device, ptrs: Iterable[int] = (),
 ) -> DotsPlan:
     """:func:`dots_plan` on this CUDA card (its SMs, the occupancy API)."""
-    device = torch.device(device)
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return dots_plan(
-        k, p, dtype, ptrs=ptrs, sms=torch.cuda.get_device_properties(device).multi_processor_count,
-        blocks_per_sm=lambda bulk, smem: _blocks_per_sm(device, dtype, bulk, smem),
-    )
+    return _plan("dots", _device_index(device), dtype, k, p, tuple(ptrs))
+
+
+def axpy_launch_plan(
+    k: int, p: int, dtype: torch.dtype, device, ptrs: Iterable[int] = (0, 0),
+    ring: Optional[bool] = None,
+) -> AxpyPlan:
+    """:func:`axpy_plan` on this CUDA card (its SMs, the occupancy API)."""
+    return _plan("axpy", _device_index(device), dtype, k, p, tuple(ptrs), ring=ring)
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
+    for t in tensors:  # a loop, not all(): this runs on every call
+        if t.device.type != "cpu":
+            return False
+    return True
 
 
 def _check_operands(g: torch.Tensor, basis: torch.Tensor) -> None:
@@ -294,19 +440,25 @@ def _check_operands(g: torch.Tensor, basis: torch.Tensor) -> None:
         raise ValueError(f"rank-k kernel: need 1 <= k <= {_MAX_K} and P >= 1, got k={k}, P={p}")
 
 
-def _launch_shape(basis: torch.Tensor, blocks_per_sm: int, *tensors: torch.Tensor):
-    """(vectorized, nblocks) for pass 2's grid-stride launch over P."""
-    vec = _VEC[basis.dtype]
-    p = basis.shape[1]
-    vectorized = p % vec == 0 and all(t.data_ptr() % 16 == 0 for t in (basis, *tensors))
-    nvec = p // vec if vectorized else p
-    sms = torch.cuda.get_device_properties(basis.device).multi_processor_count
-    return vectorized, max(1, min(blocks_per_sm * sms, -(-nvec // _THREADS)))
+def _f32_on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` as a contiguous f32 tensor on ``device``, copied only if it is not one."""
+    if t.dtype == torch.float32 and t.device == device and t.is_contiguous():
+        return t
+    return t.to(device=device, dtype=torch.float32).contiguous()
 
 
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _launch(fn, index: int, *args) -> int:
+    """``fn(*args, stream)`` on device ``index``'s current stream, entering
+    the device only when it is not the current one."""
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def rank_k_dots(g: torch.Tensor, basis: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
@@ -318,37 +470,43 @@ def rank_k_dots(g: torch.Tensor, basis: torch.Tensor, coeffs: torch.Tensor) -> t
     k, p = basis.shape
     if coeffs.numel() != k:
         raise ValueError(f"rank_k_dots: {coeffs.numel()} coeffs for k={k}")
-    c = coeffs.to(device=g.device, dtype=torch.float32).contiguous()
-    plan = dots_launch_plan(k, p, basis.dtype, g.device, (basis.data_ptr(), g.data_ptr()))
-    partials = torch.empty((k, plan.nblocks), dtype=torch.float32, device=g.device)
-    w = torch.empty(k, dtype=torch.float32, device=g.device)
-    fn = getattr(_rank_k_lib(), f"rank_k_dots_{_SUFFIX[basis.dtype]}")
-    with torch.cuda.device(g.device):
-        err = fn(basis.data_ptr(), g.data_ptr(), c.data_ptr(), partials.data_ptr(),
-                 w.data_ptr(), k, p, plan.nblocks, int(plan.bulk), plan.chunk, plan.stages,
-                 plan.rows, plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
+    device, index = g.device, g.device.index
+    c = _f32_on(coeffs, device)
+    v_ptr, g_ptr = basis.data_ptr(), g.data_ptr()
+    plan = _plan("dots", index, basis.dtype, k, p, (v_ptr, g_ptr))
+    # partials (k, nblocks) and w (k,) in one allocation
+    buf = torch.empty(k * (plan.nblocks + 1), dtype=torch.float32, device=device)
+    partials = buf.data_ptr()
+    w = buf[k * plan.nblocks:]
+    err = _launch(_fn("rank_k_dots", basis.dtype), index,
+                  v_ptr, g_ptr, c.data_ptr(), partials, w.data_ptr(), k, p, plan.nblocks,
+                  int(plan.bulk), plan.chunk, plan.stages, plan.rows, plan.smem_bytes)
     _raise_on(err, "rank_k_dots")
     LAUNCHES["rank_k_dots"] += 1
     return w
 
 
-def rank_k_axpy(g: torch.Tensor, basis: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def rank_k_axpy(
+    g: torch.Tensor, basis: torch.Tensor, w: torch.Tensor, *, ring: Optional[bool] = None,
+) -> torch.Tensor:
     """``out = g + basisᵀ @ w``, (P,) f32: the CUDA kernel on CUDA tensors,
-    the plain version on CPU tensors."""
+    the plain version on CPU tensors.  ``ring`` forces the ring (True) or
+    the direct kernel (False) where :func:`axpy_plan` would choose."""
     if _on_cpu(g, basis, w):
         return rank_k_axpy_reference(g, basis, w)
     _check_operands(g, basis)
     k, p = basis.shape
     if w.numel() != k:
         raise ValueError(f"rank_k_axpy: {w.numel()} weights for k={k}")
-    w = w.to(device=g.device, dtype=torch.float32).contiguous()
-    out = torch.empty(p, dtype=torch.float32, device=g.device)
-    vectorized, nblocks = _launch_shape(basis, 8, g, out)
-    fn = getattr(_rank_k_lib(), f"rank_k_axpy_{_SUFFIX[basis.dtype]}")
-    with torch.cuda.device(g.device):
-        err = fn(basis.data_ptr(), g.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 k, p, nblocks, int(vectorized),
-                 torch.cuda.current_stream().cuda_stream)
+    device, index = g.device, g.device.index
+    w = _f32_on(w, device)
+    v_ptr, g_ptr = basis.data_ptr(), g.data_ptr()
+    plan = _plan("axpy", index, basis.dtype, k, p, (v_ptr, g_ptr), ring=ring)
+    out = torch.empty(p, dtype=torch.float32, device=device)
+    err = _launch(_fn("rank_k_axpy", basis.dtype), index,
+                  v_ptr, g_ptr, w.data_ptr(), out.data_ptr(), k, p, plan.nblocks,
+                  int(plan.ring), int(plan.vec_v), int(plan.vec_g), plan.chunk, plan.stages,
+                  plan.rows, plan.smem_bytes)
     _raise_on(err, "rank_k_axpy")
     LAUNCHES["rank_k_axpy"] += 1
     return out
