@@ -1,8 +1,9 @@
 """On-card smoke test of the PyTorch port: builds the CUDA kernels, holds
 each against its plain PyTorch version, drives LanczosSGD training, the
 spectrum paths, Adam training from and to checkpoints and the rest of the
-train CLI's optimisers on GPT-2 124M through the CLIs, and checks the
-results.
+train CLI's optimisers on GPT-2 124M through the CLIs, then the other
+language-model families (Pythia-1.4B at full width, LLaMA-134m, the MoE
+GPT-2, LoRA), and checks the results.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -16,9 +17,10 @@ Phases (any failure exits non-zero and prints no result line):
      trainer's shape -- and (35, 124,046,592), (35, 16384), (3, 20000),
      (5, 20001), f32 and bf16 bases, each also rerun for bitwise equality
      and pass 2 also on its other path (ring or direct), bit for bit equal;
-     at the two 124M shapes, kernel and a one-call library yardstick timed
+     at (10, 124,046,592), kernel and a one-call library yardstick timed
      in turns (median and min-max, nvidia-smi sampled beside), then the
-     plain version; at every timed shape each call's wall (those events),
+     plain version ((35, P) is checked untimed since phase 13 took its
+     time; its last times stand in PERF.md); at every timed shape each call's wall (those events),
      host time (perf_counter over back-to-back calls) and device time (the
      kernel rows of a torch.profiler trace), for both kernels and their
      library calls;
@@ -43,22 +45,24 @@ Phases (any failure exits non-zero and prints no result line):
      x seq512, through cli.spectrum.main: (a) --thick_restart 5 with a bf16
      buffer: converged, an independent residual |H u - lambda u| per pair
      from a fresh f32 HVP, the rows orthonormal, each rank-k kernel launched
-     twice per CGS2 call; (b) --host_loop --kpm 60 --kpm_deflate 4: spikes
-     converged and agreeing with the SLQ extreme, the deflated operator
-     annihilating each spike vector, the bulk range inside the SLQ range,
-     mu_0 = 1, 2 x 71 launches of each kernel in the KPM stage; (c) in-core
-     --hutchpp 30: a finite trace in the artifact; one {"spectrum_ext": ...}
+     twice per CGS2 call; (b) --host_loop --kpm 30 --kpm_deflate 4 (60
+     moments before phase 13 took their time): spikes converged and agreeing with the SLQ
+     extreme, the deflated operator annihilating each spike vector, the bulk
+     range inside the SLQ range, mu_0 = 1, 2 x 41 launches of each kernel in
+     the KPM stage; (c) in-core --hutchpp 15 (30 before phase 13): a finite
+     trace in the artifact; one {"spectrum_ext": ...}
      JSON line of their times, matvecs and memory; (d) on gpt2-tiny, card
      against CPU: thick restart, deflated KPM, Hutch++ and --host_basis.
   9. the rest of the single-card curvature at GPT-2 124M, 1 batch x bs8 x
      seq512, through cli.spectrum.main / cli.train.main: (a) --layerwise
-     --layerwise_group block --host_loop: 12 block artifacts and the grid,
+     --layerwise_group block --host_loop, 5 iterations a block (10 before
+     phase 13): 12 block artifacts and the grid,
      weights summing to 1, lambda_max > 0, per-block |trace| small, h_0's T
      equal to an in-core LayerHessianOperator run; (b) --operator ggn
      --host_loop: Ritz values >= 0, the GGN matvec against jvp, an explicit
      float64 softmax Hessian and vjp; (c) --linearized against the plain
-     host loop; (d) --bigmodel with float32 and bfloat16 vectors against the
-     same plain run; (e) phase 4's training with --refresh_linearized; (f)
+     host loop, 10 iterations each (20 before phase 13); (d) --bigmodel with
+     float32 and bfloat16 vectors against the same plain run; (e) phase 4's training with --refresh_linearized; (f)
      the empirical Fisher over 8 per-example gradients with a bf16 G, the
      kernel pair against its plain versions and an f32 G; (g) every new
      path on gpt2-tiny, card against CPU; one {"curvature_ext": ...} line.
@@ -71,7 +75,8 @@ Phases (any failure exits non-zero and prints no result line):
      reloading equal to the ones in memory with steps M and 2M, the resumed
      losses tracking the uninterrupted ones; an Adam step's gradient and
      update by CUDA events; (b) the host-loop spectrum of the checkpoint and
-     of the init on one batch (weights summing to 1, lambda_max above
+     of the init on one batch, 10 iterations (20 before phase 13; the same
+     depth for phase 11's CLI runs) (weights summing to 1, lambda_max above
      init's) and the f32 HVP at the checkpoint against a float64 central
      difference; (c) phase 4's LanczosSGD from the checkpoint: step 0's
      loss equal to the checkpoint's, each rank-k kernel once per step; (d)
@@ -81,7 +86,8 @@ Phases (any failure exits non-zero and prints no result line):
      fp32 HVPs, and the CLI's default "auto" may pick a lower tier.
  11. the precision ladder, inside phase 10's temporary directory, on one
      stdlib batch of bs8 x seq512: (a) at init and on the 1000-step
-     checkpoint, the reorthogonalised probe (10 iterations, CGS2 on the
+     checkpoint, the reorthogonalised probe (6 iterations, 10 before phase 13;
+     CGS2 on the
      rank-k pair) of the bf16, TF32 and "high" tiers against the "highest"
      referee: bf16 and TF32 differ from fp32, bf16 errs more than TF32 at
      init, "high" equals "highest" bit for bit, and an HVP with block 0 alone
@@ -99,7 +105,8 @@ Phases (any failure exits non-zero and prints no result line):
  12. the rest of training on GPT-2 124M at phase 4's batches, fp32: (a)
      phase 4's run with --optimiser lanczos (the fused step, CGS2, an f32
      (10, P) basis): each kernel once per step at (10, P) f32, step 0's
-     loss and eig_max as phase 4's; (b) --optimiser gn and ngd, 2 steps at
+     loss and eig_max as phase 4's; (b) --optimiser gn and ngd, 1 step each
+     (2 before phase 13) at
      --damping 1e-3 --cg_iters 20: finite, cg_iters <= 20, no rank-k
      launch, and a GN step's reported CG residual recomputed from a fresh
      GGN matvec; (c) HostLayerwiseLanczosSGDTrainer on wte and the 24 MLP
@@ -115,13 +122,41 @@ Phases (any failure exits non-zero and prints no result line):
      obs.trace_summary; (h) gpt2-tiny card against CPU for every new
      optimiser and flag, and --tensorboard (or its exit naming the missing
      package); one {"train_ext": ...} line.
-Phase 3 also checks and times (4, 124,046,592) in both dtypes, (8,
-124,046,592) and (16, 124,046,592) in bf16, the deflation projector's, the
-empirical Fisher's and the CGS2 pass's shapes, and phase 12's per-leaf
-shapes (4, 2,359,296) and (4, 38,597,376) in both dtypes; it checks small
-leaves at unaligned offsets of g, the bf16 MLP leaf with g 1-7 elements
-off 16 bytes, and (256, 2**24) bf16, whose pass 2 sweeps each chunk's rows
-in 22 stages.  Then it prints one JSON line of kernels (launches per
+ 13. the other language-model families through cli.spectrum.main and
+     cli.train.main at fp32 HVPs, on one stdlib batch: (a) Pythia-1.4B (P =
+     1,414,647,808) at full width and depth, --host_loop --bigmodel with
+     bf16 Krylov vectors, 1 x bs1 x seq512, 15 iterations: finite Ritz
+     values, lambda_max > 0 > lambda_min, the weights summing to 1 within
+     1e-6, |trace| <= 1e-2 lambda_max, the artifact read back, no rank-k
+     launch; its peak memory, seconds per iteration and init seconds (drawn
+     on the card), and the seconds of the same init drawn on the CPU and
+     moved; (b) LanczosSGD on Pythia-1.4B, k=4, a bf16 basis, delta 1e4,
+     bs1, seq512 (seq256 if 512 does not fit, printed), one refresh and one
+     frozen step: each rank-k kernel once per step at (4, 1,414,647,808)
+     bf16, finite losses; on the frozen step the trainer's pass-1 w within
+     1e-5 of the plain w, its adjusted gradient within 1e-5 (plus the f32
+     rounding of g + term, itself <= 1e-3) of the plain one, both relative
+     to the adjust term, and the update within 1e-5 of a plain replay; (c)
+     LLaMA-134m, 1 x bs8 x seq512, 20 iterations with (a)'s gates, its f32
+     HVP against a float64 central difference within 2e-5, and phase 4's 4
+     LanczosSGD steps with each kernel once per step at (10, 134,105,856)
+     bf16; (d) gpt2-moe (80M, 8 dense experts), 1 x bs8 x seq512, 20
+     iterations with (a)'s gates; (e) llama-tiny (grouped-query attention),
+     pythia-70m at bs1 x seq16 and gpt2-tiny --experts 4, dense and with
+     --moe_top_k 2, card against CPU through both CLIs (Ritz extremes within
+     1e-3, the trainer's first loss within 1e-5; the top-k runs warn), and
+     LanczosSGD over llama-tiny's rank-4 LoRA adapters (the rank-k pair on
+     the adapters' P); one {"lm_families": ...} line.
+Phase 3 also checks (4, 124,046,592) in both dtypes, (8, 124,046,592) and
+(16, 124,046,592) in bf16 -- the deflation projector's, the empirical
+Fisher's and the CGS2 pass's shapes, timed only (4, P) in bf16 since phase 13
+-- and times phase 12's per-leaf shapes (4, 2,359,296) and (4, 38,597,376)
+in both dtypes and 13b's (4, 1,414,647,808) in bf16, the first with k x P
+>= 2**31 at full width (V alone 11.3 GB); it checks small leaves at
+unaligned offsets of g, the bf16 MLP leaf with g 1-7 elements off 16
+bytes, and (256, 2**24) bf16, whose pass 2 sweeps each chunk's rows in 22
+stages.  Every phase prints its wall seconds on a line of its own.  Then
+it prints one JSON line of kernels (launches per
 path), the card line, and finally {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port only (no JAX: the card machine has none).
@@ -131,6 +166,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import glob
 import json
 import math
@@ -141,18 +177,24 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 P_124M = 124_046_592  # GPT-2 124M parameters at n_positions 512
 TIMED_DTYPES = (torch.bfloat16, torch.float32)
-TIMED_KS = (10, 35)
+# k timed at P = 124M (10: the trainer's); (35, P) is checked untimed, to
+# leave room for phase 13 (its last times stand in PERF.md)
+TIMED_KS = (10,)
 # the deflation projector's rows (--kpm_deflate 4), the empirical Fisher's
 # 8 per-example gradients and the CGS2 pass's widest (16 filled rows of the
 # deflation's inner-16 buffer), in bf16; k = 4 also in f32, so every timed k
 # is read in both dtypes
 PATH_SHAPES = ((torch.bfloat16, 4), (torch.float32, 4), (torch.bfloat16, 8), (torch.bfloat16, 16))
+# of those, timed: (4, P) bf16, the k of 13b's Pythia-1.4B shape; the others
+# are checked untimed (their last times stand in PERF.md)
+PATH_TIMED = ((torch.bfloat16, 4),)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 COST_CALLS = 200  # calls per host-time reading (a quarter of it at P = 124M)
 FP32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -198,16 +240,21 @@ EXT_BASE = [
 # artifacts/trlan124m_r3's protocol (random tokens, true fp32)
 TR_ARGV = EXT_BASE + ["--thick_restart", "5", "--lanczos_iters", "15", "--tr_dtype", "bfloat16",
                       "--tr_tol", "2e-3"]
-# artifacts/kpm_deflate124m_r3's flags, cut to 1 x bs8 and 1 probe
-KPM_ARGV = EXT_BASE + ["--host_loop", "--lanczos_iters", "35", "--kpm", "60", "--kpm_probes",
-                       "1", "--kpm_deflate", "4", "--tr_dtype", "bfloat16", "--tr_tol", "2e-3"]
-HUTCHPP_ARGV = EXT_BASE + ["--lanczos_iters", "10", "--hutchpp", "30"]
+# artifacts/kpm_deflate124m_r3's flags, cut to 1 x bs8, 1 probe and (for
+# phase 13's time) 30 moments, from 60
+KPM_MOMENTS = 30
+KPM_ARGV = EXT_BASE + ["--host_loop", "--lanczos_iters", "35", "--kpm", str(KPM_MOMENTS),
+                       "--kpm_probes", "1", "--kpm_deflate", "4", "--tr_dtype", "bfloat16",
+                       "--tr_tol", "2e-3"]
+# 15 matvecs of Hutch++ (30 before phase 13)
+HUTCHPP_MATVECS = 15
+HUTCHPP_ARGV = EXT_BASE + ["--lanczos_iters", "10", "--hutchpp", str(HUTCHPP_MATVECS)]
 TR_RESIDUAL_LIMIT = 1e-2  # of max |lambda|, independent residual per pair
 TR_ORTHO_LIMIT = 5e-3  # max |V V^T - I|: the bf16 storage floor
 SPIKE_SLQ_RTOL = 1e-3
 BULK_WIDEN = 0.05  # of the SLQ range, on each side
 MU0_TOL = 1e-6
-KPM_STAGE_MATVECS = 12 + 59  # range estimate + 60 moments' recurrence
+KPM_STAGE_MATVECS = 12 + KPM_MOMENTS - 1  # range estimate + the moments' recurrence
 # 8d: gpt2-tiny card against CPU
 TINY_EXT = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32", "--num_batches",
             "2", "--vector_seed", "5", "--hvp_precision", "high"]
@@ -218,10 +265,14 @@ EXT_EIG_RTOL, EXT_MOMENT_ATOL, EXT_HUTCHPP_RTOL = 1e-5, 1e-5, 1e-4
 FD_EPS = 1e-4
 HVP_FD_LIMIT = 2e-5
 # phase 9: GPT-2 124M at EXT_BASE's 1 x bs8 x seq512
+# 9a: 5 iterations per block (10 before phase 13), 60 masked HVPs
+LW_ITERS = 5
 LW_ARGV = EXT_BASE + ["--layerwise", "--layerwise_group", "block", "--host_loop",
-                      "--lanczos_iters", "10"]
+                      "--lanczos_iters", str(LW_ITERS)]
 GGN_ARGV = EXT_BASE + ["--operator", "ggn", "--host_loop", "--lanczos_iters", "20"]
-PLAIN_ARGV = EXT_BASE + ["--host_loop", "--lanczos_iters", "20"]
+# 9c/9d: 10 iterations per run (20 before phase 13)
+PLAIN_ITERS = 10
+PLAIN_ARGV = EXT_BASE + ["--host_loop", "--lanczos_iters", str(PLAIN_ITERS)]
 LW_TRACE_TOL = 1e-2  # |trace| over max(1, max |lambda|) per block (the golden test's)
 LW_T_RTOL = 1e-5  # h_0's T against the in-core operator, of max |T|
 GGN_PSD_TOL = 1e-4  # lowest Ritz value >= -tol * lambda_max
@@ -253,8 +304,9 @@ ADAM_ARGV = ["--model", "gpt2", "--batch_size", "8", "--max_length", "512", "--a
 # 2 x ADAM_N-step run that makes the checkpoint.
 RESUME_LOSS_ATOL = 1e-6
 RESUME_N = 20
+# 10 iterations (20 before phase 13), to leave room for it
 CKPT_BASE = ["--model", "gpt2", "--dataset", f"local:{STDLIB}", "--num_batches", "1",
-             "--batch_size", "8", "--max_length", "512", "--host_loop", "--lanczos_iters", "20"]
+             "--batch_size", "8", "--max_length", "512", "--host_loop", "--lanczos_iters", "10"]
 CKPT_SPECTRUM_ARGV = CKPT_BASE + ["--hvp_precision", "high"]
 # 10b: the f32 HVP at the 1000-step checkpoint against the float64
 # difference first read 6.45e-3, 320x 7c's limit at init, while the
@@ -268,7 +320,7 @@ TINY_ADAM_ARGV = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "
 TINY_ADAM_RTOL = 1e-5  # 10d card against CPU, per-step losses
 # phase 11: the precision ladder at the init and the 1000-step checkpoint,
 # GPT-2 124M, one stdlib batch of bs8 x seq512
-PROBE_ITERS = 10  # reorthogonalised Lanczos iterations per probe arm
+PROBE_ITERS = 6  # reorthogonalised Lanczos iterations per probe arm (10 before phase 13)
 PROBE_ARMS = ("default", "TF32_TF32_F32", "high")  # against the "highest" referee
 AUTO_ARGV = CKPT_BASE + ["--hvp_precision", "auto"]
 AUTO_TOL = 1e-3  # the planner's bar on the chosen arm's extreme-Ritz error
@@ -295,6 +347,7 @@ SECOND_ORDER_ARGV = ["--model", "gpt2", "--dataset", "random", "--batch_size", "
                      "--max_length", "512", "--num_batches", "2", "--max_steps", "2",
                      "--seed", "0"]  # --damping 1e-3 --cg_iters 20, the defaults
 CG_MAX_ITERS = 20
+SECOND_ORDER_STEPS = 1  # gn and ngd steps each in 12b (2 before phase 13)
 CG_RESIDUAL_RTOL = 1e-3  # reported ‖r‖ against ‖(G + λI)x − g‖ from a fresh matvec
 # 12c/12d: min_leaf_size 2,000,000 keeps wte and the 24 MLP kernels (2,359,296
 # each); 3,000,000 keeps wte alone (38,597,376)
@@ -329,6 +382,52 @@ TINY_TRAIN_CASES = {
 }
 TINY_TRAIN_LOSS_RTOL = 1e-5
 TINY_TRAIN_RITZ_RTOL = 1e-3
+# phase 13: the other language-model families at full width, every run
+# through a CLI at fp32 HVPs on the card machine's stdlib bytes (phase 10's
+# corpus), one batch
+PYTHIA_P = 1_414_647_808  # Pythia-1.4B: 2048 wide, 24 layers, untied 50304-token head
+LLAMA_P = 134_105_856  # llama-134m
+LM_BASE = ["--dataset", f"local:{STDLIB}", "--num_batches", "1", "--hvp_precision", "high",
+           "--vector_seed", "997"]
+LM_GAMMA_TOL = 1e-6  # |sum of the SLQ weights - 1|
+# 13a: artifacts/pythia1p4b_r3's protocol (bs1, --bigmodel with bf16 Krylov
+# vectors, 15 iterations) at seq512; the JAX package cut it to seq256 only
+# to fit a 16 GB chip
+PYTHIA_SPECTRUM_ARGV = ["--model", "pythia-1.4b", "--batch_size", "1", "--max_length", "512",
+                        "--host_loop", "--bigmodel", "--lanczos_iters", "15"] + LM_BASE
+# 13b: LanczosSGD at full width, k=4, a bf16 basis, one refresh and one
+# frozen step (--max_length is added: 512, or 256 if 512 does not fit).
+# delta 1e4 (> 10 max |lambda|) makes the adjust coefficients 1/lambda -
+# 1/(lambda + delta) near 1/lambda; at the CLI's default 1e-4 they are
+# about 1e-10 and the term vanishes in the f32 rounding of g + term, so no
+# comparison of the step could see the kernel pair's part in it
+PYTHIA_TRAIN_ARGV = ["--model", "pythia-1.4b", "--dataset", f"local:{STDLIB}", "--num_batches",
+                     "2", "--batch_size", "1", "--optimiser", "lanczos-host", "--k", "4",
+                     "--basis_bf16", "--lanczos_momentum", "0", "--refresh_every", "2",
+                     "--max_steps", "2", "--delta", "1e4", "--lr", "1e-3", "--seed", "0"]
+TERM_RTOL = 1e-5  # 13b frozen step's w and adjust term against the plain versions (phase 3's bar)
+TERM_FLOOR_MAX = 1e-3  # the f32 rounding of g + term, of the term: the comparison must resolve it
+# 13c, 13d: the llama134m_r3 and moe_r3 protocols, 1 x bs8 x seq512, 20 iterations
+LLAMA_SPECTRUM_ARGV = ["--model", "llama-134m", "--batch_size", "8", "--max_length", "512",
+                       "--attn_block_q", "512", "--loss_chunk", "512", "--host_loop",
+                       "--lanczos_iters", "20"] + LM_BASE
+MOE_SPECTRUM_ARGV = [a if a != "llama-134m" else "gpt2-moe" for a in LLAMA_SPECTRUM_ARGV]
+LLAMA_TRAIN_ARGV = [a if a != "gpt2" else "llama-134m" for a in TRAIN_ARGV]  # phase 4's run
+# 13e: the tiny configs, card against CPU, knobs as tests/test_torch_lm_families_cli.py
+TINY_FAMILIES = {
+    "llama_tiny": ["--model", "llama-tiny"],
+    "pythia_70m": ["--model", "pythia-70m"],
+    "moe_dense": ["--model", "gpt2-tiny", "--experts", "4"],
+    "moe_top2": ["--model", "gpt2-tiny", "--experts", "4", "--moe_top_k", "2"],
+}
+TINY_FAMILY_SPECTRUM = ["--batch_size", "1", "--max_length", "16", "--num_batches", "1",
+                        "--host_loop", "--lanczos_iters", "8", "--hvp_precision", "high",
+                        "--vector_seed", "5"]
+TINY_FAMILY_TRAIN = ["--batch_size", "1", "--max_length", "16", "--num_batches", "2",
+                     "--optimiser", "lanczos-host", "--k", "3", "--delta", "10", "--lr", "0.01",
+                     "--refresh_every", "2", "--lanczos_momentum", "0.5", "--max_steps", "2",
+                     "--no-basis_bf16"]
+LORA_RANK, LORA_K = 4, 4
 # phase 3: the per-leaf shapes of phase 12 -- k=4 on an MLP kernel and on
 # wte, timed in both dtypes -- and small leaves at unaligned offsets of a
 # flat gradient (gpt2-tiny's 768- and 2304-wide rows, a 2-entry leaf)
@@ -340,6 +439,8 @@ LEAF_CHECKED = ((torch.float32, 10, 768, 1), (torch.bfloat16, 10, 768, 1),
 # a basis of many rows on the ring: its stages hold 12 of the 256 rows, so
 # pass 2 sweeps each chunk 22 times (256 x 2**24 bf16 = 8.6 GB)
 ROW_SWEEP = (torch.bfloat16, 256, 1 << 24)
+# 13b's shape: Pythia-1.4B's (4, P) bf16 basis, k * P = 5.66e9 >= 2**31
+PYTHIA_SHAPE = (torch.bfloat16, 4, PYTHIA_P)
 CARD = torch.device("cuda")
 
 
@@ -351,8 +452,17 @@ def card_line() -> str:
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.double(), b.double()
-    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    """||a - b|| / ||b|| in float64, summed over slices of 2**26 entries (a
+    float64 copy of a 1.41e9-entry vector would take 11.3 GB)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    for s in range(0, b.numel(), 1 << 26):
+        x, y = a[s:s + (1 << 26)].double(), b[s:s + (1 << 26)].double()
+        num += float(torch.sum((x - y) ** 2))
+        den += float(torch.sum(y * y))
+    if den == 0:
+        return math.inf if num else math.nan
+    return math.sqrt(num / den)
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -360,15 +470,18 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def timings(kernel, plain, library, *, nbytes: float, flops: float) -> dict:
+def timings(kernel, plain, library, *, nbytes: float, flops: float, big: bool = False) -> dict:
     """Kernel and library call timed in turns on one card: 10 warm-up
     launches each, then 5 rounds of (kernel, library, library, kernel), 20
     launches a timing, nvidia-smi sampled beside; median and min-max of the
-    10 timings of each.  Then the plain version, and the bound."""
+    10 timings of each (``big``: 2 warm-up launches, 3 rounds, 4 launches a
+    timing, for a shape whose library call takes tens of ms).  Then the
+    plain version, and the bound."""
     from hessian_llm_vision_tpu_torch.utils.cuda_timing import in_turns, smi_samples, time_ms
 
+    turns = dict(rounds=3, iters=4, warmup=2) if big else dict(rounds=5, iters=20, warmup=10)
     with smi_samples() as smi:
-        t = in_turns({"kernel": kernel, "library": library}, rounds=5, iters=20, warmup=10)
+        t = in_turns({"kernel": kernel, "library": library}, **turns)
     plain_ms = time_ms(plain, iters=5, warmup=1)
     bound, bound_by = bound_ms(nbytes, flops)
     return {"ms": t["kernel"]["ms"], "ms_spread": [t["kernel"]["min"], t["kernel"]["max"]],
@@ -410,6 +523,10 @@ def call_costs(fns: dict, *, calls: int, traced: int = 20) -> dict:
                         for d in by_name.values())
         out[name] = {"host_us": host_us, "device_us": device_us, "device_rows": len(rows) / traced}
     return out
+
+
+def _summed(counts: list) -> dict:
+    return {n: sum(c[n] for c in counts) for n in TPU_KERNELS}
 
 
 def without_smi(t: dict) -> dict:
@@ -458,12 +575,15 @@ def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool, g_offset: int
     }
     ok = (repeatable and paths_equal and res["rel_l2_vs_reference"] <= 1e-5
           and res["rel_l2_dots"] <= 1e-5)
+    # freed before the bf16 plain version: at (4, 1.41e9) its f32 copy of V
+    # alone takes 22.6 GB
+    del out_same_w, axpy_ref, ref
     if dtype == torch.bfloat16:
         res["rel_l2_vs_bf16_plain"] = rel_l2(out, spectral.rank_k_apply_bf16(g, V, c))
         ok = ok and res["rel_l2_vs_bf16_plain"] <= 2e-3
-    del out_same_w, axpy_ref, ref
     if timed:
         es = V.element_size()
+        big = p > 4 * P_124M  # 13b's shape: torch.mv alone takes 64 ms there
         # library yardstick: torch.mv / torch.addmv take one dtype, so with a
         # bf16 basis g and w are rounded to bf16 (as rank_k_apply_bf16 does)
         gl, wl = g.to(dtype), w_ref.to(dtype)
@@ -471,20 +591,21 @@ def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool, g_offset: int
             lambda: kernels.rank_k_dots(g, V, c),
             lambda: spectral.rank_k_dots_reference(g, V, c),
             lambda: torch.mv(V, gl),
-            nbytes=k * p * es + 4 * p + 8 * k, flops=2 * k * p,
+            nbytes=k * p * es + 4 * p + 8 * k, flops=2 * k * p, big=big,
         )
         res["rank_k_axpy"] = timings(
             lambda: kernels.rank_k_axpy(g, V, w_ref),
             lambda: spectral.rank_k_axpy_reference(g, V, w_ref),
             lambda: torch.addmv(gl, V.t(), wl),
-            nbytes=k * p * es + 8 * p + 4 * k, flops=2 * k * p + p,
+            nbytes=k * p * es + 8 * p + 4 * k, flops=2 * k * p + p, big=big,
         )
         costs = call_costs({
             "rank_k_dots": lambda: kernels.rank_k_dots(g, V, c),
             "rank_k_dots_library": lambda: torch.mv(V, gl),
             "rank_k_axpy": lambda: kernels.rank_k_axpy(g, V, w_ref),
             "rank_k_axpy_library": lambda: torch.addmv(gl, V.t(), wl),
-        }, calls=COST_CALLS if p < P_124M else COST_CALLS // 4)
+        }, calls=8 if big else COST_CALLS if p < P_124M else COST_CALLS // 4,
+            traced=4 if big else 20)
         for name in ("rank_k_dots", "rank_k_axpy"):
             res[name]["max_abs_err"] = res[f"{name.split('_')[-1]}_max_abs_err"]
             res[name].update(costs[name])
@@ -925,14 +1046,16 @@ def hutchpp_124m(spectrum_cli, kernels) -> dict:
         meta = npz_meta(path)
     trace = float(meta["hutchpp_trace"])
     wall = cli_wall_s(lines)
-    hpp_s = float(reported(lines, r"^trace \(hutch\+\+ 30 matvecs\) = \S+ \(([\d.]+)s\)")[0])
+    hpp_s = float(reported(lines, rf"^trace \(hutch\+\+ {HUTCHPP_MATVECS} matvecs\) = \S+ "
+                                  r"\(([\d.]+)s\)")[0])
     out = {"hutchpp_trace": trace, "hutchpp_matvecs": int(meta["hutchpp_matvecs"]),
            "lanczos_hvps": len(spec.eigvals), "lanczos_cli_wall_s": wall, "hutchpp_s": hpp_s,
-           "hvps_per_s": (len(spec.eigvals) + 30) / (wall + hpp_s), "main_s": main_s,
+           "hvps_per_s": (len(spec.eigvals) + HUTCHPP_MATVECS) / (wall + hpp_s), "main_s": main_s,
            "max_memory_allocated_bytes": peak, "rank_k_launches": dict(kernels.LAUNCHES)}
     print(json.dumps({"hutchpp_124m": out}))
     check_gates("8c Hutch++", {"finite trace": math.isfinite(trace),
-                               "30 matvecs in the artifact": out["hutchpp_matvecs"] == 30})
+                               f"{HUTCHPP_MATVECS} matvecs in the artifact":
+                                   out["hutchpp_matvecs"] == HUTCHPP_MATVECS})
     return out
 
 
@@ -1030,7 +1153,7 @@ def layerwise_124m(spectrum_cli, spectra, kernels) -> dict:
     q[off:off + size] = torch.randn(size, generator=torch.Generator().manual_seed(997)).to(dev)
     mask = trees.subtree_mask(wl.params, lambda n: n.startswith(labels[0] + "/"))
     op = LayerHessianOperator(wl.loss_fn, wl.params, wl.batches[0], mask)
-    ref = lanczos(op.matvec, op.dim, 10, v0=q, reorth=False, store_basis=False)
+    ref = lanczos(op.matvec, op.dim, LW_ITERS, v0=q, reorth=False, store_basis=False)
     got = seen["t"][labels[0]]
     t_scale = float(torch.cat([ref.alphas, ref.betas]).abs().max())
     t_err = max(float((got.alphas - ref.alphas).abs().max()),
@@ -1136,7 +1259,7 @@ def _peak_run(spectrum_cli, kernels, argv):
 
 
 def linearized_and_bigmodel_124m(spectrum_cli, kernels, hvp_ms: float) -> dict:
-    """Phases 9c and 9d: the plain host loop (20 HVPs), then --linearized
+    """Phases 9c and 9d: the plain host loop (PLAIN_ITERS HVPs), then --linearized
     (at the first of bs8, bs4, bs2 whose residuals fit, with the plain loop
     again at a cut batch), then --bigmodel with float32 and bfloat16
     vectors, each against the plain run of its batch."""
@@ -1168,7 +1291,7 @@ def linearized_and_bigmodel_124m(spectrum_cli, kernels, hvp_ms: float) -> dict:
         "tangent_over_plain_iteration": tangent_s / plain_iter,
         "extremes_rel_vs_plain": extremes_rel(lin.eigvals, ref.eigvals),
         "cli_wall_s": cli_wall_s(lines), "main_s": main_s,
-        "hvps_per_s": 20 / cli_wall_s(lines), "max_memory_allocated_bytes": peak,
+        "hvps_per_s": PLAIN_ITERS / cli_wall_s(lines), "max_memory_allocated_bytes": peak,
         "rank_k_launches": launches}
     for q in ("float32", "bfloat16"):
         big, lines, iters, main_s, peak, launches = _peak_run(
@@ -1177,7 +1300,7 @@ def linearized_and_bigmodel_124m(spectrum_cli, kernels, hvp_ms: float) -> dict:
         out[f"bigmodel_{q}"] = {
             "extremes_rel_vs_plain": extremes_rel(big.eigvals, plain.eigvals),
             "limit": BIG_RTOL[q], "iter_s_median": it, "iter_over_plain": it / plain_iter,
-            "cli_wall_s": cli_wall_s(lines), "hvps_per_s": 20 / cli_wall_s(lines),
+            "cli_wall_s": cli_wall_s(lines), "hvps_per_s": PLAIN_ITERS / cli_wall_s(lines),
             "main_s": main_s, "max_memory_allocated_bytes": peak, "rank_k_launches": launches}
     print(json.dumps({"linearized_and_bigmodel_124m": out}))
     runs = [out["plain"], out["linearized"], out["bigmodel_float32"], out["bigmodel_bfloat16"]]
@@ -1964,7 +2087,7 @@ def fused_lanczos_124m(train_cli, kernels, phase4: list) -> dict:
 
 
 def second_order_124m(train_cli, kernels) -> dict:
-    """Phase 12b: --optimiser gn and ngd, 2 steps each at the defaults; then
+    """Phase 12b: --optimiser gn and ngd, SECOND_ORDER_STEPS each at the defaults; then
     one GN step called directly, its reported CG residual against
     ‖(G + λI)x − g‖ recomputed from a fresh GGN matvec and gradient."""
     from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
@@ -1977,7 +2100,8 @@ def second_order_124m(train_cli, kernels) -> dict:
     for opt in ("gn", "ngd"):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        records, run_s = _train(train_cli, SECOND_ORDER_ARGV + ["--optimiser", opt])
+        records, run_s = _train(train_cli, SECOND_ORDER_ARGV + [
+            "--optimiser", opt, "--max_steps", str(SECOND_ORDER_STEPS)])
         out[opt] = {"steps": records, "run_s": run_s, "launches": dict(kernels.LAUNCHES),
                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     args = train_cli.build_parser().parse_args(SECOND_ORDER_ARGV + ["--optimiser", "gn"])
@@ -2001,7 +2125,8 @@ def second_order_124m(train_cli, kernels) -> dict:
     del wl, x, g, op
     print(json.dumps({"second_order_124m": out}))
     check_gates("12b Gauss-Newton and natural gradient", {
-        **{f"{opt}: 2 steps, finite loss": len(out[opt]["steps"]) == 2 and all(
+        **{f"{opt}: {SECOND_ORDER_STEPS} steps, finite loss":
+           len(out[opt]["steps"]) == SECOND_ORDER_STEPS and all(
             math.isfinite(r["loss"]) for r in out[opt]["steps"]) for opt in ("gn", "ngd")},
         **{f"{opt}: cg_iters <= {CG_MAX_ITERS}": all(
             1 <= r["cg_iters"] <= CG_MAX_ITERS for r in out[opt]["steps"]) for opt in ("gn", "ngd")},
@@ -2362,8 +2487,398 @@ def train_ext_summary(ext: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the other language-model families at full width
+
+
+def _spectrum_gates(what: str, spec, back, iters: list, n_iters: int) -> dict:
+    """13a's gates on a T-only spectrum: finite Ritz values, lambda_max > 0
+    > lambda_min, the weights summing to 1 within 1e-6, |trace| <= 1e-2
+    lambda_max, the artifact read back."""
+    ev = spec.eigvals
+    lam_max, lam_min = float(ev.max()), float(ev.min())
+    trace = float(torch.dot(spec.eigvals.double(), spec.gammas.double()))
+    gamma_sum = float(spec.gammas.double().sum())
+    check_gates(what, {
+        f"{n_iters} iterations timed": len(iters) == n_iters,
+        "finite Ritz values": bool(torch.isfinite(ev).all()),
+        "lambda_max > 0 > lambda_min": lam_max > 0 > lam_min,
+        "gammas sum to 1 within 1e-6": abs(gamma_sum - 1) <= LM_GAMMA_TOL,
+        "|trace| <= 1e-2 lambda_max": abs(trace) <= 1e-2 * lam_max,
+        "artifact reads back": all(torch.equal(a, b) for a, b in
+                                   ((back.eigvals, spec.eigvals), (back.gammas, spec.gammas))),
+    })
+    return {"lambda_max": lam_max, "lambda_min": lam_min, "trace_estimate": trace,
+            "gamma_sum": gamma_sum}
+
+
+@contextlib.contextmanager
+def _init_seconds():
+    """The seconds of each model init the CLIs run inside the block
+    (``cli.workloads.init_model``, synchronised with the card), appended to
+    the yielded list."""
+    from hessian_llm_vision_tpu_torch.cli import workloads
+
+    seconds, init_model = [], workloads.init_model
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        model = init_model(*args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return model
+
+    workloads.init_model = timed
+    try:
+        yield seconds
+    finally:
+        workloads.init_model = init_model
+
+
+def cpu_draw_init_seconds(argv) -> float:
+    """Seconds to build ``argv``'s model with its weights drawn from a CPU
+    generator and moved to the card: what ``cli.workloads.init_model`` does
+    below ``CARD_INIT_MIN_PARAMS``, against the card draw it does above."""
+    from hessian_llm_vision_tpu_torch.cli import spectrum, workloads
+
+    model_cls, cfg = workloads.lm_config(spectrum.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = workloads.init_model(model_cls, cfg, 0, torch.device("cpu")).to(CARD)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def lm_spectrum(spectrum_cli, spectra, kernels, argv, what: str) -> dict:
+    """A T-only host-loop spectrum through cli.spectrum.main from fresh
+    memory: 13a's gates, the peak, the seconds per iteration and the init
+    seconds; no rank-k launch."""
+    n_iters = int(argv[argv.index("--lanczos_iters") + 1])
+    with tempfile.TemporaryDirectory() as tmp, _init_seconds() as init_s:
+        path = os.path.join(tmp, "spec")
+        spec, lines, iters, main_s, peak, launches = _peak_run(
+            spectrum_cli, kernels, argv + ["--out_spectrum", path])
+        back = spectra.load_spectrum(path)
+    res = {"iters": n_iters, "iter_s": {"median": statistics.median(iters), "min": min(iters),
+                                        "max": max(iters), "first": iters[0]},
+           "init_s": init_s[0], "main_s": main_s, "cli_wall_s": cli_wall_s(lines),
+           "max_memory_allocated_bytes": peak, "rank_k_launches": launches,
+           **_spectrum_gates(what, spec, back, iters, n_iters)}
+    check_gates(what, {"no rank-k launch": all(n == 0 for n in launches.values())})
+    return res
+
+
+@contextlib.contextmanager
+def _adjust_calls(kernels, keep: bool):
+    """Every ``HostLanczosSGDTrainer._adjust_update`` inside the block,
+    appended to the first yielded list as (step, basis shape, basis dtype).
+    With ``keep``, the second step's (the first frozen one at
+    refresh_every 2) inputs and outputs go into the yielded dict: the
+    trainer, its state, the gradient, the eigenvalues, the params and
+    momentum before the update (flat copies), pass 1's w and the adjusted
+    gradient the trainer's kernel pair returned."""
+    from hessian_llm_vision_tpu_torch.optim import lanczos_sgd_host as lsh
+
+    calls, snap = [], {}
+    adjust, apply, dots = (lsh.HostLanczosSGDTrainer._adjust_update, lsh.spectral_adjust,
+                           kernels.rank_k_dots)
+
+    def recorded(self, state, g_flat):
+        calls.append((state.step, tuple(state.basis.shape), str(state.basis.dtype)))
+        if keep and state.step == 1:
+            snap.update(trainer=self, state=state, g=g_flat, eigvals=state.eigvals.clone(),
+                        p_old=self.fl.flatten(state.params),
+                        buf_old=self.fl.flatten(state.momentum))
+        return adjust(self, state, g_flat)
+
+    def kept_apply(*args):
+        adj = apply(*args)
+        if snap and "adj" not in snap:
+            snap["adj"] = adj
+        return adj
+
+    def kept_dots(*args):
+        w = dots(*args)
+        if snap and "w" not in snap:
+            snap["w"] = w.clone()
+        return w
+
+    lsh.HostLanczosSGDTrainer._adjust_update = recorded
+    lsh.spectral_adjust, kernels.rank_k_dots = kept_apply, kept_dots
+    try:
+        yield calls, snap
+    finally:
+        lsh.HostLanczosSGDTrainer._adjust_update = adjust
+        lsh.spectral_adjust, kernels.rank_k_dots = apply, dots
+
+
+def frozen_step_check(spectral, snap: dict) -> dict:
+    """The frozen step against the plain versions, in column slices of V
+    and g (pass 1 sums its slices' dot products, pass 2 is per column):
+
+    * ``w_rel``: the trainer's pass-1 output w against the plain w;
+    * ``term_rel``: the trainer's adjusted gradient against the plain one,
+      fl(g + Vᵀw), over the norm of the adjust term Vᵀw itself;
+      ``term_floor`` is the plain version's own f32 rounding of g + Vᵀw
+      over that norm, the finest difference the comparison resolves, and
+      ``term_share`` the term's norm over the adjusted gradient's;
+    * ``replay_rel``: the update of the params against a plain replay of
+      the momentum step, as 12c's."""
+    trainer, state, g = snap["trainer"], snap["state"], snap["g"]
+    cfg, V, adj = trainer.cfg, state.basis, snap.pop("adj")
+    c = spectral.adjust_coeffs(snap["eigvals"], cfg.delta)
+    cols = [(s, s + (1 << 27)) for s in range(0, g.numel(), 1 << 27)]
+    w = sum(spectral.rank_k_dots_reference(g[s:e], V[:, s:e], c) for s, e in cols)
+    buf = snap.pop("buf_old").mul_(cfg.momentum)
+    sq = dict.fromkeys(("diff", "term", "rounding", "adjusted"), 0.0)
+    for s, e in cols:
+        t = spectral.rank_k_axpy_reference(torch.zeros_like(g[s:e]), V[:, s:e], w)
+        a = g[s:e] + t  # = rank_k_axpy_reference(g[s:e], V[:, s:e], w)
+        sq["diff"] += float(torch.sum((adj[s:e].double() - a.double()) ** 2))
+        sq["term"] += float(torch.sum(t.double() ** 2))
+        sq["rounding"] += float(torch.sum((a.double() - g[s:e].double() - t.double()) ** 2))
+        sq["adjusted"] += float(torch.sum(a.double() ** 2))
+        buf[s:e] += a
+        if cfg.weight_decay:
+            buf[s:e] += cfg.weight_decay * snap["p_old"][s:e]
+        del t, a
+    del adj
+    term = math.sqrt(sq["term"])
+    # the trainer's own rounding: p - (lr buf), both updates relative to p
+    p_old = snap.pop("p_old")
+    replay = (p_old - float(cfg.lr) * buf).sub_(p_old)
+    del buf
+    update = trainer.fl.flatten(state.params).sub_(p_old)
+    return {"w_rel": rel_l2(snap["w"], w), "term_rel": math.sqrt(sq["diff"]) / term,
+            "term_floor": math.sqrt(sq["rounding"]) / term,
+            "term_share": term / math.sqrt(sq["adjusted"]), "replay_rel": rel_l2(update, replay)}
+
+
+def lm_lanczos_sgd(train_cli, kernels, spectral, argv, what: str, *, replay: bool) -> dict:
+    """LanczosSGD through cli.train.main from fresh memory, the launch
+    counts zeroed just before and read after each step; with ``replay`` the
+    frozen step against a plain-version replay."""
+    records, launches = [], []
+
+    def on_step(step, rec):
+        torch.cuda.synchronize()
+        launches.append(dict(kernels.LAUNCHES))
+        kernels.reset_launch_counts()
+        records.append(rec)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _adjust_calls(kernels, replay) as (shapes, snap), _init_seconds() as init_s:
+        kernels.reset_launch_counts()
+        train_cli.main(argv, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    res = {"steps": records, "launches_per_step": launches, "adjust_shapes": shapes,
+           "init_s": init_s[0], "max_memory_allocated_bytes": peak,
+           "refresh_step_s": [r["seconds"] for r in records[::2]],
+           "frozen_step_s": [r["seconds"] for r in records[1::2]]}
+    if replay:
+        res["frozen_step"] = frozen_step_check(spectral, snap)
+    snap.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = int(argv[argv.index("--max_steps") + 1])
+    gates = {
+        f"{n} steps": len(records) == n,
+        "finite loss and Ritz values": all(math.isfinite(v) for r in records
+                                           for v in (r["loss"], r["eig_max"], r["eig_min"])),
+        "each kernel once per step": all(c == {k: 1 for k in TPU_KERNELS} for c in launches),
+    }
+    if replay:
+        fs = res["frozen_step"]
+        gates.update({
+            "frozen step's pass 1 (w) = the plain version's": fs["w_rel"] <= TERM_RTOL,
+            "adjust term resolved (f32 rounding of g + term <= 1e-3 of it)":
+                fs["term_floor"] <= TERM_FLOOR_MAX,
+            "frozen step's adjust term = the plain version's, within 1e-5 + that rounding":
+                fs["term_rel"] <= TERM_RTOL + fs["term_floor"],
+            "frozen step = plain-version replay": fs["replay_rel"] <= REPLAY_RTOL,
+        })
+    check_gates(what, gates)
+    return res
+
+
+def pythia_1p4b(spectrum_cli, train_cli, spectra, kernels, spectral) -> dict:
+    """13a and 13b: Pythia-1.4B at full width and depth."""
+    out = {"13a_spectrum": lm_spectrum(spectrum_cli, spectra, kernels, PYTHIA_SPECTRUM_ARGV,
+                                       "13a Pythia-1.4B spectrum")}
+    out["13a_spectrum"]["cpu_draw_init_s"] = cpu_draw_init_seconds(PYTHIA_SPECTRUM_ARGV)
+    print(json.dumps({"13a_pythia_spectrum": out["13a_spectrum"]}))
+    cut = []
+    for seq in ("512", "256"):  # the one allowed cut: seq 256, the JAX protocol's
+        argv = PYTHIA_TRAIN_ARGV + ["--max_length", seq]
+        try:
+            res = lm_lanczos_sgd(train_cli, kernels, spectral, argv,
+                                 "13b Pythia-1.4B LanczosSGD", replay=True)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            cut.append({"max_length": int(seq), "error": str(e).splitlines()[0]})
+            print(f"13b: out of memory at seq {seq}; cutting to seq 256", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise SystemExit(f"13b: LanczosSGD on Pythia-1.4B fits at no length: {cut}")
+    res.update({"max_length": int(seq), "oom_at": cut})
+    check_gates("13b Pythia-1.4B LanczosSGD", {
+        "every adjust at (4, 1,414,647,808) bf16": all(
+            sh == (4, PYTHIA_P) and dt == "torch.bfloat16" for _, sh, dt in res["adjust_shapes"]),
+    })
+    out["13b_lanczos_sgd"] = res
+    print(json.dumps({"13b_pythia_lanczos_sgd": res}))
+    return out
+
+
+def llama_134m(spectrum_cli, train_cli, spectra, kernels, spectral) -> dict:
+    """13c: LLaMA-134m at full width: the llama134m_r3 spectrum, its f32 HVP
+    against a float64 central difference, 4 LanczosSGD steps."""
+    out = {"spectrum": lm_spectrum(spectrum_cli, spectra, kernels, LLAMA_SPECTRUM_ARGV,
+                                   "13c LLaMA-134m spectrum")}
+    torch.cuda.empty_cache()
+    fd, _ = hvp_against_central_difference(spectrum_cli, LLAMA_SPECTRUM_ARGV)
+    out["hvp_vs_central_difference"] = fd
+    check_gates("13c LLaMA-134m HVP against the float64 central difference", {
+        "f32 HVP within the limit": fd["rel_l2_hvp_vs_fd"] <= HVP_FD_LIMIT,
+        "reference's truncation within the limit": fd["rel_l2_fd2_vs_fd4"] <= HVP_FD_LIMIT,
+    })
+    train = lm_lanczos_sgd(train_cli, kernels, spectral, LLAMA_TRAIN_ARGV,
+                           "13c LLaMA-134m LanczosSGD", replay=False)
+    check_gates("13c LLaMA-134m LanczosSGD", {
+        "every adjust at (10, 134,105,856) bf16": all(
+            sh == (10, LLAMA_P) and dt == "torch.bfloat16" for _, sh, dt in train["adjust_shapes"]),
+    })
+    out["lanczos_sgd"] = train
+    print(json.dumps({"13c_llama_134m": out}))
+    return out
+
+
+def tiny_families_card_vs_cpu(spectrum_cli, train_cli, kernels) -> dict:
+    """13e: the tiny configs through both CLIs, card against CPU: Ritz
+    extremes within 1e-3, the trainer's first loss within 1e-5 and its Ritz
+    values within 1e-3; a top-k run warns; LanczosSGD over llama-tiny's
+    LoRA adapters launches the rank-k pair on the adapters' P."""
+    from hessian_llm_vision_tpu_torch.models.moe import TopKCurvatureWarning
+
+    out, warned = {}, {}
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        for name, model in TINY_FAMILIES.items():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                card, cpu = (spectrum_cli.main(model + TINY_FAMILY_SPECTRUM + extra)[0]
+                             for extra in ([], ["--cpu"]))
+                recs = ([], [])
+                for r, extra in zip(recs, ([], ["--cpu"])):
+                    train_cli.main(model + TINY_FAMILY_TRAIN + extra,
+                                   on_step=lambda s, rec, r=r: r.append(rec))
+            warned[name] = sum(issubclass(w.category, TopKCurvatureWarning) for w in caught)
+            out[name] = {"spectrum_extremes_rel": extremes_rel(card.eigvals, cpu.eigvals),
+                         "train_step0_loss_rel": _rel(recs[0][0]["loss"], recs[1][0]["loss"]),
+                         "train_ritz_rel": max(_rel(a[k], b[k]) for a, b in zip(*recs)
+                                               for k in ("eig_max", "eig_min")),
+                         "topk_warnings": warned[name]}
+    out["lora_llama_tiny"] = lora_lanczos_sgd_card_vs_cpu(train_cli, kernels)
+    print(json.dumps({"13e_tiny_card_vs_cpu": out}))
+    lora = out["lora_llama_tiny"]
+    check_gates("13e tiny families, card against CPU", {
+        **{f"{n} spectrum extremes": r["spectrum_extremes_rel"] <= TINY_TRAIN_RITZ_RTOL
+           for n, r in out.items() if n in TINY_FAMILIES},
+        **{f"{n} first loss": r["train_step0_loss_rel"] <= TINY_TRAIN_LOSS_RTOL
+           for n, r in out.items() if n in TINY_FAMILIES},
+        **{f"{n} trainer Ritz values": r["train_ritz_rel"] <= TINY_TRAIN_RITZ_RTOL
+           for n, r in out.items() if n in TINY_FAMILIES},
+        "the top-k runs warn, the others not": all(
+            (warned[n] > 0) == ("--moe_top_k" in m) for n, m in TINY_FAMILIES.items()),
+        "LoRA losses": lora["loss_rel"] <= TINY_TRAIN_LOSS_RTOL,
+        "LoRA Ritz values": lora["ritz_rel"] <= TINY_TRAIN_RITZ_RTOL,
+        "LoRA: each kernel once per step": all(
+            c == {k: 1 for k in TPU_KERNELS} for c in lora["launches_per_step"]),
+    })
+    return out
+
+
+def lora_lanczos_sgd_card_vs_cpu(train_cli, kernels) -> dict:
+    """HostLanczosSGDTrainer over rank-4 LoRA adapters of llama-tiny (drawn
+    on the CPU, the same on both devices), 2 steps on the card and the CPU."""
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.models import lora
+    from hessian_llm_vision_tpu_torch.optim import LanczosSGDConfig
+    from hessian_llm_vision_tpu_torch.optim.lanczos_sgd_host import HostLanczosSGDTrainer
+
+    args = train_cli.build_parser().parse_args(TINY_FAMILIES["llama_tiny"] + TINY_FAMILY_TRAIN)
+    cfg = LanczosSGDConfig(k=LORA_K, delta=10.0, lr=0.01, momentum=0.9, refresh_every=2)
+    adapters = lora.lora_init(build_workload(args, torch.device("cpu")).params, LORA_RANK,
+                              torch.Generator().manual_seed(0))
+    runs = []
+    for dev in (CARD, torch.device("cpu")):
+        wl = build_workload(args, dev)
+        ad = {n: a.to(dev, copy=True) for n, a in adapters.items()}  # the trainer updates in place
+        trainer = HostLanczosSGDTrainer(lora.lora_loss_fn(wl.loss_fn, wl.params), ad, cfg,
+                                        batch_size=wl.batch_size)
+        state = trainer.init(ad)
+        steps, launches = [], []
+        for i in range(2):
+            kernels.reset_launch_counts()
+            state, m = trainer.step(state, wl.batches[i % len(wl.batches)])
+            launches.append(dict(kernels.LAUNCHES))
+            steps.append({k: float(v) for k, v in m.items()})
+        runs.append({"steps": steps, "launches": launches,
+                     "basis_shape": list(state.basis.shape)})
+    card, cpu = runs
+    return {"P": sum(a.numel() for a in adapters.values()), "basis_shape": card["basis_shape"],
+            "steps": card["steps"], "launches_per_step": card["launches"],
+            "loss_rel": max(_rel(a["loss"], b["loss"]) for a, b in zip(card["steps"], cpu["steps"])),
+            "ritz_rel": max(_rel(a[k], b[k]) for a, b in zip(card["steps"], cpu["steps"])
+                            for k in ("eig_max", "eig_min"))}
+
+
+def lm_families(spectrum_cli, train_cli, spectra, kernels, spectral) -> dict:
+    """Phase 13: 13a-13e, each timed."""
+    out = {}
+    for key, run in (
+        ("13ab", lambda: pythia_1p4b(spectrum_cli, train_cli, spectra, kernels, spectral)),
+        ("13c", lambda: llama_134m(spectrum_cli, train_cli, spectra, kernels, spectral)),
+        ("13d", lambda: lm_spectrum(spectrum_cli, spectra, kernels, MOE_SPECTRUM_ARGV,
+                                    "13d gpt2-moe spectrum")),
+        ("13e", lambda: tiny_families_card_vs_cpu(spectrum_cli, train_cli, kernels)),
+    ):
+        t0 = time.perf_counter()
+        out[key] = run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase {key} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def lm_families_summary(fam: dict) -> dict:
+    a, b = fam["13ab"]["13a_spectrum"], fam["13ab"]["13b_lanczos_sgd"]
+    c, d = fam["13c"], fam["13d"]
+    keys = ("lambda_max", "lambda_min", "trace_estimate", "gamma_sum", "iter_s", "init_s",
+            "max_memory_allocated_bytes")
+    return {
+        "13a_pythia_1p4b_spectrum": {k: a[k] for k in keys + ("cpu_draw_init_s",)},
+        "13b_pythia_1p4b_lanczos_sgd": {k: b[k] for k in (
+            "max_length", "oom_at", "init_s", "refresh_step_s", "frozen_step_s", "frozen_step",
+            "max_memory_allocated_bytes", "launches_per_step")}
+        | {"losses": [r["loss"] for r in b["steps"]]},
+        "13c_llama_134m": {"spectrum": {k: c["spectrum"][k] for k in keys},
+                           "rel_l2_hvp_vs_fd": c["hvp_vs_central_difference"]["rel_l2_hvp_vs_fd"],
+                           "rel_l2_tf32_hvp_vs_fd":
+                               c["hvp_vs_central_difference"]["rel_l2_tf32_hvp_vs_fd"],
+                           "lanczos_sgd_step_s": [r["seconds"] for r in c["lanczos_sgd"]["steps"]]},
+        "13d_gpt2_moe_spectrum": {k: d[k] for k in keys},
+        "13e_tiny": fam["13e"],
+    }
+
+
 def main() -> int:
-    phase(1, "device")
+    t_start = phase(1, "device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -2384,11 +2899,15 @@ def main() -> int:
         for name, use in kernels.ptxas_usage(res.log).items():
             print(f"  {name}: {use['registers']} registers, {use['spill_bytes']} bytes spilled")
     for dtype in TIMED_DTYPES:  # pass 1's and pass 2's plans at the timed shapes
-        for k, p in [(k, P_124M) for k in TIMED_KS] + list(LEAF_TIMED):
+        for k, p in [(10, P_124M), (35, P_124M)] + list(LEAF_TIMED):
             for name, plan in (("rank_k_dots_plan", kernels.dots_launch_plan(k, p, dtype, CARD)),
                                ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dtype, CARD))):
                 print(json.dumps({name: {"dtype": str(dtype).removeprefix("torch."), "k": k,
                                          "P": p, **dataclasses.asdict(plan)}}))
+    dt, k, p = PYTHIA_SHAPE
+    for name, plan in (("rank_k_dots_plan", kernels.dots_launch_plan(k, p, dt, CARD)),
+                       ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dt, CARD))):
+        print(json.dumps({name: {"dtype": "bfloat16", "k": k, "P": p, **dataclasses.asdict(plan)}}))
     print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(3, "rank-k kernels vs plain versions")
@@ -2399,11 +2918,12 @@ def main() -> int:
         # scalar-load path (P not a multiple of the 16-byte vector)
         for k, p in ((10, P_124M), (35, P_124M), (35, 16384), (3, 20000), (5, 20001)):
             checks[(dtype, k, p)] = check_rank_k(
-                kernels, spectral, dtype, k, p, gen, timed=(p == P_124M)
+                kernels, spectral, dtype, k, p, gen, timed=(p == P_124M and k in TIMED_KS)
             )
             torch.cuda.empty_cache()
     for dtype, k in PATH_SHAPES:
-        checks[(dtype, k, P_124M)] = check_rank_k(kernels, spectral, dtype, k, P_124M, gen, timed=True)
+        checks[(dtype, k, P_124M)] = check_rank_k(kernels, spectral, dtype, k, P_124M, gen,
+                                                  timed=(dtype, k) in PATH_TIMED)
         torch.cuda.empty_cache()
     for dtype in TIMED_DTYPES:
         for k, p in LEAF_TIMED:
@@ -2413,13 +2933,16 @@ def main() -> int:
                                                      timed=False, g_offset=offset)
     checks[ROW_SWEEP] = check_rank_k(kernels, spectral, *ROW_SWEEP, gen, timed=False)
     torch.cuda.empty_cache()
+    # 13b's shape, the first with k * P >= 2**31 at full width: V alone 11.3 GB
+    checks[PYTHIA_SHAPE] = check_rank_k(kernels, spectral, *PYTHIA_SHAPE, gen, timed=True)
+    torch.cuda.empty_cache()
     failed = [key for key, r in checks.items() if not r["ok"]]
     if failed:
         raise SystemExit(f"rank-k kernel disagrees with its plain version at {failed}")
     sweep_plan = checks[ROW_SWEEP]["axpy_plan"]
     if not (sweep_plan["ring"] and sweep_plan["rows"] < ROW_SWEEP[1]):
         raise SystemExit(f"the many-row check did not reach pass 2's row sweeps: {sweep_plan}")
-    timed = [(dtype, k) for dtype in TIMED_DTYPES for k in TIMED_KS] + list(PATH_SHAPES)
+    timed = [(dtype, k) for dtype in TIMED_DTYPES for k in TIMED_KS] + list(PATH_TIMED)
     for dtype, k in timed:  # pass 1 and the pair, per timed shape
         d, a = (checks[(dtype, k, P_124M)][n] for n in TPU_KERNELS)
         print(f"{str(dtype).removeprefix('torch.'):8s} k={k:2d}: rank_k_dots "
@@ -2428,7 +2951,7 @@ def main() -> int:
               f"{a['ms']:.3f} ms; pair {d['ms'] + a['ms']:.3f} ms")
     # per call, µs: wall (events, in turns), host (perf_counter), device (trace)
     for key in [(dt, k, P_124M) for dt, k in timed] + [(dt, k, p) for dt in TIMED_DTYPES
-                                                       for k, p in LEAF_TIMED]:
+                                                       for k, p in LEAF_TIMED] + [PYTHIA_SHAPE]:
         for name in TPU_KERNELS:
             t = checks[key][name]
             print(f"{str(key[0]).removeprefix('torch.'):8s} k={key[1]:2d} P={key[2]:>9d} {name}: "
@@ -2583,6 +3106,15 @@ def main() -> int:
     rest = rest_of_training(train_cli, kernels, spectral, spectra, records)
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"train_ext": train_ext_summary(rest)}))
+
+    t0 = phase(13, "the other language-model families: Pythia-1.4B at full width (spectrum, "
+                   "LanczosSGD), LLaMA-134m, gpt2-moe; the tiny configs card vs CPU")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"allocated at the start of phase 13: {torch.cuda.memory_allocated()} bytes")
+    fam = lm_families(spectrum_cli, train_cli, spectra, kernels, spectral)
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"lm_families": lm_families_summary(fam)}))
     lw = rest["12cdf"]
     by_path = {"phase4_train_4_steps": launches,
                "phase7b_spectrum": headline["rank_k_launches"],
@@ -2602,19 +3134,24 @@ def main() -> int:
                "phase11b_auto_plan_probes": prec["11b"]["checkpoint"]["launches"],
                "phase11e_guarded_train": prec["11e"]["launches"],
                "phase12a_fused_lanczos_4_steps": rest["12a"]["launches"],
-               "phase12b_gn_2_steps": rest["12b"]["gn"]["launches"],
-               "phase12b_ngd_2_steps": rest["12b"]["ngd"]["launches"],
+               "phase12b_gn_1_step": rest["12b"]["gn"]["launches"],
+               "phase12b_ngd_1_step": rest["12b"]["ngd"]["launches"],
                "phase12c_host_layerwise_step0": lw["12c"]["steps"][0]["launches"],
                "phase12c_host_layerwise_step1": lw["12c"]["steps"][1]["launches"],
                "phase12d_fused_layerwise_wte": lw["12d"]["launches"],
                "phase12e_snapshots": rest["12e"]["launches"],
                **{f"phase12f_frozen_transforms_{d}": r["launches"]
-                  for d, r in lw["12f"].items()}}
+                  for d, r in lw["12f"].items()},
+               **{f"phase13b_pythia_1p4b_step{i}": c for i, c in enumerate(
+                   fam["13ab"]["13b_lanczos_sgd"]["launches_per_step"])},
+               "phase13c_llama_134m_4_steps": _summed(fam["13c"]["lanczos_sgd"]["launches_per_step"]),
+               "phase13e_lora_llama_tiny_2_steps": _summed(
+                   fam["13e"]["lora_llama_tiny"]["launches_per_step"])}
     # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d), GN/NGD
     # and Adam with snapshots take no rank-k apply; every other path must
     # have launched both kernels
     t_only = ("phase7b", "phase8c", "phase9a", "phase9b", "phase9c", "phase9d", "phase12b",
-              "phase12e")
+              "phase12e")  # and phase 13's spectra, gated to launch none
     for path, counts in by_path.items():
         if not path.startswith(t_only) and not all(counts[n] > 0 for n in TPU_KERNELS):
             raise SystemExit(f"a rank-k kernel was never launched on {path}: {counts}")
@@ -2626,17 +3163,17 @@ def main() -> int:
         entry.update(without_smi(checks[(torch.bfloat16, 10, P_124M)][name]))
         entry.update({"dtype": "bfloat16", "shape": [10, P_124M],
                       "f32": without_smi(checks[(torch.float32, 10, P_124M)][name]),
-                      "k35": {str(dt).removeprefix("torch."): without_smi(checks[(dt, 35, P_124M)][name])
-                              for dt in TIMED_DTYPES},
                       **{f"{str(dt).removeprefix('torch.')}_k{k}":
-                         without_smi(checks[(dt, k, P_124M)][name]) for dt, k in PATH_SHAPES},
+                         without_smi(checks[(dt, k, P_124M)][name]) for dt, k in PATH_TIMED},
                       **{f"{str(dt).removeprefix('torch.')}_k{k}_P{p}":
                          without_smi(checks[(dt, k, p)][name])
-                         for dt in TIMED_DTYPES for k, p in LEAF_TIMED},
+                         for dt in TIMED_DTYPES for k, p in LEAF_TIMED + (PYTHIA_SHAPE[1:],)
+                         if (dt, k, p) in checks},
                       "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
                       "checks_passed": len(checks)})
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,11 @@ def _block_precision_arg(value: str) -> str:
 def add_common_args(parser: argparse.ArgumentParser) -> None:
     """The model/data flags of the JAX CLIs that this port accepts.  Values
     outside the port exit with "not ported yet" in ``build_workload``."""
-    parser.add_argument("--model", default="gpt2-tiny", help="gpt2 | gpt2-tiny")
+    parser.add_argument("--model", default="gpt2-tiny",
+                        help="gpt2 | gpt2-tiny | gpt2-moe | pythia-70m | pythia-160m | "
+                        "pythia-410m | pythia-1.4b | llama-tiny | llama-micro | llama-134m | "
+                        "llama-7b (spiral, mlp, simplenet, vgg16 and resnet50 are not "
+                        "ported yet: ROADMAP A12b)")
     parser.add_argument("--dataset", default="random",
                         help="random | markov | local:<path> (byte-level corpus "
                         "from on-disk text); wikipedia is not ported yet")
@@ -48,8 +52,24 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         "mode = outer 'high' + blocks 'default'; unset inherits")
     parser.add_argument("--loss_chunk", type=int, default=None,
                         help="chunked-vocab LM loss: chunk size in sequence positions")
-    parser.add_argument("--experts", type=int, default=0, help="not ported yet (ROADMAP A12)")
-    parser.add_argument("--seed", type=int, default=0, help="parameter init seed")
+    parser.add_argument("--experts", type=int, default=0,
+                        help="gpt2 family only: replace every block's MLP with a dense "
+                        "softmax-gated MoE of this many experts (models/moe.py)")
+    parser.add_argument("--moe_top_k", type=int, default=0,
+                        help="with --experts: route each token to its top-k "
+                        "experts through fixed-capacity buffers (GShard "
+                        "semantics) instead of the dense softmax mix. "
+                        "Sparse COMPUTE, but piecewise-constant routing — "
+                        "curvature jobs over a top-k config get a loud "
+                        "TopKCurvatureWarning (models/moe.py)")
+    parser.add_argument("--moe_capacity_factor", type=float, default=1.25,
+                        help="with --moe_top_k: expert capacity slack "
+                        "factor (buffer = ceil(k*N/E * factor))")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="parameter init seed; a model of at least 2^28 "
+                        "parameters (pythia-410m, pythia-1.4b, llama-7b) draws "
+                        "its init on the card, so on the card the same seed "
+                        "gives it other weights than on the CPU")
     parser.add_argument("--data_seed", type=int, default=42)
     parser.add_argument("--checkpoint", default=None,
                         help="params saved by cli.train --save_checkpoint "

@@ -68,6 +68,7 @@ from hessian_llm_vision_tpu_torch.curvature.operators import (
     HessianOperator,
     LayerHessianOperator,
 )
+from hessian_llm_vision_tpu_torch.models.moe import warn_if_topk_curvature
 from hessian_llm_vision_tpu_torch.utils import trees
 
 # flags of paths the port does not have yet, with their ROADMAP item
@@ -327,6 +328,8 @@ def main(argv=None, on_iter: Optional[Callable[[int, float], None]] = None):
     torch.backends.cudnn.allow_tf32 = False
     resolve_mixed_precision(args, "hvp_precision")
     wl = build_workload(args, device)
+    # curvature over top-k MoE routing is region-conditional: a loud warning
+    warn_if_topk_curvature(wl.model, what="spectrum")
     # --hvp_precision auto (the default): probe this checkpoint and resolve
     # a concrete plan, after the flag checks
     wl = resolve_auto_precision(args, wl)

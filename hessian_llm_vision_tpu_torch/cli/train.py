@@ -70,6 +70,7 @@ from hessian_llm_vision_tpu_torch.cli.train_optimizers import (
 )
 from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
 from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint, save_checkpoint
+from hessian_llm_vision_tpu_torch.models.moe import warn_if_topk_curvature
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -351,6 +352,9 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> fl
         args.delta = 1e-8 if args.optimiser == "adam" else 1e-4
 
     wl = build_workload(args, device)
+    if args.optimiser not in ("sgd", "adam", "raw"):
+        # every other optimiser consumes curvature: warn on top-k routing
+        warn_if_topk_curvature(wl.model, what=f"train --optimiser {args.optimiser}")
     lr = linear_decay(args.lr, args.linear_decay_steps) if args.linear_decay_steps else args.lr
     rundir = run_dir_name(
         args.out, args.optimiser, args.subsample, lr=args.lr, delta=args.delta,

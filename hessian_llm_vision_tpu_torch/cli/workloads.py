@@ -1,8 +1,11 @@
 """Workload registry (port of ``cli/workloads.py``): the model, params,
 loss, batches and the GGN pieces (``model_fn`` -> logits, ``out_loss_fn``
-on them) a CLI runs on, for ``--model gpt2 | gpt2-tiny``.
+on them) a CLI runs on, for the language models: ``gpt2``, ``gpt2-tiny``
+and ``gpt2-moe`` (with ``--experts`` / ``--moe_top_k`` on the gpt2
+family), ``pythia-70m|160m|410m|1.4b`` and ``llama-tiny|micro|134m|7b``.
+The vision, spiral and MLP models are not ported yet (ROADMAP A12b).
 
-Weights are random from ``--seed`` (a torch generator, so they are not the
+Weights are random from ``--seed`` (torch generators, so they are not the
 JAX package's weights for the same seed), or ``--checkpoint``'s params
 loaded with the random init as template; tokens come from the same numpy
 generators as the JAX package's, so both packages see the same batches.
@@ -16,7 +19,15 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-_MODELS = ("gpt2", "gpt2-tiny")
+_MODELS = ("gpt2", "gpt2-tiny", "gpt2-moe", "pythia-70m", "pythia-160m", "pythia-410m",
+           "pythia-1.4b", "llama-tiny", "llama-micro", "llama-134m", "llama-7b")
+_VISION = ("spiral", "mlp", "simplenet", "vgg16", "resnet50")
+#: a model with at least this many parameters draws its init on the card
+#: (a CPU draw of Pythia-1.4B's 1.41e9 normals takes about 10 s where the
+#: card's takes under 1 s: chip_smoke.py 13a prints both); a smaller one
+#: draws on the CPU and moves, so a card run and a CPU run of the same
+#: --seed start from the same weights
+CARD_INIT_MIN_PARAMS = 1 << 28
 
 
 @dataclasses.dataclass
@@ -78,12 +89,28 @@ def _lm_batches(args, vocab_size: int, device: torch.device) -> list[dict]:
     ]
 
 
-def _refuse_unported(args) -> None:
-    if args.model not in _MODELS:
-        raise SystemExit(f"--model {args.model}: not ported yet (ROADMAP A12; "
-                         f"ported: {', '.join(_MODELS)})")
-    if args.experts:
-        raise SystemExit("--experts: not ported yet (ROADMAP A12)")
+def _refuse(args) -> None:
+    """The JAX CLI's refusals, then the models not ported yet."""
+    name = args.model
+    if args.experts and not name.startswith("gpt2"):
+        raise SystemExit(f"--experts applies to the gpt2 family only; model {name!r} has "
+                         "no MoE variant")
+    if args.moe_top_k and not args.experts:
+        raise SystemExit("--moe_top_k requires --experts N")
+    if not name.startswith(("gpt2", "pythia", "llama")):
+        dropped = [flag for flag, set_ in [
+            ("--attn_block_q", args.attn_block_q is not None),
+            ("--block_precision (or --*_precision mixed)", args.block_precision is not None),
+            ("--loss_chunk", args.loss_chunk is not None),
+        ] if set_]
+        if dropped:
+            raise SystemExit(f"{', '.join(dropped)} apply to LM models only; model {name!r} "
+                             "has no transformer-block/vocab path")
+    if name in _VISION:
+        raise SystemExit(f"--model {name}: not ported yet (ROADMAP A12b: the vision, spiral "
+                         f"and MLP models; ported: {', '.join(_MODELS)})")
+    if name not in _MODELS:
+        raise ValueError(f"unknown model {name!r}")
 
 
 def _cfg_overrides(cfg, attn_blk, block_prec, bf16=False):
@@ -99,22 +126,63 @@ def _cfg_overrides(cfg, attn_blk, block_prec, bf16=False):
     return cfg
 
 
-def build_workload(args, device: torch.device) -> Workload:
-    """GPT-2 (124M or tiny) at random init from ``--seed`` or from
-    ``--checkpoint``, on ``device``, with its LM loss and the ``--dataset``
-    batches; ``--bf16`` and ``--block_precision`` set the config's compute
-    dtype and block precision (the params stay f32)."""
-    from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint
-    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
-    from hessian_llm_vision_tpu_torch.models.losses import causal_lm_loss, lm_loss_fn
+def lm_config(args):
+    """(model class, config) of ``--model`` with the LM flags applied."""
+    from hessian_llm_vision_tpu_torch.models import (
+        LLAMA_CONFIGS,
+        PYTHIA_CONFIGS,
+        GPT2Config,
+        GPT2LMHead,
+        LlamaLMHead,
+        NeoXLMHead,
+    )
 
-    _refuse_unported(args)
-    if args.model == "gpt2-tiny":
+    name = args.model
+    if name.startswith("pythia"):
+        return NeoXLMHead, _cfg_overrides(PYTHIA_CONFIGS[name], args.attn_block_q,
+                                          args.block_precision, args.bf16)
+    if name.startswith("llama"):
+        return LlamaLMHead, _cfg_overrides(LLAMA_CONFIGS[name], args.attn_block_q,
+                                           args.block_precision, args.bf16)
+    if name == "gpt2-tiny":
         cfg = GPT2Config.tiny(n_positions=max(64, args.max_length))
+    elif name == "gpt2-moe":
+        cfg = GPT2Config.moe_80m(n_positions=max(args.max_length, 32))
     else:
         cfg = GPT2Config.gpt2_124m(n_positions=max(args.max_length, 32))
     cfg = _cfg_overrides(cfg, args.attn_block_q, args.block_precision, args.bf16)
-    model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(args.seed)).to(device)
+    if args.experts:
+        cfg = dataclasses.replace(cfg, n_experts=args.experts)
+    if args.moe_top_k:
+        cfg = dataclasses.replace(cfg, moe_top_k=args.moe_top_k,
+                                  moe_capacity_factor=args.moe_capacity_factor)
+    return GPT2LMHead, cfg
+
+
+def init_model(model_cls, cfg, seed: int, device: torch.device) -> torch.nn.Module:
+    """``model_cls(cfg)`` with its weights drawn from a generator seeded
+    with ``seed``, on ``device``: drawn on the CPU and moved, or on the
+    card itself for a model of at least ``CARD_INIT_MIN_PARAMS``
+    parameters."""
+    with torch.device("meta"):
+        n = sum(p.numel() for p in model_cls(cfg).parameters())
+    on = device if device.type == "cuda" and n >= CARD_INIT_MIN_PARAMS else torch.device("cpu")
+    with torch.device(on):
+        model = model_cls(cfg, generator=torch.Generator(on).manual_seed(seed))
+    return model.to(device)
+
+
+def build_workload(args, device: torch.device) -> Workload:
+    """``--model`` at random init from ``--seed`` or from ``--checkpoint``,
+    on ``device``, with its LM loss and the ``--dataset`` batches;
+    ``--bf16`` and ``--block_precision`` set the config's compute dtype and
+    block precision (the params stay f32)."""
+    from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint
+    from hessian_llm_vision_tpu_torch.models.losses import causal_lm_loss, lm_loss_fn
+
+    _refuse(args)
+    model_cls, cfg = lm_config(args)
+    model = init_model(model_cls, cfg, args.seed, device)
     params = {n: p.detach() for n, p in model.named_parameters()}
     if args.checkpoint:
         params = load_checkpoint(args.checkpoint, template=params)

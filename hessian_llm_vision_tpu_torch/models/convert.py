@@ -1,6 +1,8 @@
-"""Weight carry between the JAX package's GPT-2 params and the port's.
+"""Weight carry between the JAX package's params and the port's, for every
+LM family (GPT-2 with or without experts, NeoX, LLaMA) and LoRA adapters.
 
-The port keeps flax's names and layouts (``models/gpt2.py``), so both
+The port keeps flax's names and layouts (kernels (in, out), the stacked
+``(E, ...)`` expert leaves, LayerNorm and RMSNorm ``scale``), so both
 directions are name maps -- nested dict keys joined with ``.`` -- with no
 transpose.  Arrays cross as numpy; nothing here imports JAX.
 """
@@ -13,14 +15,17 @@ import numpy as np
 import torch
 
 
-def gpt2_params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Nested dict of arrays (the flax ``params``) -> port ``state_dict``."""
+def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Nested dict of arrays (the flax ``params``, or a LoRA adapter tree
+    ``{path: {"A", "B"}}`` with ``/`` in its paths) -> port ``state_dict``
+    of f32 tensors."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node: Any) -> None:
         if hasattr(node, "items"):
             for key, child in node.items():
-                walk(f"{prefix}.{key}" if prefix else str(key), child)
+                key = str(key).replace("/", ".")
+                walk(f"{prefix}.{key}" if prefix else key, child)
         else:
             out[prefix] = torch.from_numpy(np.array(node, dtype=np.float32))
 
@@ -28,7 +33,7 @@ def gpt2_params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
-def gpt2_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, Any]:
     """Port ``state_dict`` -> nested dict of numpy f32 arrays (flax layout)."""
     tree: dict[str, Any] = {}
     for name, t in state_dict.items():
@@ -38,3 +43,8 @@ def gpt2_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, Any]
             node = node.setdefault(key, {})
         node[leaf] = t.detach().to("cpu", torch.float32).numpy().copy()
     return tree
+
+
+# the GPT-2 names, kept for their callers
+gpt2_params_from_jax = params_from_jax
+gpt2_params_to_jax = params_to_jax

@@ -18,9 +18,14 @@ flax runs it (dense operands and outputs in bf16, LayerNorm statistics in
 f32 with a bf16 result, the logits cast to f32).  The precision scopes are
 the JAX model's (``models/precision.py``): block -> attention / MLP
 sublayer -> attention scores, the innermost winning; every matmul runs
-through :func:`precision.matmul` / :func:`precision.einsum`.  Dropout, the
-MoE MLP, an untied head and sequence sharding of the JAX config are not
-ported; :class:`GPT2Config` raises on any non-default value of them.
+through :func:`precision.matmul` / :func:`precision.einsum`.  With
+``n_experts > 0`` every block's MLP is the mixture of experts of
+``models/moe.py`` (``h_{i}.moe``).  Dropout, an untied head and sequence
+sharding of the JAX config are not ported; :class:`GPT2Config` raises on
+any non-default value of them.
+
+:class:`Dense`, :class:`LayerNorm` and :func:`init_weights` are shared
+with the NeoX and LLaMA modules.
 """
 
 from __future__ import annotations
@@ -41,10 +46,15 @@ from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
 _UNPORTED_DEFAULTS = {
     "dropout": 0.0,
     "tie_word_embeddings": True,
-    "n_experts": 0,
-    "moe_top_k": 0,
     "seq_sharding": None,
 }
+
+
+def check_dtype(config) -> None:
+    """The compute dtypes the port runs: float32, or bfloat16 for ``--bf16``."""
+    if config.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"{type(config).__name__}.dtype={config.dtype!r} is not "
+                                  "ported yet (float32 or bfloat16)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,11 +75,16 @@ class GPT2Config:
     attn_matmul_precision: Optional[str] = None
     mlp_matmul_precision: Optional[str] = None
     attn_scores_precision: Optional[str] = None
+    # mixture of experts (models/moe.py): 0 = the dense MLP; E > 0 replaces
+    # every block's MLP by E softmax-gated experts; moe_top_k > 0 routes
+    # each token to its top-k experts through buffers of capacity
+    # ceil(k N / E * moe_capacity_factor) (piecewise-constant routing)
+    n_experts: int = 0
+    moe_top_k: int = 0
+    moe_capacity_factor: float = 1.25
     # not ported: any value other than the default raises
     dropout: float = 0.0
     tie_word_embeddings: bool = True
-    n_experts: int = 0
-    moe_top_k: int = 0
     seq_sharding: object = None
 
     def __post_init__(self):
@@ -79,9 +94,7 @@ class GPT2Config:
                     f"GPT2Config.{name}={getattr(self, name)!r} is not ported "
                     f"yet (only {default!r})"
                 )
-        if self.dtype not in (torch.float32, torch.bfloat16):
-            raise NotImplementedError(
-                f"GPT2Config.dtype={self.dtype!r} is not ported yet (float32 or bfloat16)")
+        check_dtype(self)
         precision.per_layer_precision(self.block_matmul_precision, self.n_layer)
         for p in (self.attn_matmul_precision, self.mlp_matmul_precision,
                   self.attn_scores_precision):
@@ -93,9 +106,26 @@ class GPT2Config:
     def head_dim(self) -> int:
         return self.n_embd // self.n_head
 
+    def product_scopes(self) -> list:
+        """Per block, the precision scopes of its attention dense, attention
+        score and MLP products, from the block inwards
+        (``models/precision.py``)."""
+        out = []
+        for p in precision.per_layer_precision(self.block_matmul_precision, self.n_layer):
+            attn = (p, self.attn_matmul_precision)
+            out += [attn, attn + (self.attn_scores_precision,), (p, self.mlp_matmul_precision)]
+        return out
+
     @staticmethod
     def gpt2_124m(**overrides) -> "GPT2Config":
         return dataclasses.replace(GPT2Config(), **overrides)
+
+    @staticmethod
+    def moe_80m(**overrides) -> "GPT2Config":
+        """The MoE workload: 384 wide, 6 layers, 6 heads, 8 experts per
+        block (79,787,184 params at 512 positions)."""
+        base = GPT2Config(n_embd=384, n_layer=6, n_head=6, n_positions=512, n_experts=8)
+        return dataclasses.replace(base, **overrides)
 
     @staticmethod
     def tiny(**overrides) -> "GPT2Config":
@@ -105,15 +135,33 @@ class GPT2Config:
 
 
 class Dense(nn.Module):
-    """``x @ kernel + bias`` with ``kernel`` (in, out): flax's Dense layout."""
+    """``x @ kernel + bias`` with ``kernel`` (in, out): flax's Dense layout
+    (``use_bias=False``: no ``bias``)."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
 
     def forward(self, x):
-        return precision.matmul(x, _as(self.kernel, x)) + _as(self.bias, x)
+        y = precision.matmul(x, _as(self.kernel, x))
+        return y if self.bias is None else y + _as(self.bias, x)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        """flax's default kernel init, LeCun normal: truncated at 2 sigma and
+        rescaled to unit variance."""
+        std = math.sqrt(1.0 / self.kernel.shape[0]) / 0.87962566103423978
+        nn.init.trunc_normal_(self.kernel, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Every submodule with a ``reset_parameters(generator)`` (:class:`Dense`,
+    ``moe.MoEMLP``), in module order.  The draws land on the tensors'
+    device, so ``generator`` must live there too."""
+    for m in model.modules():
+        if m is not model and hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
 
 
 def _as(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -172,24 +220,31 @@ class Block(nn.Module):
         self.ln_1 = LayerNorm(config.n_embd)
         self.attn = CausalSelfAttention(config)
         self.ln_2 = LayerNorm(config.n_embd)
-        self.mlp = MLPBlock(config)
+        if config.n_experts:
+            from hessian_llm_vision_tpu_torch.models.moe import MoEMLP
+
+            self.moe = MoEMLP(config)
+        else:
+            self.mlp = MLPBlock(config)
 
     def forward(self, x):
         cfg = self.config
         with precision.precision_scope(cfg.attn_matmul_precision):
             x = x + self.attn(self.ln_1(x))
         with precision.precision_scope(cfg.mlp_matmul_precision):
-            return x + self.mlp(self.ln_2(x))
+            mlp = self.moe if cfg.n_experts else self.mlp
+            return x + mlp(self.ln_2(x))
 
 
 class GPT2LMHead(nn.Module):
     """GPT-2 with tied LM head; ``forward(input_ids) -> logits (B, T, V)``.
 
-    Parameters are created on the CPU and initialised from ``generator``
-    (the global torch RNG when None) with the flax model's initialisers:
-    ``wte ~ N(0, 0.02)``, ``wpe ~ N(0, 0.01)``, dense kernels LeCun-normal
-    (truncated), biases 0, LayerNorm scales 1.  Move the module with
-    ``.to(device)`` afterwards.
+    Parameters are created on the default device (the CPU, or the device
+    of an enclosing ``with torch.device(...)``) and initialised from
+    ``generator`` (the global torch RNG when None), which lives on that
+    device, with the flax model's initialisers: ``wte ~ N(0, 0.02)``,
+    ``wpe ~ N(0, 0.01)``, dense kernels LeCun-normal (truncated), expert
+    kernels ``N(0, 0.02)``, biases 0, LayerNorm scales 1.
     """
 
     def __init__(self, config: GPT2Config, *, generator: Optional[torch.Generator] = None):
@@ -206,13 +261,7 @@ class GPT2LMHead(nn.Module):
     def _init_weights(self, generator):
         nn.init.normal_(self.wte, 0.0, 0.02, generator=generator)
         nn.init.normal_(self.wpe, 0.0, 0.01, generator=generator)
-        for m in self.modules():
-            if isinstance(m, Dense):
-                # flax lecun_normal: truncated at 2 sigma, rescaled to unit variance
-                std = math.sqrt(1.0 / m.kernel.shape[0]) / 0.87962566103423978
-                nn.init.trunc_normal_(
-                    m.kernel, 0.0, std, -2.0 * std, 2.0 * std, generator=generator
-                )
+        init_weights(self, generator)
 
     def forward(self, input_ids: torch.Tensor, return_hidden: bool = False):
         cfg = self.config
@@ -239,9 +288,14 @@ class GPT2LMHead(nn.Module):
 
 
 def num_params(config: GPT2Config) -> int:
-    """Closed-form parameter count (124,439,808 for the 1024-position 124M)."""
+    """Closed-form parameter count (124,439,808 for the 1024-position 124M,
+    79,787,184 for ``moe_80m``)."""
     c, v, p, l = config.n_embd, config.vocab_size, config.n_positions, config.n_layer
     attn = (3 * c * c + 3 * c) + (c * c + c)
-    mlp = (4 * c * c + 4 * c) + (4 * c * c + c)
+    if config.n_experts:
+        e, f = config.n_experts, 4 * c
+        mlp = (c * e + e) + e * ((c * f + f) + (f * c + c))  # gate + experts
+    else:
+        mlp = (4 * c * c + 4 * c) + (4 * c * c + c)
     per_block = attn + mlp + 4 * c
     return v * c + p * c + l * per_block + 2 * c

@@ -95,10 +95,12 @@ def lm_loss_fn(
     include_padding: bool = False,
     loss_chunk: Optional[int] = None,
 ) -> Callable[[Mapping[str, torch.Tensor], Mapping[str, torch.Tensor]], torch.Tensor]:
-    """LM loss closure for :class:`~.gpt2.GPT2LMHead`.
+    """LM loss closure for any LM head of the port (GPT-2, NeoX, LLaMA).
 
     ``loss_chunk``: compute the vocab projection + CE in sequence chunks of
-    this size (:func:`chunked_causal_lm_loss`); ``None`` = dense logits.
+    this size (:func:`chunked_causal_lm_loss`) against the model's own
+    ``output_kernel`` (GPT-2's tied ``wte``, NeoX's ``embed_out``,
+    LLaMA's ``lm_head``); ``None`` = dense logits.
     """
 
     def loss(params, batch):

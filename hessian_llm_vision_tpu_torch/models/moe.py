@@ -1,0 +1,132 @@
+"""Mixture-of-experts MLP for GPT-2 blocks (port of ``models/moe.py``).
+
+Dense softmax gating by default: every expert evaluates every token and
+the gate's softmax probabilities mix the outputs.  That is smooth and
+twice differentiable, so forward-over-reverse HVPs are exact, and its
+shapes are static.  The expert weights are stacked ``(E, ...)`` leaves
+``w1`` (E, C, 4C), ``b1`` (E, 4C), ``w2`` (E, 4C, C), ``b2`` (E, C) beside
+the ``gate`` dense layer, under the flax names.
+
+``moe_top_k > 0`` routes each token to its top-k experts through buffers
+of a static capacity (:func:`_topk_moe`).  The routing is piecewise
+constant, so gradients and HVPs carry no routing curvature: curvature jobs
+over such a config warn (:func:`warn_if_topk_curvature`).
+
+The JAX package's expert-parallel helpers (``moe_param_sharding``,
+``shard_params_for_ep``, ``make_ep_mesh``) are not ported: they belong to
+the parallelism item (ROADMAP A13).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hessian_llm_vision_tpu_torch.models import precision
+from hessian_llm_vision_tpu_torch.models.gpt2 import Dense, _as
+from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
+
+
+class MoEMLP(nn.Module):
+    """Softmax-gated mixture of ``config.n_experts`` MLPs, a drop-in for
+    the transformer MLP (``config`` has ``n_embd``, ``n_experts``,
+    ``moe_top_k``, ``moe_capacity_factor``)."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        E, C = config.n_experts, config.n_embd
+        self.gate = Dense(C, E)
+        self.w1 = nn.Parameter(torch.empty(E, C, 4 * C))
+        self.b1 = nn.Parameter(torch.zeros(E, 4 * C))
+        self.w2 = nn.Parameter(torch.empty(E, 4 * C, C))
+        self.b2 = nn.Parameter(torch.zeros(E, C))
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        """The expert kernels ``N(0, 0.02)``, as the flax module's."""
+        nn.init.normal_(self.w1, 0.0, 0.02, generator=generator)
+        nn.init.normal_(self.w2, 0.0, 0.02, generator=generator)
+
+    def forward(self, x):
+        cfg = self.config
+        probs = torch.softmax(at_least_f32(self.gate(x)), dim=-1).to(x.dtype)
+        w1, b1, w2, b2 = (_as(p, x) for p in (self.w1, self.b1, self.w2, self.b2))
+        if cfg.moe_top_k:
+            return _topk_moe(x, probs, w1, b1, w2, b2, cfg.moe_top_k, cfg.moe_capacity_factor)
+        h = F.gelu(precision.einsum("btc,ecf->btef", x, w1) + b1, approximate="tanh")
+        y = precision.einsum("btef,efc->btec", h, w2) + b2
+        return precision.einsum("btec,bte->btc", y, probs)
+
+
+def _topk_moe(x, probs, w1, b1, w2, b2, top_k: int, cap_factor: float):
+    """Capacity-based top-k dispatch, as the JAX package's: each token goes
+    to its ``top_k`` experts with renormalised gate weights; each expert
+    holds ``cap = ceil(top_k N / E * cap_factor)`` token slots, filled in
+    top-k rank order, then token order (a cumulative sum); a token past an
+    expert's capacity is dropped from it.  With ``top_k == E`` and room for
+    every token it equals the dense mix."""
+    B, T, C = x.shape
+    E = w1.shape[0]
+    N = B * T
+    cap = max(1, min(int(math.ceil(top_k * N / E * cap_factor)), N))
+    pf = at_least_f32(probs.reshape(N, E))
+    vals, sel = torch.topk(pf, top_k, dim=-1)
+    vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-30)
+    slots = torch.arange(cap, device=x.device)
+    combine = torch.zeros(N, E, cap, dtype=pf.dtype, device=x.device)
+    counts = torch.zeros(E, dtype=torch.long, device=x.device)
+    for j in range(top_k):
+        mask = F.one_hot(sel[:, j], E)  # (N, E)
+        pos = counts[None, :] + torch.cumsum(mask, dim=0) - mask
+        within = ((pos < cap) & (mask > 0)).to(pf.dtype)
+        slot = (pos[..., None] == slots).to(pf.dtype)  # (N, E, cap); none past cap
+        combine = combine + vals[:, j, None, None] * within[..., None] * slot
+        counts = counts + mask.sum(0)
+    dispatch = (combine > 0).to(x.dtype)
+    expert_in = precision.einsum("nec,nd->ecd", dispatch, x.reshape(N, C))
+    h = F.gelu(precision.einsum("ecd,edf->ecf", expert_in, w1) + b1[:, None, :],
+               approximate="tanh")
+    y = precision.einsum("ecf,efd->ecd", h, w2) + b2[:, None, :]
+    return precision.einsum("nec,ecd->nd", combine.to(x.dtype), y).reshape(B, T, C)
+
+
+class TopKCurvatureWarning(UserWarning):
+    """Curvature job launched over piecewise-constant top-k MoE routing."""
+
+
+def topk_curvature_warning(config) -> Optional[str]:
+    """The warning text when ``config`` routes with top-k, else None: the
+    routing is piecewise constant, so gradients and HVPs are exact only
+    inside the active routing region, and a Ritz basis computed at a
+    refresh can describe another operator than the steps that reuse it."""
+    top_k = int(getattr(config, "moe_top_k", 0) or 0)
+    n_experts = int(getattr(config, "n_experts", 0) or 0)
+    if not (n_experts and top_k):
+        return None
+    return (
+        f"curvature over TOP-K MoE routing (n_experts={n_experts}, "
+        f"moe_top_k={top_k}): the routing is piecewise-constant, so "
+        "HVPs/spectra are exact only within the ACTIVE routing region and "
+        "carry zero routing curvature — Ritz pairs computed at a refresh "
+        "boundary can describe a different operator than the steps that "
+        "reuse them. Use the dense gating (moe_top_k=0 / drop --moe_top_k) "
+        "for curvature-exact jobs; top-k results are region-conditional."
+    )
+
+
+def warn_if_topk_curvature(model_or_config, *, what: str = "curvature job") -> Optional[str]:
+    """A :class:`TopKCurvatureWarning` (warnings module and stderr) when a
+    curvature job runs on a top-k routed config; returns its text or None."""
+    import sys
+    import warnings
+
+    config = getattr(model_or_config, "config", model_or_config)
+    msg = topk_curvature_warning(config)
+    if msg is not None:
+        warnings.warn(f"[{what}] {msg}", TopKCurvatureWarning, stacklevel=2)
+        print(f"WARNING [{what}]: {msg}", file=sys.stderr)
+    return msg

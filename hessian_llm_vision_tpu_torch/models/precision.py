@@ -1,14 +1,14 @@
 """Per-layer matmul precision for the LM family (port of
 ``models/precision.py``), re-based on the H100's tiers.
 
-``block_matmul_precision`` on the LM config takes the JAX package's three
-forms:
+``block_matmul_precision`` on the LM configs (GPT-2, NeoX, LLaMA) takes
+the JAX package's three forms:
 
 * ``None`` -- inherit the caller's precision (the curvature code's outer
   scope, :func:`outer_precision`);
 * a string -- one precision for every transformer block (the "mixed"
   mode: blocks "default", the vocab head and the loss at the outer tier);
-* a sequence of ``n_layer`` entries of ``None`` / str -- per-block
+* a sequence of one ``None`` / str entry per layer -- per-block
   precision, the auto-precision escalation surface (``krylov/autoprec.py``).
 
 The names keep the JAX package's roles and mean this on the card:
@@ -186,19 +186,19 @@ def _flags(tf32: bool):
 
 
 def _product_tiers(config, outer: Optional[str]) -> list:
-    """The tier of each kind of product of a GPT-2 ``config`` under the
-    outer tier ``outer``: per block its attention dense, attention score
-    and MLP products (innermost scope wins), then the vocab head."""
-
-    def inner(p, t):
-        return tier_of(p) if p is not None else t
-
+    """The tier of each kind of product of a model ``config`` under the
+    outer tier ``outer``, then the vocab head's.  Every LM config answers
+    ``config.product_scopes()``: per kind of product (per block, its
+    attention dense, attention score and MLP products for GPT-2, one kind
+    for NeoX and LLaMA) the precision names of its scopes from the block
+    inwards, the innermost set one winning."""
     tiers = []
-    for p in per_layer_precision(config.block_matmul_precision, config.n_layer):
-        block = inner(p, outer)
-        attn = inner(config.attn_matmul_precision, block)
-        tiers += [attn, inner(config.attn_scores_precision, attn),
-                  inner(config.mlp_matmul_precision, block)]
+    for chain in config.product_scopes():
+        tier = outer
+        for p in chain:
+            if p is not None:
+                tier = tier_of(p)
+        tiers.append(tier)
     return tiers + [outer]
 
 

@@ -62,7 +62,7 @@ def test_cli_without_cpu_flag_needs_a_card():
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("--model", "pythia-70m"), ("--experts", "4"), ("--dataset", "wikipedia"),
+    ("--model", "vgg16"), ("--model", "resnet50"), ("--dataset", "wikipedia"),
 ])
 def test_cli_unported_choices_exit(flag, value):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -121,9 +121,10 @@ def test_convert_round_trip_and_param_count():
     assert num_params(GPT2Config.gpt2_124m(n_positions=512)) == 124_046_592
 
 
-# dtype bfloat16 and the precision fields are ported (test_torch_precision_model.py)
+# dtype bfloat16 and the precision fields are ported (test_torch_precision_model.py),
+# the MoE fields too (test_torch_lm_families.py)
 @pytest.mark.parametrize("field,value", [
-    ("dropout", 0.1), ("n_experts", 4), ("tie_word_embeddings", False),
+    ("dropout", 0.1), ("seq_sharding", "seq"), ("tie_word_embeddings", False),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -114,7 +114,7 @@ def test_other_ported_paths_run(tmp_path, extra, capsys):
 # --bf16, --block_precision) are ported: tests/test_torch_precision_cli.py
 @pytest.mark.parametrize("extra", [
     ["--host_loop", "--probes", "2", "--probe_parallel"],
-    ["--model", "pythia-70m"], ["--experts", "2"], ["--dataset", "wikipedia"],
+    ["--model", "simplenet"], ["--model", "spiral"], ["--dataset", "wikipedia"],
 ], ids=lambda e: "_".join(e).lstrip("-"))
 def test_unported_flags_exit(extra):
     with pytest.raises(SystemExit, match="not ported yet"):
