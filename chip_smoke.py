@@ -3,7 +3,8 @@ each against its plain PyTorch version, drives LanczosSGD training, the
 spectrum paths, Adam training from and to checkpoints and the rest of the
 train CLI's optimisers on GPT-2 124M through the CLIs, then the other
 language-model families (Pythia-1.4B at full width, LLaMA-134m, the MoE
-GPT-2, LoRA), and checks the results.
+GPT-2, LoRA) and the vision models (VGG-16 and ResNet-50 at full width,
+SpiralMLP, SimpleNet), and checks the results.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -45,23 +46,24 @@ Phases (any failure exits non-zero and prints no result line):
      x seq512, through cli.spectrum.main: (a) --thick_restart 5 with a bf16
      buffer: converged, an independent residual |H u - lambda u| per pair
      from a fresh f32 HVP, the rows orthonormal, each rank-k kernel launched
-     twice per CGS2 call; (b) --host_loop --kpm 30 --kpm_deflate 4 (60
-     moments before phase 13 took their time): spikes converged and agreeing with the SLQ
+     twice per CGS2 call; (b) --host_loop --kpm 20 --kpm_deflate 4 (60
+     moments before phase 13, 30 before phase 14): spikes converged and agreeing with the SLQ
      extreme, the deflated operator annihilating each spike vector, the bulk
-     range inside the SLQ range, mu_0 = 1, 2 x 41 launches of each kernel in
+     range inside the SLQ range, mu_0 = 1, 2 x 31 launches of each kernel in
      the KPM stage; (c) in-core --hutchpp 15 (30 before phase 13): a finite
      trace in the artifact; one {"spectrum_ext": ...}
      JSON line of their times, matvecs and memory; (d) on gpt2-tiny, card
      against CPU: thick restart, deflated KPM, Hutch++ and --host_basis.
   9. the rest of the single-card curvature at GPT-2 124M, 1 batch x bs8 x
      seq512, through cli.spectrum.main / cli.train.main: (a) --layerwise
-     --layerwise_group block --host_loop, 5 iterations a block (10 before
-     phase 13): 12 block artifacts and the grid,
+     --layerwise_group block --host_loop, 4 iterations a block (10 before
+     phase 13, 5 before phase 14): 12 block artifacts and the grid,
      weights summing to 1, lambda_max > 0, per-block |trace| small, h_0's T
      equal to an in-core LayerHessianOperator run; (b) --operator ggn
      --host_loop: Ritz values >= 0, the GGN matvec against jvp, an explicit
      float64 softmax Hessian and vjp; (c) --linearized against the plain
-     host loop, 10 iterations each (20 before phase 13); (d) --bigmodel with
+     host loop, 6 iterations each (20 before phase 13, 10 before phase
+     14); (d) --bigmodel with
      float32 and bfloat16 vectors against the same plain run; (e) phase 4's training with --refresh_linearized; (f)
      the empirical Fisher over 8 per-example gradients with a bf16 G, the
      kernel pair against its plain versions and an f32 G; (g) every new
@@ -75,8 +77,8 @@ Phases (any failure exits non-zero and prints no result line):
      reloading equal to the ones in memory with steps M and 2M, the resumed
      losses tracking the uninterrupted ones; an Adam step's gradient and
      update by CUDA events; (b) the host-loop spectrum of the checkpoint and
-     of the init on one batch, 10 iterations (20 before phase 13; the same
-     depth for phase 11's CLI runs) (weights summing to 1, lambda_max above
+     of the init on one batch, 6 iterations (20 before phase 13, 10 before
+     phase 14; the same depth for phase 11's CLI runs) (weights summing to 1, lambda_max above
      init's) and the f32 HVP at the checkpoint against a float64 central
      difference; (c) phase 4's LanczosSGD from the checkpoint: step 0's
      loss equal to the checkpoint's, each rank-k kernel once per step; (d)
@@ -86,7 +88,8 @@ Phases (any failure exits non-zero and prints no result line):
      fp32 HVPs, and the CLI's default "auto" may pick a lower tier.
  11. the precision ladder, inside phase 10's temporary directory, on one
      stdlib batch of bs8 x seq512: (a) at init and on the 1000-step
-     checkpoint, the reorthogonalised probe (6 iterations, 10 before phase 13;
+     checkpoint, the reorthogonalised probe (4 iterations, 10 before phase 13, 6
+     before phase 14;
      CGS2 on the
      rank-k pair) of the bf16, TF32 and "high" tiers against the "highest"
      referee: bf16 and TF32 differ from fp32, bf16 errs more than TF32 at
@@ -109,13 +112,15 @@ Phases (any failure exits non-zero and prints no result line):
      (2 before phase 13) at
      --damping 1e-3 --cg_iters 20: finite, cg_iters <= 20, no rank-k
      launch, and a GN step's reported CG residual recomputed from a fresh
-     GGN matvec; (c) HostLayerwiseLanczosSGDTrainer on wte and the 24 MLP
-     kernels (bf16 bases, k=4, refresh_every 2, 2 steps): 25 launches of
-     each kernel per step, finite Ritz values, lambda_max > 0 on wte, the
-     frozen step equal to a plain-version replay, and the plan (path,
-     alignment of g) of each of a step's 25 per-leaf launches printed; (d)
+     GGN matvec; (c) HostLayerwiseLanczosSGDTrainer on wte and the first 8
+     of the 24 MLP kernels in flat order (all 24 before phase 14; bf16
+     bases, k=4, refresh_every 2, 2 steps): 9 launches of each kernel per
+     step, finite Ritz values, lambda_max > 0 on wte, the frozen step equal
+     to a plain-version replay, and the plan (path, alignment of g) of each
+     of a step's 9 per-leaf launches printed; (d)
      the fused layer-wise step on wte alone: its extremes as (c)'s; (e)
-     Adam with --snapshot_every 1 and --post_spectrum_iters 10: the T files
+     Adam with --snapshot_every 1 and --post_spectrum_iters 6 (10 before
+     phase 14): the T files
      and the eigenspace read back; (f) project_gradients and frozen_spectral_adjust
      with an orthonormal (10, P) basis in f32 and bf16 against the plain
      version; (g) torch.profiler around one HVP, summarized by
@@ -129,8 +134,9 @@ Phases (any failure exits non-zero and prints no result line):
      values, lambda_max > 0 > lambda_min, the weights summing to 1 within
      1e-6, |trace| <= 1e-2 lambda_max, the artifact read back, no rank-k
      launch; its peak memory, seconds per iteration and init seconds (drawn
-     on the card), and the seconds of the same init drawn on the CPU and
-     moved; (b) LanczosSGD on Pythia-1.4B, k=4, a bf16 basis, delta 1e4,
+     on the card; the same init drawn on the CPU and moved took 11.42 s
+     when it was last read, before phase 14); (b) LanczosSGD on
+     Pythia-1.4B, k=4, a bf16 basis, delta 1e4,
      bs1, seq512 (seq256 if 512 does not fit, printed), one refresh and one
      frozen step: each rank-k kernel once per step at (4, 1,414,647,808)
      bf16, finite losses; on the frozen step the trainer's pass-1 w within
@@ -147,12 +153,40 @@ Phases (any failure exits non-zero and prints no result line):
      1e-3, the trainer's first loss within 1e-5; the top-k runs warn), and
      LanczosSGD over llama-tiny's rank-4 LoRA adapters (the rank-k pair on
      the adapters' P); one {"lm_families": ...} line.
+ 14. the vision models at their CIFAR-10 widths on random images (both data
+     directories pointed at empty temporary ones, so the loaders fall back
+     as the JAX CLI does, printed): (a) VGG-16 (P = 33,638,218) through
+     cli.spectrum.main, bs128 x 4 batches, --host_loop, 20 iterations at
+     fp32 HVPs, with 13a's gates; (b) ResNet-50 (P = 23,528,522) the same
+     way with BatchNorm in eval and in train mode (--bn_train_mode), both
+     passing (a)'s gates, their lambda_max differing; (c) on one batch, the
+     f32, bf16 ("default") and TF32 HVPs against a float64 HVP and a
+     float64 central difference (step 1e-6): the float64 HVP of VGG-16 and
+     of ResNet-50 (BN eval) within 2e-5 of the difference, their f32 HVP
+     within 5e-3 of the float64 HVP (at init on random images it lies
+     9e-4 to 3e-3 from float64 on the card and on the CPU alike, the
+     models' own conditioning), the bf16 and TF32 HVPs beyond both limits
+     (the convolutions take the precision tier), the f32 HVP nearest the
+     float64 one; ResNet-50 in BN train mode read (ReLU kinks within the
+     step) but for that last gate; (d) LanczosSGD through cli.train.main on
+     each (ResNet-50 in BN eval mode), k=10, a bf16 basis, delta 1e4, 4
+     steps: each rank-k kernel once a step at (10, P) bf16, rows not
+     16-byte aligned, and the frozen step against the plain versions as
+     13b's, with the update resolved in f32; (e) spiral, SimpleNet (on MNIST
+     idx files written from seeded numpy), VGG-16 and ResNet-50 at bs4, card
+     against CPU through both CLIs (spectrum Ritz extremes within 1e-3,
+     training losses within 1e-5, the trainers' Ritz values within 1e-3);
+     one {"vision": ...} line.
 Phase 3 also checks (4, 124,046,592) in both dtypes, (8, 124,046,592) and
 (16, 124,046,592) in bf16 -- the deflation projector's, the empirical
 Fisher's and the CGS2 pass's shapes, timed only (4, P) in bf16 since phase 13
 -- and times phase 12's per-leaf shapes (4, 2,359,296) and (4, 38,597,376)
-in both dtypes and 13b's (4, 1,414,647,808) in bf16, the first with k x P
->= 2**31 at full width (V alone 11.3 GB); it checks small leaves at
+in both dtypes, phase 14's (10, 33,638,218) and (10, 23,528,522) in both
+dtypes (P = 2 mod 8: pass 1's scalar kernel, pass 2's direct kernel
+without vector loads) and 13b's (4, 1,414,647,808) in bf16, the first with k x P
+>= 2**31 at full width (V alone 11.3 GB), where pass 1 is held to a
+float64 w on two draws (within 1e-5 and no farther than cuBLAS's f32 sum,
+which on some draws lies 1e-5 off itself); it checks small leaves at
 unaligned offsets of g, the bf16 MLP leaf with g 1-7 elements off 16
 bytes, and (256, 2**24) bf16, whose pass 2 sweeps each chunk's rows in 22
 stages.  Every phase prints its wall seconds on a line of its own.  Then
@@ -241,8 +275,8 @@ EXT_BASE = [
 TR_ARGV = EXT_BASE + ["--thick_restart", "5", "--lanczos_iters", "15", "--tr_dtype", "bfloat16",
                       "--tr_tol", "2e-3"]
 # artifacts/kpm_deflate124m_r3's flags, cut to 1 x bs8, 1 probe and (for
-# phase 13's time) 30 moments, from 60
-KPM_MOMENTS = 30
+# phase 13's time) 20 moments, from 60 (30 before phase 14)
+KPM_MOMENTS = 20
 KPM_ARGV = EXT_BASE + ["--host_loop", "--lanczos_iters", "35", "--kpm", str(KPM_MOMENTS),
                        "--kpm_probes", "1", "--kpm_deflate", "4", "--tr_dtype", "bfloat16",
                        "--tr_tol", "2e-3"]
@@ -265,13 +299,14 @@ EXT_EIG_RTOL, EXT_MOMENT_ATOL, EXT_HUTCHPP_RTOL = 1e-5, 1e-5, 1e-4
 FD_EPS = 1e-4
 HVP_FD_LIMIT = 2e-5
 # phase 9: GPT-2 124M at EXT_BASE's 1 x bs8 x seq512
-# 9a: 5 iterations per block (10 before phase 13), 60 masked HVPs
-LW_ITERS = 5
+# 9a: 4 iterations per block (10 before phase 13, 5 before phase 14), 48
+# masked HVPs
+LW_ITERS = 4
 LW_ARGV = EXT_BASE + ["--layerwise", "--layerwise_group", "block", "--host_loop",
                       "--lanczos_iters", str(LW_ITERS)]
 GGN_ARGV = EXT_BASE + ["--operator", "ggn", "--host_loop", "--lanczos_iters", "20"]
-# 9c/9d: 10 iterations per run (20 before phase 13)
-PLAIN_ITERS = 10
+# 9c/9d: 6 iterations per run (20 before phase 13, 10 before phase 14)
+PLAIN_ITERS = 6
 PLAIN_ARGV = EXT_BASE + ["--host_loop", "--lanczos_iters", str(PLAIN_ITERS)]
 LW_TRACE_TOL = 1e-2  # |trace| over max(1, max |lambda|) per block (the golden test's)
 LW_T_RTOL = 1e-5  # h_0's T against the in-core operator, of max |T|
@@ -304,9 +339,9 @@ ADAM_ARGV = ["--model", "gpt2", "--batch_size", "8", "--max_length", "512", "--a
 # 2 x ADAM_N-step run that makes the checkpoint.
 RESUME_LOSS_ATOL = 1e-6
 RESUME_N = 20
-# 10 iterations (20 before phase 13), to leave room for it
+# 6 iterations (20 before phase 13, 10 before phase 14), to leave room for them
 CKPT_BASE = ["--model", "gpt2", "--dataset", f"local:{STDLIB}", "--num_batches", "1",
-             "--batch_size", "8", "--max_length", "512", "--host_loop", "--lanczos_iters", "10"]
+             "--batch_size", "8", "--max_length", "512", "--host_loop", "--lanczos_iters", "6"]
 CKPT_SPECTRUM_ARGV = CKPT_BASE + ["--hvp_precision", "high"]
 # 10b: the f32 HVP at the 1000-step checkpoint against the float64
 # difference first read 6.45e-3, 320x 7c's limit at init, while the
@@ -320,7 +355,8 @@ TINY_ADAM_ARGV = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "
 TINY_ADAM_RTOL = 1e-5  # 10d card against CPU, per-step losses
 # phase 11: the precision ladder at the init and the 1000-step checkpoint,
 # GPT-2 124M, one stdlib batch of bs8 x seq512
-PROBE_ITERS = 6  # reorthogonalised Lanczos iterations per probe arm (10 before phase 13)
+PROBE_ITERS = 4  # reorthogonalised Lanczos iterations per probe arm (10 before phase 13,
+# 6 before phase 14)
 PROBE_ARMS = ("default", "TF32_TF32_F32", "high")  # against the "highest" referee
 AUTO_ARGV = CKPT_BASE + ["--hvp_precision", "auto"]
 AUTO_TOL = 1e-3  # the planner's bar on the chosen arm's extreme-Ritz error
@@ -350,15 +386,19 @@ CG_MAX_ITERS = 20
 SECOND_ORDER_STEPS = 1  # gn and ngd steps each in 12b (2 before phase 13)
 CG_RESIDUAL_RTOL = 1e-3  # reported ‖r‖ against ‖(G + λI)x − g‖ from a fresh matvec
 # 12c/12d: min_leaf_size 2,000,000 keeps wte and the 24 MLP kernels (2,359,296
-# each); 3,000,000 keeps wte alone (38,597,376)
+# each), of which 12c adjusts wte and the first 8 MLP kernels in flat order
+# (all 24 before phase 14: 100 masked HVPs a refresh, 36 now); 3,000,000
+# keeps wte alone (38,597,376)
 LAYER_MIN_LEAF = 2_000_000
 WTE_MIN_LEAF = 3_000_000
-LAYER_LEAVES = 25
+LAYER_LEAVES = 9
 LAYER_K = 4
 REPLAY_RTOL = 1e-5  # 12c frozen step's update against a plain-version replay
 WTE_RITZ_RTOL = 1e-3  # 12d wte extremes against 12c's
+SNAPSHOT_ITERS = 6  # 12e's snapshots and post-training spectrum (10 before phase 14)
 SNAPSHOT_ARGV = SECOND_ORDER_ARGV + ["--optimiser", "adam", "--snapshot_every", "1",
-                                     "--snapshot_iters", "10", "--post_spectrum_iters", "10"]
+                                     "--snapshot_iters", str(SNAPSHOT_ITERS),
+                                     "--post_spectrum_iters", str(SNAPSHOT_ITERS)]
 PROJECTION_RTOL = 1e-5  # 12f kernel against the plain version
 PROJECTION_LEAK = 1e-3  # ‖V g_out‖ / ‖g‖ after project_gradients
 TRACE_TOP = 10
@@ -439,8 +479,74 @@ LEAF_CHECKED = ((torch.float32, 10, 768, 1), (torch.bfloat16, 10, 768, 1),
 # a basis of many rows on the ring: its stages hold 12 of the 256 rows, so
 # pass 2 sweeps each chunk 22 times (256 x 2**24 bf16 = 8.6 GB)
 ROW_SWEEP = (torch.bfloat16, 256, 1 << 24)
-# 13b's shape: Pythia-1.4B's (4, P) bf16 basis, k * P = 5.66e9 >= 2**31
+# 13b's shape: Pythia-1.4B's (4, P) bf16 basis, k * P = 5.66e9 >= 2**31.
+# There two f32 sums over 1.41e9 terms are compared, and on some draws
+# cuBLAS's alone lies 1e-5 from float64, so pass 1 is held to a float64 w
+# instead, on two draws: within 1e-5, and no farther from it than the plain
+# version (cuBLAS's f32 sum)
 PYTHIA_SHAPE = (torch.bfloat16, 4, PYTHIA_P)
+DOTS_F64_LIMIT = 1e-5
+PHASE3_SEED = 1234
+# phase 14: the vision models at their published CIFAR-10 widths, on the
+# random-image path (both data directories empty).  P at 10 classes, 32x32x3:
+# both are 2 mod 8, so a (k, P) basis row is not 16-byte aligned and the
+# rank-k pair takes pass 1's scalar kernel and pass 2's direct kernel
+# without vector loads
+VGG16_P = 33_638_218
+RESNET50_P = 23_528_522
+VISION_SHAPES = ((10, VGG16_P), (10, RESNET50_P))  # phase 3, timed in both dtypes
+RANDOM_IMAGES = "[data] CIFAR-10 and MNIST unavailable; falling back to random images"
+# 14a/14b: the JAX package's vision_r2 / vision_r3_real protocol, bs128 x 4
+# batches, 20 iterations, fp32 HVPs
+VISION_SPECTRUM = ["--batch_size", "128", "--num_batches", "4", "--host_loop",
+                   "--lanczos_iters", "20", "--hvp_precision", "high", "--vector_seed", "997"]
+VGG_SPECTRUM_ARGV = ["--model", "vgg16"] + VISION_SPECTRUM
+RESNET_SPECTRUM_ARGV = ["--model", "resnet50"] + VISION_SPECTRUM
+# 14c: one batch of 14a's; the step of the difference is 1e-6, as 7c's 1e-4
+# crosses ReLU kinks of a randomly initialised ResNet-50.  With BatchNorm in
+# train mode even 1e-6 crosses them at bs128 (its second- and fourth-order
+# differences read 14.5% apart on the card): the difference is read there,
+# not gated, and the HVPs are read against the float64 HVP
+VISION_FD_BASE = ["--batch_size", "128", "--num_batches", "1", "--vector_seed", "997"]
+VISION_FD_EPS = 1e-6
+# 14c: at init on random images the f32 HVP itself lies 2.6e-3 (VGG-16) and
+# 9.4e-4 (ResNet-50, BN eval) from the float64 HVP on the card, and as far
+# on the CPU (scripts/torch_vision_hvp_witness.py), while the TF32 HVP lies
+# 5.0e-2 and 1.3e-2 from it: the f32 HVP is held within this limit of the
+# float64 HVP, which the bf16 and TF32 HVPs must miss
+VISION_F32_LIMIT = 5e-3
+# 14d: LanczosSGD, k=10, a bf16 basis, 4 steps; delta 1e4 as 13b's, so the
+# adjust term stands above the f32 rounding of g + term.  The learning rate
+# makes the update resolvable in f32 (at 1e-3 VGG-16's update is about a
+# hundred ulps of its weights, and the replay read 1.3e-5 on rounding
+# alone); ResNet-50 runs BN in eval mode, as in train mode at init its
+# Ritz values (1.4e7 on the card) put the adjust term below g's rounding
+# for any delta
+VISION_TRAIN = ["--batch_size", "128", "--num_batches", "4", "--optimiser", "lanczos-host",
+                "--k", "10", "--basis_bf16", "--refresh_every", "2", "--lanczos_momentum", "0",
+                "--max_steps", "4", "--delta", "1e4", "--seed", "0"]
+VGG_TRAIN_ARGV = ["--model", "vgg16", "--lr", "0.1"] + VISION_TRAIN
+RESNET_TRAIN_ARGV = ["--model", "resnet50", "--lr", "0.01"] + VISION_TRAIN
+# 14e: small configs, card against CPU: (model flags, spectrum batches,
+# train batches, train steps); SimpleNet reads MNIST idx files the phase
+# writes (MNIST_N images from seeded numpy)
+MNIST_N = 64
+VISION_TINY = {
+    "spiral": (["--model", "spiral", "--num_points", "120", "--batch_size", "30"], [], [], 4),
+    "simplenet": (["--model", "simplenet", "--batch_size", "16"], [], [], 4),
+    "vgg16": (["--model", "vgg16", "--batch_size", "4"], ["--num_batches", "1"],
+              ["--num_batches", "2"], 2),
+    "resnet50": (["--model", "resnet50", "--batch_size", "4"], ["--num_batches", "1"],
+                 ["--num_batches", "2"], 2),
+}
+VISION_TINY_SPECTRUM = ["--host_loop", "--lanczos_iters", "8", "--hvp_precision", "high",
+                        "--vector_seed", "5"]
+# the trainers' Ritz values (3 Lanczos steps) are gated like the spectra's
+# extremes; they read 2.5e-3 apart on ResNet-50 while the CPU's f32 norms
+# of its 23.5M-entry vectors ran 1.3e-3 low (utils/norms.py)
+VISION_TINY_TRAIN = ["--optimiser", "lanczos-host", "--k", "3", "--delta", "10", "--lr", "0.01",
+                     "--refresh_every", "2", "--lanczos_momentum", "0.5", "--no-basis_bf16",
+                     "--log_every", "1"]
 CARD = torch.device("cuda")
 
 
@@ -538,6 +644,19 @@ def phase(n: int, title: str):
     return time.perf_counter()
 
 
+def phase3_shapes() -> list[tuple]:
+    """Phase 3's shapes before phase 14's and 13b's, in the order they
+    draw from its generator: (dtype, k, P, g offset, timed).  (35, P): k*P >
+    2**31 needs 64-bit offsets; P = 20001 takes the scalar-load path (P not
+    a multiple of the 16-byte vector)."""
+    out = [(dtype, k, p, 0, p == P_124M and k in TIMED_KS) for dtype in TIMED_DTYPES
+           for k, p in ((10, P_124M), (35, P_124M), (35, 16384), (3, 20000), (5, 20001))]
+    out += [(dtype, k, P_124M, 0, (dtype, k) in PATH_TIMED) for dtype, k in PATH_SHAPES]
+    out += [(dtype, k, p, 0, True) for dtype in TIMED_DTYPES for k, p in LEAF_TIMED]
+    out += [(dtype, k, p, offset, False) for dtype, k, p, offset in LEAF_CHECKED]
+    return out + [(*ROW_SWEEP, 0, False)]
+
+
 def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool, g_offset: int = 0) -> dict:
     """Kernel vs plain versions on one shape, each kernel rerun for the
     same bits and pass 2 also on its other path; timings when ``timed``.
@@ -573,8 +692,19 @@ def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool, g_offset: int
         "axpy_plan": dataclasses.asdict(plan),
         "axpy_paths_bitwise_equal": paths_equal,
     }
-    ok = (repeatable and paths_equal and res["rel_l2_vs_reference"] <= 1e-5
-          and res["rel_l2_dots"] <= 1e-5)
+    ok = repeatable and paths_equal and res["rel_l2_vs_reference"] <= 1e-5
+    if p > 4 * P_124M:
+        # both f32 sums over P terms against a float64 w, summed over column
+        # slices (PYTHIA_SHAPE's comment)
+        w64 = sum(c.double() * (V[:, s:s + (1 << 26)].double() @ g[s:s + (1 << 26)].double())
+                  for s in range(0, p, 1 << 26))
+        res["rel_l2_dots_vs_f64"] = rel_l2(w, w64)
+        res["rel_l2_dots_plain_vs_f64"] = rel_l2(w_ref, w64)
+        del w64
+        ok = (ok and res["rel_l2_dots_vs_f64"] <= DOTS_F64_LIMIT
+              and res["rel_l2_dots_vs_f64"] <= res["rel_l2_dots_plain_vs_f64"])
+    else:
+        ok = ok and res["rel_l2_dots"] <= 1e-5
     # freed before the bf16 plain version: at (4, 1.41e9) its f32 copy of V
     # alone takes 22.6 GB
     del out_same_w, axpy_ref, ref
@@ -1066,7 +1196,7 @@ def estimators_card_vs_cpu(spectrum_cli) -> dict:
     tr = TINY_EXT + ["--thick_restart", "3", "--lanczos_iters", "12"]
     # 12 iterations, as 7a: at 10, gpt2-tiny's lambda_max is not converged
     # and moves with the card's HVP rounding beyond the 1e-5 gate
-    ext = TINY_EXT + ["--lanczos_iters", "12", "--host_basis", "--kpm", "30", "--kpm_probes", "2",
+    ext = TINY_EXT + ["--lanczos_iters", "12", "--host_basis", "--kpm", "20", "--kpm_probes", "2",
                       "--kpm_deflate", "2", "--hutchpp", "9"]
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
         (_, tr_card), (_, tr_cpu) = (spectrum_cli.main(tr + extra) for extra in ([], ["--cpu"]))
@@ -2141,7 +2271,7 @@ def layerwise_training_124m(train_cli, kernels, spectral) -> dict:
     """Phases 12c, 12d and 12f on one GPT-2 124M workload (TRAIN_ARGV's
     params and first batch).  12d: the fused layer-wise step on wte alone,
     one step from the init.  12c: HostLayerwiseLanczosSGDTrainer on wte and
-    the 24 MLP kernels (bf16 bases), k=4, refresh_every 2, 2 steps from the
+    LAYER_LEAVES - 1 MLP kernels (bf16 bases), k=4, refresh_every 2, 2 steps from the
     init, each step's launches counted; the frozen step replayed with the
     plain rank-k apply.  12f: the frozen-spectrum transforms on 12c's
     gradient with an orthonormal (10, P) basis."""
@@ -2175,6 +2305,9 @@ def layerwise_training_124m(train_cli, kernels, spectral) -> dict:
     trainer = HostLayerwiseLanczosSGDTrainer(wl.loss_fn, wl.params, cfg, batch_size=wl.batch_size,
                                              basis_dtype=torch.bfloat16,
                                              min_leaf_size=LAYER_MIN_LEAF)
+    # wte (last in flat order) and the first MLP kernels: each leaf's plan
+    # and replay read as with all 24
+    trainer.active = trainer.active[:LAYER_LEAVES - 1] + trainer.active[-1:]
     state = trainer.init(wl.params)
     grads = []
     grad = trainer._grad
@@ -2200,7 +2333,7 @@ def layerwise_training_124m(train_cli, kernels, spectral) -> dict:
         if i == 0:
             ritz = {label: ev.tolist() for (label, *_), ev in zip(trainer.active, state.eigvals)}
     g = grads[0]
-    # the plans the step's 25 per-leaf launches took: the wrappers' pure,
+    # the plans the step's per-leaf launches took: the wrappers' pure,
     # cached plan of each leaf's basis and slice of the flat gradient
     plans = []
     for (label, off, size, _), V in zip(trainer.active, state.bases):
@@ -2299,8 +2432,8 @@ def projections_124m(kernels, spectral, fl, g: torch.Tensor) -> dict:
 
 
 def snapshots_124m(train_cli, kernels, spectra) -> dict:
-    """Phase 12e: Adam, 2 steps, with a 10-iteration T-only snapshot after
-    each and a 10-iteration reorthogonalised post-training spectrum (the
+    """Phase 12e: Adam, 2 steps, with a SNAPSHOT_ITERS-iteration T-only
+    snapshot after each and a reorthogonalised post-training spectrum as deep (the
     format's full read-back is tests/test_torch_train_ext_cli.py's)."""
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats()
@@ -2326,11 +2459,12 @@ def snapshots_124m(train_cli, kernels, spectra) -> dict:
     print(json.dumps({"snapshots_124m": out}))
     check_gates("12e snapshots and post-training spectrum", {
         "two T files read back": out["snapshots"] == ["T_step000000.npz", "T_step000001.npz"]
-        and out["snapshot_shapes"] == [[10, 9]] * 2,
+        and out["snapshot_shapes"] == [[SNAPSHOT_ITERS, SNAPSHOT_ITERS - 1]] * 2,
         "finite": all(math.isfinite(v) for a, b in tri for v in (*a, *b)),
         "weights sum to 1": abs(out["gamma_sum"] - 1) <= 1e-5,
         "lambda_max > 0": out["lambda_max"] > 0,
-        "ritz vectors (10, P)": out["ritz_vectors_shape"] == [10, P_124M],
+        f"ritz vectors ({SNAPSHOT_ITERS}, P)":
+            out["ritz_vectors_shape"] == [SNAPSHOT_ITERS, P_124M],
         "no rank-k launch": not any(launches.values()),
     })
     return out
@@ -2535,28 +2669,12 @@ def _init_seconds():
         workloads.init_model = init_model
 
 
-def cpu_draw_init_seconds(argv) -> float:
-    """Seconds to build ``argv``'s model with its weights drawn from a CPU
-    generator and moved to the card: what ``cli.workloads.init_model`` does
-    below ``CARD_INIT_MIN_PARAMS``, against the card draw it does above."""
-    from hessian_llm_vision_tpu_torch.cli import spectrum, workloads
-
-    model_cls, cfg = workloads.lm_config(spectrum.build_parser().parse_args(argv))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model = workloads.init_model(model_cls, cfg, 0, torch.device("cpu")).to(CARD)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    return seconds
-
-
-def lm_spectrum(spectrum_cli, spectra, kernels, argv, what: str) -> dict:
+def lm_spectrum(spectrum_cli, spectra, kernels, argv, what: str,
+                expect_line: str | None = None) -> dict:
     """A T-only host-loop spectrum through cli.spectrum.main from fresh
     memory: 13a's gates, the peak, the seconds per iteration and the init
-    seconds; no rank-k launch."""
+    seconds of an LM (``cli.workloads.init_model``); no rank-k launch, and
+    ``expect_line`` among the CLI's lines when given."""
     n_iters = int(argv[argv.index("--lanczos_iters") + 1])
     with tempfile.TemporaryDirectory() as tmp, _init_seconds() as init_s:
         path = os.path.join(tmp, "spec")
@@ -2565,22 +2683,27 @@ def lm_spectrum(spectrum_cli, spectra, kernels, argv, what: str) -> dict:
         back = spectra.load_spectrum(path)
     res = {"iters": n_iters, "iter_s": {"median": statistics.median(iters), "min": min(iters),
                                         "max": max(iters), "first": iters[0]},
-           "init_s": init_s[0], "main_s": main_s, "cli_wall_s": cli_wall_s(lines),
-           "max_memory_allocated_bytes": peak, "rank_k_launches": launches,
-           **_spectrum_gates(what, spec, back, iters, n_iters)}
-    check_gates(what, {"no rank-k launch": all(n == 0 for n in launches.values())})
+           "init_s": init_s[0] if init_s else None, "main_s": main_s,
+           "cli_wall_s": cli_wall_s(lines), "max_memory_allocated_bytes": peak,
+           "rank_k_launches": launches, **_spectrum_gates(what, spec, back, iters, n_iters)}
+    gates = {"no rank-k launch": all(n == 0 for n in launches.values())}
+    if expect_line is not None:
+        gates[f"printed {expect_line!r}"] = expect_line in lines
+    check_gates(what, gates)
     return res
 
 
 @contextlib.contextmanager
-def _adjust_calls(kernels, keep: bool):
+def _adjust_calls(kernels, keep: bool, later_steps: bool = False):
     """Every ``HostLanczosSGDTrainer._adjust_update`` inside the block,
     appended to the first yielded list as (step, basis shape, basis dtype).
     With ``keep``, the second step's (the first frozen one at
     refresh_every 2) inputs and outputs go into the yielded dict: the
-    trainer, its state, the gradient, the eigenvalues, the params and
-    momentum before the update (flat copies), pass 1's w and the adjusted
-    gradient the trainer's kernel pair returned."""
+    trainer, its state, the gradient, the eigenvalues and the basis, the
+    params and momentum before the update (flat copies), pass 1's w and the
+    adjusted gradient the trainer's kernel pair returned; with
+    ``later_steps`` (a run that goes on after that step) also the params
+    after the update (a flat copy)."""
     from hessian_llm_vision_tpu_torch.optim import lanczos_sgd_host as lsh
 
     calls, snap = [], {}
@@ -2589,11 +2712,15 @@ def _adjust_calls(kernels, keep: bool):
 
     def recorded(self, state, g_flat):
         calls.append((state.step, tuple(state.basis.shape), str(state.basis.dtype)))
-        if keep and state.step == 1:
+        kept = keep and state.step == 1
+        if kept:
             snap.update(trainer=self, state=state, g=g_flat, eigvals=state.eigvals.clone(),
-                        p_old=self.fl.flatten(state.params),
+                        basis=state.basis, p_old=self.fl.flatten(state.params),
                         buf_old=self.fl.flatten(state.momentum))
-        return adjust(self, state, g_flat)
+        out = adjust(self, state, g_flat)
+        if kept and later_steps:
+            snap["p_new"] = self.fl.flatten(state.params)
+        return out
 
     def kept_apply(*args):
         adj = apply(*args)
@@ -2627,9 +2754,11 @@ def frozen_step_check(spectral, snap: dict) -> dict:
       over that norm, the finest difference the comparison resolves, and
       ``term_share`` the term's norm over the adjusted gradient's;
     * ``replay_rel``: the update of the params against a plain replay of
-      the momentum step, as 12c's."""
+      the momentum step, as 12c's; ``update_floor`` is the replay's own
+      f32 rounding of p - lr buf over the update lr buf, the finest
+      difference that comparison resolves."""
     trainer, state, g = snap["trainer"], snap["state"], snap["g"]
-    cfg, V, adj = trainer.cfg, state.basis, snap.pop("adj")
+    cfg, V, adj = trainer.cfg, snap.pop("basis"), snap.pop("adj")
     c = spectral.adjust_coeffs(snap["eigvals"], cfg.delta)
     cols = [(s, s + (1 << 27)) for s in range(0, g.numel(), 1 << 27)]
     w = sum(spectral.rank_k_dots_reference(g[s:e], V[:, s:e], c) for s, e in cols)
@@ -2651,11 +2780,14 @@ def frozen_step_check(spectral, snap: dict) -> dict:
     # the trainer's own rounding: p - (lr buf), both updates relative to p
     p_old = snap.pop("p_old")
     replay = (p_old - float(cfg.lr) * buf).sub_(p_old)
+    update_floor = rel_l2(replay, buf.mul_(-float(cfg.lr)))
     del buf
-    update = trainer.fl.flatten(state.params).sub_(p_old)
+    p_new = snap.pop("p_new") if "p_new" in snap else trainer.fl.flatten(state.params)
+    update = p_new.sub_(p_old)
     return {"w_rel": rel_l2(snap["w"], w), "term_rel": math.sqrt(sq["diff"]) / term,
             "term_floor": math.sqrt(sq["rounding"]) / term,
-            "term_share": term / math.sqrt(sq["adjusted"]), "replay_rel": rel_l2(update, replay)}
+            "term_share": term / math.sqrt(sq["adjusted"]), "replay_rel": rel_l2(update, replay),
+            "update_floor": update_floor}
 
 
 def lm_lanczos_sgd(train_cli, kernels, spectral, argv, what: str, *, replay: bool) -> dict:
@@ -2670,14 +2802,16 @@ def lm_lanczos_sgd(train_cli, kernels, spectral, argv, what: str, *, replay: boo
         kernels.reset_launch_counts()
         records.append(rec)
 
+    n = int(argv[argv.index("--max_steps") + 1])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with _adjust_calls(kernels, replay) as (shapes, snap), _init_seconds() as init_s:
+    with _adjust_calls(kernels, replay, later_steps=n > 2) as (shapes, snap), \
+            _init_seconds() as init_s:
         kernels.reset_launch_counts()
         train_cli.main(argv, on_step=on_step)
     peak = torch.cuda.max_memory_allocated()
     res = {"steps": records, "launches_per_step": launches, "adjust_shapes": shapes,
-           "init_s": init_s[0], "max_memory_allocated_bytes": peak,
+           "init_s": init_s[0] if init_s else None, "max_memory_allocated_bytes": peak,
            "refresh_step_s": [r["seconds"] for r in records[::2]],
            "frozen_step_s": [r["seconds"] for r in records[1::2]]}
     if replay:
@@ -2685,7 +2819,6 @@ def lm_lanczos_sgd(train_cli, kernels, spectral, argv, what: str, *, replay: boo
     snap.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    n = int(argv[argv.index("--max_steps") + 1])
     gates = {
         f"{n} steps": len(records) == n,
         "finite loss and Ritz values": all(math.isfinite(v) for r in records
@@ -2710,7 +2843,6 @@ def pythia_1p4b(spectrum_cli, train_cli, spectra, kernels, spectral) -> dict:
     """13a and 13b: Pythia-1.4B at full width and depth."""
     out = {"13a_spectrum": lm_spectrum(spectrum_cli, spectra, kernels, PYTHIA_SPECTRUM_ARGV,
                                        "13a Pythia-1.4B spectrum")}
-    out["13a_spectrum"]["cpu_draw_init_s"] = cpu_draw_init_seconds(PYTHIA_SPECTRUM_ARGV)
     print(json.dumps({"13a_pythia_spectrum": out["13a_spectrum"]}))
     cut = []
     for seq in ("512", "256"):  # the one allowed cut: seq 256, the JAX protocol's
@@ -2862,7 +2994,7 @@ def lm_families_summary(fam: dict) -> dict:
     keys = ("lambda_max", "lambda_min", "trace_estimate", "gamma_sum", "iter_s", "init_s",
             "max_memory_allocated_bytes")
     return {
-        "13a_pythia_1p4b_spectrum": {k: a[k] for k in keys + ("cpu_draw_init_s",)},
+        "13a_pythia_1p4b_spectrum": {k: a[k] for k in keys},
         "13b_pythia_1p4b_lanczos_sgd": {k: b[k] for k in (
             "max_length", "oom_at", "init_s", "refresh_step_s", "frozen_step_s", "frozen_step",
             "max_memory_allocated_bytes", "launches_per_step")}
@@ -2874,6 +3006,208 @@ def lm_families_summary(fam: dict) -> dict:
                            "lanczos_sgd_step_s": [r["seconds"] for r in c["lanczos_sgd"]["steps"]]},
         "13d_gpt2_moe_spectrum": {k: d[k] for k in keys},
         "13e_tiny": fam["13e"],
+    }
+
+
+@contextlib.contextmanager
+def vision_data(mnist_dir: str, cifar_dir: str):
+    """``HLV_MNIST_DIR`` and ``HLV_CIFAR_DIR`` set inside the block, restored
+    after (the loaders read them at call time)."""
+    keys = ("HLV_MNIST_DIR", "HLV_CIFAR_DIR")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(zip(keys, (mnist_dir, cifar_dir)))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def write_mnist_test_idx(directory: str, n: int, seed: int = 0) -> None:
+    """MNIST's t10k idx pair (n random 28x28 uint8 digits, labels 0-9) from
+    seeded numpy, in the format ``data.vision._read_idx`` reads."""
+    import struct
+
+    rng = np.random.RandomState(seed)
+    arrays = {"t10k-images-idx3-ubyte": rng.randint(0, 256, (n, 28, 28)).astype(np.uint8),
+              "t10k-labels-idx1-ubyte": rng.randint(0, 10, n).astype(np.uint8)}
+    for stem, a in arrays.items():
+        with open(os.path.join(directory, stem), "wb") as f:
+            f.write(struct.pack(">I", 0x0800 | a.ndim) + struct.pack(f">{a.ndim}I", *a.shape))
+            f.write(a.tobytes())
+
+
+def vision_hvp_vs_central_difference(spectrum_cli, argv, gated: bool) -> dict:
+    """14c: on one batch, the f32 HVP and the bf16 ("default") and TF32
+    ones, on the CLI's first probe, against a float64 HVP (the model on
+    float64 params) and a float64 central difference of gradients on the
+    card.  ``gated``: the float64 HVP within HVP_FD_LIMIT of the difference,
+    the f32 HVP within VISION_F32_LIMIT of the float64 HVP (at init on
+    random images both models' f32 HVPs are ill-conditioned: this phase
+    reads VGG-16's 2.6e-3 and ResNet-50's 9.4e-4), and the bf16 and TF32
+    HVPs (convolutions and dense products alike) beyond both limits.
+    Otherwise (BN train mode) the difference is read; every mode gates the
+    f32 HVP nearer the float64 one than the bf16 and TF32 HVPs."""
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.curvature.operators import DatasetHessianOperator
+    from hessian_llm_vision_tpu_torch.krylov.lanczos import start_vector
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    args = spectrum_cli.build_parser().parse_args(argv)
+    wl = build_workload(args, CARD)
+    dim = sum(p.numel() for p in wl.params.values())
+    v0 = torch.randn(dim, generator=torch.Generator().manual_seed(args.vector_seed)).to(CARD)
+    q1 = start_vector(v0, None, dim)
+    hv = {name: DatasetHessianOperator(wl.loss_fn, wl.params, wl.batches, normalization="mean",
+                                       precision=prec).matvec(q1)
+          for name, prec in (("f32", "high"), ("bf16", "default"), ("tf32", "TF32_TF32_F32"))}
+    hv["f64"] = DatasetHessianOperator(wl.loss_fn, {n: t.double() for n, t in wl.params.items()},
+                                       wl.batches, normalization="mean",
+                                       precision=None).matvec(q1.double())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref, ref2 = central_difference_hvp(wl.loss_fn, wl.params, wl.batches, q1, VISION_FD_EPS)
+    torch.cuda.synchronize()
+    res = {"eps": VISION_FD_EPS, "P": dim, "hv_norm": float(torch.linalg.vector_norm(ref)),
+           **{f"rel_l2_{n}_hvp_vs_fd": rel_l2(h, ref) for n, h in hv.items()},
+           **{f"rel_l2_{n}_hvp_vs_f64_hvp": rel_l2(hv[n], hv["f64"]) for n in ("f32", "bf16",
+                                                                               "tf32")},
+           "rel_l2_fd2_vs_fd4": rel_l2(ref2, ref), "build_and_hvps_s": t1 - t0,
+           "fd_s": time.perf_counter() - t1}
+    del wl, hv, ref, ref2
+    f32 = res["rel_l2_f32_hvp_vs_f64_hvp"]
+    gates = {"f32 HVP nearer the float64 HVP than the bf16 and TF32 ones":
+             f32 < min(res["rel_l2_bf16_hvp_vs_f64_hvp"], res["rel_l2_tf32_hvp_vs_f64_hvp"])}
+    if gated:
+        gates.update({
+            "f64 HVP within the limit of the difference":
+                res["rel_l2_f64_hvp_vs_fd"] <= HVP_FD_LIMIT,
+            "reference's truncation within the limit": res["rel_l2_fd2_vs_fd4"] <= HVP_FD_LIMIT,
+            "bf16 HVP misses the limit": res["rel_l2_bf16_hvp_vs_fd"] > HVP_FD_LIMIT,
+            "TF32 HVP misses the limit": res["rel_l2_tf32_hvp_vs_fd"] > HVP_FD_LIMIT,
+            f"f32 HVP within {VISION_F32_LIMIT} of the float64 HVP": f32 <= VISION_F32_LIMIT,
+            **{f"{n} HVP beyond {VISION_F32_LIMIT} of the float64 HVP":
+               res[f"rel_l2_{n}_hvp_vs_f64_hvp"] > VISION_F32_LIMIT for n in ("bf16", "tf32")},
+        })
+    mode = " (BN train mode)" if "--bn_train_mode" in argv else ""
+    check_gates(f"14c {argv[1]}{mode} HVP against float64", gates)
+    return res
+
+
+def vision_lanczos_sgd(train_cli, kernels, spectral, argv, what: str, p: int) -> dict:
+    """14d: 13b's LanczosSGD checks on a vision model: each kernel once a
+    step, every adjust at (10, p) bf16, the frozen step against the plain
+    versions; the update resolved in f32 (its rounding <= 1e-3 of it), so
+    that the replay can see the kernels' part."""
+    res = lm_lanczos_sgd(train_cli, kernels, spectral, argv, what, replay=True)
+    check_gates(what, {
+        f"every adjust at (10, {p}) bf16": all(
+            sh == (10, p) and dt == "torch.bfloat16" for _, sh, dt in res["adjust_shapes"]),
+        "update resolved (f32 rounding of p - lr buf <= 1e-3 of it)":
+            res["frozen_step"]["update_floor"] <= TERM_FLOOR_MAX})
+    return res
+
+
+def vision_card_vs_cpu(spectrum_cli, train_cli, kernels, mnist_dir: str) -> dict:
+    """14e: the small configs through both CLIs, card against CPU: the
+    spectrum's Ritz extremes within 1e-3, every training loss within 1e-5
+    and the trainer's Ritz values (3 Lanczos steps, unconverged) within
+    1e-3; the card runs' launches."""
+    out = {}
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        for name, (model, spec_nb, train_nb, steps) in VISION_TINY.items():
+            base = model + ["--out", os.path.join(mnist_dir, "runs")]
+            card, cpu = (spectrum_cli.main(model + spec_nb + VISION_TINY_SPECTRUM + extra)[0]
+                         for extra in ([], ["--cpu"]))
+            recs, launches = ([], []), {}
+            for r, extra in zip(recs, ([], ["--cpu"])):
+                kernels.reset_launch_counts()
+                train_cli.main(base + train_nb + VISION_TINY_TRAIN + ["--max_steps", str(steps)]
+                               + extra, on_step=lambda s, rec, r=r: r.append(rec))
+                if not extra:
+                    torch.cuda.synchronize()
+                    launches = dict(kernels.LAUNCHES)
+            out[name] = {"spectrum_extremes_rel": extremes_rel(card.eigvals, cpu.eigvals),
+                         "steps": len(recs[0]), "cpu_steps": len(recs[1]),
+                         "loss_rel": max(_rel(a["loss"], b["loss"]) for a, b in zip(*recs)),
+                         "ritz_rel": max(_rel(a[k], b[k]) for a, b in zip(*recs)
+                                         for k in ("eig_max", "eig_min")),
+                         "launches": launches}
+    print(json.dumps({"14e_vision_card_vs_cpu": out}))
+    check_gates("14e vision configs, card against CPU", {
+        **{f"{n}: {VISION_TINY[n][3]} steps on each device":
+           r["steps"] == r["cpu_steps"] == VISION_TINY[n][3] for n, r in out.items()},
+        **{f"{n} spectrum extremes": r["spectrum_extremes_rel"] <= TINY_TRAIN_RITZ_RTOL
+           for n, r in out.items()},
+        **{f"{n} losses": r["loss_rel"] <= TINY_TRAIN_LOSS_RTOL for n, r in out.items()},
+        **{f"{n} trainer's Ritz values": r["ritz_rel"] <= TINY_TRAIN_RITZ_RTOL
+           for n, r in out.items()},
+    })
+    return out
+
+
+def vision(spectrum_cli, train_cli, spectra, kernels, spectral) -> dict:
+    """Phase 14: 14a-14e, each timed, with both data directories pointed at
+    empty temporary directories (14e's SimpleNet at its idx files)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as empty, tempfile.TemporaryDirectory() as mnist:
+        write_mnist_test_idx(mnist, MNIST_N)
+        with vision_data(empty, empty):
+            steps = (
+                ("14a", lambda: lm_spectrum(spectrum_cli, spectra, kernels, VGG_SPECTRUM_ARGV,
+                                            "14a VGG-16 spectrum", RANDOM_IMAGES)),
+                ("14b", lambda: {mode: lm_spectrum(
+                    spectrum_cli, spectra, kernels, RESNET_SPECTRUM_ARGV + extra,
+                    f"14b ResNet-50 spectrum, BN {mode} mode", RANDOM_IMAGES)
+                    for mode, extra in (("eval", []), ("train", ["--bn_train_mode"]))}),
+                ("14c", lambda: {name: vision_hvp_vs_central_difference(
+                    spectrum_cli, argv + VISION_FD_BASE, gated)
+                    for name, argv, gated in (
+                        ("vgg16", ["--model", "vgg16"], True),
+                        ("resnet50_eval", ["--model", "resnet50"], True),
+                        ("resnet50_train", ["--model", "resnet50", "--bn_train_mode"], False))}),
+                ("14d", lambda: {
+                    "vgg16": vision_lanczos_sgd(train_cli, kernels, spectral, VGG_TRAIN_ARGV,
+                                                "14d VGG-16 LanczosSGD", VGG16_P),
+                    "resnet50": vision_lanczos_sgd(train_cli, kernels, spectral,
+                                                   RESNET_TRAIN_ARGV, "14d ResNet-50 LanczosSGD",
+                                                   RESNET50_P)}),
+            )
+            for key, run in steps:
+                t0 = time.perf_counter()
+                out[key] = run()
+                gc.collect()
+                torch.cuda.empty_cache()
+                print(json.dumps({f"{key}_vision": out[key]}))
+                print(f"phase {key} took {time.perf_counter() - t0:.1f} s", flush=True)
+            b = out["14b"]
+            check_gates("14b ResNet-50 BN modes", {
+                "lambda_max differs between the modes":
+                    b["eval"]["lambda_max"] != b["train"]["lambda_max"]})
+        t0 = time.perf_counter()
+        with vision_data(mnist, empty):
+            out["14e"] = vision_card_vs_cpu(spectrum_cli, train_cli, kernels, mnist)
+        print(f"phase 14e took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def vision_summary(vis: dict) -> dict:
+    keys = ("lambda_max", "lambda_min", "trace_estimate", "gamma_sum", "iter_s",
+            "max_memory_allocated_bytes")
+    return {
+        "14a_vgg16_spectrum": {k: vis["14a"][k] for k in keys},
+        **{f"14b_resnet50_spectrum_{m}": {k: r[k] for k in keys} for m, r in vis["14b"].items()},
+        **{f"14c_{n}": {k: v for k, v in r.items() if k.startswith("rel_l2")}
+           for n, r in vis["14c"].items()},
+        **{f"14d_{n}_lanczos_sgd": {k: r[k] for k in (
+            "refresh_step_s", "frozen_step_s", "frozen_step", "max_memory_allocated_bytes",
+            "launches_per_step")} | {"losses": [s["loss"] for s in r["steps"]]}
+           for n, r in vis["14d"].items()},
+        "14e_tiny": vis["14e"],
     }
 
 
@@ -2899,7 +3233,7 @@ def main() -> int:
         for name, use in kernels.ptxas_usage(res.log).items():
             print(f"  {name}: {use['registers']} registers, {use['spill_bytes']} bytes spilled")
     for dtype in TIMED_DTYPES:  # pass 1's and pass 2's plans at the timed shapes
-        for k, p in [(10, P_124M), (35, P_124M)] + list(LEAF_TIMED):
+        for k, p in [(10, P_124M), (35, P_124M)] + list(LEAF_TIMED + VISION_SHAPES):
             for name, plan in (("rank_k_dots_plan", kernels.dots_launch_plan(k, p, dtype, CARD)),
                                ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dtype, CARD))):
                 print(json.dumps({name: {"dtype": str(dtype).removeprefix("torch."), "k": k,
@@ -2911,30 +3245,24 @@ def main() -> int:
     print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(3, "rank-k kernels vs plain versions")
-    gen = torch.Generator(device=CARD).manual_seed(1234)
+    gen = torch.Generator(device=CARD).manual_seed(PHASE3_SEED)
     checks = {}
-    for dtype in TIMED_DTYPES:
-        # (35, P): k*P > 2**31 needs 64-bit offsets; P = 20001 takes the
-        # scalar-load path (P not a multiple of the 16-byte vector)
-        for k, p in ((10, P_124M), (35, P_124M), (35, 16384), (3, 20000), (5, 20001)):
-            checks[(dtype, k, p)] = check_rank_k(
-                kernels, spectral, dtype, k, p, gen, timed=(p == P_124M and k in TIMED_KS)
-            )
-            torch.cuda.empty_cache()
-    for dtype, k in PATH_SHAPES:
-        checks[(dtype, k, P_124M)] = check_rank_k(kernels, spectral, dtype, k, P_124M, gen,
-                                                  timed=(dtype, k) in PATH_TIMED)
+    for dtype, k, p, offset, timed in phase3_shapes():
+        checks[(dtype, k, p) + ((offset,) if offset else ())] = check_rank_k(
+            kernels, spectral, dtype, k, p, gen, timed=timed, g_offset=offset)
         torch.cuda.empty_cache()
+    # phase 14's (10, P), rows not 16-byte aligned; then 13b's shape, the
+    # first with k * P >= 2**31 at full width (V alone 11.3 GB), on two
+    # draws: the generator after phase 14's shapes and, untimed, before them
+    before_vision = gen.get_state()
     for dtype in TIMED_DTYPES:
-        for k, p in LEAF_TIMED:
+        for k, p in VISION_SHAPES:
             checks[(dtype, k, p)] = check_rank_k(kernels, spectral, dtype, k, p, gen, timed=True)
-    for dtype, k, p, offset in LEAF_CHECKED:
-        checks[(dtype, k, p, offset)] = check_rank_k(kernels, spectral, dtype, k, p, gen,
-                                                     timed=False, g_offset=offset)
-    checks[ROW_SWEEP] = check_rank_k(kernels, spectral, *ROW_SWEEP, gen, timed=False)
-    torch.cuda.empty_cache()
-    # 13b's shape, the first with k * P >= 2**31 at full width: V alone 11.3 GB
     checks[PYTHIA_SHAPE] = check_rank_k(kernels, spectral, *PYTHIA_SHAPE, gen, timed=True)
+    torch.cuda.empty_cache()
+    gen.set_state(before_vision)
+    checks[PYTHIA_SHAPE + ("second draw",)] = check_rank_k(kernels, spectral, *PYTHIA_SHAPE, gen,
+                                                           timed=False)
     torch.cuda.empty_cache()
     failed = [key for key, r in checks.items() if not r["ok"]]
     if failed:
@@ -2950,8 +3278,9 @@ def main() -> int:
               f"library {d['library_ms']:.3f} bound {d['bound_ms']:.3f}; rank_k_axpy "
               f"{a['ms']:.3f} ms; pair {d['ms'] + a['ms']:.3f} ms")
     # per call, µs: wall (events, in turns), host (perf_counter), device (trace)
-    for key in [(dt, k, P_124M) for dt, k in timed] + [(dt, k, p) for dt in TIMED_DTYPES
-                                                       for k, p in LEAF_TIMED] + [PYTHIA_SHAPE]:
+    for key in ([(dt, k, P_124M) for dt, k in timed] + [(dt, k, p) for dt in TIMED_DTYPES
+                                                       for k, p in LEAF_TIMED + VISION_SHAPES]
+                + [PYTHIA_SHAPE]):
         for name in TPU_KERNELS:
             t = checks[key][name]
             print(f"{str(key[0]).removeprefix('torch.'):8s} k={key[1]:2d} P={key[2]:>9d} {name}: "
@@ -3115,6 +3444,13 @@ def main() -> int:
     fam = lm_families(spectrum_cli, train_cli, spectra, kernels, spectral)
     print(f"phase 13 took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"lm_families": lm_families_summary(fam)}))
+
+    t0 = phase(14, "the vision models at full width on random images: VGG-16 and ResNet-50 "
+                   "spectra, f32 HVPs against a float64 central difference, LanczosSGD with "
+                   "the rank-k pair at unaligned rows; the small configs card vs CPU")
+    vis = vision(spectrum_cli, train_cli, spectra, kernels, spectral)
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"vision": vision_summary(vis)}))
     lw = rest["12cdf"]
     by_path = {"phase4_train_4_steps": launches,
                "phase7b_spectrum": headline["rank_k_launches"],
@@ -3146,7 +3482,10 @@ def main() -> int:
                    fam["13ab"]["13b_lanczos_sgd"]["launches_per_step"])},
                "phase13c_llama_134m_4_steps": _summed(fam["13c"]["lanczos_sgd"]["launches_per_step"]),
                "phase13e_lora_llama_tiny_2_steps": _summed(
-                   fam["13e"]["lora_llama_tiny"]["launches_per_step"])}
+                   fam["13e"]["lora_llama_tiny"]["launches_per_step"]),
+               **{f"phase14d_{n}_4_steps": _summed(r["launches_per_step"])
+                  for n, r in vis["14d"].items()},
+               **{f"phase14e_{n}_train": r["launches"] for n, r in vis["14e"].items()}}
     # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d), GN/NGD
     # and Adam with snapshots take no rank-k apply; every other path must
     # have launched both kernels
@@ -3167,7 +3506,8 @@ def main() -> int:
                          without_smi(checks[(dt, k, P_124M)][name]) for dt, k in PATH_TIMED},
                       **{f"{str(dt).removeprefix('torch.')}_k{k}_P{p}":
                          without_smi(checks[(dt, k, p)][name])
-                         for dt in TIMED_DTYPES for k, p in LEAF_TIMED + (PYTHIA_SHAPE[1:],)
+                         for dt in TIMED_DTYPES
+                         for k, p in LEAF_TIMED + VISION_SHAPES + (PYTHIA_SHAPE[1:],)
                          if (dt, k, p) in checks},
                       "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
                       "checks_passed": len(checks)})

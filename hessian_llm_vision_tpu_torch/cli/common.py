@@ -22,16 +22,15 @@ def _block_precision_arg(value: str) -> str:
 
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:
-    """The model/data flags of the JAX CLIs that this port accepts.  Values
-    outside the port exit with "not ported yet" in ``build_workload``."""
+    """The model/data flags of the JAX CLIs, with their names and defaults."""
     parser.add_argument("--model", default="gpt2-tiny",
                         help="gpt2 | gpt2-tiny | gpt2-moe | pythia-70m | pythia-160m | "
                         "pythia-410m | pythia-1.4b | llama-tiny | llama-micro | llama-134m | "
-                        "llama-7b (spiral, mlp, simplenet, vgg16 and resnet50 are not "
-                        "ported yet: ROADMAP A12b)")
+                        "llama-7b | spiral | simplenet | vgg16 | resnet50")
     parser.add_argument("--dataset", default="random",
-                        help="random | markov | local:<path> (byte-level corpus "
-                        "from on-disk text); wikipedia is not ported yet")
+                        help="wikipedia (needs --allow_fallback: seeded random tokens) "
+                        "| random | markov | local:<path> (byte-level corpus from "
+                        "on-disk text) for LMs; builtin for vision")
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--subsample", type=float, default=1.0)
     parser.add_argument("--max_length", type=int, default=64)
@@ -39,6 +38,10 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="batch-count cap: synthetic datasets generate "
                         "this many (default 4); local:<path> corpora are "
                         "truncated to it (default: whole corpus)")
+    parser.add_argument("--allow_fallback", action="store_true",
+                        help="permit the wikipedia->random-tokens fallback "
+                        "(offline dev); without it a failed hub load is an "
+                        "error, never silent noise-training")
     parser.add_argument("--random_mask", action="store_true",
                         help="random attention masks on synthetic tokens")
     parser.add_argument("--attn_block_q", type=int, default=None,
@@ -87,6 +90,24 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="compute in bfloat16 with f32 params, as flax's dtype "
                         "(dense products and activations bf16, LayerNorm "
                         "statistics f32, logits f32)")
+    parser.add_argument("--bn_train_mode", action="store_true",
+                        help="resnet50: BatchNorm normalises with each batch's own "
+                        "statistics (an eval model with BN in train mode); default: "
+                        "the stored statistics")
+    parser.add_argument("--classes", type=int, nargs="*", default=None,
+                        help="vgg16/resnet50 on real data: keep these classes, "
+                        "relabelled 0..n-1")
+    parser.add_argument("--augment", action="store_true",
+                        help="RandomCrop(4)+flip on vision data. Multi-epoch training "
+                        "redraws crops/flips per epoch keyed on (data_seed, epoch); "
+                        "curvature/spectrum jobs see the fixed epoch-0 draw (a "
+                        "deterministic operator)")
+    parser.add_argument("--noise", type=float, default=0.0,
+                        help="AddGaussianNoise std on vision data")
+    parser.add_argument("--width", type=int, default=64, help="spiral MLP width")
+    parser.add_argument("--depth", type=int, default=3, help="spiral MLP hidden layers")
+    parser.add_argument("--num_points", type=int, default=600, help="spiral points")
+    parser.add_argument("--spiral_noise", type=float, default=0.2)
     parser.add_argument("--out", default="runs", help="root of the run directories")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU")
 

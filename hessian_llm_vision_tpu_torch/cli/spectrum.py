@@ -23,6 +23,9 @@ Examples:
   python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
       --host_loop --lanczos_iters 8 --num_batches 2 --batch_size 4 \\
       --max_length 32 --out_spectrum /tmp/s
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model resnet50 \\
+      --bn_train_mode --batch_size 128 --num_batches 4 --host_loop \\
+      --lanczos_iters 20 --hvp_precision high --out_spectrum resnet
   python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\
       --host_loop --checkpoint ck --precision_check --hvp_precision default
   python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2-tiny --cpu \\

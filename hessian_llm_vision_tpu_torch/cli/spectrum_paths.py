@@ -36,6 +36,7 @@ from hessian_llm_vision_tpu_torch.krylov.slq import Spectrum, ritz_decomposition
 from hessian_llm_vision_tpu_torch.krylov.thick_restart import lanczos_thick_restart
 from hessian_llm_vision_tpu_torch.krylov.trace import hutchpp_trace
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 
 def _single_batch_norm(normalization: str) -> str:
@@ -141,7 +142,7 @@ def _thick_restart(args, wl, op, v0: torch.Tensor):
     ] if set_]
     if dropped:
         raise SystemExit(f"--thick_restart does not support {', '.join(dropped)}")
-    v0 = v0 / torch.linalg.vector_norm(v0)
+    v0 = v0 / norm(v0)
     tr_dtype = torch.bfloat16 if args.tr_dtype == "bfloat16" else torch.float32
     kw = dict(v0=v0, inner=args.lanczos_iters, which=args.tr_which, tol=args.tr_tol,
               store_dtype=tr_dtype, progress=True)

@@ -1,6 +1,6 @@
 """Training CLI (port of ``cli/train.py``): SGD, Adam and raw-SGD baselines,
 LanczosSGD (fused, layer-wise and host-driven), and Gauss-Newton and
-natural-gradient steps on GPT-2.
+natural-gradient steps on the language models and the classifiers.
 
 Flag names and defaults are the JAX CLI's: ``--optimiser sgd | adam | raw
 | lanczos | lanczos-layer | lanczos-host | lanczos-layer-host | gn | ngd``
@@ -19,7 +19,9 @@ the first batch after training, saved as ``eigenspace.npz`` or
 ``--post_spectrum_out``), and the refresh precision of the host trainers:
 ``--refresh_precision`` (``auto`` resolves it by probing the starting
 params and installs the precision guard, ``optim/precision_guard.py``),
-``--precision_recheck`` and ``--precision_check``.
+``--precision_recheck`` and ``--precision_check``.  With ``--augment`` or
+``--noise`` on vgg16/resnet50 and ``--epochs`` > 1, each epoch trains on a
+fresh draw of the transforms (``train.loop.EpochResampledBatches``).
 
 Runs on the first CUDA device unless ``--cpu`` is given; without ``--cpu``
 and without a card it stops with an error and never continues on the CPU.
@@ -334,7 +336,7 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> fl
     )
     from hessian_llm_vision_tpu_torch.optim.schedules import linear_decay
     from hessian_llm_vision_tpu_torch.train.accumulate import to_microbatches
-    from hessian_llm_vision_tpu_torch.train.loop import train
+    from hessian_llm_vision_tpu_torch.train.loop import EpochResampledBatches, train
 
     args = build_parser().parse_args(argv)
     if args.refresh_linearized and args.optimiser != "lanczos-host":
@@ -377,6 +379,13 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> fl
     batches = wl.batches
     if accum > 1:
         batches = [to_microbatches(b, accum) for b in batches]
+    if wl.make_batches is not None and args.epochs > 1:
+        # --augment / --noise: each epoch redraws its crops, flips and noise;
+        # epoch 0 equals wl.batches, so a one-epoch run is unchanged
+        batches = EpochResampledBatches(
+            wl.make_batches,
+            transform=(lambda bs: [to_microbatches(b, accum) for b in bs]) if accum > 1 else None,
+        )
 
     final = {"loss": float("nan")}
 

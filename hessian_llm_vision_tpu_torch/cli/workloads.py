@@ -1,14 +1,20 @@
 """Workload registry (port of ``cli/workloads.py``): the model, params,
 loss, batches and the GGN pieces (``model_fn`` -> logits, ``out_loss_fn``
-on them) a CLI runs on, for the language models: ``gpt2``, ``gpt2-tiny``
-and ``gpt2-moe`` (with ``--experts`` / ``--moe_top_k`` on the gpt2
-family), ``pythia-70m|160m|410m|1.4b`` and ``llama-tiny|micro|134m|7b``.
-The vision, spiral and MLP models are not ported yet (ROADMAP A12b).
+on them) a CLI runs on.  The language models: ``gpt2``, ``gpt2-tiny`` and
+``gpt2-moe`` (with ``--experts`` / ``--moe_top_k`` on the gpt2 family),
+``pythia-70m|160m|410m|1.4b`` and ``llama-tiny|micro|134m|7b``; the
+classifiers: ``spiral``/``mlp`` (SiLU MLP on k-spirals), ``simplenet``/
+``mnist`` (784-100-10 on MNIST's test split, which must be on disk) and
+``vgg16``/``resnet50`` at their CIFAR-10 heads, on CIFAR-10, else MNIST
+padded to 32x32x3, else random images.
 
 Weights are random from ``--seed`` (torch generators, so they are not the
-JAX package's weights for the same seed), or ``--checkpoint``'s params
-loaded with the random init as template; tokens come from the same numpy
-generators as the JAX package's, so both packages see the same batches.
+JAX package's weights for the same seed), or for a language model
+``--checkpoint``'s params loaded with the random init as template (the
+classifiers ignore it, as the JAX CLI does); tokens, points and images come
+from the same numpy generators and loaders as the JAX package's, so both
+packages see the same batches.  A classifier batch is a dict ``{"image":
+(B, ...) f32, "label": (B,) int64}`` on the device.
 """
 
 from __future__ import annotations
@@ -21,10 +27,10 @@ import torch
 
 _MODELS = ("gpt2", "gpt2-tiny", "gpt2-moe", "pythia-70m", "pythia-160m", "pythia-410m",
            "pythia-1.4b", "llama-tiny", "llama-micro", "llama-134m", "llama-7b")
-_VISION = ("spiral", "mlp", "simplenet", "vgg16", "resnet50")
+_VISION = ("spiral", "mlp", "simplenet", "mnist", "vgg16", "resnet50")
 #: a model with at least this many parameters draws its init on the card
 #: (a CPU draw of Pythia-1.4B's 1.41e9 normals takes about 10 s where the
-#: card's takes under 1 s: chip_smoke.py 13a prints both); a smaller one
+#: card's takes under 1 s, which chip_smoke.py 13a prints); a smaller one
 #: draws on the CPU and moves, so a card run and a CPU run of the same
 #: --seed start from the same weights
 CARD_INIT_MIN_PARAMS = 1 << 28
@@ -38,9 +44,15 @@ class Workload:
     loss_fn: Callable[[Any, Any], torch.Tensor]
     batches: list  # list of batch dicts on the device
     batch_size: int
+    apply_fn: Optional[Callable] = None  # classifier apply_fn(params, x) for accuracy
+    labels: Optional[Any] = None
     # GGN / Fisher: model_fn(params, batch) -> outputs, out_loss_fn(outputs, batch)
     model_fn: Optional[Callable[[Any, Any], torch.Tensor]] = None
     out_loss_fn: Optional[Callable[[torch.Tensor, Any], torch.Tensor]] = None
+    # per-epoch stochastic data: make_batches(epoch) -> fresh batch list
+    # (--augment / --noise redraw crops, flips and noise per epoch; epoch 0
+    # equals batches, so curvature jobs see a fixed dataset)
+    make_batches: Optional[Callable[[int], list]] = None
 
 
 def _lm_batches(args, vocab_size: int, device: torch.device) -> list[dict]:
@@ -51,8 +63,15 @@ def _lm_batches(args, vocab_size: int, device: torch.device) -> list[dict]:
     from hessian_llm_vision_tpu_torch.data.text import load_local_corpus
 
     if args.dataset == "wikipedia":
-        raise SystemExit("--dataset wikipedia: not ported yet (ROADMAP A15); "
-                         "use random, markov or local:<path>")
+        # the port reads no hub dataset: the JAX CLI's offline path only
+        if not args.allow_fallback:
+            raise SystemExit(
+                "dataset 'wikipedia' unavailable (the port has no hub loader); pass "
+                "--allow_fallback to proceed on seeded random tokens, or use "
+                "--dataset random/markov/local:<path>"
+            )
+        print("[data] wikipedia unavailable (no hub loader); falling back to seeded "
+              "random tokens (--allow_fallback)")
     if args.dataset.startswith("local:"):
         stacked = load_local_corpus(
             args.dataset[len("local:"):], max_length=args.max_length,
@@ -90,7 +109,8 @@ def _lm_batches(args, vocab_size: int, device: torch.device) -> list[dict]:
 
 
 def _refuse(args) -> None:
-    """The JAX CLI's refusals, then the models not ported yet."""
+    """The JAX CLI's refusals of the MoE and LM-only flags, and unknown
+    models."""
     name = args.model
     if args.experts and not name.startswith("gpt2"):
         raise SystemExit(f"--experts applies to the gpt2 family only; model {name!r} has "
@@ -106,10 +126,7 @@ def _refuse(args) -> None:
         if dropped:
             raise SystemExit(f"{', '.join(dropped)} apply to LM models only; model {name!r} "
                              "has no transformer-block/vocab path")
-    if name in _VISION:
-        raise SystemExit(f"--model {name}: not ported yet (ROADMAP A12b: the vision, spiral "
-                         f"and MLP models; ported: {', '.join(_MODELS)})")
-    if name not in _MODELS:
+    if name not in _MODELS + _VISION:
         raise ValueError(f"unknown model {name!r}")
 
 
@@ -172,15 +189,143 @@ def init_model(model_cls, cfg, seed: int, device: torch.device) -> torch.nn.Modu
     return model.to(device)
 
 
+def _image_batches(x: np.ndarray, y: np.ndarray, batch_size: int,
+                   device: torch.device) -> list[dict]:
+    """The first ``len(x) // batch_size`` full batches of (x, y) as
+    ``{"image", "label"}`` dicts on ``device``."""
+    n = (len(x) // batch_size) * batch_size
+    xs = torch.as_tensor(np.ascontiguousarray(x[:n])).reshape(-1, batch_size, *x.shape[1:])
+    ys = torch.as_tensor(np.asarray(y[:n], np.int64)).reshape(-1, batch_size)
+    return [{"image": xs[i].to(device), "label": ys[i].to(device)} for i in range(xs.shape[0])]
+
+
+def _cifar_like(args) -> tuple[np.ndarray, np.ndarray, int]:
+    """vgg16/resnet50 data as the JAX CLI finds it: CIFAR-10's train split,
+    else MNIST padded to 32x32x3 (train, then test), else random images;
+    ``--classes`` and ``--subsample`` / ``--num_batches`` apply to real
+    data.  Returns (x (N, 32, 32, 3), y (N,), num_classes)."""
+    from hessian_llm_vision_tpu_torch.data import (
+        get_class_subset,
+        load_cifar10,
+        load_mnist_as_cifar,
+        random_image_batches,
+    )
+
+    try:
+        x, y = load_cifar10("train")
+    except FileNotFoundError:
+        try:
+            try:
+                x, y = load_mnist_as_cifar("train")
+            except FileNotFoundError:
+                # some deployments carry only the t10k idx files
+                x, y = load_mnist_as_cifar("test")
+            print("[data] CIFAR-10 unavailable; using real MNIST upscaled to 32x32x3")
+        except FileNotFoundError:
+            print("[data] CIFAR-10 and MNIST unavailable; falling back to random images")
+            x = y = None
+    if x is None:
+        # 0/None = default size (synthetic data has no natural "whole")
+        xb, yb = random_image_batches(max(1, int(args.num_batches or 4)), args.batch_size,
+                                      seed=args.data_seed)
+        return xb.reshape(-1, 32, 32, 3), yb.reshape(-1), 10
+    if args.classes:
+        x, y = get_class_subset(x, y, args.classes)
+    n_take = int(len(x) * args.subsample) or args.batch_size
+    # --num_batches caps real data too (0/None = no cap, never empty)
+    if args.num_batches:
+        n_take = min(n_take, int(args.num_batches) * args.batch_size)
+    return x[:n_take], y[:n_take], len(args.classes) if args.classes else 10
+
+
+def _classifier(args, device: torch.device, model_cls, **kw) -> torch.nn.Module:
+    """``model_cls(**kw)`` with its weights drawn from a CPU generator
+    seeded with ``--seed`` and moved, so the card and the CPU start from
+    the same weights."""
+    return model_cls(**kw, generator=torch.Generator().manual_seed(args.seed)).to(device)
+
+
+def _classifier_workload(args, device: torch.device) -> Workload:
+    """The spiral, simplenet, vgg16 and resnet50 workloads."""
+    from torch.func import functional_call
+
+    from hessian_llm_vision_tpu_torch.data import (
+        add_gaussian_noise,
+        augment_batch,
+        load_mnist,
+        make_spirals,
+    )
+    from hessian_llm_vision_tpu_torch.models import VGG16, ResNet50, SimpleNet, SpiralMLP
+    from hessian_llm_vision_tpu_torch.models.losses import (
+        classification_loss_fn,
+        classification_loss_fn_bn,
+        softmax_cross_entropy,
+    )
+    from hessian_llm_vision_tpu_torch.models.resnet import batch_stats
+
+    name, bs = args.model, args.batch_size
+    if name in ("vgg16", "resnet50"):
+        x, y, num_classes = _cifar_like(args)
+        # --augment (random crop + flip) / --noise (Gaussian), redrawn per
+        # epoch from data_seed + 100003 * epoch; epoch 0 is what curvature
+        # jobs see, training redraws through make_batches
+        x_raw = x if (args.augment or args.noise) else None
+
+        def transform(epoch: int) -> np.ndarray:
+            xa, seed = x_raw, args.data_seed + 100003 * epoch
+            if args.augment:
+                xa = augment_batch(xa, seed=seed)
+            if args.noise:
+                xa = add_gaussian_noise(xa, std=args.noise, seed=seed)
+            return xa
+
+        if x_raw is not None:
+            x = transform(0)
+        if name == "vgg16":
+            model = _classifier(args, device, VGG16, num_classes=num_classes)
+            loss_fn = classification_loss_fn(model)
+        else:
+            model = _classifier(args, device, ResNet50, num_classes=num_classes)
+            loss_fn = classification_loss_fn_bn(model, batch_stats(model),
+                                                bn_train_mode=args.bn_train_mode)
+        wl = Workload(name, model, {n: p.detach() for n, p in model.named_parameters()},
+                      loss_fn, _image_batches(x, y, bs, device), bs)
+        if x_raw is not None:
+            wl.make_batches = lambda epoch: _image_batches(transform(epoch), y, bs, device)
+        return wl
+
+    if name in ("mlp", "spiral"):
+        x, y = make_spirals(args.num_points, noise=args.spiral_noise, seed=args.data_seed)
+        model = _classifier(args, device, SpiralMLP, width=args.width, depth=args.depth)
+    else:  # simplenet / mnist: no random fallback, as in the JAX CLI
+        x, y = load_mnist("test")
+        sel = slice(0, int(len(x) * args.subsample) or bs)
+        x, y = x[sel], y[sel]
+        model = _classifier(args, device, SimpleNet)
+
+    def model_fn(p, b):
+        return functional_call(model, p, (b["image"],))
+
+    def out_loss_fn(logits, b):
+        return softmax_cross_entropy(logits, b["label"])
+
+    return Workload(name, model, {n: p.detach() for n, p in model.named_parameters()},
+                    classification_loss_fn(model), _image_batches(x, y, bs, device), bs,
+                    apply_fn=lambda p, xx: functional_call(model, p, (xx,)),
+                    model_fn=model_fn, out_loss_fn=out_loss_fn)
+
+
 def build_workload(args, device: torch.device) -> Workload:
-    """``--model`` at random init from ``--seed`` or from ``--checkpoint``,
-    on ``device``, with its LM loss and the ``--dataset`` batches;
-    ``--bf16`` and ``--block_precision`` set the config's compute dtype and
-    block precision (the params stay f32)."""
+    """``--model`` at random init from ``--seed`` or (an LM) from ``--checkpoint``,
+    on ``device``, with its loss and batches: for an LM the ``--dataset``
+    tokens, ``--bf16`` and ``--block_precision`` setting the config's
+    compute dtype and block precision (the params stay f32)."""
     from hessian_llm_vision_tpu_torch.io.checkpoints import load_checkpoint
     from hessian_llm_vision_tpu_torch.models.losses import causal_lm_loss, lm_loss_fn
 
     _refuse(args)
+    if args.model in _VISION:  # as in the JAX CLI, no --checkpoint here
+        return _classifier_workload(args, device)
     model_cls, cfg = lm_config(args)
     model = init_model(model_cls, cfg, args.seed, device)
     params = {n: p.detach() for n, p in model.named_parameters()}

@@ -1,13 +1,37 @@
-"""Synthetic LM token batches (port of ``data/synthetic.py``).
+"""Synthetic data (port of ``data/synthetic.py``).
 
 Seeded numpy generators returning host arrays, identical to the JAX
-package's for the same arguments: the Hessian-of-noise random-token set
-and a learnable first-order Markov chain.
+package's for the same arguments: the k-spirals classification set, the
+Hessian-of-noise random-token set, random-input / random-label image
+batches and a learnable first-order Markov chain of tokens.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def make_spirals(
+    num_points: int = 600,
+    num_classes: int = 3,
+    noise: float = 0.2,
+    seed: int = 0,
+    turns: float = 1.5,
+):
+    """k interleaved spirals; returns (x (N, 2) f32, y (N,) i32)."""
+    rng = np.random.RandomState(seed)
+    n = num_points // num_classes
+    xs, ys = [], []
+    for c in range(num_classes):
+        r = np.linspace(0.1, 1.0, n)
+        theta = (np.linspace(0, turns * 2 * np.pi, n) + c * (2 * np.pi / num_classes)
+                 + rng.randn(n) * noise)
+        xs.append(np.stack([r * np.cos(theta), r * np.sin(theta)], axis=1))
+        ys.append(np.full(n, c))
+    x = np.concatenate(xs).astype(np.float32)
+    y = np.concatenate(ys).astype(np.int32)
+    perm = rng.permutation(len(x))
+    return x[perm], y[perm]
 
 
 def random_token_batches(
@@ -32,6 +56,21 @@ def random_token_batches(
     else:
         mask = np.ones_like(ids)
     return {"input_ids": ids, "attention_mask": mask}
+
+
+def random_image_batches(
+    num_batches: int,
+    batch_size: int,
+    shape=(32, 32, 3),
+    num_classes: int = 10,
+    seed: int = 0,
+):
+    """Random-input / random-label image batches: (x (num_batches, B,
+    *shape) f32 NHWC, y (num_batches, B) i32)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(num_batches, batch_size, *shape).astype(np.float32)
+    y = rng.randint(0, num_classes, size=(num_batches, batch_size)).astype(np.int32)
+    return x, y
 
 
 def markov_token_batches(

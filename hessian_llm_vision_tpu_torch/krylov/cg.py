@@ -14,6 +14,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from hessian_llm_vision_tpu_torch.utils.norms import norm
+
 _FLOOR = 1e-30
 
 
@@ -47,7 +49,7 @@ def cg_solve(
         r = b - matvec(x).float()
     p = r
     rs = torch.dot(r, r)
-    b_norm = torch.clamp(torch.linalg.vector_norm(b), min=_FLOOR)
+    b_norm = torch.clamp(norm(b), min=_FLOOR)
     i = 0
     while i < max_iters and float(torch.sqrt(rs) / b_norm) > tol:
         ap = matvec(p).float()

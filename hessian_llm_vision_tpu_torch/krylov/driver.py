@@ -43,6 +43,7 @@ from hessian_llm_vision_tpu_torch.krylov.thick_restart import (
 from hessian_llm_vision_tpu_torch.ops.spectral import project_out, project_out_reference
 from hessian_llm_vision_tpu_torch.utils import trees
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener, flat_order
+from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 Callback = Callable[[int, np.ndarray, np.ndarray], None]
 
@@ -159,8 +160,8 @@ def matvec_precision_probe(
     w_ref, t_ref = timed(ref)
     a_req, a_ref = float(torch.dot(v, w_req)), float(torch.dot(v, w_ref))
     stats = {
-        "rel_err": float(torch.linalg.vector_norm(w_req - w_ref))
-        / max(float(torch.linalg.vector_norm(w_ref)), 1e-30),
+        "rel_err": float(norm(w_req - w_ref))
+        / max(float(norm(w_ref)), 1e-30),
         "alpha_rel_err": abs(a_req - a_ref) / max(abs(a_ref), 1e-30),
         "alpha_requested": a_req,
         "alpha_referee": a_ref,
@@ -213,7 +214,7 @@ def _tiny_lanczos_extremes(
             Q[i].copy_(q_cur)
             for _ in range(2):
                 w = _cgs2_pass(w, Q[: i + 1])
-        beta = torch.linalg.vector_norm(w)
+        beta = norm(w)
         q_prev, q_cur = q_cur, w / torch.clamp(beta, min=1e-30)
         beta_prev = beta
         alphas.append(alpha)

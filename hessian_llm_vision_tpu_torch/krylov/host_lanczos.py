@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from hessian_llm_vision_tpu_torch.krylov.lanczos import LanczosResult
+from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 # columns of P per float64 transient of the host CGS2: rows x 1M x 8 bytes
 _CHUNK = 1 << 20
@@ -56,7 +57,7 @@ def lanczos_host_basis(
         v0 = torch.randn(dim, generator=generator)
     device = torch.device(device or v0.device)
     v = v0.detach().to("cpu", torch.float64)
-    v = v / torch.linalg.vector_norm(v)
+    v = v / norm(v)
 
     Q = torch.zeros((num_iters, dim), dtype=torch.float32, pin_memory=device.type == "cuda")
     alphas, betas = [], []
@@ -71,7 +72,7 @@ def lanczos_host_basis(
             # CGS2 against the stored basis, on the host
             for _ in range(2):
                 _cgs_pass(Q[: i + 1], w)
-        beta = float(torch.linalg.vector_norm(w))
+        beta = float(norm(w))
         alphas.append(alpha)
         betas.append(beta)
         if callback is not None:

@@ -19,6 +19,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from hessian_llm_vision_tpu_torch.utils.norms import norm
+
 _EPS = 1e-30
 
 
@@ -44,7 +46,7 @@ class LanczosResult(NamedTuple):
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.clamp(torch.linalg.vector_norm(v), min=_EPS)
+    return v / torch.clamp(norm(v), min=_EPS)
 
 
 def start_vector(v0: Optional[torch.Tensor], generator: Optional[torch.Generator],
@@ -64,7 +66,7 @@ def host_recurrence_step(w, q_cur, q_prev, beta_prev):
     w = w.float()
     alpha = torch.dot(q_cur, w)
     w = w - alpha * q_cur - beta_prev * q_prev
-    beta = torch.linalg.vector_norm(w)
+    beta = norm(w)
     return alpha, beta, w / torch.clamp(beta, min=_EPS)
 
 
@@ -104,7 +106,7 @@ def lanczos(
             Q = basis[: i + 1]
             w = w - Q.T @ (Q @ w)
             w = w - Q.T @ (Q @ w)
-        beta = torch.linalg.vector_norm(w)
+        beta = norm(w)
         q_prev, q_cur = q_cur, w / torch.clamp(beta, min=_EPS)
         beta_prev = beta
         alphas.append(alpha)

@@ -11,6 +11,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from hessian_llm_vision_tpu_torch.krylov.lanczos import start_vector
+from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 
 def power_iteration(
@@ -28,6 +29,6 @@ def power_iteration(
     v = start_vector(v0, generator, dim)
     for _ in range(num_iters):
         w = matvec(v).float()
-        v = w / torch.clamp(torch.linalg.vector_norm(w), min=1e-30)
+        v = w / torch.clamp(norm(w), min=1e-30)
     lam = torch.dot(v, matvec(v).float())
     return lam, v

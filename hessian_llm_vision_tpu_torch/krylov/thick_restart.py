@@ -20,19 +20,19 @@ The JAX package has an unfused path (``_rotate_one`` row by row, scalars
 fetched each iteration) and a fused one (one donating program per
 iteration, ``_restart_rotate``).  In eager PyTorch both would launch the
 same kernels, so the port has one loop and one in-place restart
-(:func:`_restart_rotate`), whose peak is the buffer plus one (kk, P) block
-of the storage dtype, as the JAX fused path's.
+(:func:`_restart_rotate`), whose peak is the buffer plus one (kk, P) f32
+block, or for a bf16 buffer one (m+1, 4M) f32 chunk.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from hessian_llm_vision_tpu_torch.ops.spectral import project_out
+from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 _EPS = 1e-30
 # columns of P per f32 transient when the final Ritz rows are formed from a
@@ -66,28 +66,16 @@ def _orth_body(Q: torch.Tensor, w: torch.Tensor, n_filled: int):
     and more exact than the JAX package, which rounds w and the
     coefficients to bf16 for a bf16 buffer.  On the CPU it is the plain
     version, which for a bf16 buffer rounds exactly as JAX does."""
-    nrm0 = torch.linalg.vector_norm(w)
+    nrm0 = norm(w)
     rows = Q[:n_filled]
     for _ in range(2):
         w = project_out(w, rows)
-    return w, torch.linalg.vector_norm(w), nrm0
+    return w, norm(w), nrm0
 
 
 def _set_row(Q: torch.Tensor, i: int, v: torch.Tensor) -> None:
     """Row ``i`` of the buffer <- ``v`` in the storage dtype, in place."""
     Q[i].copy_(v)
-
-
-@contextlib.contextmanager
-def _f32_bf16_reductions():
-    """bf16 matmuls reduce in f32 (cuBLAS may otherwise reduce split-K
-    partial sums in bf16); restored on exit."""
-    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
 
 
 def _rotate(Q: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
@@ -104,15 +92,19 @@ def _rotate(Q: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
 
 def _restart_rotate(Q: torch.Tensor, S_pad: torch.Tensor) -> None:
     """The thick restart of the buffer, in place: rows 0..kk-1 <- ``S_padᵀ
-    Q`` written in the storage dtype straight from the matmul (f32
-    accumulation over at most m+1 terms), row kk <- the old row m (the
-    (m+1)-th Lanczos vector), the rest zero.  The peak is the buffer plus
-    one (kk, P) block of the storage dtype."""
+    Q``, row kk <- the old row m (the (m+1)-th Lanczos vector), the rest
+    zero.  A bf16 buffer is rotated one P-chunk at a time with f32
+    coefficients and sums (:func:`_rotate`'s transient) and rounded once,
+    to storage.  The JAX package rounds the coefficients to bf16 as well,
+    which moves every restarted row by up to 2^-9 of each term and left
+    GPT-2 124M's Ritz rows 4-5e-3 from orthonormal (chip_smoke.py 8a)."""
     kk = S_pad.shape[1]
-    with _f32_bf16_reductions():
-        W = S_pad.T.to(Q.dtype) @ Q
-    Q[:kk].copy_(W)
-    del W
+    if Q.dtype == torch.float32:
+        Q[:kk].copy_(S_pad.T @ Q)
+    else:
+        for c0 in range(0, Q.shape[1], _ROTATE_CHUNK):
+            cols = slice(c0, c0 + _ROTATE_CHUNK)
+            Q[:kk, cols] = S_pad.T @ Q[:, cols].float()
     Q[kk].copy_(Q[-1])
     Q[kk + 1:].zero_()
 
@@ -182,7 +174,7 @@ def lanczos_thick_restart(
         v0 = torch.randn(dim, generator=generator).to(device or "cpu")
     redirect = generator if generator is not None else torch.Generator().manual_seed(0)
     q = v0.float()
-    q = q / torch.clamp(torch.linalg.vector_norm(q), min=_EPS)
+    q = q / torch.clamp(norm(q), min=_EPS)
 
     Q = torch.zeros((m + 1, dim), dtype=store_dtype, device=q.device)
     _set_row(Q, 0, q)

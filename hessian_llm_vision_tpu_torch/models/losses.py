@@ -2,8 +2,9 @@
 (port of ``models/losses.py``).
 
 Everything downstream consumes ``loss_fn(params, batch) -> scalar mean
-loss`` where ``params`` is a ``{name: tensor}`` dict and ``batch`` a dict
-with ``input_ids`` (B, T) and optional ``attention_mask``.  The model is
+loss`` where ``params`` is a ``{name: tensor}`` dict and ``batch`` a dict:
+``input_ids`` (B, T) and optional ``attention_mask`` for the language
+models, ``image`` and ``label`` for the classifiers.  The model is
 evaluated with ``torch.func.functional_call``, so the same closure serves
 ``torch.func.grad`` and forward-over-reverse HVPs.
 
@@ -124,3 +125,32 @@ def lm_loss_fn(
     # the outer precision scope sets the ambient TF32 flag from it
     fn.model_config = getattr(model, "config", None)
     return fn
+
+
+def classification_loss_fn(model: torch.nn.Module) -> Callable[[Mapping, Mapping], torch.Tensor]:
+    """Classifier CE closure on a ``{"image", "label"}`` batch (the spiral
+    points, MNIST and CIFAR images alike)."""
+
+    def loss(params, batch):
+        logits = functional_call(model, params, (batch["image"],))
+        return softmax_cross_entropy(logits, batch["label"])
+
+    return loss
+
+
+def classification_loss_fn_bn(
+    model: torch.nn.Module, batch_stats: Mapping[str, torch.Tensor], *,
+    bn_train_mode: bool = False,
+) -> Callable[[Mapping, Mapping], torch.Tensor]:
+    """CE closure for a BatchNorm model (ResNet-50).  ``bn_train_mode``:
+    BatchNorm normalises with the batch's own statistics (an eval model with
+    BN in train mode); else with ``batch_stats``, the stored ones.  Either
+    way ``batch_stats`` are constants of the closure: never differentiated,
+    never written."""
+
+    def loss(params, batch):
+        logits = functional_call(model, {**params, **batch_stats}, (batch["image"],),
+                                 {"use_running_average": not bn_train_mode})
+        return softmax_cross_entropy(logits, batch["label"])
+
+    return loss

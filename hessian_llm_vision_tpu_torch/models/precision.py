@@ -62,6 +62,7 @@ import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 BlockPrecision = Union[None, str, Sequence[Optional[str]]]
 
@@ -347,3 +348,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Two-operand ``torch.einsum`` at the innermost tier."""
     return _tiered(eq, a, b, lambda: torch.einsum(eq, a, b))
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding=0) -> torch.Tensor:
+    """``F.conv2d`` (NCHW, weight (out, in, kh, kw)) at the innermost tier:
+    the bf16 and float64 tiers are casts, as for :func:`matmul`; TF32 and
+    fp32 follow cuDNN's TF32 flag, which the outer scope sets (the vision
+    models open no scope of their own, so no convolution needs the flag
+    switched per product)."""
+    tier = current_tier()
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    if tier in _CAST and out_dtype != _CAST[tier]:
+        dt = _CAST[tier]
+        return F.conv2d(x.to(dt), w.to(dt), stride=stride, padding=padding).to(out_dtype)
+    return F.conv2d(x, w, stride=stride, padding=padding)

@@ -37,9 +37,16 @@
 //   are 16-byte aligned; chunks are whole vectors, so every copy is aligned
 //   and nothing is left over.  Otherwise (V's rows unaligned) it launches
 //   rank_k_dots_scalar: a grid-stride loop of 4-byte loads.
-// * Per-row sums are reduced through the block with warp shuffles into
-//   partials (k, nblocks); rank_k_dots_finalize sums each row in a fixed
-//   order and multiplies by c.  No atomics: results repeat bit for bit.
+// * A thread sums its products in f32 only over a short run (one pass over
+//   the ring; the scalar kernel: kScalarRun grid strides).  Then its warp
+//   adds the 32 runs (a shuffle tree) into one double per row in shared
+//   memory and the thread starts again from 0.  Before, a thread summed its
+//   whole share of P in f32 (10,464 products at Pythia-1.4B's
+//   (4, 1.41e9)), and that sum's rounding, which grows with P, put w
+//   2.3x farther from a float64 w than cuBLAS's (PERF.md).
+// * The block's eight warp sums go, in double, into partials (k, nblocks);
+//   rank_k_dots_finalize sums each row in a fixed order, in double, and
+//   multiplies by c.  No atomics: results repeat bit for bit.
 // The grid, chunk, stage and row arithmetic, and the ring's shared-memory
 // bytes, are ops/kernels.py::dots_plan's; the launch only checks that the
 // ring it is given fits the bytes it is given.
@@ -88,6 +95,7 @@ namespace {
 constexpr int kThreads = 256;  // scalar pass 1, finalize, pass 2
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 16;
+constexpr int kScalarRun = 16;  // grid strides per f32 run of pass 1's scalar kernel
 constexpr int kConsumerWarps = 8;
 constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kRingThreads = 32 + kConsumers;  // warp 0 produces
@@ -188,8 +196,25 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// Block reduction of per-row sums: eight warps' shuffles, then one thread per
-// row adds the eight warp sums in a fixed order into partials[r0 + t, block].
+// Pass 1's sums: every run of a thread's f32 products goes, summed over its
+// warp by a shuffle tree, into the warp's double for the row, wsum[warp][r]
+// (lane r adds it); the thread's f32 sums restart from 0.  nr is the same
+// for the whole block, so no lane skips a shuffle.
+__device__ __forceinline__ void flush_rows(float (&acc)[kMaxRows], double (&wsum)[kWarps][kMaxRows],
+                                           int t, int nr) {
+  const int lane = t & 31;
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+    if (r < nr) {
+      float s = acc[r];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == r) wsum[t >> 5][r] += static_cast<double>(s);
+      acc[r] = 0.f;
+    }
+  }
+}
+
 // kNamed: only the consumer warps take part (named barrier 1).
 template <bool kNamed>
 __device__ __forceinline__ void reduce_sync() {
@@ -200,24 +225,23 @@ __device__ __forceinline__ void reduce_sync() {
   }
 }
 
+// Each warp clears its own doubles before a sweep of rows.
+__device__ __forceinline__ void clear_rows(double (&wsum)[kWarps][kMaxRows], int t) {
+  if ((t & 31) < kMaxRows) wsum[t >> 5][t & 31] = 0.0;
+  __syncwarp();
+}
+
+// One thread per row adds the eight warps' doubles in a fixed order into
+// partials[r0 + t, block].
 template <bool kNamed>
-__device__ __forceinline__ void write_partials(float (&acc)[kMaxRows], float (&red)[kWarps][kMaxRows],
-                                               int t, int nr, int r0, float* __restrict__ partials) {
-  const int lane = t & 31;
-  const int warp = t >> 5;
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    float s = acc[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) red[warp][r] = s;
-  }
+__device__ __forceinline__ void write_partials(double (&wsum)[kWarps][kMaxRows], int t, int nr,
+                                               int r0, float* __restrict__ partials) {
   reduce_sync<kNamed>();
   if (t < nr) {
-    float s = 0.f;
+    double s = 0.0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][t];
-    partials[static_cast<int64_t>(r0 + t) * gridDim.x + blockIdx.x] = s;
+    for (int w = 0; w < kWarps; ++w) s += wsum[w][t];
+    partials[static_cast<int64_t>(r0 + t) * gridDim.x + blockIdx.x] = static_cast<float>(s);
   }
   reduce_sync<kNamed>();
 }
@@ -234,7 +258,7 @@ rank_k_dots_kernel(const T* __restrict__ V, const float* __restrict__ g,
   extern __shared__ __align__(128) unsigned char ring[];
   __shared__ __align__(8) uint64_t full[kMaxStages];
   __shared__ __align__(8) uint64_t empty[kMaxStages];
-  __shared__ float red[kWarps][kMaxRows];
+  __shared__ double wsum[kWarps][kMaxRows];
 
   const int64_t nchunks = (P + chunk - 1) / chunk;  // block b takes chunks b, b + grid, ...
   const size_t g_bytes = static_cast<size_t>(chunk) * sizeof(float);
@@ -282,6 +306,7 @@ rank_k_dots_kernel(const T* __restrict__ V, const float* __restrict__ g,
   uint32_t phase = 0;
   for (int r0 = 0; r0 < k; r0 += rows) {
     const int nr = min(rows, k - r0);
+    clear_rows(wsum, t);
     float acc[kMaxRows];
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
@@ -307,55 +332,70 @@ rank_k_dots_kernel(const T* __restrict__ V, const float* __restrict__ g,
       }
       __syncwarp();
       if ((t & 31) == 0) mbar_arrive(&empty[s]);
-      if (++s == stages) {
+      if (++s == stages) {  // one pass over the ring: the end of a run
         s = 0;
         phase ^= 1;
+        flush_rows(acc, wsum, t, nr);
       }
     }
-    write_partials<true>(acc, red, t, nr, r0, partials);
+    flush_rows(acc, wsum, t, nr);
+    write_partials<true>(wsum, t, nr, r0, partials);
   }
 }
 
 // Pass 1 where V's rows are not 16-byte aligned: a grid-stride loop of 4-byte
-// loads, `rows` rows of V per sweep.
+// loads, `rows` rows of V per sweep.  The loop runs while the block's first
+// element is in P, so every warp takes the same number of strides and
+// flushes its runs together.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rank_k_dots_scalar(const T* __restrict__ V, const float* __restrict__ g,
                    float* __restrict__ partials, int k, int64_t P, int rows) {
-  __shared__ float red[kWarps][kMaxRows];
+  __shared__ double wsum[kWarps][kMaxRows];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int t = threadIdx.x;
 
   for (int r0 = 0; r0 < k; r0 += rows) {
     const int nr = min(rows, k - r0);
     const T* Vr = V + static_cast<int64_t>(r0) * P;
+    clear_rows(wsum, t);
     float acc[kMaxRows];
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
 
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < P; i += stride) {
-      float gv[1];
-      load_f32<1>(g + i, gv);
+    int run = 0;
+    for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads; base < P; base += stride) {
+      const int64_t i = base + t;
+      if (i < P) {
+        float gv[1];
+        load_f32<1>(g + i, gv);
 #pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < nr) {
-          float vv[1];
-          load_row<1>(Vr + static_cast<int64_t>(r) * P + i, vv);
-          acc[r] = fmaf(vv[0], gv[0], acc[r]);
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r < nr) {
+            float vv[1];
+            load_row<1>(Vr + static_cast<int64_t>(r) * P + i, vv);
+            acc[r] = fmaf(vv[0], gv[0], acc[r]);
+          }
         }
       }
+      if (++run == kScalarRun) {
+        run = 0;
+        flush_rows(acc, wsum, t, nr);
+      }
     }
-    write_partials<false>(acc, red, threadIdx.x, nr, r0, partials);
+    flush_rows(acc, wsum, t, nr);
+    write_partials<false>(wsum, t, nr, r0, partials);
   }
 }
 
 // Pass 1, second stage: w[j] = c[j] * sum_b partials[j, b], one block per row,
-// summed in a fixed order (deterministic).
+// summed in double in a fixed order (deterministic).
 __global__ void __launch_bounds__(kThreads)
 rank_k_dots_finalize(const float* __restrict__ partials, const float* __restrict__ c,
                      float* __restrict__ w, int nblocks) {
-  __shared__ float red[kThreads];
+  __shared__ double red[kThreads];
   const int j = blockIdx.x;
-  float s = 0.f;
+  double s = 0.0;
   for (int b = threadIdx.x; b < nblocks; b += kThreads)
     s += partials[static_cast<int64_t>(j) * nblocks + b];
   red[threadIdx.x] = s;
@@ -364,7 +404,7 @@ rank_k_dots_finalize(const float* __restrict__ partials, const float* __restrict
     if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
     __syncthreads();
   }
-  if (threadIdx.x == 0) w[j] = c[j] * red[0];
+  if (threadIdx.x == 0) w[j] = static_cast<float>(static_cast<double>(c[j]) * red[0]);
 }
 
 // ---- Pass 2: out[p] = g[p] + sum_j w[j] * V[j, p] ---------------------------

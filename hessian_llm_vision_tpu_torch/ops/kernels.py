@@ -196,8 +196,9 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte load
 _MAX_ROWS = 16  # kMaxRows: rows of V per sweep of pass 1
 _BLOCK_SMEM = 232_448  # 227 KB: the shared memory one block may use on Hopper
-# the rings' static shared memory (pass 1: 16 mbarriers and the reduction
-# scratch, 640 bytes; pass 2: 16 mbarriers, 128 bytes), rounded up
+# the rings' static shared memory, rounded up: pass 1's 16 mbarriers and
+# its warps' double sums (1152 bytes), pass 2's 16 mbarriers (128 bytes)
+_DOTS_STATIC_SMEM = 2048
 _STATIC_SMEM = 1024
 # the ring: two stages of 2048 elements of P, the fastest shape measured
 # (PERF.md); fewer elements per stage where two such stages would not fit
@@ -246,7 +247,7 @@ def dots_plan(
         return DotsPlan(False, 1, rows, 0, 0, 0, nblocks, resident)
     vec = _VEC[dtype]
     chunk = _CHUNK  # stays whole vectors: two stages of one vector take at most 576 bytes
-    while _STAGES * chunk * (4 + rows * es) > _BLOCK_SMEM - _STATIC_SMEM:
+    while _STAGES * chunk * (4 + rows * es) > _BLOCK_SMEM - _DOTS_STATIC_SMEM:
         chunk //= 2
     smem_bytes = _STAGES * chunk * (4 + rows * es)
     resident = blocks_per_sm(True, smem_bytes)

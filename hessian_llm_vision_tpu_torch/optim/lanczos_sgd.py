@@ -48,6 +48,7 @@ from hessian_llm_vision_tpu_torch.optim.manual import (
     sgd_momentum,
 )
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener, flat_order
+from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,7 +194,7 @@ def make_lanczos_sgd_step(
         params, buf = _momentum_step(cfg, state, adjusted)
         metrics = {
             "loss": loss.detach(),
-            "grad_norm": torch.linalg.vector_norm(g_flat),
+            "grad_norm": norm(g_flat),
             "eig_max": eigvals[-1],
             "eig_min": eigvals[0],
             "lr": _lr_at(cfg.lr, state.step),

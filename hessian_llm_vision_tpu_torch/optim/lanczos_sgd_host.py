@@ -32,6 +32,7 @@ from hessian_llm_vision_tpu_torch.ops.spectral import spectral_adjust
 from hessian_llm_vision_tpu_torch.optim.lanczos_sgd import LanczosSGDConfig
 from hessian_llm_vision_tpu_torch.optim.manual import _lr_at
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 Params = dict[str, torch.Tensor]
 
@@ -153,7 +154,7 @@ class HostLanczosSGDTrainer:
         Ritz basis (k, P) in ``basis_dtype``)."""
         k = self.cfg.k
         basis = torch.zeros((k, g_flat.shape[0]), dtype=self.basis_dtype, device=g_flat.device)
-        q_cur = g_flat / torch.clamp(torch.linalg.vector_norm(g_flat), min=1e-30)
+        q_cur = g_flat / torch.clamp(norm(g_flat), min=1e-30)
         q_prev = torch.zeros_like(q_cur)
         beta_prev = torch.zeros((), dtype=torch.float32, device=g_flat.device)
         consts = None
@@ -343,7 +344,7 @@ class HostLayerwiseLanczosSGDTrainer:
         (eigvals (k_i,) f32, Ritz basis (k_i, size) in ``basis_dtype``)."""
         seg = g_flat[off:off + size]
         q_cur = torch.zeros_like(g_flat)
-        q_cur[off:off + size] = seg / torch.clamp(torch.linalg.vector_norm(seg), min=1e-30)
+        q_cur[off:off + size] = seg / torch.clamp(norm(seg), min=1e-30)
         q_prev = torch.zeros_like(q_cur)
         beta_prev = torch.zeros((), dtype=torch.float32, device=g_flat.device)
         rows = torch.empty((k_i, size), dtype=self.basis_dtype, device=g_flat.device)

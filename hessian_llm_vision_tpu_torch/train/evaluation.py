@@ -3,7 +3,7 @@ per-batch loss evaluator and classifier accuracy, under ``torch.no_grad()``."""
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Mapping
 
 import numpy as np
 import torch
@@ -15,10 +15,12 @@ def _device_of(params) -> torch.device:
 
 @torch.no_grad()
 def evaluate_accuracy(apply_fn, params, batches: Iterable) -> float:
-    """Mean accuracy over (x, y) batches for a classifier ``apply_fn(params, x)``."""
+    """Mean accuracy over (x, y) or ``{"image", "label"}`` batches for a
+    classifier ``apply_fn(params, x)``."""
     dev = _device_of(params)
     total, correct = 0, 0
-    for x, y in batches:
+    for b in batches:
+        x, y = (b["image"], b["label"]) if isinstance(b, Mapping) else b
         logits = apply_fn(params, torch.as_tensor(x, device=dev))
         correct += int((logits.argmax(-1) == torch.as_tensor(y, device=dev)).sum())
         total += len(y)

@@ -61,11 +61,11 @@ def test_cli_without_cpu_flag_needs_a_card():
         train.main(TINY + ["--max_steps", "1"])
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("--model", "vgg16"), ("--model", "resnet50"), ("--dataset", "wikipedia"),
-])
+@pytest.mark.parametrize("flag,value", [("--dataset", "wikipedia")])
 def test_cli_unported_choices_exit(flag, value):
-    with pytest.raises(SystemExit, match="not ported yet"):
+    """The port reads no hub dataset: without --allow_fallback, wikipedia
+    exits with the JAX CLI's advice."""
+    with pytest.raises(SystemExit, match="pass --allow_fallback to proceed on seeded random"):
         train.main(TINY + [flag, value, "--cpu"])
 
 

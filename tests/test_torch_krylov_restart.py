@@ -156,6 +156,11 @@ def test_thick_restart_breakdown_rotation_and_checks():
     try:
         tr._ROTATE_CHUNK = 16
         torch.testing.assert_close(tr._rotate(Qb, S), S.T @ Qb.float())
+        # the in-place restart of bf16 rows: f32 coefficients and sums, one
+        # rounding to bf16
+        want_b, last_b = (S.T @ Qb.float()).bfloat16(), Qb[-1].clone()
+        tr._restart_rotate(Qb, S)
+        assert torch.equal(Qb[:3], want_b) and torch.equal(Qb[3], last_b) and not Qb[4:].any()
     finally:
         tr._ROTATE_CHUNK = old
     assert (list(tr._select(np.array([-5.0, -1, 0.5, 2, 6]), 3, "both"))

@@ -4,8 +4,8 @@ package on the CPU: ``llama-tiny`` (grouped-query attention),
 and top-2 routing, from the JAX CLI's own init params (spectrum extremes
 against the JAX host loop from the same start vector, LanczosSGD losses
 and Ritz values against the JAX train CLI); the JAX refusals of the MoE
-and LM-only flags; the vision models' refusal naming A12b; the top-k
-curvature warning; the precision ladder on a non-GPT-2 config."""
+and LM-only flags; the refusal of an unknown model; the top-k curvature
+warning; the precision ladder on a non-GPT-2 config."""
 
 import contextlib
 import glob
@@ -46,7 +46,6 @@ MODELS = {
 TRAIN = ["--max_length", "16", "--num_batches", "2", "--cpu",
          "--log_every", "1", "--optimiser", "lanczos-host", "--k", "3", "--delta", "10",
          "--lr", "0.01", "--refresh_every", "2", "--lanczos_momentum", "0.5", "--max_steps", "2"]
-VISION = ("spiral", "mlp", "simplenet", "vgg16", "resnet50")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -135,13 +134,10 @@ def test_refusals_are_the_jax_clis(tmp_path, cli, argv, message):
     assert message in str(jgot.value)
 
 
-@pytest.mark.parametrize("model", VISION)
-def test_vision_models_are_not_ported_yet(tmp_path, model):
+def test_unknown_model_is_refused(tmp_path):
     for main in (spectrum.main, lambda a: train.main(a + ["--out", str(tmp_path)])):
-        with pytest.raises(SystemExit, match=r"not ported yet \(ROADMAP A12b"):
-            main(["--model", model, "--cpu"])
-    with pytest.raises(ValueError, match="unknown model 'gpt3'"):
-        spectrum.main(["--model", "gpt3", "--cpu"])
+        with pytest.raises(ValueError, match="unknown model 'gpt3'"):
+            main(["--model", "gpt3", "--cpu"])
 
 
 @pytest.mark.parametrize("name", list(workloads._MODELS))

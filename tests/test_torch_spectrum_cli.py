@@ -112,12 +112,13 @@ def test_other_ported_paths_run(tmp_path, extra, capsys):
 
 # the precision flags (--precision_check, --hvp_precision auto|mixed|default,
 # --bf16, --block_precision) are ported: tests/test_torch_precision_cli.py
-@pytest.mark.parametrize("extra", [
-    ["--host_loop", "--probes", "2", "--probe_parallel"],
-    ["--model", "simplenet"], ["--model", "spiral"], ["--dataset", "wikipedia"],
-], ids=lambda e: "_".join(e).lstrip("-"))
-def test_unported_flags_exit(extra):
-    with pytest.raises(SystemExit, match="not ported yet"):
+@pytest.mark.parametrize("extra,message", [
+    (["--host_loop", "--probes", "2", "--probe_parallel"], "not ported yet"),
+    # the port reads no hub dataset: only the JAX CLI's offline fallback
+    (["--dataset", "wikipedia"], "pass --allow_fallback"),
+], ids=["host_loop_--probes_2_--probe_parallel", "dataset_wikipedia"])
+def test_unported_flags_exit(extra, message):
+    with pytest.raises(SystemExit, match=message):
         spectrum.main(TINY + extra)
 
 
