@@ -3,8 +3,9 @@ each against its plain PyTorch version, drives LanczosSGD training, the
 spectrum paths, Adam training from and to checkpoints and the rest of the
 train CLI's optimisers on GPT-2 124M through the CLIs, then the other
 language-model families (Pythia-1.4B at full width, LLaMA-134m, the MoE
-GPT-2, LoRA) and the vision models (VGG-16 and ResNet-50 at full width,
-SpiralMLP, SimpleNet), and checks the results.
+GPT-2, LoRA), the vision models (VGG-16 and ResNet-50 at full width,
+SpiralMLP, SimpleNet) and the remaining CLIs (forget, evaluate, sweep,
+hpo, devices-info through the python -m dispatch), and checks the results.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -130,7 +131,8 @@ Phases (any failure exits non-zero and prints no result line):
  13. the other language-model families through cli.spectrum.main and
      cli.train.main at fp32 HVPs, on one stdlib batch: (a) Pythia-1.4B (P =
      1,414,647,808) at full width and depth, --host_loop --bigmodel with
-     bf16 Krylov vectors, 1 x bs1 x seq512, 15 iterations: finite Ritz
+     bf16 Krylov vectors, 1 x bs1 x seq512, 10 iterations (15 before phase
+     15): finite Ritz
      values, lambda_max > 0 > lambda_min, the weights summing to 1 within
      1e-6, |trace| <= 1e-2 lambda_max, the artifact read back, no rank-k
      launch; its peak memory, seconds per iteration and init seconds (drawn
@@ -143,10 +145,11 @@ Phases (any failure exits non-zero and prints no result line):
      1e-5 of the plain w, its adjusted gradient within 1e-5 (plus the f32
      rounding of g + term, itself <= 1e-3) of the plain one, both relative
      to the adjust term, and the update within 1e-5 of a plain replay; (c)
-     LLaMA-134m, 1 x bs8 x seq512, 20 iterations with (a)'s gates, its f32
+     LLaMA-134m, 1 x bs8 x seq512, 10 iterations (20 before phase 15) with
+     (a)'s gates, its f32
      HVP against a float64 central difference within 2e-5, and phase 4's 4
      LanczosSGD steps with each kernel once per step at (10, 134,105,856)
-     bf16; (d) gpt2-moe (80M, 8 dense experts), 1 x bs8 x seq512, 20
+     bf16; (d) gpt2-moe (80M, 8 dense experts), 1 x bs8 x seq512, 10
      iterations with (a)'s gates; (e) llama-tiny (grouped-query attention),
      pythia-70m at bs1 x seq16 and gpt2-tiny --experts 4, dense and with
      --moe_top_k 2, card against CPU through both CLIs (Ritz extremes within
@@ -156,7 +159,8 @@ Phases (any failure exits non-zero and prints no result line):
  14. the vision models at their CIFAR-10 widths on random images (both data
      directories pointed at empty temporary ones, so the loaders fall back
      as the JAX CLI does, printed): (a) VGG-16 (P = 33,638,218) through
-     cli.spectrum.main, bs128 x 4 batches, --host_loop, 20 iterations at
+     cli.spectrum.main, bs128 x 4 batches, --host_loop, 10 iterations (20
+     before phase 15) at
      fp32 HVPs, with 13a's gates; (b) ResNet-50 (P = 23,528,522) the same
      way with BatchNorm in eval and in train mode (--bn_train_mode), both
      passing (a)'s gates, their lambda_max differing; (c) on one batch, the
@@ -174,9 +178,41 @@ Phases (any failure exits non-zero and prints no result line):
      16-byte aligned, and the frozen step against the plain versions as
      13b's, with the update resolved in f32; (e) spiral, SimpleNet (on MNIST
      idx files written from seeded numpy), VGG-16 and ResNet-50 at bs4, card
-     against CPU through both CLIs (spectrum Ritz extremes within 1e-3,
-     training losses within 1e-5, the trainers' Ritz values within 1e-3);
+     against CPU through both CLIs (spectra of 6 iterations, 8 before
+     phase 15, their Ritz extremes within 1e-3; training losses within
+     1e-5, the trainers' Ritz values within 1e-3);
      one {"vision": ...} line.
+ 15. the remaining CLIs, on seeded random CIFAR-10 pickles and MNIST idx
+     files written to temporary directories: (a) cli.forget at its defaults
+     on the spiral (600 Adam steps on task A, a plain k=10 Lanczos basis),
+     task B 10 epochs, on the card and on the CPU from the same draws: task
+     A's params after 30 steps within 1e-5 rel-L2 (read after 100, 300 and
+     600); from the card's task-A params on the CPU, acc_a0 equal, the CPU's
+     basis's Ritz values within 1e-3 of max |lambda| of the card's and the
+     task-B phases on the card's basis with every tracked accuracy within
+     2/600; (b) cli.forget on VGG-16 at full convolutional width (the CLI's
+     256-wide classifier, P = 14,913,093), 256 images a task, task A 40
+     Adam steps at lr 1e-4 with cuDNN's deterministic algorithms, task B at
+     the CLI's lr 0.1 in minibatches of 64, a k=10 basis by --thick_restart:
+     converged, an independent residual per pair within 1e-2 of max |lambda|,
+     the rows within 5e-3 of orthonormal, the first projected step's
+     projection within 1e-5 of the plain version and its update within 1e-5
+     of the f32 momentum step replayed from the plain projection (and from
+     the kernels' own), phase 3 timing the pair at (10, 14,913,093) f32; (c)
+     cli.forget on SimpleNet, task B permuted and noisy; every forget run:
+     the npz's six keys, ab_overlap in [0, 1], the projected phase's whole
+     parameter change within 1e-3 of orthogonal to the basis (float64, the
+     plain product), and on the card no rank-k launch in task A or the
+     baseline and each kernel once per projected step; (d) cli.evaluate on
+     GPT-2 124M, 4 x bs8 x seq512 random tokens (mean loss within 0.5 of ln
+     50257, the pickle read back) and on VGG-16 (the per-batch losses within
+     1e-6 of a plain recount on the workload, no accuracy line, as the JAX
+     CLI); (e) cli.sweep over two learning rates and
+     cli.hpo's two TPE trials of fused LanczosSGD on the spiral: finite
+     losses, both kernels launched in every point; (f) `python -m
+     hessian_llm_vision_tpu_torch devices-info --json` in a subprocess (a
+     "gpu" row per card with its name and memory), the dispatch's help and
+     its exit 2 on an unknown command; one {"remaining_clis": ...} line.
 Phase 3 also checks (4, 124,046,592) in both dtypes, (8, 124,046,592) and
 (16, 124,046,592) in bf16 -- the deflation projector's, the empirical
 Fisher's and the CGS2 pass's shapes, timed only (4, P) in bf16 since phase 13
@@ -186,7 +222,8 @@ dtypes (P = 2 mod 8: pass 1's scalar kernel, pass 2's direct kernel
 without vector loads) and 13b's (4, 1,414,647,808) in bf16, the first with k x P
 >= 2**31 at full width (V alone 11.3 GB), where pass 1 is held to a
 float64 w on two draws (within 1e-5 and no farther than cuBLAS's f32 sum,
-which on some draws lies 1e-5 off itself); it checks small leaves at
+which on some draws lies 1e-5 off itself), and 15b's (10, 14,913,093) in
+f32 (P = 5 mod 8, the same two paths); it checks small leaves at
 unaligned offsets of g, the bf16 MLP leaf with g 1-7 elements off 16
 bytes, and (256, 2**24) bf16, whose pass 2 sweeps each chunk's rows in 22
 stages.  Every phase prints its wall seconds on a line of its own.  Then
@@ -202,6 +239,7 @@ import contextlib
 import dataclasses
 import gc
 import glob
+import io
 import json
 import math
 import os
@@ -336,9 +374,9 @@ ADAM_ARGV = ["--model", "gpt2", "--batch_size", "8", "--max_length", "512", "--a
 # the first card reading was 0.0 (bit-identical over 200 steps), so the
 # gate allows only last-bit differences.  The save/resume split runs on the
 # first RESUME_N batches (2 x RESUME_N steps, split at an epoch), beside the
-# 2 x ADAM_N-step run that makes the checkpoint.
+# 2 x ADAM_N-step run that makes the checkpoint (20 batches before phase 15).
 RESUME_LOSS_ATOL = 1e-6
-RESUME_N = 20
+RESUME_N = 10
 # 6 iterations (20 before phase 13, 10 before phase 14), to leave room for them
 CKPT_BASE = ["--model", "gpt2", "--dataset", f"local:{STDLIB}", "--num_batches", "1",
              "--batch_size", "8", "--max_length", "512", "--host_loop", "--lanczos_iters", "6"]
@@ -431,10 +469,10 @@ LM_BASE = ["--dataset", f"local:{STDLIB}", "--num_batches", "1", "--hvp_precisio
            "--vector_seed", "997"]
 LM_GAMMA_TOL = 1e-6  # |sum of the SLQ weights - 1|
 # 13a: artifacts/pythia1p4b_r3's protocol (bs1, --bigmodel with bf16 Krylov
-# vectors, 15 iterations) at seq512; the JAX package cut it to seq256 only
-# to fit a 16 GB chip
+# vectors, 15 iterations) at seq512, cut to 10 iterations to leave room for
+# phase 15; the JAX package cut it to seq256 only to fit a 16 GB chip
 PYTHIA_SPECTRUM_ARGV = ["--model", "pythia-1.4b", "--batch_size", "1", "--max_length", "512",
-                        "--host_loop", "--bigmodel", "--lanczos_iters", "15"] + LM_BASE
+                        "--host_loop", "--bigmodel", "--lanczos_iters", "10"] + LM_BASE
 # 13b: LanczosSGD at full width, k=4, a bf16 basis, one refresh and one
 # frozen step (--max_length is added: 512, or 256 if 512 does not fit).
 # delta 1e4 (> 10 max |lambda|) makes the adjust coefficients 1/lambda -
@@ -447,10 +485,11 @@ PYTHIA_TRAIN_ARGV = ["--model", "pythia-1.4b", "--dataset", f"local:{STDLIB}", "
                      "--max_steps", "2", "--delta", "1e4", "--lr", "1e-3", "--seed", "0"]
 TERM_RTOL = 1e-5  # 13b frozen step's w and adjust term against the plain versions (phase 3's bar)
 TERM_FLOOR_MAX = 1e-3  # the f32 rounding of g + term, of the term: the comparison must resolve it
-# 13c, 13d: the llama134m_r3 and moe_r3 protocols, 1 x bs8 x seq512, 20 iterations
+# 13c, 13d: the llama134m_r3 and moe_r3 protocols, 1 x bs8 x seq512, 20
+# iterations, cut to 10 to leave room for phase 15
 LLAMA_SPECTRUM_ARGV = ["--model", "llama-134m", "--batch_size", "8", "--max_length", "512",
                        "--attn_block_q", "512", "--loss_chunk", "512", "--host_loop",
-                       "--lanczos_iters", "20"] + LM_BASE
+                       "--lanczos_iters", "10"] + LM_BASE
 MOE_SPECTRUM_ARGV = [a if a != "llama-134m" else "gpt2-moe" for a in LLAMA_SPECTRUM_ARGV]
 LLAMA_TRAIN_ARGV = [a if a != "gpt2" else "llama-134m" for a in TRAIN_ARGV]  # phase 4's run
 # 13e: the tiny configs, card against CPU, knobs as tests/test_torch_lm_families_cli.py
@@ -497,9 +536,10 @@ RESNET50_P = 23_528_522
 VISION_SHAPES = ((10, VGG16_P), (10, RESNET50_P))  # phase 3, timed in both dtypes
 RANDOM_IMAGES = "[data] CIFAR-10 and MNIST unavailable; falling back to random images"
 # 14a/14b: the JAX package's vision_r2 / vision_r3_real protocol, bs128 x 4
-# batches, 20 iterations, fp32 HVPs
+# batches, fp32 HVPs, cut from its 20 iterations to 10 to leave room for
+# phase 15 (at init both models' Ritz values reach -0.4 to -1 x lambda_max)
 VISION_SPECTRUM = ["--batch_size", "128", "--num_batches", "4", "--host_loop",
-                   "--lanczos_iters", "20", "--hvp_precision", "high", "--vector_seed", "997"]
+                   "--lanczos_iters", "10", "--hvp_precision", "high", "--vector_seed", "997"]
 VGG_SPECTRUM_ARGV = ["--model", "vgg16"] + VISION_SPECTRUM
 RESNET_SPECTRUM_ARGV = ["--model", "resnet50"] + VISION_SPECTRUM
 # 14c: one batch of 14a's; the step of the difference is 1e-6, as 7c's 1e-4
@@ -539,7 +579,8 @@ VISION_TINY = {
     "resnet50": (["--model", "resnet50", "--batch_size", "4"], ["--num_batches", "1"],
                  ["--num_batches", "2"], 2),
 }
-VISION_TINY_SPECTRUM = ["--host_loop", "--lanczos_iters", "8", "--hvp_precision", "high",
+# 6 iterations (8 before phase 15)
+VISION_TINY_SPECTRUM = ["--host_loop", "--lanczos_iters", "6", "--hvp_precision", "high",
                         "--vector_seed", "5"]
 # the trainers' Ritz values (3 Lanczos steps) are gated like the spectra's
 # extremes; they read 2.5e-3 apart on ResNet-50 while the CPU's f32 norms
@@ -547,6 +588,61 @@ VISION_TINY_SPECTRUM = ["--host_loop", "--lanczos_iters", "8", "--hvp_precision"
 VISION_TINY_TRAIN = ["--optimiser", "lanczos-host", "--k", "3", "--delta", "10", "--lr", "0.01",
                      "--refresh_every", "2", "--lanczos_momentum", "0.5", "--no-basis_bf16",
                      "--log_every", "1"]
+# phase 15: the remaining CLIs.  15a: forget at the CLI's defaults on the
+# spiral (width 64, depth 3, 600 points, k 10, a plain Lanczos basis, 600
+# full-batch Adam steps on task A), task B 10 full-batch epochs a phase, on
+# the card and on the CPU from the same draws.  Task A's params are gated
+# card against CPU after the first of FORGET_TASK_A_STEPS (read at all):
+# 600 Adam steps near a minimum amplify the two devices' f32 rounding (the
+# Ritz values of the two runs' own task A ended 1e-2 apart).  The basis
+# and the task-B phases are then gated on the CPU from the card's task-A
+# params: the Ritz values over max |lambda|, the curves on the card's
+# basis within two of 600 points (on each device's own basis, whose rows of
+# near-zero Ritz values are ill-determined, they are read)
+FORGET_SPIRAL_ARGV = ["--model", "spiral", "--epochs_b", "10"]
+FORGET_TASK_A_STEPS = (30, 100, 300, 600)
+FORGET_TASK_A_RTOL = 1e-5
+FORGET_RITZ_RTOL = 1e-3
+FORGET_CURVE_ATOL = 2 / 600
+# ‖V Δθ‖ / ‖Δθ‖ of the projected phase's whole parameter change, float64
+# and the plain product: with wd 0 the momentum sums projected gradients
+FORGET_DRIFT_LIMIT = 1e-3
+# 15b: the CLI's VGG-16 (256-wide classifier, 5 classes; P = 14,913,093 =
+# 5 mod 8, so the rows of its f32 basis are not 16-byte aligned) on seeded
+# random CIFAR-10 pickles of CIFAR_PER_BATCH images each, 256 images a task
+# (--subsample under one image takes the CLI's fallback of 256), task B in
+# minibatches of 64 at the CLI's lr 0.1, a k=10 basis by thick restart.
+# Task A at Adam lr 1e-4 (at the CLI's 5e-3 this VGG-16 without BatchNorm
+# collapses to one class), with cuDNN's deterministic algorithms: 40 Adam
+# steps amplify the rounding of atomic reductions, and with cuDNN's
+# default ones the same inputs ended task A at lambda_max 176 to 1049 from
+# run to run.  The drift gate reads the f32 rows' own distance from
+# orthonormal (about 1e-7) times ||V g|| / ||g'|| (scripts/torch_forget_leak.py)
+FORGET_P = 14_913_093
+FORGET_SHAPE = (torch.float32, 10, FORGET_P)  # phase 3, timed
+CIFAR_PER_BATCH = 200
+FORGET_VGG_ARGV = ["--model", "vgg16", "--k", "10", "--thick_restart", "--tr_inner", "30",
+                   "--subsample", "0.001", "--batch_size_b", "64", "--epochs_a", "40",
+                   "--lr_a", "1e-4", "--epochs_b", "2"]
+# the first projected step's projection against the plain version, and its
+# update against the f32 momentum step replayed from the plain projection
+# and from the kernels' own
+FORGET_REPLAY_RTOL = 1e-5
+# 15c: SimpleNet on FORGET_MNIST_N written idx images (80% for the tasks)
+FORGET_MNIST_N = 1000
+FORGET_MNIST_ARGV = ["--model", "simplenet", "--epochs_a", "100", "--epochs_b", "5"]
+# 15d: evaluate on GPT-2 124M, 4 x bs8 x seq512 random tokens (mean loss
+# within EVAL_LOSS_ATOL of ln 50257), and on VGG-16 over the written CIFAR
+EVAL_GPT2_ARGV = ["--model", "gpt2", "--batch_size", "8", "--max_length", "512",
+                  "--num_batches", "4"]
+EVAL_LOSS_ATOL = 0.5
+EVAL_VGG_ARGV = ["--model", "vgg16", "--batch_size", "128", "--num_batches", "2"]
+EVAL_RECOUNT_RTOL = 1e-6
+# 15e: sweep and hpo over fused LanczosSGD (--optimiser lanczos) on the
+# spiral, 4 steps a point
+SPIRAL_LANCZOS = ["--model", "spiral", "--max_steps", "4"]
+SWEEP_GRID = ["--grid", "lr=0.01,0.05"]
+HPO_TRIALS = 2
 CARD = torch.device("cuda")
 
 
@@ -604,7 +700,8 @@ def call_costs(fns: dict, *, calls: int, traced: int = 20) -> dict:
     ``torch.profiler`` trace of ``traced`` calls (read by
     obs.trace_summary, as phase 12g reads them): per kernel name its mean
     row times its rows per call (rounded: a trace may miss a row at its
-    edges), summed over the names, with ``device_rows`` per call."""
+    edges), summed over the names, with ``device_rows`` per call.  A trace
+    with fewer device rows than half its calls fails the run."""
     from hessian_llm_vision_tpu_torch.obs import profile_trace, trace_summary
 
     out = {}
@@ -622,6 +719,11 @@ def call_costs(fns: dict, *, calls: int, traced: int = 20) -> dict:
                     fn()
                 torch.cuda.synchronize()
             rows, _ = trace_summary.device_rows(trace_summary.load_trace_events(tmp))
+        if 2 * len(rows) < traced:  # each call launches a kernel at least, and a
+            # trace misses a row or two at its edges: one that lost the card's
+            # rows must not read as a time
+            raise SystemExit(f"call_costs: the trace of {traced} calls of {name} holds "
+                             f"{len(rows)} device rows")
         by_name: dict[str, list[float]] = {}
         for e in rows:
             by_name.setdefault(e["name"], []).append(e["dur"])
@@ -3211,6 +3313,462 @@ def vision_summary(vis: dict) -> dict:
     }
 
 
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_forget(forget, kernels, argv, device, snapshot_steps=()) -> dict:
+    """forget.run(argv) with its records: the Result, its npz read back,
+    its stdout lines, its seconds, and from its ``on_step`` events the
+    rank-k launches of each step (and of the basis) by phase, the params
+    after the first step of each phase, the first projected step's raw
+    gradient (flat), and task A's params after each of ``snapshot_steps``
+    (on the CPU)."""
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    rec = {"launches": {"task_a": [], "basis": [], "baseline": [], "projected": []},
+           "p_first": {}, "task_a_at": {}}
+
+    def on_step(phase, p_in, g, p_out):
+        rec["launches"][phase].append(dict(kernels.LAUNCHES))
+        kernels.reset_launch_counts()
+        rec["p_first"].setdefault(phase, p_out)
+        if phase == "projected" and "g_first" not in rec:
+            rec["g_first"] = Flattener(g).flatten(g)
+        if phase == "task_a" and len(rec["launches"]["task_a"]) in snapshot_steps:
+            rec["task_a_at"][len(rec["launches"]["task_a"])] = {n: t.cpu()
+                                                                  for n, t in p_out.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "curves.npz")
+        tee = _Tee(sys.stdout)
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(tee):
+            t0 = time.perf_counter()
+            rec["result"] = forget.run(argv + ["--out_curves", path], on_step=on_step)
+            _sync(device)
+            rec["seconds"] = time.perf_counter() - t0
+        with np.load(path) as z:
+            rec["npz"] = {k: z[k] for k in z.files}
+    rec["lines"] = "".join(tee.parts).splitlines()
+    return rec
+
+
+def _flat(params: dict) -> torch.Tensor:
+    """The params flat in name order (the Flattener's), float64."""
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    return Flattener(params).flatten(params).double()
+
+
+def drift_leak(V: torch.Tensor, phase) -> float:
+    """``||V Δθ|| / ||Δθ||`` of a phase's whole parameter change, float64
+    and the plain product."""
+    V64, drift = V.double(), _flat(phase.params_out) - _flat(phase.params_in)
+    return float(torch.linalg.vector_norm(V64 @ drift) / torch.linalg.vector_norm(drift))
+
+
+def forget_gates(what: str, rec: dict) -> dict:
+    """The checks every forget run passes: the npz's six keys, ab_overlap
+    in [0, 1], the projected phase's parameter change orthogonal to the
+    basis (``FORGET_DRIFT_LIMIT``, float64, plain product), and on the
+    card no rank-k launch in task A or the baseline and one of each kernel
+    per projected step."""
+    res_ = rec["result"]
+    phases = dict(zip(("task_a", "baseline", "projected"),
+                      (res_.task_a, res_.baseline, res_.projected)))
+    L = rec["launches"]
+    res = {
+        "seconds": rec["seconds"], "basis_s": res_.basis.seconds,
+        "phase_s": {n: ph.seconds for n, ph in phases.items()},
+        "steps": {n: len(L[n]) for n in phases},
+        "ms_per_step": {n: 1e3 * phases[n].seconds / max(len(L[n]), 1)
+                        for n in ("baseline", "projected")},
+        "acc_a0": res_.acc_a0, "ab_overlap": res_.ab_overlap,
+        "final_acc_a": [c[-1] for c in res_.curves],
+        "acc_b": [res_.acc_b_base, res_.acc_b_proj],
+        "drift_leak": drift_leak(res_.basis.vectors, res_.projected),
+        "finite_params": all(bool(torch.isfinite(t).all()) for ph in phases.values()
+                             for t in ph.params_out.values()),
+        "launches": {n: _summed(L[n]) for n in phases},
+        "basis_launches": _summed(L["basis"]),
+    }
+    print(json.dumps({"forget_gates": {"what": what, **res}}))
+    gates = {
+        "the npz's six keys": sorted(rec["npz"]) == sorted(
+            ["baseline_drop", "method_results", "acc_a0", "acc_b_base", "acc_b_proj",
+             "ab_overlap"]),
+        "ab_overlap in [0, 1]": 0.0 <= res["ab_overlap"] <= 1.0,
+        "curves in the npz": (np.array_equal(rec["npz"]["baseline_drop"], res_.curves[0])
+                              and np.array_equal(rec["npz"]["method_results"], res_.curves[1])),
+        "finite params after every phase": res["finite_params"],
+        f"projected drift within {FORGET_DRIFT_LIMIT} of orthogonal to the basis":
+            res["drift_leak"] <= FORGET_DRIFT_LIMIT,
+        "finite accuracies": all(math.isfinite(a) for c in res_.curves for a in c),
+        "one basis event": len(L["basis"]) == 1,
+    }
+    if res_.basis.vectors.is_cuda:
+        gates.update({
+            "no rank-k launch in task A or the baseline": all(
+                c == dict.fromkeys(TPU_KERNELS, 0) for n in ("task_a", "baseline")
+                for c in L[n]),
+            "each kernel once per projected step": all(
+                c == dict.fromkeys(TPU_KERNELS, 1) for c in L["projected"]),
+        })
+    check_gates(what, gates)
+    return res
+
+
+def forget_spiral_card_vs_cpu(forget, kernels) -> dict:
+    """15a: the forget CLI at its defaults on the spiral, on the card and
+    on the CPU, each from the same seeded draws; both pass
+    :func:`forget_gates`.  Task A's params card against CPU after each of
+    FORGET_TASK_A_STEPS Adam steps, gated within FORGET_TASK_A_RTOL after
+    the first of them (the two devices' rounding grows through the phase,
+    read at the others).  From the card's task-A params on the CPU
+    (:func:`forget.task_a_basis`, :func:`forget.task_b_phases`): acc_a0
+    equal, the CPU's basis's Ritz values within FORGET_RITZ_RTOL of the
+    card's over max |lambda|, and the two task-B phases on the card's basis
+    with each curve within FORGET_CURVE_ATOL of the card's at every step;
+    read: the same phases on the CPU's own basis, and the two devices'
+    whole runs apart."""
+    from hessian_llm_vision_tpu_torch.krylov import subspace_overlap
+
+    card = run_forget(forget, kernels, FORGET_SPIRAL_ARGV, CARD, FORGET_TASK_A_STEPS)
+    cpu = run_forget(forget, kernels, FORGET_SPIRAL_ARGV + ["--cpu"], torch.device("cpu"),
+                     FORGET_TASK_A_STEPS)
+    rc, rp = card["result"], cpu["result"]
+    exp = rp.experiment
+    params_a = {n: t.cpu() for n, t in rc.task_a.params_out.items()}
+    basis = forget.task_a_basis(exp, params_a)
+    V_card = rc.basis.vectors.cpu()
+    on_card = forget.task_b_phases(exp, params_a, V_card)
+    on_own = forget.task_b_phases(exp, params_a, basis.vectors)
+    ev_card, ev_cpu = (np.asarray(e, np.float64) for e in (rc.basis.eigvals, basis.eigvals))
+
+    def apart(a, b):
+        return float(np.abs(np.subtract(a, b)).max())
+
+    res = {"card": forget_gates("15a forget on the spiral, card", card),
+           "cpu": forget_gates("15a forget on the spiral, CPU", cpu),
+           "task_a_rel": {s: rel_l2(_flat(card["task_a_at"][s]), _flat(cpu["task_a_at"][s]))
+                          for s in FORGET_TASK_A_STEPS},
+           "eigvals": ev_card.tolist(),
+           "ritz_rel": float(np.abs(ev_card - ev_cpu).max() / np.abs(ev_cpu).max()),
+           "acc_a0_cpu": exp.acc_fn(params_a, exp.eval_a["image"], exp.eval_a["label"]),
+           "basis_overlap": subspace_overlap(V_card, basis.vectors),
+           "params_rel": {n: rel_l2(_flat(ph.params_out).cpu(), _flat(mine.params_out))
+                          for n, ph, mine in (("baseline", rc.baseline, on_card[0]),
+                                              ("projected", rc.projected, on_card[1]))},
+           "curve_max_abs_diff": [apart(a, b.curve) for a, b in zip(rc.curves, on_card)],
+           "own_basis_curve_max_abs_diff": apart(rc.curves[1], on_own[1].curve),
+           "own_runs": {"ritz_rel": float(np.abs(ev_card - rp.basis.eigvals).max()
+                                          / np.abs(ev_card).max()),
+                        "curve_max_abs_diff": [apart(a, b) for a, b in zip(rc.curves,
+                                                                           rp.curves)]}}
+    first = FORGET_TASK_A_STEPS[0]
+    print(json.dumps({"15a_forget_spiral": res}))
+    check_gates("15a forget on the spiral, card against CPU", {
+        f"task A after {first} steps within {FORGET_TASK_A_RTOL}":
+            res["task_a_rel"][first] <= FORGET_TASK_A_RTOL,
+        "acc_a0 equal": res["acc_a0_cpu"] == rc.acc_a0,
+        f"Ritz values within {FORGET_RITZ_RTOL}": res["ritz_rel"] <= FORGET_RITZ_RTOL,
+        "curves as long": [len(c) for c in rc.curves] == [len(p.curve) for p in on_card],
+        f"curves within {FORGET_CURVE_ATOL:.4f}": max(res["curve_max_abs_diff"])
+        <= FORGET_CURVE_ATOL + 1e-9,
+    })
+    return res
+
+
+def write_cifar_batches(directory: str, n_per_batch: int, seed: int = 0) -> None:
+    """CIFAR-10's python pickles (five train batches and a test batch of
+    random uint8 images, labels 0-9) from seeded numpy, in the format
+    ``data.vision.load_cifar10`` reads."""
+    import pickle
+
+    base = os.path.join(directory, "cifar-10-batches-py")
+    os.makedirs(base)
+    rng = np.random.RandomState(seed)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        batch = {b"data": rng.randint(0, 256, (n_per_batch, 3072)).astype(np.uint8),
+                 b"labels": rng.randint(0, 10, n_per_batch).tolist()}
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump(batch, f)
+
+
+def forget_vgg16(forget, kernels, spectral) -> dict:
+    """15b: the forget CLI on VGG-16 at full convolutional width (the
+    written CIFAR files): :func:`forget_gates`; the thick-restart basis
+    converged, each pair's residual from a fresh f32 HVP outside the CLI
+    within TR_RESIDUAL_LIMIT of max |lambda|, the rows within
+    TR_ORTHO_LIMIT of orthonormal; the first projected step's projection
+    (the kernels' on the step's raw gradient) against the plain version and
+    its update against a replay; P = FORGET_P (phase 3 holds and times the
+    pair at this shape)."""
+    from hessian_llm_vision_tpu_torch.curvature.operators import HessianOperator
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    deterministic, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+    try:
+        rec = run_forget(forget, kernels, FORGET_VGG_ARGV, CARD)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    peak = torch.cuda.max_memory_allocated()
+    res = forget_gates("15b forget on VGG-16", rec)
+    r = rec["result"]
+    exp, tres, V = r.experiment, r.basis.result, r.basis.vectors
+    t0 = time.perf_counter()
+    params_a = r.task_a.params_out
+    op = HessianOperator(exp.loss_fn, params_a, exp.batch_a, precision="high")
+    scale = float(np.abs(tres.eigvals).max())
+    resid = [float(torch.linalg.vector_norm(op.matvec(u) - float(lam) * u)) / scale
+             for u, lam in zip(V, tres.eigvals)]
+    V64 = V.double()
+    ortho = float((V64 @ V64.T - torch.eye(len(V), dtype=torch.float64, device=CARD)).abs().max())
+    del V64
+    # the first projected step: the kernels' projection of its raw gradient
+    # against the plain version, and the update against the momentum step
+    # from zero (buf = g', update = -lr buf) replayed in f32 from the plain
+    # projection and from the kernels' own (the trainer's arithmetic, bit
+    # for bit)
+    lr = exp.args.lr
+    g = rec["g_first"]
+    out, plain = spectral.project_out(g, V), spectral.project_out_reference(g, V)
+    kernels.reset_launch_counts()
+    p0, p1 = _flat(params_a).float(), _flat(rec["p_first"]["projected"]).float()
+    replay = (p0 + out * (-lr)) - p0
+    replay_plain = (p0 + plain * (-lr)) - p0
+    res.update({
+        "P": Flattener(params_a).size, "eigvals": tres.eigvals.tolist(),
+        "residual_estimates": tres.residuals.tolist(), "restarts": tres.restarts,
+        "matvecs": tres.matvecs, "converged": tres.converged,
+        "independent_residual_over_max_lambda": resid, "max_abs_VVt_minus_I": ortho,
+        "projection_rel": rel_l2(out, plain), "replay_rel": rel_l2(p1 - p0, replay),
+        "replay_from_plain_rel": rel_l2(p1 - p0, replay_plain),
+        "update_floor": rel_l2(replay_plain, plain * (-lr)),
+        "max_memory_allocated_bytes": peak, "residual_check_s": time.perf_counter() - t0,
+        "lines": [line for line in rec["lines"] if line.startswith("task")],
+    })
+    del op, g, out, plain, p0, p1, replay, replay_plain
+    print(json.dumps({"15b_forget_vgg16": res}))
+    check_gates("15b forget on VGG-16", {
+        f"P = {FORGET_P}": res["P"] == FORGET_P,
+        "lr the CLI's default": lr == forget.build_parser().get_default("lr"),
+        "basis converged": tres.converged and any("CONVERGED" in line for line in res["lines"]),
+        "independent residuals within the limit": max(resid) <= TR_RESIDUAL_LIMIT,
+        "rows orthonormal": ortho <= TR_ORTHO_LIMIT,
+        "thick restart's CGS2 on the kernel pair": all(
+            res["basis_launches"][n] > 0 for n in TPU_KERNELS),
+        "first projection = the plain version's": res["projection_rel"] <= FORGET_REPLAY_RTOL,
+        "update resolved (f32 rounding of p + u <= 1e-3 of it)":
+            res["update_floor"] <= TERM_FLOOR_MAX,
+        "first projected update = its replay from the plain projection":
+            res["replay_from_plain_rel"] <= FORGET_REPLAY_RTOL,
+        "first projected update = its f32 replay": res["replay_rel"] <= FORGET_REPLAY_RTOL,
+    })
+    return res
+
+
+def forget_simplenet(forget, kernels) -> dict:
+    """15c: the forget CLI on SimpleNet over the written MNIST idx files,
+    task B permuted and then noisy, on the card: :func:`forget_gates`."""
+    out = {}
+    for task_b in ("permuted", "noisy"):
+        rec = run_forget(forget, kernels, FORGET_MNIST_ARGV + ["--task_b", task_b], CARD)
+        out[task_b] = forget_gates(f"15c forget on SimpleNet, task B {task_b}", rec)
+        out[task_b]["held_out"] = any("held-out eval" in line for line in rec["lines"])
+    print(json.dumps({"15c_forget_simplenet": out}))
+    check_gates("15c forget on SimpleNet", {
+        "task A evaluated on its held-out split": all(r["held_out"] for r in out.values())})
+    return out
+
+
+def evaluate_cli(evaluate, kernels) -> dict:
+    """15d: the evaluate CLI on GPT-2 124M (the mean loss near ln 50257 at
+    init, the pickle read back) and on VGG-16 over the written CIFAR files
+    (its per-batch losses equal to a recount by a plain forward and
+    cross-entropy on the workload ``cli.workloads.build_workload`` builds
+    from the same flags, and, as the JAX CLI, no accuracy line: the vision
+    workloads have no ``apply_fn``); no rank-k launch.  The accuracy of that
+    forward is read."""
+    import pickle
+
+    from torch.func import functional_call
+
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+
+    res = {}
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "losses.pkl")
+        t0 = time.perf_counter()
+        losses = evaluate.main(EVAL_GPT2_ARGV + ["--out_losses", path])
+        res["gpt2_s"] = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            back = pickle.load(f)
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        vgg_losses = evaluate.main(EVAL_VGG_ARGV)
+    res["vgg16_s"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    lines = "".join(tee.parts).splitlines()
+    wl = build_workload(evaluate.build_parser().parse_args(EVAL_VGG_ARGV), CARD)
+    recount, right, n = [], 0, 0
+    with torch.no_grad():
+        for b in wl.batches:
+            logits = functional_call(wl.model, wl.params, (b["image"],))
+            recount.append(float(torch.nn.functional.cross_entropy(logits, b["label"])))
+            right += int((logits.argmax(-1) == b["label"]).sum())
+            n += len(b["label"])
+    res.update({"gpt2_losses": losses.tolist(), "gpt2_mean_loss": float(losses.mean()),
+                "vgg16_losses": vgg_losses.tolist(), "vgg16_losses_recount": recount,
+                "vgg16_accuracy_recount": right / n, "vgg16_images": n,
+                "vgg16_lines": lines, "launches": launches})
+    del wl
+    print(json.dumps({"15d_evaluate": res}))
+    check_gates("15d evaluate", {
+        "4 finite GPT-2 losses": len(losses) == 4 and bool(np.isfinite(losses).all()),
+        f"mean loss within {EVAL_LOSS_ATOL} of ln 50257":
+            abs(res["gpt2_mean_loss"] - math.log(50257)) <= EVAL_LOSS_ATOL,
+        "pickle read back": list(back) == ["per_batch_losses"]
+        and np.array_equal(back["per_batch_losses"], losses),
+        "VGG-16 losses = the recount": len(recount) == len(vgg_losses) and bool(
+            np.allclose(vgg_losses, recount, rtol=EVAL_RECOUNT_RTOL, atol=0)),
+        "VGG-16 printed mean = the recount's":
+            reported(lines, r"batches: mean ([\d.]+)")[0] == f"{np.mean(recount):.4f}",
+        "no accuracy line, as the JAX CLI": not any(line.startswith("accuracy") for line in lines),
+        "no rank-k launch": all(c == 0 for c in launches.values()),
+    })
+    return res
+
+
+def sweep_and_hpo(sweep, hpo, train_cli, kernels, tmp: str) -> dict:
+    """15e: cli.sweep over two learning rates and cli.hpo's two TPE trials,
+    each point fused LanczosSGD on the spiral through cli.train.main: every
+    point's loss finite and both rank-k kernels launched in every point
+    (the CLIs' catch-all scores a failed point inf)."""
+    calls, train = [], train_cli.main
+
+    def counted(argv, on_step=None):
+        kernels.reset_launch_counts()
+        loss = train(argv, on_step=on_step)
+        calls.append({"loss": loss, "launches": dict(kernels.LAUNCHES)})
+        return loss
+
+    runs = os.path.join(tmp, "runs")
+    train_cli.main = counted
+    try:
+        t0 = time.perf_counter()
+        results = sweep.main(SWEEP_GRID + ["--out_json", os.path.join(tmp, "sweep.json"), "--",
+                                           "--optimiser", "lanczos", "--out", runs]
+                             + SPIRAL_LANCZOS)
+        sweep_s, n_sweep = time.perf_counter() - t0, len(calls)
+        t0 = time.perf_counter()
+        best = hpo.main(["--trials", str(HPO_TRIALS), "--out_json",
+                         os.path.join(tmp, "best.json"), "--", "--out", runs] + SPIRAL_LANCZOS)
+        hpo_s = time.perf_counter() - t0
+    finally:
+        train_cli.main = train
+    res = {"sweep": results, "hpo_backend": best["backend"],
+           "hpo_trials": best["trials"], "per_point": calls, "sweep_s": sweep_s,
+           "hpo_s": hpo_s}
+    print(json.dumps({"15e_sweep_hpo": res}))
+    losses = [r["final_loss"] for r in results] + [t["loss"] for t in best["trials"]]
+    check_gates("15e sweep and hpo", {
+        "every point ran": n_sweep == 2 and len(calls) == 2 + HPO_TRIALS,
+        "every loss finite": all(math.isfinite(x) for x in losses),
+        "hpo took the TPE sampler": best["backend"] == "tpe",
+        "both kernels launched in every point": all(
+            c["launches"][n] > 0 for c in calls for n in TPU_KERNELS),
+    })
+    return res
+
+
+def dispatch_cli(dispatch) -> dict:
+    """15f: ``python -m hessian_llm_vision_tpu_torch devices-info --json``
+    in a subprocess (one row per card: platform "gpu", the card's name,
+    its total memory), and the dispatch's help and unknown-command exit in
+    this process."""
+    t0 = time.perf_counter()
+    got = subprocess.run([sys.executable, "-m", "hessian_llm_vision_tpu_torch", "devices-info",
+                          "--json"], capture_output=True, text=True, timeout=300, check=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    rows = json.loads(got.stdout)
+    seconds = time.perf_counter() - t0
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee), contextlib.redirect_stderr(io.StringIO()) as err:
+        help_rc, bad_rc = dispatch.main(["--help"]), dispatch.main(["no-such-command"])
+    res = {"rows": rows, "subprocess_s": seconds, "help_rc": help_rc, "unknown_rc": bad_rc}
+    print(json.dumps({"15f_dispatch": res}))
+    check_gates("15f the python -m dispatch", {
+        "one row per card": len(rows) == torch.cuda.device_count(),
+        "platform gpu": rows[0]["platform"] == "gpu",
+        "kind is the card's name": rows[0]["kind"] == torch.cuda.get_device_name(0),
+        "bytes_limit is the card's memory":
+            rows[0].get("bytes_limit") == torch.cuda.get_device_properties(0).total_memory,
+        "help lists every command": help_rc == 0 and all(
+            f"  {name:13s} " in "".join(tee.parts) for name in dispatch.COMMANDS),
+        "unknown command exits 2": bad_rc == 2 and "unknown command" in err.getvalue(),
+    })
+    return res
+
+
+def remaining_clis(kernels, spectral, train_cli) -> dict:
+    """Phase 15: 15a-15f, each timed; 15b-15d read seeded CIFAR-10 pickles
+    and MNIST idx files written to temporary directories."""
+    from hessian_llm_vision_tpu_torch import __main__ as dispatch
+    from hessian_llm_vision_tpu_torch.cli import evaluate, forget, hpo, sweep
+
+    out = {}
+    with tempfile.TemporaryDirectory() as cifar, tempfile.TemporaryDirectory() as mnist, \
+            tempfile.TemporaryDirectory() as tmp:
+        write_cifar_batches(cifar, CIFAR_PER_BATCH)
+        write_mnist_test_idx(mnist, FORGET_MNIST_N)
+        with vision_data(mnist, cifar):
+            steps = (("15a", lambda: forget_spiral_card_vs_cpu(forget, kernels)),
+                     ("15b", lambda: forget_vgg16(forget, kernels, spectral)),
+                     ("15c", lambda: forget_simplenet(forget, kernels)),
+                     ("15d", lambda: evaluate_cli(evaluate, kernels)),
+                     ("15e", lambda: sweep_and_hpo(sweep, hpo, train_cli, kernels, tmp)),
+                     ("15f", lambda: dispatch_cli(dispatch)))
+            for key, run in steps:
+                t0 = time.perf_counter()
+                out[key] = run()
+                gc.collect()
+                torch.cuda.empty_cache()
+                print(f"phase {key} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def remaining_clis_summary(rc: dict) -> dict:
+    b = rc["15b"]
+    return {
+        "15a_forget_spiral": {k: rc["15a"][k] for k in (
+            "task_a_rel", "ritz_rel", "curve_max_abs_diff", "own_basis_curve_max_abs_diff",
+            "own_runs", "basis_overlap", "params_rel")}
+        | {"card_s": rc["15a"]["card"]["seconds"], "cpu_s": rc["15a"]["cpu"]["seconds"],
+           "drift_leak": [rc["15a"][d]["drift_leak"] for d in ("card", "cpu")]},
+        "15b_forget_vgg16": {k: b[k] for k in (
+            "P", "restarts", "matvecs", "basis_s", "phase_s", "ms_per_step", "drift_leak",
+            "max_abs_VVt_minus_I", "projection_rel", "replay_rel", "replay_from_plain_rel",
+            "update_floor",
+            "max_memory_allocated_bytes", "ab_overlap")}
+        | {"max_independent_residual": max(b["independent_residual_over_max_lambda"])},
+        "15c_forget_simplenet": {t: {k: r[k] for k in ("seconds", "drift_leak", "ms_per_step")}
+                                 for t, r in rc["15c"].items()},
+        "15d_evaluate": {k: rc["15d"][k] for k in ("gpt2_mean_loss", "gpt2_s", "vgg16_s",
+                                                   "vgg16_accuracy_recount")},
+        "15e_sweep_hpo": {"losses": [p["loss"] for p in rc["15e"]["per_point"]],
+                          "sweep_s": rc["15e"]["sweep_s"], "hpo_s": rc["15e"]["hpo_s"]},
+        "15f_dispatch_s": rc["15f"]["subprocess_s"],
+    }
+
+
 def main() -> int:
     t_start = phase(1, "device")
     if not torch.cuda.is_available():
@@ -3238,10 +3796,11 @@ def main() -> int:
                                ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dtype, CARD))):
                 print(json.dumps({name: {"dtype": str(dtype).removeprefix("torch."), "k": k,
                                          "P": p, **dataclasses.asdict(plan)}}))
-    dt, k, p = PYTHIA_SHAPE
-    for name, plan in (("rank_k_dots_plan", kernels.dots_launch_plan(k, p, dt, CARD)),
-                       ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dt, CARD))):
-        print(json.dumps({name: {"dtype": "bfloat16", "k": k, "P": p, **dataclasses.asdict(plan)}}))
+    for dt, k, p in (PYTHIA_SHAPE, FORGET_SHAPE):
+        for name, plan in (("rank_k_dots_plan", kernels.dots_launch_plan(k, p, dt, CARD)),
+                           ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dt, CARD))):
+            print(json.dumps({name: {"dtype": str(dt).removeprefix("torch."), "k": k, "P": p,
+                                     **dataclasses.asdict(plan)}}))
     print(f"phase 2 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(3, "rank-k kernels vs plain versions")
@@ -3264,6 +3823,11 @@ def main() -> int:
     checks[PYTHIA_SHAPE + ("second draw",)] = check_rank_k(kernels, spectral, *PYTHIA_SHAPE, gen,
                                                            timed=False)
     torch.cuda.empty_cache()
+    # 15b's projected steps' shape, on a generator of its own (the draws
+    # above are unchanged)
+    checks[FORGET_SHAPE] = check_rank_k(kernels, spectral, *FORGET_SHAPE,
+                                        torch.Generator(device=CARD).manual_seed(PHASE3_SEED),
+                                        timed=True)
     failed = [key for key, r in checks.items() if not r["ok"]]
     if failed:
         raise SystemExit(f"rank-k kernel disagrees with its plain version at {failed}")
@@ -3280,7 +3844,7 @@ def main() -> int:
     # per call, µs: wall (events, in turns), host (perf_counter), device (trace)
     for key in ([(dt, k, P_124M) for dt, k in timed] + [(dt, k, p) for dt in TIMED_DTYPES
                                                        for k, p in LEAF_TIMED + VISION_SHAPES]
-                + [PYTHIA_SHAPE]):
+                + [PYTHIA_SHAPE, FORGET_SHAPE]):
         for name in TPU_KERNELS:
             t = checks[key][name]
             print(f"{str(key[0]).removeprefix('torch.'):8s} k={key[1]:2d} P={key[2]:>9d} {name}: "
@@ -3451,6 +4015,13 @@ def main() -> int:
     vis = vision(spectrum_cli, train_cli, spectra, kernels, spectral)
     print(f"phase 14 took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"vision": vision_summary(vis)}))
+
+    t0 = phase(15, "the remaining CLIs: forget on the spiral (card vs CPU), on VGG-16 at full "
+                   "convolutional width and on SimpleNet; evaluate; sweep and hpo; the python -m "
+                   "dispatch")
+    rc = remaining_clis(kernels, spectral, train_cli)
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"remaining_clis": remaining_clis_summary(rc)}))
     lw = rest["12cdf"]
     by_path = {"phase4_train_4_steps": launches,
                "phase7b_spectrum": headline["rank_k_launches"],
@@ -3485,12 +4056,22 @@ def main() -> int:
                    fam["13e"]["lora_llama_tiny"]["launches_per_step"]),
                **{f"phase14d_{n}_4_steps": _summed(r["launches_per_step"])
                   for n, r in vis["14d"].items()},
-               **{f"phase14e_{n}_train": r["launches"] for n, r in vis["14e"].items()}}
+               **{f"phase14e_{n}_train": r["launches"] for n, r in vis["14e"].items()},
+               **{f"phase15{key}_{phase_name}": r["launches"][phase_name]
+                  for key, r in (("a_spiral", rc["15a"]["card"]), ("b_vgg16", rc["15b"]),
+                                 ("c_simplenet_permuted", rc["15c"]["permuted"]),
+                                 ("c_simplenet_noisy", rc["15c"]["noisy"]))
+                  for phase_name in ("baseline", "projected")},
+               "phase15b_thick_restart_basis": rc["15b"]["basis_launches"],
+               "phase15d_evaluate": rc["15d"]["launches"],
+               **{f"phase15e_point{i}": c["launches"] for i, c in enumerate(rc["15e"]["per_point"])}}
     # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d), GN/NGD
     # and Adam with snapshots take no rank-k apply; every other path must
     # have launched both kernels
     t_only = ("phase7b", "phase8c", "phase9a", "phase9b", "phase9c", "phase9d", "phase12b",
-              "phase12e")  # and phase 13's spectra, gated to launch none
+              "phase12e", "phase15d")  # and phase 13's spectra, gated to launch none
+    # the forget baselines, gated in phase 15 to launch none
+    t_only += tuple(p for p in by_path if p.startswith("phase15") and p.endswith("_baseline"))
     for path, counts in by_path.items():
         if not path.startswith(t_only) and not all(counts[n] > 0 for n in TPU_KERNELS):
             raise SystemExit(f"a rank-k kernel was never launched on {path}: {counts}")
@@ -3507,7 +4088,8 @@ def main() -> int:
                       **{f"{str(dt).removeprefix('torch.')}_k{k}_P{p}":
                          without_smi(checks[(dt, k, p)][name])
                          for dt in TIMED_DTYPES
-                         for k, p in LEAF_TIMED + VISION_SHAPES + (PYTHIA_SHAPE[1:],)
+                         for k, p in LEAF_TIMED + VISION_SHAPES + (PYTHIA_SHAPE[1:],
+                                                                   FORGET_SHAPE[1:])
                          if (dt, k, p) in checks},
                       "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
                       "checks_passed": len(checks)})

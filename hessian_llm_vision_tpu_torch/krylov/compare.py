@@ -81,10 +81,13 @@ def summarize(spec: Spectrum) -> dict:
 
 def subspace_overlap(va, vb) -> float:
     """Mean squared cosine of the principal angles between the row-spaces
-    of two (k, P) Ritz bases, in [0, 1] (1.0 = identical subspaces)."""
-    va = _host(va).astype(np.float64)
-    vb = _host(vb).astype(np.float64)
-    qa, _ = np.linalg.qr(va.T)  # (P, ka) orthonormal columns
-    qb, _ = np.linalg.qr(vb.T)
-    s = np.linalg.svd(qa.T @ qb, compute_uv=False)  # cos(principal angles)
-    return float(np.sum(s**2) / min(qa.shape[1], qb.shape[1]))
+    of two (k, P) Ritz bases, in [0, 1] (1.0 = identical subspaces).  In
+    float64 on the device of a tensor argument (the host for arrays), so a
+    card's bases are not copied to the host for the QR of two (P, k)
+    matrices."""
+    dev = next((v.device for v in (va, vb) if isinstance(v, torch.Tensor)), torch.device("cpu"))
+    qa, qb = (torch.linalg.qr(torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
+                                              else v, device=dev).double().T).Q
+              for v in (va, vb))  # (P, k) orthonormal columns
+    s = torch.linalg.svdvals(qa.T @ qb)  # cos(principal angles)
+    return float(torch.sum(s**2) / min(qa.shape[1], qb.shape[1]))

@@ -21,6 +21,7 @@ import torch
 
 from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss
 from hessian_llm_vision_tpu_torch.optim.manual import GradientTransformation, apply_updates
+from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 
 class EpochResampledBatches:
@@ -52,8 +53,14 @@ class TrainState(NamedTuple):
 
 
 def global_norm(tensors: dict) -> torch.Tensor:
-    """L2 norm over every tensor of the dict (optax's ``global_norm``)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors.values()))))
+    """L2 norm over every tensor of the dict (optax's ``global_norm``).  On
+    the CPU each tensor's squares are summed in float64 (``utils/norms.py``:
+    PyTorch's f32 CPU norm drifts with the length); on the card the f32
+    multi-tensor reduction is kept."""
+    ts = list(tensors.values())
+    if ts[0].device.type == "cpu":
+        return norm(torch.stack([norm(t) for t in ts]))
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))
 
 
 def make_train_step(

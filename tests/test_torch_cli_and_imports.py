@@ -89,6 +89,11 @@ def _imported_modules(path: Path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "hessian_llm_vision_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    # the remaining CLIs, the TPE sampler and the dispatch are among them
+    port = ROOT / "hessian_llm_vision_tpu_torch"
+    for name in ("cli/forget.py", "cli/evaluate.py", "cli/sweep.py", "cli/hpo.py",
+                 "cli/devices_info.py", "utils/tpe.py", "__main__.py"):
+        assert port / name in files, name
     bad = [
         (str(f.relative_to(ROOT)), mod)
         for f in files

@@ -43,3 +43,24 @@ def test_start_vector_and_recurrence_step_are_unit_at_length():
     assert abs(float(torch.linalg.vector_norm(q_next.double())) - 1) <= 1e-6
     r = w.double() - float(torch.dot(q, w)) * q.double()
     assert abs(float(beta) / float(torch.linalg.vector_norm(r)) - 1) <= 1e-6
+
+
+def test_train_loop_grad_norm_sums_in_float64_on_the_cpu():
+    """The train loop's logged ``grad_norm`` over a dict with a leaf of
+    2**24 entries, where a sequential f32 sum drifts: within 1e-6 of the
+    float64 norm and of optax's ``global_norm``, where the f32 multi-tensor
+    reading misses that."""
+    import jax.numpy as jnp
+    import optax
+
+    from hessian_llm_vision_tpu_torch.train.loop import global_norm
+
+    grads = {"big": _gauss(1 << 24, 4), "small": _gauss(1000, 5).reshape(10, 100)}
+    ref = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads.values())))
+    got = global_norm(grads)
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert abs(float(got) / ref - 1) <= 1e-6
+    jref = float(optax.global_norm({k: jnp.asarray(v.numpy()) for k, v in grads.items()}))
+    assert abs(float(got) / jref - 1) <= 1e-6
+    f32 = float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values())))))
+    assert abs(f32 / ref - 1) > 1e-6
