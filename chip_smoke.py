@@ -4,8 +4,10 @@ spectrum paths, Adam training from and to checkpoints and the rest of the
 train CLI's optimisers on GPT-2 124M through the CLIs, then the other
 language-model families (Pythia-1.4B at full width, LLaMA-134m, the MoE
 GPT-2, LoRA), the vision models (VGG-16 and ResNet-50 at full width,
-SpiralMLP, SimpleNet) and the remaining CLIs (forget, evaluate, sweep,
-hpo, devices-info through the python -m dispatch), and checks the results.
+SpiralMLP, SimpleNet), the remaining CLIs (forget, evaluate, sweep, hpo,
+devices-info through the python -m dispatch) and the data axis of
+parallel/ (one NCCL rank; two gloo ranks sharing the card), and checks the
+results.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -35,8 +37,8 @@ Phases (any failure exits non-zero and prints no result line):
      loop and in-core CGS2: lambda_max and lambda_min within 1e-5
      relative, the first 3 alphas within 1e-5 of the spectrum's scale;
      (b) the headline job through cli.spectrum.main -- GPT-2 124M, 4
-     batches x bs8 x seq512, 35 T-only iterations of the dataset-mean
-     Hessian -- with its gates (finite Ritz values, lambda_max > 0 >
+     batches x bs8 x seq512, 15 T-only iterations of the dataset-mean
+     Hessian (bench.py's 35, cut to leave room for phase 16) -- with its gates (finite Ritz values, lambda_max > 0 >
      lambda_min, weights summing to 1, |trace| <= 1e-2 lambda_max, the
      artifact read back, no rank-k launch) and one {"spectrum": ...} JSON
      line of its times and memory; (c) at that shape, the f32 HVP on (b)'s
@@ -57,8 +59,8 @@ Phases (any failure exits non-zero and prints no result line):
      against CPU: thick restart, deflated KPM, Hutch++ and --host_basis.
   9. the rest of the single-card curvature at GPT-2 124M, 1 batch x bs8 x
      seq512, through cli.spectrum.main / cli.train.main: (a) --layerwise
-     --layerwise_group block --host_loop, 4 iterations a block (10 before
-     phase 13, 5 before phase 14): 12 block artifacts and the grid,
+     --layerwise_group block --host_loop, 3 iterations a block (10 before
+     phase 13, 5 before phase 14, 4 before phase 16): 12 block artifacts and the grid,
      weights summing to 1, lambda_max > 0, per-block |trace| small, h_0's T
      equal to an in-core LayerHessianOperator run; (b) --operator ggn
      --host_loop: Ritz values >= 0, the GGN matvec against jvp, an explicit
@@ -88,9 +90,9 @@ Phases (any failure exits non-zero and prints no result line):
      ...} line.  Phases 7-10 pin --hvp_precision high: their gates hold
      fp32 HVPs, and the CLI's default "auto" may pick a lower tier.
  11. the precision ladder, inside phase 10's temporary directory, on one
-     stdlib batch of bs8 x seq512: (a) at init and on the 1000-step
-     checkpoint, the reorthogonalised probe (4 iterations, 10 before phase 13, 6
-     before phase 14;
+     stdlib batch of bs8 x seq512: (a) at init and on the 600-step
+     checkpoint, the reorthogonalised probe (3 iterations, 10 before phase 13, 6
+     before phase 14, 4 before phase 16;
      CGS2 on the
      rank-k pair) of the bf16, TF32 and "high" tiers against the "highest"
      referee: bf16 and TF32 differ from fp32, bf16 errs more than TF32 at
@@ -108,14 +110,15 @@ Phases (any failure exits non-zero and prints no result line):
      --precision_check, and --bf16 Adam losses; one {"precision": ...} line.
  12. the rest of training on GPT-2 124M at phase 4's batches, fp32: (a)
      phase 4's run with --optimiser lanczos (the fused step, CGS2, an f32
-     (10, P) basis): each kernel once per step at (10, P) f32, step 0's
-     loss and eig_max as phase 4's; (b) --optimiser gn and ngd, 1 step each
+     (10, P) basis), 2 steps (4 before phase 16): each kernel once per step
+     at (10, P) f32, step 0's loss and eig_max as phase 4's; (b) --optimiser gn and ngd, 1 step each
      (2 before phase 13) at
-     --damping 1e-3 --cg_iters 20: finite, cg_iters <= 20, no rank-k
+     --damping 1e-3 --cg_iters 10 (20 before phase 16): finite, cg_iters
+     <= 10, no rank-k
      launch, and a GN step's reported CG residual recomputed from a fresh
-     GGN matvec; (c) HostLayerwiseLanczosSGDTrainer on wte and the first 8
-     of the 24 MLP kernels in flat order (all 24 before phase 14; bf16
-     bases, k=4, refresh_every 2, 2 steps): 9 launches of each kernel per
+     GGN matvec; (c) HostLayerwiseLanczosSGDTrainer on wte and the first 4
+     of the 24 MLP kernels in flat order (all 24 before phase 14, 8 before
+     phase 16; bf16 bases, k=4, refresh_every 2, 2 steps): 5 launches of each kernel per
      step, finite Ritz values, lambda_max > 0 on wte, the frozen step equal
      to a plain-version replay, and the plan (path, alignment of g) of each
      of a step's 9 per-leaf launches printed; (d)
@@ -131,8 +134,8 @@ Phases (any failure exits non-zero and prints no result line):
  13. the other language-model families through cli.spectrum.main and
      cli.train.main at fp32 HVPs, on one stdlib batch: (a) Pythia-1.4B (P =
      1,414,647,808) at full width and depth, --host_loop --bigmodel with
-     bf16 Krylov vectors, 1 x bs1 x seq512, 10 iterations (15 before phase
-     15): finite Ritz
+     bf16 Krylov vectors, 1 x bs1 x seq512, 6 iterations (15 before phase
+     15, 10 before phase 16): finite Ritz
      values, lambda_max > 0 > lambda_min, the weights summing to 1 within
      1e-6, |trace| <= 1e-2 lambda_max, the artifact read back, no rank-k
      launch; its peak memory, seconds per iteration and init seconds (drawn
@@ -145,11 +148,13 @@ Phases (any failure exits non-zero and prints no result line):
      1e-5 of the plain w, its adjusted gradient within 1e-5 (plus the f32
      rounding of g + term, itself <= 1e-3) of the plain one, both relative
      to the adjust term, and the update within 1e-5 of a plain replay; (c)
-     LLaMA-134m, 1 x bs8 x seq512, 10 iterations (20 before phase 15) with
+     LLaMA-134m, 1 x bs8 x seq512, 6 iterations (20 before phase 15, 10
+     before phase 16) with
      (a)'s gates, its f32
-     HVP against a float64 central difference within 2e-5, and phase 4's 4
-     LanczosSGD steps with each kernel once per step at (10, 134,105,856)
-     bf16; (d) gpt2-moe (80M, 8 dense experts), 1 x bs8 x seq512, 10
+     HVP against a float64 central difference within 2e-5, and phase 4's
+     LanczosSGD for 2 steps (4 before phase 16) with each kernel once per
+     step at (10, 134,105,856)
+     bf16; (d) gpt2-moe (80M, 8 dense experts), 1 x bs8 x seq512, 6
      iterations with (a)'s gates; (e) llama-tiny (grouped-query attention),
      pythia-70m at bs1 x seq16 and gpt2-tiny --experts 4, dense and with
      --moe_top_k 2, card against CPU through both CLIs (Ritz extremes within
@@ -159,8 +164,8 @@ Phases (any failure exits non-zero and prints no result line):
  14. the vision models at their CIFAR-10 widths on random images (both data
      directories pointed at empty temporary ones, so the loaders fall back
      as the JAX CLI does, printed): (a) VGG-16 (P = 33,638,218) through
-     cli.spectrum.main, bs128 x 4 batches, --host_loop, 10 iterations (20
-     before phase 15) at
+     cli.spectrum.main, bs128 x 4 batches, --host_loop, 6 iterations (20
+     before phase 15, 10 before phase 16) at
      fp32 HVPs, with 13a's gates; (b) ResNet-50 (P = 23,528,522) the same
      way with BatchNorm in eval and in train mode (--bn_train_mode), both
      passing (a)'s gates, their lambda_max differing; (c) on one batch, the
@@ -213,6 +218,24 @@ Phases (any failure exits non-zero and prints no result line):
      hessian_llm_vision_tpu_torch devices-info --json` in a subprocess (a
      "gpu" row per card with its name and memory), the dispatch's help and
      its exit 2 on an unknown command; one {"remaining_clis": ...} line.
+ 16. the data axis (parallel/) on GPT-2 124M at full width: (a) a NCCL
+     group of one rank from dist_init.initialize over an in-process store
+     (one card admits one NCCL rank), 1 x bs8 x seq512: the sharded loss's
+     gradient and HVP (through NCCL's all-reduce) within 1e-5 of the
+     unsharded ones and a 4-iteration host-loop spectrum over it within
+     1e-4 (bit for bit printed), no rank-k launch; (b) two gloo ranks
+     spawned on this card (parallel/spawn.py), the global batch of 8
+     sequences of 256 tokens split 4 + 4: the DP HVP within 1e-5 of one
+     process's HVP of the whole batch, its time with the gloo transfer of a
+     P-vector on CUDA tensors timed apart; the Lanczos with the basis split
+     along P, (10, 62,023,296) f32 a rank, each CGS2 projection pass 1 on
+     the rank's block, an all-reduce of w, pass 2 (each kernel 20 times a
+     rank), T within 1e-4 and Ritz values within 1e-3 of rank 0's unsharded
+     run, each rank's pair against its plain version (1e-5, bit for bit
+     repeated, pass 1's bulk path); --probe_parallel --probes 2 through
+     cli.spectrum.main on both ranks equal to --probes 2 in one process
+     within 1e-4, rank 0 alone printing the report and writing the
+     artifact; the ranks without JAX; one {"data_axis_two_ranks": ...} line.
 Phase 3 also checks (4, 124,046,592) in both dtypes, (8, 124,046,592) and
 (16, 124,046,592) in bf16 -- the deflation projector's, the empirical
 Fisher's and the CGS2 pass's shapes, timed only (4, P) in bf16 since phase 13
@@ -223,14 +246,16 @@ without vector loads) and 13b's (4, 1,414,647,808) in bf16, the first with k x P
 >= 2**31 at full width (V alone 11.3 GB), where pass 1 is held to a
 float64 w on two draws (within 1e-5 and no farther than cuBLAS's f32 sum,
 which on some draws lies 1e-5 off itself), and 15b's (10, 14,913,093) in
-f32 (P = 5 mod 8, the same two paths); it checks small leaves at
+f32 (P = 5 mod 8, the same two paths) and 16b's (10, 62,023,296) in f32
+(each rank's half of P); it checks small leaves at
 unaligned offsets of g, the bf16 MLP leaf with g 1-7 elements off 16
 bytes, and (256, 2**24) bf16, whose pass 2 sweeps each chunk's rows in 22
 stages.  Every phase prints its wall seconds on a line of its own.  Then
 it prints one JSON line of kernels (launches per
 path), the card line, and finally {"ok": true, "device": {...}}.
 
-Imports torch, numpy and the port only (no JAX: the card machine has none).
+Imports torch, numpy and the port only (no JAX: the card machine has none);
+16b's ranks import this file for ``data_axis_rank``.
 """
 
 from __future__ import annotations
@@ -282,16 +307,17 @@ TRAIN_ARGV = [
     "--refresh_every", "2", "--lanczos_momentum", "0.9", "--max_steps", "4",
     "--seed", "0",
 ]
-# bench.py's headline job (4 batches x bs8 x seq512, 35 iterations, T-only
+# bench.py's headline job (4 batches x bs8 x seq512, T-only
 # dataset-mean host loop; --fused_iter is bench.py's flag, one path here), in fp32
 # (every spectrum of phases 7-10 pins --hvp_precision high: the fp32 HVPs
 # its gates were set on; the CLI's default "auto" may pick bf16 or TF32)
 SPECTRUM_ARGV = [
     "--model", "gpt2", "--dataset", "random", "--num_batches", "4", "--batch_size", "8",
     "--max_length", "512", "--attn_block_q", "512", "--loss_chunk", "512",
-    "--lanczos_iters", "35", "--host_loop", "--fused_iter", "--vector_seed", "997",
+    "--lanczos_iters", "15", "--host_loop", "--fused_iter", "--vector_seed", "997",
     "--hvp_precision", "high",
 ]
+HEADLINE_ITERS = 15  # bench.py's 35, cut to leave room for phase 16
 TINY_SPECTRUM_ARGV = [
     "--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32", "--num_batches", "2",
     "--lanczos_iters", "12", "--vector_seed", "5", "--hvp_precision", "high",
@@ -337,9 +363,9 @@ EXT_EIG_RTOL, EXT_MOMENT_ATOL, EXT_HUTCHPP_RTOL = 1e-5, 1e-5, 1e-4
 FD_EPS = 1e-4
 HVP_FD_LIMIT = 2e-5
 # phase 9: GPT-2 124M at EXT_BASE's 1 x bs8 x seq512
-# 9a: 4 iterations per block (10 before phase 13, 5 before phase 14), 48
-# masked HVPs
-LW_ITERS = 4
+# 9a: 3 iterations per block (10 before phase 13, 5 before phase 14, 4
+# before phase 16), 36 masked HVPs
+LW_ITERS = 3
 LW_ARGV = EXT_BASE + ["--layerwise", "--layerwise_group", "block", "--host_loop",
                       "--lanczos_iters", str(LW_ITERS)]
 GGN_ARGV = EXT_BASE + ["--operator", "ggn", "--host_loop", "--lanczos_iters", "20"]
@@ -363,10 +389,11 @@ TINY_NEW_RTOL = 1e-5  # 9g card against CPU, extremes of max |lambda|
 # phase 10: the trained-checkpoint path on GPT-2 124M.  The corpus is the
 # card machine's own Python standard library as bytes, the corpus of the
 # JAX package's trained-124M protocol; 10a trains on ADAM_N of its batches.
-# 2 x ADAM_N = 1000 steps: on this corpus lambda_max first falls below the
-# init's (0.44x after 200 steps) and sharpens past it later (PERF.md)
+# 2 x ADAM_N = 600 steps (1000 before phase 16): on this corpus lambda_max
+# first falls below the init's (0.44x after 200 steps) and sharpens past it
+# later (16.6x it after 600 steps; PERF.md)
 STDLIB = os.path.dirname(os.__file__)
-ADAM_N = 500
+ADAM_N = 300
 ADAM_ARGV = ["--model", "gpt2", "--batch_size", "8", "--max_length", "512", "--attn_block_q",
              "256", "--loss_chunk", "256", "--optimiser", "adam", "--lr", "1e-3",
              "--num_batches", str(ADAM_N), "--dataset", f"local:{STDLIB}"]
@@ -381,22 +408,27 @@ RESUME_N = 10
 CKPT_BASE = ["--model", "gpt2", "--dataset", f"local:{STDLIB}", "--num_batches", "1",
              "--batch_size", "8", "--max_length", "512", "--host_loop", "--lanczos_iters", "6"]
 CKPT_SPECTRUM_ARGV = CKPT_BASE + ["--hvp_precision", "high"]
-# 10b: the f32 HVP at the 1000-step checkpoint against the float64
-# difference first read 6.45e-3, 320x 7c's limit at init, while the
-# difference's own truncation read 2.5e-7: a finding for the precision
-# ladder (ROADMAP A11), gated at 10x that reading
-CKPT_FD_LIMIT = 6.5e-2
+# 10b: the f32 HVP at the checkpoint against the float64 difference, gated
+# at 10x its first reading at this depth: 2.83e-4 at 600 steps, 14x 7c's
+# limit at init (at 1000 steps it read 6.45e-3 and the gate was 6.5e-2;
+# the difference's own truncation read 2.5e-7 there): a finding for the
+# precision ladder (ROADMAP A11)
+CKPT_FD_LIMIT = 2.9e-3
 CKPT_LOSS_RTOL = 1e-5  # 10c step 0 against the checkpoint's loss computed directly
 TINY_ADAM_ARGV = ["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32",
                   "--optimiser", "adam", "--num_batches", "5", "--accumulation_steps", "2",
                   "--linear_decay_steps", "10"]
 TINY_ADAM_RTOL = 1e-5  # 10d card against CPU, per-step losses
-# phase 11: the precision ladder at the init and the 1000-step checkpoint,
+# phase 11: the precision ladder at the init and the 600-step checkpoint,
 # GPT-2 124M, one stdlib batch of bs8 x seq512
-PROBE_ITERS = 4  # reorthogonalised Lanczos iterations per probe arm (10 before phase 13,
-# 6 before phase 14)
+PROBE_ITERS = 3  # reorthogonalised Lanczos iterations per probe arm (10 before phase 13,
+# 6 before phase 14, 4 before phase 16)
 PROBE_ARMS = ("default", "TF32_TF32_F32", "high")  # against the "highest" referee
-AUTO_ARGV = CKPT_BASE + ["--hvp_precision", "auto"]
+# 11b/11c: each probe arm runs PRECISION_CHECK_ITERS reorthogonalised
+# iterations (the CLI's default 10 before phase 16)
+PRECISION_CHECK_ITERS = 6
+AUTO_ARGV = CKPT_BASE + ["--hvp_precision", "auto", "--precision_check_iters",
+                         str(PRECISION_CHECK_ITERS)]
 AUTO_TOL = 1e-3  # the planner's bar on the chosen arm's extreme-Ritz error
 CHECK_BAR = 2e-3  # report_precision_probe's bar
 GUARD_RITZ_ITERS = 8  # RefreshPrecisionGuard's default probe depth
@@ -414,22 +446,28 @@ TINY_BF16_STEP0_RTOL = 2e-6
 TINY_BF16_DRIFT_RTOL = 1e-4
 # phase 12: the rest of training on GPT-2 124M at TRAIN_ARGV's batches
 # (random tokens, bs8 x seq512, seed 0), fp32 HVPs as in phases 7-10
-FUSED_ARGV = [a if a != "lanczos-host" else "lanczos" for a in TRAIN_ARGV]
+# 12a: phase 4's run with the fused step, 2 steps (a refresh and a frozen
+# step; 4 before phase 16)
+FUSED_STEPS = 2
+FUSED_ARGV = list(TRAIN_ARGV)
+FUSED_ARGV[FUSED_ARGV.index("lanczos-host")] = "lanczos"
+FUSED_ARGV[FUSED_ARGV.index("--max_steps") + 1] = str(FUSED_STEPS)
 FUSED_LOSS_RTOL = 1e-5  # 12a step 0 against phase 4's step 0 (same params and batch)
 FUSED_EIG_RTOL = 1e-3  # 12a step 0's eig_max (CGS2) against phase 4's (no reorthogonalization)
 SECOND_ORDER_ARGV = ["--model", "gpt2", "--dataset", "random", "--batch_size", "8",
                      "--max_length", "512", "--num_batches", "2", "--max_steps", "2",
-                     "--seed", "0"]  # --damping 1e-3 --cg_iters 20, the defaults
-CG_MAX_ITERS = 20
+                     "--seed", "0", "--cg_iters", "10"]  # --damping 1e-3, the default
+CG_MAX_ITERS = 10  # the CLI's default 20 before phase 16
 SECOND_ORDER_STEPS = 1  # gn and ngd steps each in 12b (2 before phase 13)
 CG_RESIDUAL_RTOL = 1e-3  # reported ‖r‖ against ‖(G + λI)x − g‖ from a fresh matvec
 # 12c/12d: min_leaf_size 2,000,000 keeps wte and the 24 MLP kernels (2,359,296
-# each), of which 12c adjusts wte and the first 8 MLP kernels in flat order
-# (all 24 before phase 14: 100 masked HVPs a refresh, 36 now); 3,000,000
+# each), of which 12c adjusts wte and the first 4 MLP kernels in flat order
+# (all 24 before phase 14: 100 masked HVPs a refresh; 36 before phase 16,
+# 20 now); 3,000,000
 # keeps wte alone (38,597,376)
 LAYER_MIN_LEAF = 2_000_000
 WTE_MIN_LEAF = 3_000_000
-LAYER_LEAVES = 9
+LAYER_LEAVES = 5
 LAYER_K = 4
 REPLAY_RTOL = 1e-5  # 12c frozen step's update against a plain-version replay
 WTE_RITZ_RTOL = 1e-3  # 12d wte extremes against 12c's
@@ -469,10 +507,10 @@ LM_BASE = ["--dataset", f"local:{STDLIB}", "--num_batches", "1", "--hvp_precisio
            "--vector_seed", "997"]
 LM_GAMMA_TOL = 1e-6  # |sum of the SLQ weights - 1|
 # 13a: artifacts/pythia1p4b_r3's protocol (bs1, --bigmodel with bf16 Krylov
-# vectors, 15 iterations) at seq512, cut to 10 iterations to leave room for
-# phase 15; the JAX package cut it to seq256 only to fit a 16 GB chip
+# vectors, 15 iterations) at seq512, cut to 6 iterations to leave room for
+# phases 15 and 16; the JAX package cut it to seq256 only to fit a 16 GB chip
 PYTHIA_SPECTRUM_ARGV = ["--model", "pythia-1.4b", "--batch_size", "1", "--max_length", "512",
-                        "--host_loop", "--bigmodel", "--lanczos_iters", "10"] + LM_BASE
+                        "--host_loop", "--bigmodel", "--lanczos_iters", "6"] + LM_BASE
 # 13b: LanczosSGD at full width, k=4, a bf16 basis, one refresh and one
 # frozen step (--max_length is added: 512, or 256 if 512 does not fit).
 # delta 1e4 (> 10 max |lambda|) makes the adjust coefficients 1/lambda -
@@ -486,12 +524,14 @@ PYTHIA_TRAIN_ARGV = ["--model", "pythia-1.4b", "--dataset", f"local:{STDLIB}", "
 TERM_RTOL = 1e-5  # 13b frozen step's w and adjust term against the plain versions (phase 3's bar)
 TERM_FLOOR_MAX = 1e-3  # the f32 rounding of g + term, of the term: the comparison must resolve it
 # 13c, 13d: the llama134m_r3 and moe_r3 protocols, 1 x bs8 x seq512, 20
-# iterations, cut to 10 to leave room for phase 15
+# iterations, cut to 6 to leave room for phases 15 and 16
 LLAMA_SPECTRUM_ARGV = ["--model", "llama-134m", "--batch_size", "8", "--max_length", "512",
                        "--attn_block_q", "512", "--loss_chunk", "512", "--host_loop",
-                       "--lanczos_iters", "10"] + LM_BASE
+                       "--lanczos_iters", "6"] + LM_BASE
 MOE_SPECTRUM_ARGV = [a if a != "llama-134m" else "gpt2-moe" for a in LLAMA_SPECTRUM_ARGV]
-LLAMA_TRAIN_ARGV = [a if a != "gpt2" else "llama-134m" for a in TRAIN_ARGV]  # phase 4's run
+# phase 4's run, 2 steps (4 before phase 16)
+LLAMA_TRAIN_ARGV = [a if a != "gpt2" else "llama-134m" for a in TRAIN_ARGV]
+LLAMA_TRAIN_ARGV[LLAMA_TRAIN_ARGV.index("--max_steps") + 1] = "2"
 # 13e: the tiny configs, card against CPU, knobs as tests/test_torch_lm_families_cli.py
 TINY_FAMILIES = {
     "llama_tiny": ["--model", "llama-tiny"],
@@ -536,10 +576,10 @@ RESNET50_P = 23_528_522
 VISION_SHAPES = ((10, VGG16_P), (10, RESNET50_P))  # phase 3, timed in both dtypes
 RANDOM_IMAGES = "[data] CIFAR-10 and MNIST unavailable; falling back to random images"
 # 14a/14b: the JAX package's vision_r2 / vision_r3_real protocol, bs128 x 4
-# batches, fp32 HVPs, cut from its 20 iterations to 10 to leave room for
-# phase 15 (at init both models' Ritz values reach -0.4 to -1 x lambda_max)
+# batches, fp32 HVPs, cut from its 20 iterations to 6 to leave room for
+# phases 15 and 16 (at init both models' Ritz values reach -0.4 to -1 x lambda_max)
 VISION_SPECTRUM = ["--batch_size", "128", "--num_batches", "4", "--host_loop",
-                   "--lanczos_iters", "10", "--hvp_precision", "high", "--vector_seed", "997"]
+                   "--lanczos_iters", "6", "--hvp_precision", "high", "--vector_seed", "997"]
 VGG_SPECTRUM_ARGV = ["--model", "vgg16"] + VISION_SPECTRUM
 RESNET_SPECTRUM_ARGV = ["--model", "resnet50"] + VISION_SPECTRUM
 # 14c: one batch of 14a's; the step of the difference is 1e-6, as 7c's 1e-4
@@ -643,6 +683,35 @@ EVAL_RECOUNT_RTOL = 1e-6
 SPIRAL_LANCZOS = ["--model", "spiral", "--max_steps", "4"]
 SWEEP_GRID = ["--grid", "lr=0.01,0.05"]
 HPO_TRIALS = 2
+# phase 16: the data axis (parallel/).  16a: one NCCL rank, the only
+# group one card admits (NCCL refuses two ranks on one GPU), over an
+# in-process store, at phase 7's shape cut to 1 batch and DP_ONE_ITERS
+# iterations: the sharded loss's grad, HVP and host loop, whose all-reduce
+# over one rank must leave them as the unsharded ones
+DP_ONE_ARGV = ["--model", "gpt2", "--dataset", "random", "--num_batches", "1",
+               "--batch_size", "8", "--max_length", "512", "--attn_block_q", "512",
+               "--loss_chunk", "512", "--hvp_precision", "high"]
+DP_ONE_ITERS = 4
+# 16b: two gloo ranks sharing the card (the only way to have two ranks on
+# one GPU), GPT-2 124M at n_positions 512 (P = 124,046,592) on a global
+# batch of 8 random sequences of DP_SEQ tokens split 4 + 4; the P-sharded
+# Lanczos stores DP_ITERS rows of each rank's half of P, so the rank-k pair
+# runs at DP_SHAPE on each rank (P/2 = 62,023,296: aligned rows, pass 1's
+# bulk path), timed in phase 3
+DP_RANKS = 2
+DP_SEQ = 256
+DP_ITERS = 10
+DP_SHAPE = (torch.float32, DP_ITERS, P_124M // DP_RANKS)
+DP_HVP_RTOL = 1e-5  # the DP HVP against one process's HVP of the whole batch
+DP_T_TOL = 1e-4  # the sharded T against the unsharded run's, rtol and atol
+DP_RITZ_RTOL = 1e-3  # Ritz values of the two runs, of max |lambda|
+# --probe_parallel --probes 2 over the two ranks against --probes 2 in one
+# process (the JAX test's bar, tests/distributed/test_probe_parallel.py)
+PROBE_PAR_ARGV = ["--model", "gpt2", "--dataset", "random", "--num_batches", "1",
+                  "--batch_size", "4", "--max_length", "128", "--host_loop", "--lanczos_iters",
+                  "4", "--probes", "2", "--hvp_precision", "high", "--vector_seed", "997"]
+PROBE_PAR_RTOL = 1e-4
+DP_TIMEOUT = 300.0
 CARD = torch.device("cuda")
 
 
@@ -979,13 +1048,13 @@ def headline_spectrum(spectrum_cli, spectra, kernels, hvp_ms: float) -> dict:
     lam_max, lam_min = float(ev.max()), float(ev.min())
     trace = float(torch.dot(spec.eigvals, spec.gammas))
     gamma_sum = float(spec.gammas.sum())
-    loop_s, hvps = sum(iter_s), 35 * 4
+    loop_s, hvps = sum(iter_s), HEADLINE_ITERS * 4
     with np.load(JAX_SPECTRUM) as z:
         jax_lam_max = float(z["eigvals"].max())
     res = {
         "hvps": hvps, "lanczos_loop_s": loop_s, "hvps_per_s": hvps / loop_s,
         "s_per_hvp": loop_s / hvps, "phase6_hvp_s": hvp_ms / 1e3,
-        "loop_over_140_phase6_hvps": loop_s / (hvps * hvp_ms / 1e3),
+        "loop_over_phase6_hvps": loop_s / (hvps * hvp_ms / 1e3),
         "iter_s": {"median": statistics.median(iter_s), "min": min(iter_s),
                    "max": max(iter_s), "first": iter_s[0],
                    "max_after_first": max(iter_s[1:]), "n": len(iter_s)},
@@ -998,7 +1067,7 @@ def headline_spectrum(spectrum_cli, spectra, kernels, hvp_ms: float) -> dict:
     }
     print(json.dumps({"spectrum": res}))
     gates = {
-        "35 iterations timed": len(iter_s) == 35,
+        f"{HEADLINE_ITERS} iterations timed": len(iter_s) == HEADLINE_ITERS,
         "finite Ritz values": bool(torch.isfinite(ev).all()),
         "lambda_max > 0 > lambda_min": lam_max > 0 > lam_min,
         "gammas sum to 1 within 1e-3": abs(gamma_sum - 1) <= 1e-3,
@@ -1209,9 +1278,9 @@ def deflated_kpm_124m(spectrum_cli, kernels) -> dict:
     seen = {}
     build_projector = deflate.deflated_matvec
 
-    def capture(matvec, basis):
+    def capture(matvec, basis, *sharding):
         seen.update(launches=dict(kernels.LAUNCHES), basis=basis,
-                    mv=build_projector(matvec, basis))
+                    mv=build_projector(matvec, basis, *sharding))
         return seen["mv"]
 
     torch.cuda.empty_cache()
@@ -2093,9 +2162,9 @@ def precision_check_default(spectrum_cli, ckpt: str) -> dict:
     torch.cuda.empty_cache()
     _, lines, err, main_s = run_cli_both(spectrum_cli, CKPT_BASE + [
         "--checkpoint", ckpt, "--hvp_precision", "default", "--precision_check",
-        "--lanczos_iters", "2"])
+        "--precision_check_iters", str(PRECISION_CHECK_ITERS), "--lanczos_iters", "2"])
     ritz, matvec = (float(x) for x in reported(
-        lines, r"^\[precision\] HVP extreme-Ritz rel err vs f32 referee \(10 iters\): "
+        lines, rf"^\[precision\] HVP extreme-Ritz rel err vs f32 referee \({PRECISION_CHECK_ITERS} iters\): "
                r"([\d.e+-]+)  \(matvec rel err ([\d.e+-]+);"))
     warned = "exceeds the 0.002 parity bar" in err
     res = {"ritz_rel_err": ritz, "rel_err": matvec, "warned": warned, "main_s": main_s}
@@ -2195,7 +2264,7 @@ def precision_card_vs_cpu(spectrum_cli, train_cli, tmp: str) -> dict:
 
 
 def precision_ladder(train_cli, spectrum_cli, kernels, ckpt: str, tmp: str) -> dict:
-    """Phase 11: 11a-11f on phase 10's 1000-step checkpoint; 11a, 11b and
+    """Phase 11: 11a-11f on phase 10's 600-step checkpoint; 11a, 11b and
     11d share one workload at init and one at the checkpoint."""
     t0 = time.perf_counter()
     wls = {"init": _probe_workload(spectrum_cli, None),
@@ -2308,10 +2377,10 @@ def fused_lanczos_124m(train_cli, kernels, phase4: list) -> dict:
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     print(json.dumps({"fused_lanczos_124m": out}))
     check_gates("12a fused LanczosSGD", {
-        "4 steps": len(records) == 4,
+        f"{FUSED_STEPS} steps": len(records) == FUSED_STEPS,
         "finite": all(math.isfinite(v) for r in records for v in r.values()),
-        "each kernel once per step": all(launches[n] == 4 for n in TPU_KERNELS),
-        "every adjust at (10, P) f32": shapes == [[10, P_124M, "float32"]] * 4,
+        "each kernel once per step": all(launches[n] == FUSED_STEPS for n in TPU_KERNELS),
+        "every adjust at (10, P) f32": shapes == [[10, P_124M, "float32"]] * FUSED_STEPS,
         "step 0 loss as phase 4's": out["loss_rel_vs_phase4"] <= FUSED_LOSS_RTOL,
         "step 0 eig_max as phase 4's": out["eig_max_rel_vs_phase4"] <= FUSED_EIG_RTOL,
     })
@@ -3769,6 +3838,279 @@ def remaining_clis_summary(rc: dict) -> dict:
     }
 
 
+def _synced(fn):
+    """``(fn(), seconds)`` with the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _tree_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def data_axis_one_rank(spectrum_cli, kernels) -> dict:
+    """Phase 16a: a NCCL group of one rank from ``dist_init.initialize``
+    over an in-process store; the sharded loss's gradient, HVP and host-loop
+    spectrum against the unsharded ones in this process."""
+    import torch.distributed as dist
+
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss
+    from hessian_llm_vision_tpu_torch.curvature.operators import HessianOperator
+    from hessian_llm_vision_tpu_torch.krylov.driver import dataset_spectrum_host
+    from hessian_llm_vision_tpu_torch.parallel import (
+        ShardedHessianOperator,
+        dist_init,
+        make_mesh,
+        make_sharded_loss,
+        shard_batch,
+    )
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    wl = build_workload(spectrum_cli.build_parser().parse_args(DP_ONE_ARGV), CARD)
+    up = dist_init.initialize(num_processes=1, process_id=0, store=dist.HashStore(),
+                              backend="nccl")
+    try:
+        mesh = make_mesh()
+        res = {"group_up": up, "backend": dist.get_backend(), "world_size": dist.get_world_size(),
+               "mesh": mesh.shape}
+        sharded = make_sharded_loss(wl.loss_fn, mesh)
+        local = [shard_batch(b, mesh) for b in wl.batches]
+        (l_1, g_1), res["grad_s"] = _synced(lambda: grad_and_loss(wl.loss_fn, wl.params,
+                                                                   wl.batches[0]))
+        (l_n, g_n), res["dp_grad_s"] = _synced(lambda: grad_and_loss(sharded, wl.params,
+                                                                      local[0]))
+        fl = Flattener(wl.params)
+        res["grad_rel"] = rel_l2(fl.flatten(g_n), fl.flatten(g_1))
+        res["grad_bitwise"] = _tree_equal(g_n, g_1) and torch.equal(l_n, l_1)
+        del g_1, g_n
+        v = torch.randn(fl.size, generator=torch.Generator(device=CARD).manual_seed(16),
+                        device=CARD)
+        v /= torch.linalg.vector_norm(v)
+        op_1 = HessianOperator(wl.loss_fn, wl.params, wl.batches[0], precision="high")
+        op_n = ShardedHessianOperator(wl.loss_fn, wl.params, local[0], mesh, precision="high")
+        op_1(v), op_n(v)  # warm
+        hv_1, res["hvp_s"] = _synced(lambda: op_1(v))
+        hv_n, res["dp_hvp_s"] = _synced(lambda: op_n(v))
+        res["hvp_rel"] = rel_l2(hv_n, hv_1)
+        res["hvp_bitwise"] = torch.equal(hv_n, hv_1)
+        del hv_1, hv_n
+        kernels.reset_launch_counts()
+        t_n, res["dp_spectrum_s"] = _synced(lambda: dataset_spectrum_host(
+            sharded, wl.params, local, DP_ONE_ITERS, v0=v, precision="high", flattener=fl))
+        res["launches"] = dict(kernels.LAUNCHES)
+        t_1, res["spectrum_s"] = _synced(lambda: dataset_spectrum_host(
+            wl.loss_fn, wl.params, wl.batches, DP_ONE_ITERS, v0=v, precision="high",
+            flattener=fl))
+        res["T_max_abs_diff"] = max(float((t_n.alphas - t_1.alphas).abs().max()),
+                                    float((t_n.betas - t_1.betas).abs().max()))
+        res["T_bitwise"] = torch.equal(t_n.alphas, t_1.alphas) and torch.equal(t_n.betas,
+                                                                                t_1.betas)
+        res["alphas"] = t_n.alphas.tolist()
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"data_axis_one_rank": res}), flush=True)
+    scale = float(t_1.alphas.abs().max())
+    check_gates("16a one NCCL rank", {
+        "a NCCL group of one rank": up and res["backend"] == "nccl" and res["world_size"] == 1,
+        "DP grad within 1e-5": res["grad_rel"] <= DP_HVP_RTOL,
+        "DP HVP within 1e-5": res["hvp_rel"] <= DP_HVP_RTOL,
+        "host-loop T within 1e-4": res["T_max_abs_diff"] <= DP_T_TOL * max(1.0, scale),
+        "no rank-k launch in the T-only loop": all(n == 0 for n in res["launches"].values()),
+    })
+    return res
+
+
+def data_axis_rank(mesh, *, tmp: str) -> dict:
+    """Phase 16b on one of two gloo ranks sharing the card (run by
+    ``parallel.spawn.run_ranks``): the DP HVP timed with its gloo transfer
+    apart, the P-sharded Lanczos with the rank-k pair on this rank's half
+    of P, the pair against its plain version there, and the spectrum CLI's
+    --probe_parallel.  Rank 0 also runs the unsharded references."""
+    import torch.distributed as dist
+
+    from hessian_llm_vision_tpu_torch.cli import spectrum as spectrum_cli
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.curvature.operators import HessianOperator
+    from hessian_llm_vision_tpu_torch.krylov.lanczos import lanczos
+    from hessian_llm_vision_tpu_torch.krylov.sharded import PShard
+    from hessian_llm_vision_tpu_torch.krylov.slq import ritz_decomposition
+    from hessian_llm_vision_tpu_torch.ops import kernels, spectral
+    from hessian_llm_vision_tpu_torch.parallel import (
+        ShardedHessianOperator,
+        basis_sharding,
+        shard_batch,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lead = mesh.index == 0
+    res = {"rank": mesh.index, "device": torch.cuda.get_device_name(0)}
+    wl = build_workload(spectrum_cli.build_parser().parse_args(DP_ONE_ARGV), CARD)
+    batch = {k: t[:, :DP_SEQ] for k, t in wl.batches[0].items()}  # 8 x DP_SEQ tokens
+    local = shard_batch(batch, mesh)
+    res["local_rows"] = int(local["input_ids"].shape[0])
+    P = sum(p.numel() for p in wl.params.values())
+    v = torch.randn(P, generator=torch.Generator(device=CARD).manual_seed(16), device=CARD)
+    v /= torch.linalg.vector_norm(v)
+    op_dp = ShardedHessianOperator(wl.loss_fn, wl.params, local, mesh, precision="high")
+    op_local = HessianOperator(wl.loss_fn, wl.params, local, precision="high")
+    sh = PShard(basis_sharding(mesh), P)
+    buf = torch.randn(P, device=CARD)
+    times = {"hvp_dp_s": [], "hvp_local_s": [], "gloo_all_reduce_P_s": [], "gloo_gather_P_s": []}
+    hv = op_dp(v)  # warm
+    for _ in range(2):  # both ranks start each reading together
+        dist.barrier()
+        hv, t = _synced(lambda: op_dp(v))
+        times["hvp_dp_s"].append(t)
+        dist.barrier()
+        times["hvp_local_s"].append(_synced(lambda: op_local(v))[1])
+        dist.barrier()
+        times["gloo_all_reduce_P_s"].append(_synced(lambda: mesh.all_reduce_(buf))[1])
+        dist.barrier()
+        times["gloo_gather_P_s"].append(_synced(lambda: sh.gather(sh.part(buf)))[1])
+    res["times"] = {k: statistics.median(t) for k, t in times.items()}
+    res["times_all"] = times
+    del buf, op_local
+    if lead:  # one process's HVP of the whole batch
+        whole = HessianOperator(wl.loss_fn, wl.params, batch, precision="high")(v)
+        res["hvp_rel_vs_whole_batch"] = rel_l2(hv, whole)
+        del whole
+    del hv
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    lres, res["sharded_lanczos_s"] = _synced(lambda: lanczos(
+        op_dp.matvec, P, DP_ITERS, v0=v, basis_sharding=basis_sharding(mesh)))
+    res["launches"] = dict(kernels.LAUNCHES)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["basis_block"] = list(lres.basis.shape)
+    res["T"] = [lres.alphas.tolist(), lres.betas.tolist()]
+    res["ritz"] = sorted(ritz_decomposition(lres).eigvals.tolist())
+
+    # the pair on this rank's block of the basis, against its plain version
+    rows, g = lres.basis, sh.part(v).contiguous()
+    c = torch.randn(DP_ITERS, generator=torch.Generator(device=CARD).manual_seed(17),
+                    device=CARD)
+    w = kernels.rank_k_dots(g, rows, c)
+    out = kernels.rank_k_axpy(g, rows, w)
+    res["pair"] = {
+        "shape": list(rows.shape), "dtype": str(rows.dtype),
+        "rel_l2_dots": rel_l2(w, spectral.rank_k_dots_reference(g, rows, c)),
+        "rel_l2_apply": rel_l2(out, spectral.rank_k_apply_reference(g, rows, c)),
+        "bitwise_repeatable": torch.equal(w, kernels.rank_k_dots(g, rows, c))
+        and torch.equal(out, kernels.rank_k_axpy(g, rows, w)),
+        "dots_plan": dataclasses.asdict(kernels.dots_launch_plan(
+            DP_ITERS, rows.shape[1], rows.dtype, CARD, (rows.data_ptr(), g.data_ptr()))),
+    }
+    del lres, rows, w, out, op_dp
+    torch.cuda.empty_cache()
+    if lead:  # the unsharded run: one process, the whole batch, a (rows, P) basis
+        ref, res["unsharded_lanczos_s"] = _synced(lambda: lanczos(
+            HessianOperator(wl.loss_fn, wl.params, batch, precision="high").matvec, P,
+            DP_ITERS, v0=v))
+        res["T_ref"] = [ref.alphas.tolist(), ref.betas.tolist()]
+        res["ritz_ref"] = sorted(ritz_decomposition(ref).eigvals.tolist())
+        del ref
+    del wl, v
+    torch.cuda.empty_cache()
+    if not lead:  # meanwhile, --probes 2 in this process alone
+        with contextlib.redirect_stdout(io.StringIO()):
+            seq, res["probes_in_turn_s"] = _synced(lambda: spectrum_cli.main(PROBE_PAR_ARGV)[0])
+        res["probes_in_turn_eigvals"] = sorted(seq.eigvals.tolist())
+    dist.barrier()
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        spec, res["probe_parallel_s"] = _synced(lambda: spectrum_cli.main(
+            PROBE_PAR_ARGV + ["--probe_parallel", "--out_spectrum", os.path.join(tmp, "pp")])[0])
+    res["probe_parallel_stdout"] = out.getvalue()
+    res["probe_parallel_eigvals"] = sorted(spec.eigvals.tolist())
+    dist.barrier()
+    return res
+
+
+def data_axis_two_ranks() -> dict:
+    """Phase 16b: ``data_axis_rank`` on two gloo ranks spawned on this card,
+    and its gates."""
+    from hessian_llm_vision_tpu_torch.parallel.spawn import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, wall = _synced(lambda: run_ranks(
+            f"{os.path.abspath(__file__)}:data_axis_rank", DP_RANKS, tmp, backend="gloo",
+            kwargs={"tmp": tmp}, timeout=DP_TIMEOUT))
+        artifact = os.path.isfile(os.path.join(tmp, "pp.npz"))
+    res = [r["result"] for r in ranks]
+    for r in res:
+        print(f"16b rank {r['rank']}'s --probe_parallel output:\n{r['probe_parallel_stdout']}",
+              flush=True)
+    lead = res[0]
+    T, T_ref = np.asarray(lead["T"][0]), np.asarray(lead["T_ref"][0])
+    B, B_ref = np.asarray(lead["T"][1]), np.asarray(lead["T_ref"][1])
+    ritz, ritz_ref = np.asarray(lead["ritz"]), np.asarray(lead["ritz_ref"])
+    summary = {
+        "wall_s": wall, "ranks": len(res),
+        "times_per_rank": [r["times"] for r in res],
+        "hvp_rel_vs_whole_batch": lead["hvp_rel_vs_whole_batch"],
+        "T_max_abs_diff": float(max(np.abs(T - T_ref).max(), np.abs(B - B_ref).max())),
+        "ritz_max_rel": float(np.abs(ritz - ritz_ref).max() / np.abs(ritz_ref).max()),
+        "ritz_extremes": [float(ritz[0]), float(ritz[-1])],
+        "sharded_lanczos_s": [r["sharded_lanczos_s"] for r in res],
+        "unsharded_lanczos_s": lead["unsharded_lanczos_s"],
+        "basis_blocks": [r["basis_block"] for r in res],
+        "launches": [r["launches"] for r in res],
+        "peak_bytes": [r["peak_bytes"] for r in res],
+        "pair": [r["pair"] for r in res],
+        "probe_parallel_s": [r["probe_parallel_s"] for r in res],
+        "probes_in_turn_s": res[1]["probes_in_turn_s"],
+        "probe_parallel_max_rel": max(
+            float(np.abs(np.asarray(r["probe_parallel_eigvals"])
+                         - np.asarray(res[1]["probes_in_turn_eigvals"])).max()
+                  / np.abs(res[1]["probes_in_turn_eigvals"]).max()) for r in res),
+        "modules_without_jax": all("jax" not in r["modules"] for r in ranks),
+    }
+    print(json.dumps({"data_axis_two_ranks": summary}), flush=True)
+    for r in res:
+        t = r["times"]
+        print(f"16b rank {r['rank']}: DP HVP {t['hvp_dp_s']:.4f} s, of which the local HVP "
+              f"{t['hvp_local_s']:.4f} s; gloo all-reduce of a P-vector on CUDA tensors "
+              f"{t['gloo_all_reduce_P_s']:.4f} s, gather from halves "
+              f"{t['gloo_gather_P_s']:.4f} s (gloo stages through host memory)", flush=True)
+    per_iter = 2  # CGS2: two sharded projections an iteration
+    check_gates("16b two gloo ranks on one card", {
+        "two ranks, 4 + 4 rows": [r["local_rows"] for r in res] == [4, 4],
+        "DP HVP within 1e-5 of the whole batch's": summary["hvp_rel_vs_whole_batch"]
+        <= DP_HVP_RTOL,
+        "each rank holds (rows, P/2)": summary["basis_blocks"] == [list(DP_SHAPE[1:])] * 2,
+        "T within 1e-4 of the unsharded run": np.allclose(T, T_ref, rtol=DP_T_TOL,
+                                                          atol=DP_T_TOL)
+        and np.allclose(B, B_ref, rtol=DP_T_TOL, atol=DP_T_TOL),
+        "every rank's T the same": all(r["T"] == lead["T"] for r in res),
+        "Ritz values within 1e-3": summary["ritz_max_rel"] <= DP_RITZ_RTOL,
+        "the pair on each rank, pass 1 then pass 2 per projection": all(
+            r["launches"] == {"rank_k_dots": per_iter * DP_ITERS,
+                              "rank_k_axpy": per_iter * DP_ITERS} for r in res),
+        "the pair against its plain version": all(
+            p["rel_l2_dots"] <= 1e-5 and p["rel_l2_apply"] <= 1e-5 and p["bitwise_repeatable"]
+            for p in summary["pair"]),
+        "pass 1's bulk path at P/2": all(p["dots_plan"]["bulk"] for p in summary["pair"]),
+        "--probe_parallel --probes 2 = --probes 2": summary["probe_parallel_max_rel"]
+        <= PROBE_PAR_RTOL,
+        "rank 0 alone reports and writes the artifact": artifact and all(
+            ("probe-parallel" in r["probe_parallel_stdout"]
+             and "lambda_max = " in r["probe_parallel_stdout"]) == (r["rank"] == 0)
+            for r in res),
+        "the ranks ran without JAX": summary["modules_without_jax"],
+    })
+    return summary
+
+
 def main() -> int:
     t_start = phase(1, "device")
     if not torch.cuda.is_available():
@@ -3796,7 +4138,7 @@ def main() -> int:
                                ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dtype, CARD))):
                 print(json.dumps({name: {"dtype": str(dtype).removeprefix("torch."), "k": k,
                                          "P": p, **dataclasses.asdict(plan)}}))
-    for dt, k, p in (PYTHIA_SHAPE, FORGET_SHAPE):
+    for dt, k, p in (PYTHIA_SHAPE, FORGET_SHAPE, DP_SHAPE):
         for name, plan in (("rank_k_dots_plan", kernels.dots_launch_plan(k, p, dt, CARD)),
                            ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dt, CARD))):
             print(json.dumps({name: {"dtype": str(dt).removeprefix("torch."), "k": k, "P": p,
@@ -3828,6 +4170,11 @@ def main() -> int:
     checks[FORGET_SHAPE] = check_rank_k(kernels, spectral, *FORGET_SHAPE,
                                         torch.Generator(device=CARD).manual_seed(PHASE3_SEED),
                                         timed=True)
+    # 16b's per-rank block of the P-sharded basis, on a generator of its own
+    checks[DP_SHAPE] = check_rank_k(kernels, spectral, *DP_SHAPE,
+                                    torch.Generator(device=CARD).manual_seed(PHASE3_SEED),
+                                    timed=True)
+    torch.cuda.empty_cache()
     failed = [key for key, r in checks.items() if not r["ok"]]
     if failed:
         raise SystemExit(f"rank-k kernel disagrees with its plain version at {failed}")
@@ -3844,7 +4191,7 @@ def main() -> int:
     # per call, µs: wall (events, in turns), host (perf_counter), device (trace)
     for key in ([(dt, k, P_124M) for dt, k in timed] + [(dt, k, p) for dt in TIMED_DTYPES
                                                        for k, p in LEAF_TIMED + VISION_SHAPES]
-                + [PYTHIA_SHAPE, FORGET_SHAPE]):
+                + [PYTHIA_SHAPE, FORGET_SHAPE, DP_SHAPE]):
         for name in TPU_KERNELS:
             t = checks[key][name]
             print(f"{str(key[0]).removeprefix('torch.'):8s} k={key[1]:2d} P={key[2]:>9d} {name}: "
@@ -3966,7 +4313,7 @@ def main() -> int:
     t11 = []
 
     def phase11(ckpt, tmp):
-        t11.append(phase(11, "the precision ladder at init and on the 1000-step checkpoint: "
+        t11.append(phase(11, "the precision ladder at init and on the 600-step checkpoint: "
                              "tiers, auto plans, --precision_check, float64 arms, the "
                              "refresh guard; gpt2-tiny card vs CPU"))
         return precision_ladder(train_cli, spectrum_cli, kernels, ckpt, tmp)
@@ -4022,6 +4369,16 @@ def main() -> int:
     rc = remaining_clis(kernels, spectral, train_cli)
     print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"remaining_clis": remaining_clis_summary(rc)}))
+
+    t0 = phase(16, "the data axis: one NCCL rank on GPT-2 124M (DP grad, HVP, host loop); two "
+                   "gloo ranks sharing the card (DP HVP, the P-sharded Lanczos with the rank-k "
+                   "pair on each half of P, --probe_parallel)")
+    dp1 = data_axis_one_rank(spectrum_cli, kernels)
+    print(f"phase 16a took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    dp2 = data_axis_two_ranks()
+    print(f"phase 16b took {time.perf_counter() - t1:.1f} s")
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
     lw = rest["12cdf"]
     by_path = {"phase4_train_4_steps": launches,
                "phase7b_spectrum": headline["rank_k_launches"],
@@ -4040,7 +4397,7 @@ def main() -> int:
                "phase11a_probe_cgs2": prec["11a"]["launches"],
                "phase11b_auto_plan_probes": prec["11b"]["checkpoint"]["launches"],
                "phase11e_guarded_train": prec["11e"]["launches"],
-               "phase12a_fused_lanczos_4_steps": rest["12a"]["launches"],
+               "phase12a_fused_lanczos_2_steps": rest["12a"]["launches"],
                "phase12b_gn_1_step": rest["12b"]["gn"]["launches"],
                "phase12b_ngd_1_step": rest["12b"]["ngd"]["launches"],
                "phase12c_host_layerwise_step0": lw["12c"]["steps"][0]["launches"],
@@ -4051,7 +4408,7 @@ def main() -> int:
                   for d, r in lw["12f"].items()},
                **{f"phase13b_pythia_1p4b_step{i}": c for i, c in enumerate(
                    fam["13ab"]["13b_lanczos_sgd"]["launches_per_step"])},
-               "phase13c_llama_134m_4_steps": _summed(fam["13c"]["lanczos_sgd"]["launches_per_step"]),
+               "phase13c_llama_134m_2_steps": _summed(fam["13c"]["lanczos_sgd"]["launches_per_step"]),
                "phase13e_lora_llama_tiny_2_steps": _summed(
                    fam["13e"]["lora_llama_tiny"]["launches_per_step"]),
                **{f"phase14d_{n}_4_steps": _summed(r["launches_per_step"])
@@ -4064,12 +4421,14 @@ def main() -> int:
                   for phase_name in ("baseline", "projected")},
                "phase15b_thick_restart_basis": rc["15b"]["basis_launches"],
                "phase15d_evaluate": rc["15d"]["launches"],
-               **{f"phase15e_point{i}": c["launches"] for i, c in enumerate(rc["15e"]["per_point"])}}
+               **{f"phase15e_point{i}": c["launches"] for i, c in enumerate(rc["15e"]["per_point"])},
+               "phase16a_one_rank_host_loop": dp1["launches"],
+               **{f"phase16b_sharded_lanczos_rank{i}": c for i, c in enumerate(dp2["launches"])}}
     # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d), GN/NGD
     # and Adam with snapshots take no rank-k apply; every other path must
     # have launched both kernels
     t_only = ("phase7b", "phase8c", "phase9a", "phase9b", "phase9c", "phase9d", "phase12b",
-              "phase12e", "phase15d")  # and phase 13's spectra, gated to launch none
+              "phase12e", "phase15d", "phase16a")  # and phase 13's spectra, gated to launch none
     # the forget baselines, gated in phase 15 to launch none
     t_only += tuple(p for p in by_path if p.startswith("phase15") and p.endswith("_baseline"))
     for path, counts in by_path.items():
@@ -4089,7 +4448,8 @@ def main() -> int:
                          without_smi(checks[(dt, k, p)][name])
                          for dt in TIMED_DTYPES
                          for k, p in LEAF_TIMED + VISION_SHAPES + (PYTHIA_SHAPE[1:],
-                                                                   FORGET_SHAPE[1:])
+                                                                   FORGET_SHAPE[1:],
+                                                                   DP_SHAPE[1:])
                          if (dt, k, p) in checks},
                       "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
                       "checks_passed": len(checks)})

@@ -7,13 +7,14 @@ averaging, per-iteration resumable T checkpoints, converged eigenpairs by
 thick restart, the KPM density (optionally deflated), the Hutch++ trace,
 per-leaf or per-block spectra, the linearized and the parameter-shaped
 low-precision host loops, and the spectrum artifact with an optional stem
-plot.  Flag names and defaults are the JAX CLI's; flags of paths not
-ported yet are accepted by the parser and exit with "not ported yet",
-naming their ROADMAP item; their sub-options come with the slice that
-ports each path.
+plot.  Flag names and defaults are the JAX CLI's.  ``--probe_parallel``
+splits the probes of ``--probes N`` over the ranks of a
+``torch.distributed`` group (``parallel/probe_parallel.py``; launch with
+``torchrun``, one rank per card, and rank 0 writes the artifact).
 
-Runs on the first CUDA device unless ``--cpu`` is given; without ``--cpu``
-and without a card it exits with an error.  Ambient matmuls are true fp32
+Runs on the first CUDA device (under ``torchrun``, the rank's own) unless
+``--cpu`` is given; without ``--cpu`` and without a card it exits with an
+error.  Ambient matmuls are true fp32
 (TF32 off for cuBLAS and cuDNN).  ``--hvp_precision auto`` (the default)
 probes the checkpoint and may run the blocks in bf16 or TF32 where their
 extreme Ritz values stay within 1e-3 of fp32; ``--hvp_precision high``
@@ -45,6 +46,8 @@ Examples:
       --dataset random --num_batches 4 --batch_size 8 --max_length 512 \\
       --attn_block_q 512 --loss_chunk 512 --lanczos_iters 35 --host_loop \\
       --fused_iter --vector_seed 997 --out_spectrum spec
+  torchrun --nproc_per_node 4 -m hessian_llm_vision_tpu_torch.cli.spectrum \\
+      --model gpt2 --host_loop --probes 8 --probe_parallel --out_spectrum spec
 """
 
 from __future__ import annotations
@@ -73,16 +76,6 @@ from hessian_llm_vision_tpu_torch.curvature.operators import (
 )
 from hessian_llm_vision_tpu_torch.models.moe import warn_if_topk_curvature
 from hessian_llm_vision_tpu_torch.utils import trees
-
-# flags of paths the port does not have yet, with their ROADMAP item
-_UNPORTED_FLAGS = (
-    ("--probe_parallel", "probe_parallel", "A10g"),
-)
-
-
-def _not_ported(item: str) -> str:
-    return f"not ported yet (ROADMAP {item})"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -155,7 +148,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for the JAX CLI's flags; the port has one "
                    "host-loop iteration (the per-batch HVPs summed in place, "
                    "the scale, the recurrence), with or without this flag")
-    p.add_argument("--probe_parallel", action="store_true", help=_not_ported("A10g"))
+    p.add_argument("--probe_parallel", action="store_true",
+                   help="with --host_loop --probes N: split the N probes over the "
+                   "ranks of a torch.distributed group (torchrun; N a multiple of "
+                   "the ranks), each running its probes in turn; rank 0 writes "
+                   "the artifact. Alone, the probes run one after another")
     p.add_argument("--linearized", action="store_true",
                    help="with --host_loop + a single batch: pay the primal "
                    "forward+backward ONCE and run every Lanczos iteration "
@@ -224,10 +221,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    for flag, attr, item in _UNPORTED_FLAGS:
-        if getattr(args, attr):
-            raise SystemExit(f"{flag}: {_not_ported(item)}")
+def _refuse_unknown_operator(args) -> None:
     if args.operator not in ("hessian", "ggn", "fisher"):
         raise SystemExit(f"unknown --operator {args.operator!r}")
 
@@ -321,9 +315,15 @@ def main(argv=None, on_iter: Optional[Callable[[int, float], None]] = None):
     device."""
     args = build_parser().parse_args(argv)
     validate_flags(args)
-    _refuse_unported(args)
+    _refuse_unknown_operator(args)
     if args.layerwise:
         _refuse_layerwise_drops(args)
+    if args.probe_parallel:
+        from hessian_llm_vision_tpu_torch.parallel import dist_init
+
+        # torchrun's group (a no-op when one is up, or without torchrun);
+        # a NCCL rank makes its own card current before device_for reads it
+        dist_init.initialize(cpu=args.cpu)
     device = device_for(args.cpu)
     # ambient matmuls are true fp32: TF32 and bf16 come only through the
     # precision ladder (--hvp_precision, --block_precision)

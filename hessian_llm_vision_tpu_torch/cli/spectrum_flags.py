@@ -1,10 +1,9 @@
 """Flag-combination checks of the spectrum CLI (port of
 ``cli/spectrum_flags.py``): a combination that would silently drop a flag
 exits with an error instead of running a job that never produces the
-asked-for output.  The messages are the JAX CLI's.  Only the ported flags
-are checked here (``--probe_parallel`` waits for its slice;
-``--precision_check`` refuses a non-Hessian operator where it runs).  ``cli/spectrum.py`` runs these checks first, then
-refuses the flags that the port does not have yet ("not ported yet")."""
+asked-for output.  The messages are the JAX CLI's (``--precision_check``
+refuses a non-Hessian operator where it runs).  ``cli/spectrum.py`` runs
+these checks first."""
 
 from __future__ import annotations
 
@@ -51,6 +50,15 @@ def validate_flags(args) -> None:
         raise SystemExit(
             "--fused_iter needs --host_loop "
             "(and is exclusive with --fused_step/--bigmodel)"
+        )
+    if args.probe_parallel and (
+        not args.host_loop or args.probes < 2 or args.fused_step
+        or args.bigmodel or bool(args.t_checkpoint)
+    ):
+        raise SystemExit(
+            "--probe_parallel needs --host_loop and --probes >= 2; it does "
+            "not support --fused_step/--bigmodel (single-probe memory "
+            "plans) or --t_checkpoint (no per-probe resume state)"
         )
     if args.host_loop and (args.basis or args.host_basis):
         # the host-loop branch is the T-only memory plan: no stored Krylov

@@ -3,8 +3,8 @@
 
 * :func:`host_loop_main` -- T-only host-driven spectra (the dataset loop
   of the Hessian, GGN or Fisher, ``--fused_step`` with ``--qprev_bf16``,
-  ``--linearized``, ``--bigmodel``), LLM scale, and ``--kpm`` on the
-  dataset operator;
+  ``--linearized``, ``--bigmodel``, ``--probe_parallel``), LLM scale, and
+  ``--kpm`` on the dataset operator;
 * :func:`incore_main` -- the in-core operator paths (CGS2 Lanczos with an
   optional Ritz basis, the basis in host memory, multi-probe SLQ,
   resumable checkpointing, thick restart, Hutch++, KPM).
@@ -72,7 +72,25 @@ def host_loop_main(args, wl, device: torch.device,
     gen = torch.Generator().manual_seed(args.vector_seed)
     t0 = time.time()
     all_ev, all_ga = [], []
-    for pi in range(max(args.probes, 1)):
+    lead = True  # this process prints the report and writes the artifact
+    if args.probe_parallel:
+        from hessian_llm_vision_tpu_torch.parallel import make_mesh, probe_parallel_spectrum_host
+
+        mesh = make_mesh()
+        lead = mesh.index == 0
+        results = probe_parallel_spectrum_host(
+            wl.loss_fn, wl.params, wl.batches, args.lanczos_iters, n_probes=args.probes,
+            generator=gen, mesh=mesh, normalization=args.normalization,
+            batch_size=wl.batch_size, precision=args.hvp_precision, flattener=fl,
+            operator=args.operator, model_fn=wl.model_fn, out_loss_fn=wl.out_loss_fn,
+            progress=True)
+        for pi, res in enumerate(results):
+            s = ritz_decomposition(res)
+            all_ev.append(s.eigvals)
+            all_ga.append(s.gammas)
+            if lead:
+                print(f"probe {pi + 1}/{args.probes}: lambda_max {float(s.eigvals.max()):.4f}")
+    for pi in range(0 if args.probe_parallel else max(args.probes, 1)):
         v0 = torch.randn(fl.size, generator=gen).to(device)
         last = time.perf_counter()
         single = dict(normalization=_single_batch_norm(args.normalization),
@@ -125,7 +143,8 @@ def host_loop_main(args, wl, device: torch.device,
                                         batch_size=wl.batch_size, precision=args.hvp_precision,
                                         flattener=fl)
         run_kpm(args, op_kpm.matvec, op_kpm.dim, device)
-    report_and_outputs(args, spec, wall, fl.size, len(wl.batches) * max(args.probes, 1))
+    if lead:
+        report_and_outputs(args, spec, wall, fl.size, len(wl.batches) * max(args.probes, 1))
     return spec, res
 
 

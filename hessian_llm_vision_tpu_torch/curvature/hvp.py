@@ -11,6 +11,15 @@ Loss normalizations (explicit, as in the JAX package):
 * ``"sum"``     -- mean loss * batch_size (the reference's summed loss);
 * ``"dataset"`` -- mean loss * batch_size / dataset_size (one batch's share
   of the dataset-mean Hessian).
+
+A data-parallel loss (``parallel/hvp_sharded.py::ShardedLoss``: the loss
+of this rank's rows and the mesh) is accepted wherever a loss is: the
+gradient or HVP is taken of the local loss, then summed over the ranks
+and divided by their number, outside the ``torch.func`` transform (c10d
+collectives have no ``torch.func`` rules, and an autograd all-reduce
+would backpropagate a sum, n times too large).  With equal shards that is
+the gradient or HVP of the global-batch mean loss, and the normalizations
+refer to the global batch size.
 """
 
 from __future__ import annotations
@@ -30,6 +39,26 @@ class Normalization(str, enum.Enum):
     MEAN = "mean"
     SUM = "sum"
     DATASET = "dataset"
+
+
+def split_sharded(loss_fn) -> tuple:
+    """``(loss of this rank's rows, the data-parallel loss)`` for a
+    ``ShardedLoss``; ``(loss_fn, None)`` for any other loss."""
+    local = getattr(loss_fn, "local_loss", None)
+    return (loss_fn, None) if local is None else (local, loss_fn)
+
+
+def _mean_over_ranks(tree: dict, sharded) -> dict:
+    """Every leaf of ``tree`` averaged over the ranks, in one all-reduce."""
+    names = list(tree)
+    flat = torch.cat([tree[n].reshape(-1).float() for n in names])
+    sharded.reduce_mean_(flat)
+    out, off = {}, 0
+    for n in names:
+        t = tree[n]
+        out[n] = flat[off:off + t.numel()].reshape(t.shape).to(t.dtype)
+        off += t.numel()
+    return out
 
 
 def _scaled_loss_fn(loss_fn, batch, normalization, batch_size, dataset_size):
@@ -77,13 +106,15 @@ def hvp_fn(
         raise NotImplementedError("hvp_fn(remat=True) is not ported yet")
     Normalization(normalization)  # validate eagerly
     _precision_context(precision)
+    local, sharded = split_sharded(loss_fn)
 
     def _hvp(params, batch, vector):
-        scaled = _scaled_loss_fn(loss_fn, batch, normalization, batch_size, dataset_size)
+        scaled = _scaled_loss_fn(local, batch, normalization, batch_size, dataset_size)
         primals = dict(params)
         tangents = {n: vector[n] for n in primals}  # torch pytrees compare key order
         with _precision_context(precision, loss_fn):
-            return torch.func.jvp(torch.func.grad(scaled), (primals,), (tangents,))[1]
+            out = torch.func.jvp(torch.func.grad(scaled), (primals,), (tangents,))[1]
+        return out if sharded is None else _mean_over_ranks(out, sharded)
 
     return _hvp
 
@@ -109,6 +140,11 @@ def hvp(
 def grad_and_loss(
     loss_fn: LossFn, params: Params, batch: Any
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """(loss, grad) in one reverse pass."""
-    grad, loss = torch.func.grad_and_value(lambda p: loss_fn(p, batch))(dict(params))
-    return loss, grad
+    """(loss, grad) in one reverse pass; for a data-parallel loss both are
+    averaged over the ranks in one all-reduce."""
+    local, sharded = split_sharded(loss_fn)
+    grad, loss = torch.func.grad_and_value(lambda p: local(p, batch))(dict(params))
+    if sharded is None:
+        return loss, grad
+    both = _mean_over_ranks({**grad, "\0loss": loss.detach().reshape(1)}, sharded)
+    return both.pop("\0loss")[0], both

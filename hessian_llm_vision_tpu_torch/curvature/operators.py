@@ -15,7 +15,7 @@ from typing import Any, Callable, Mapping, Optional, Sequence
 
 import torch
 
-from hessian_llm_vision_tpu_torch.curvature.hvp import LossFn, Params, hvp_fn
+from hessian_llm_vision_tpu_torch.curvature.hvp import LossFn, Params, hvp_fn, split_sharded
 from hessian_llm_vision_tpu_torch.utils import trees
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener, flat_order
 
@@ -82,12 +82,17 @@ def DatasetHessianOperator(
     .dataset_spectrum_host``): ``"dataset"`` / ``"mean"`` give the Hessian
     of the dataset-mean loss, ``"sum"`` that of the dataset-summed loss
     (= dataset_size x mean).  ``remat=True`` (the JAX package's default)
-    is not ported yet and raises.
+    is not ported yet and raises.  For a data-parallel ``ShardedLoss`` the
+    batches are this rank's rows, and the default ``batch_size`` is the
+    global one (the rows times the ranks).
     """
     fl = flattener or Flattener(params)
     num_batches = len(batches)
     if batch_size is None:
         batch_size = next(iter(batches[0].values())).shape[0]
+        sharded = split_sharded(loss_fn)[1]
+        if sharded is not None:
+            batch_size *= sharded.mesh.num_data
     if dataset_size is None:
         dataset_size = num_batches * batch_size
     _hvp = hvp_fn(loss_fn, normalization=normalization, batch_size=batch_size,

@@ -10,7 +10,10 @@ extremal eigenpairs plus a stochastic density of the bulk.
 
 The projector is ``ops.spectral.project_out``, the rank-k apply with
 c = −1: on CUDA tensors the hand-written kernel pair, which streams a bf16
-basis at half the bytes of an f32 one.
+basis at half the bytes of an f32 one.  Under ``basis_sharding`` the
+deflation basis stays split along P as thick restart left it, and the
+projector is the pair on each rank's slice around an all-reduce of its
+k-vector (``krylov/sharded.py``); KPM's vectors are whole on every rank.
 """
 
 from __future__ import annotations
@@ -21,22 +24,35 @@ import numpy as np
 import torch
 
 from hessian_llm_vision_tpu_torch.krylov.kpm import KPMDensity, kpm_density
+from hessian_llm_vision_tpu_torch.krylov.sharded import p_shard
 from hessian_llm_vision_tpu_torch.krylov.thick_restart import lanczos_thick_restart
 from hessian_llm_vision_tpu_torch.ops.spectral import project_out
 
 
 def deflated_matvec(
-    matvec: Callable[[torch.Tensor], torch.Tensor], basis: torch.Tensor
+    matvec: Callable[[torch.Tensor], torch.Tensor], basis: torch.Tensor,
+    basis_sharding=None, dim: Optional[int] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Matvec of ``(I−UUᵀ) A (I−UUᵀ)``: two rank-k applies around one
     matvec.  ``basis`` rows are orthonormal (Ritz vectors are); the deflated
     operator keeps A's spectrum on span(U)^⊥ and moves the k deflated
-    eigenvalues to 0."""
+    eigenvalues to 0.  With ``basis_sharding``, ``basis`` is this rank's
+    block of columns of the (k, ``dim``) basis: each projection runs on the
+    slice and the whole vector is gathered again."""
+    if basis_sharding is None:
+        def mv(v: torch.Tensor) -> torch.Tensor:
+            return project_out(matvec(project_out(v, basis)), basis)
 
-    def mv(v: torch.Tensor) -> torch.Tensor:
-        return project_out(matvec(project_out(v, basis)), basis)
+        return mv
+    sh = p_shard(basis_sharding, dim)
 
-    return mv
+    def project(v: torch.Tensor) -> torch.Tensor:
+        return sh.gather(sh.project_out(sh.part(v.float()), basis))
+
+    def mv_sharded(v: torch.Tensor) -> torch.Tensor:
+        return project(matvec(project(v)))
+
+    return mv_sharded
 
 
 class DeflatedDensity(NamedTuple):
@@ -95,8 +111,10 @@ def deflated_density(
     ``deflate_dtype`` stores the deflation basis itself in another dtype
     (bf16 halves its memory and the projector's bytes; the ~1e-3 leakage
     puts at most ~1e-3·|λ| of outlier weight back into the bulk, inside
-    KPM's Jackson broadening).  ``basis_sharding`` is not ported yet and
-    raises (ROADMAP A13).
+    KPM's Jackson broadening).  ``basis_sharding``: every rank of the mesh
+    calls this with the same operator and generator; the buffer and the
+    deflation basis are split along P (``lanczos_thick_restart``'s), the
+    KPM probes are whole and the same on every rank.
     """
     device = torch.device(device or "cpu")
     if v0 is None:
@@ -112,8 +130,8 @@ def deflated_density(
     del res  # no second reference to the basis below
     if deflate_dtype is not None and vecs.dtype != deflate_dtype:
         vecs = vecs.to(deflate_dtype)
-    bulk = kpm_density(deflated_matvec(matvec, vecs), dim, num_moments, generator,
-                       num_probes=num_probes, probes=probes, lmin=lmin, lmax=lmax,
+    bulk = kpm_density(deflated_matvec(matvec, vecs, basis_sharding, dim), dim, num_moments,
+                       generator, num_probes=num_probes, probes=probes, lmin=lmin, lmax=lmax,
                        progress=progress, device=device)
     # KPM matvecs: range estimation (12 when the bounds were omitted) + the
     # recurrence (num_moments - 1 per probe)

@@ -29,7 +29,12 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from hessian_llm_vision_tpu_torch.curvature.hvp import LossFn, _precision_context, hvp_fn
+from hessian_llm_vision_tpu_torch.curvature.hvp import (
+    LossFn,
+    _precision_context,
+    hvp_fn,
+    split_sharded,
+)
 from hessian_llm_vision_tpu_torch.krylov.lanczos import (
     LanczosResult,
     host_recurrence_step,
@@ -241,17 +246,22 @@ def dataset_matvec(
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``q -> A q`` of the whole dataset (``dataset_norm``'s scaling, the
     same for every operator): the per-batch products summed in place into
-    one f32 P-vector, then scaled."""
+    one f32 P-vector, then scaled.  For a data-parallel Hessian loss
+    (``parallel.hvp_sharded.ShardedLoss``) the products are of this rank's
+    rows, and the sum is averaged over the ranks in one all-reduce at the
+    end."""
     fl = flattener or Flattener(params)
     per_batch_norm, scale = dataset_norm(normalization, len(batch_list), batch_size)
-    product = _batch_product(operator, loss_fn, per_batch_norm, precision, model_fn, out_loss_fn)
+    local, sharded = split_sharded(loss_fn)
+    product = _batch_product(operator, local, per_batch_norm, precision, model_fn, out_loss_fn)
 
     def matvec(q: torch.Tensor) -> torch.Tensor:
         tangent = fl.unflatten(q)
         w = torch.zeros(fl.size, dtype=torch.float32, device=q.device)
         for batch in batch_list:
             w.add_(fl.flatten(product(params, batch, tangent)))
-        return w.mul_(scale)
+        w.mul_(scale)
+        return w if sharded is None else sharded.reduce_mean_(w)
 
     return matvec
 
@@ -343,7 +353,10 @@ def dataset_thick_restart_host(
     normalization of ``dataset_norm``.  Each inner iteration is the
     dataset HVP, α, the CGS2 pass (the rank-k kernel pair on CUDA) and the
     row write; α and β are fetched once per restart cycle.  A draw from
-    ``generator`` lands on the params' device."""
+    ``generator`` lands on the params' device.  ``basis_sharding``: the
+    buffer split along P over the mesh's ranks (``lanczos_thick_restart``);
+    ``loss_fn`` may be a data-parallel ``ShardedLoss`` with it or
+    without."""
     fl = flattener or Flattener(params)
     matvec = dataset_matvec(loss_fn, params, batch_list, normalization=normalization,
                             batch_size=batch_size, precision=precision, flattener=fl)

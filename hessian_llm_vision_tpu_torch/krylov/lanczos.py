@@ -4,7 +4,10 @@ One implementation with explicit switches:
 
 * ``reorth=True``  -- full CGS2 reorthogonalization against the stored
   basis every iteration (required for trustworthy Ritz values);
-* ``store_basis=False`` -- T-only memory-light mode (implies no reorth).
+* ``store_basis=False`` -- T-only memory-light mode (implies no reorth);
+* ``basis_sharding`` -- the basis split along P over the ranks of a mesh
+  (``krylov/sharded.py``): each rank stores its columns of every row, and
+  the CGS2 pass is the rank-k pair on the slice around one all-reduce.
 
 The recurrence runs in f32 whatever the model dtype.  PyTorch runs
 eagerly, so the loop is a plain Python loop; the CGS2 products are
@@ -19,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from hessian_llm_vision_tpu_torch.krylov.sharded import PShard
 from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 _EPS = 1e-30
@@ -79,15 +83,23 @@ def lanczos(
     generator: Optional[torch.Generator] = None,
     reorth: bool = True,
     store_basis: bool = True,
+    basis_sharding=None,
 ) -> LanczosResult:
     """Run ``num_iters`` Lanczos iterations on the symmetric operator.
 
     Exactly one of ``v0`` (explicit start vector, e.g. the gradient) or
     ``generator`` (seeded random unit start on the generator's device)
-    must be given.
+    must be given.  ``basis_sharding`` (``parallel.mesh.basis_sharding``):
+    every rank of the mesh calls this with the same operator and start
+    vector, stores only its range of P, and gets back ``basis`` as its
+    (m, width) block of columns (``krylov/sharded.py``; gather the rows
+    with ``PShard.gather``); T is the same on every rank.
     """
     if reorth and not store_basis:
         raise ValueError("reorth=True requires store_basis=True")
+    if basis_sharding is not None:
+        return _lanczos_sharded(matvec, PShard(basis_sharding, dim), num_iters,
+                                start_vector(v0, generator, dim), reorth, store_basis)
     q_cur = start_vector(v0, generator, dim)
     q_prev = torch.zeros_like(q_cur)
     beta_prev = torch.zeros((), dtype=torch.float32, device=q_cur.device)
@@ -114,6 +126,37 @@ def lanczos(
     return LanczosResult(
         alphas=torch.stack(alphas), betas=torch.stack(betas)[:-1], basis=basis
     )
+
+
+def _lanczos_sharded(matvec, sh: PShard, num_iters: int, q_full: torch.Tensor,
+                     reorth: bool, store_basis: bool) -> LanczosResult:
+    """:func:`lanczos` with the basis split along P: the operator takes the
+    whole vector (gathered from the slices) and each rank keeps its range
+    of the result; α, β and the CGS2 coefficients are sums over the ranks."""
+    q_cur = sh.local(q_full)
+    del q_full
+    q_prev = torch.zeros_like(q_cur)
+    beta_prev = torch.zeros((), dtype=torch.float32, device=q_cur.device)
+    basis = None
+    if store_basis:
+        basis = torch.zeros((num_iters, sh.size), dtype=torch.float32, device=q_cur.device)
+    alphas, betas = [], []
+    for i in range(num_iters):
+        if basis is not None:
+            basis[i] = q_cur
+        w = sh.local(matvec(sh.gather(q_cur)).float())
+        alpha = sh.dot(q_cur, w)
+        w = w - alpha * q_cur - beta_prev * q_prev
+        if reorth:
+            for _ in range(2):  # CGS2 against rows 0..i
+                w = sh.project_out(w, basis[: i + 1])
+        beta = sh.norm(w)
+        q_prev, q_cur = q_cur, w / torch.clamp(beta, min=_EPS)
+        beta_prev = beta
+        alphas.append(alpha)
+        betas.append(beta)
+    return LanczosResult(alphas=torch.stack(alphas), betas=torch.stack(betas)[:-1],
+                         basis=None if basis is None else sh.trim(basis))
 
 
 def stack_tridiag(alphas: list, betas: list) -> tuple[torch.Tensor, torch.Tensor]:

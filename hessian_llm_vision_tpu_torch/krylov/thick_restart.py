@@ -22,6 +22,12 @@ iteration, ``_restart_rotate``).  In eager PyTorch both would launch the
 same kernels, so the port has one loop and one in-place restart
 (:func:`_restart_rotate`), whose peak is the buffer plus one (kk, P) f32
 block, or for a bf16 buffer one (m+1, 4M) f32 chunk.
+
+Under ``basis_sharding`` each rank of the mesh holds its range of P of
+every buffer row (``krylov/sharded.py``): the matvec gets the whole vector,
+gathered from the slices; α, the norms and the CGS2 coefficients are
+all-reduced, so every rank takes the same branch and solves the same
+projected matrix; the restart rotation is local, with f32 coefficients.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from hessian_llm_vision_tpu_torch.krylov.sharded import PShard, p_shard
 from hessian_llm_vision_tpu_torch.ops.spectral import project_out
 from hessian_llm_vision_tpu_torch.utils.norms import norm
 
@@ -44,14 +51,16 @@ class ThickRestartResult(NamedTuple):
     """Converged-first wanted eigenpairs of the operator."""
 
     eigvals: np.ndarray  # (k,) wanted Ritz values, ascending
-    vectors: torch.Tensor  # (k, P) f32 rows are the Ritz vectors, on the buffer's device
+    # (k, P) f32 rows are the Ritz vectors, on the buffer's device; under
+    # basis_sharding this rank's (k, width) block of their columns
+    vectors: torch.Tensor
     residuals: np.ndarray  # (k,) |beta_m * S[m-1, i]| residual estimates
     restarts: int
     converged: bool
     matvecs: int
 
 
-def _orth_body(Q: torch.Tensor, w: torch.Tensor, n_filled: int):
+def _orth_body(Q: torch.Tensor, w: torch.Tensor, n_filled: int, sh: Optional[PShard] = None):
     """CGS2: orthogonalise f32 ``w`` against the first ``n_filled`` rows of
     the (m+1, P) buffer ``Q`` (f32 or bf16).  Returns ``(w, norm_after,
     norm_before)``; the ratio of the two norms is the breakdown test (an
@@ -65,12 +74,17 @@ def _orth_body(Q: torch.Tensor, w: torch.Tensor, n_filled: int):
     w and the coefficients in f32: no (m+1, P) f32 copy of a bf16 buffer,
     and more exact than the JAX package, which rounds w and the
     coefficients to bf16 for a bf16 buffer.  On the CPU it is the plain
-    version, which for a bf16 buffer rounds exactly as JAX does."""
-    nrm0 = norm(w)
+    version, which for a bf16 buffer rounds exactly as JAX does.  With a
+    :class:`~hessian_llm_vision_tpu_torch.krylov.sharded.PShard` ``sh``,
+    ``w`` and ``Q`` are this rank's slices and each pass is the pair on
+    the slice around an all-reduce of ``w`` (the kernels' arithmetic on
+    the CPU too)."""
+    norm_of, project = (norm, project_out) if sh is None else (sh.norm, sh.project_out)
+    nrm0 = norm_of(w)
     rows = Q[:n_filled]
     for _ in range(2):
-        w = project_out(w, rows)
-    return w, norm(w), nrm0
+        w = project(w, rows)
+    return w, norm_of(w), nrm0
 
 
 def _set_row(Q: torch.Tensor, i: int, v: torch.Tensor) -> None:
@@ -152,17 +166,16 @@ def lanczos_thick_restart(
     subspace) zeroes the coupling and continues in a fresh Gaussian
     direction drawn from ``generator`` (a CPU generator seeded 0 when
     ``v0`` was given), so its draws differ from the JAX package's
-    ``rng_key`` ones.  ``basis_sharding`` (the P-sharded buffer) is not
-    ported yet and raises.
+    ``rng_key`` ones.  ``basis_sharding`` (``parallel.mesh.basis_sharding``):
+    every rank of the mesh calls this with the same operator and start,
+    stores its range of P of the (m+1, P) buffer, and gets ``vectors`` as
+    its block of columns (``krylov/sharded.py``); the eigenvalues,
+    residuals and counts are the same on every rank.
     """
     if (v0 is None) == (generator is None):
         raise ValueError("pass exactly one of v0 / generator")
     if max_restarts < 1:
         raise ValueError("max_restarts must be >= 1")
-    if basis_sharding is not None:
-        raise NotImplementedError(
-            "basis_sharding: the P-sharded basis buffer is not ported yet (ROADMAP A13)"
-        )
     m = inner if inner is not None else min(dim, max(2 * k + 2, k + 12))
     if not (k + 4 <= m <= dim):
         # m - kk new Krylov directions per restart; with fewer than ~3 the
@@ -175,8 +188,11 @@ def lanczos_thick_restart(
     redirect = generator if generator is not None else torch.Generator().manual_seed(0)
     q = v0.float()
     q = q / torch.clamp(norm(q), min=_EPS)
+    sh = p_shard(basis_sharding, dim)
+    if sh is not None:
+        q = sh.local(q)
 
-    Q = torch.zeros((m + 1, dim), dtype=store_dtype, device=q.device)
+    Q = torch.zeros((m + 1, q.shape[0]), dtype=store_dtype, device=q.device)
     _set_row(Q, 0, q)
     del q
     theta = np.zeros((0,), np.float64)  # retained Ritz values
@@ -192,15 +208,21 @@ def lanczos_thick_restart(
         alphas, betas = [], []
         for j in range(n_ret, m):
             qj = Q[j].float()
-            w = matvec(qj).float()
+            if sh is None:
+                w = matvec(qj).float()
+                alphas.append(torch.dot(qj, w))
+            else:
+                w = sh.local(matvec(sh.gather(qj)).float())
+                alphas.append(sh.dot(qj, w))
             n_mv += 1
-            alphas.append(torch.dot(qj, w))
-            w, nrm, nrm0 = _orth_body(Q, w, j + 1)
+            w, nrm, nrm0 = _orth_body(Q, w, j + 1, sh)
             if bool(nrm <= 1e-5 * torch.clamp(nrm0, min=1e-30)):  # the iteration's host sync
                 # invariant subspace (what remains of A q is f32 roundoff):
                 # zero the coupling, continue in a fresh direction
                 fresh = torch.randn(dim, generator=redirect).to(Q.device)
-                w, nrm, _ = _orth_body(Q, fresh, j + 1)
+                if sh is not None:
+                    fresh = sh.local(fresh)
+                w, nrm, _ = _orth_body(Q, fresh, j + 1, sh)
                 betas.append(torch.zeros_like(nrm))
             else:
                 betas.append(nrm)
@@ -226,6 +248,8 @@ def lanczos_thick_restart(
             S_out = np.zeros((m + 1, len(order)), np.float64)
             S_out[:m] = S[:, order]  # zero row m: the whole buffer, no slice copy
             V = _rotate(Q, torch.as_tensor(S_out, dtype=torch.float32, device=Q.device))
+            if sh is not None:
+                V = sh.trim(V)
             return ThickRestartResult(eigvals=evals[order], vectors=V, residuals=resid[order],
                                       restarts=restart + 1, converged=done, matvecs=n_mv)
 

@@ -2,7 +2,7 @@
 the language-model families (GPT-2 with its mixture-of-experts MLP,
 Pythia/NeoX, LLaMA) and the vision and MLP models (``SpiralMLP``,
 ``SimpleNet``, ``VGG16``, ``ResNet50``).  Its expert-parallel helpers are
-not ported yet (ROADMAP A13)."""
+not ported yet (ROADMAP A13b)."""
 
 from hessian_llm_vision_tpu_torch.models.attention import causal_attention
 from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead

@@ -14,7 +14,7 @@ over such a config warn (:func:`warn_if_topk_curvature`).
 
 The JAX package's expert-parallel helpers (``moe_param_sharding``,
 ``shard_params_for_ep``, ``make_ep_mesh``) are not ported: they belong to
-the parallelism item (ROADMAP A13).
+the parallelism item (ROADMAP A13b).
 """
 
 from __future__ import annotations

@@ -20,6 +20,13 @@ refreshes on the first).  The layer-wise step runs one Lanczos per
 parameter tensor on its diagonal Hessian block and adjusts that tensor's
 gradient only.
 
+With ``basis_sharding`` the (k, P) basis is split along P over the ranks
+of a mesh (``krylov/sharded.py``): the refresh's Lanczos stores each
+rank's range, and each rank adjusts its slice of the gradient with the
+rank-k pair on its slice of the basis (pass 1, an all-reduce of the k
+coefficients, pass 2); the adjusted slices are gathered, and momentum and
+the parameter step act on the whole, replicated parameters.
+
 PyTorch runs eagerly, so "fused" names the JAX package's single program:
 here it is one Python step that keeps the whole refresh on the device.
 ``eigh`` of the k x k tridiagonal runs on the host in LAPACK's ``syevd``
@@ -40,7 +47,8 @@ from hessian_llm_vision_tpu_torch.curvature.hvp import (
     hvp_fn,
 )
 from hessian_llm_vision_tpu_torch.krylov.lanczos import lanczos
-from hessian_llm_vision_tpu_torch.ops.spectral import spectral_adjust
+from hessian_llm_vision_tpu_torch.krylov.sharded import p_shard
+from hessian_llm_vision_tpu_torch.ops.spectral import adjust_coeffs, spectral_adjust
 from hessian_llm_vision_tpu_torch.optim.manual import (
     ScheduleOrFloat,
     _lr_at,
@@ -148,6 +156,7 @@ def make_lanczos_sgd_step(
     config: LanczosSGDConfig,
     *,
     batch_size: Optional[int] = None,
+    basis_sharding=None,
 ):
     """Returns ``(init_fn, step_fn)``.
 
@@ -156,28 +165,38 @@ def make_lanczos_sgd_step(
     ``loss, grad_norm, eig_max, eig_min, lr``.  ``batch_size`` is required
     for the "sum" HVP normalization (the reference's
     ``loss *= len(input_ids)``).  The refresh's Lanczos basis is freed as
-    soon as the Ritz vectors are formed.
+    soon as the Ritz vectors are formed.  ``basis_sharding``
+    (``parallel.mesh.basis_sharding``): every rank of the mesh steps with
+    the same params, and ``state.basis`` is its (k, width) block of the
+    basis's columns; ``loss_fn`` may be a data-parallel ``ShardedLoss``.
     """
     fl = Flattener(params_template)
     cfg = config
+    sh = p_shard(basis_sharding, fl.size)
     _hvp = hvp_fn(loss_fn, normalization=cfg.normalization, batch_size=batch_size,
                   remat=cfg.remat)
 
     def init_fn(params) -> LanczosSGDState:
         device = next(iter(params.values())).device
+        cols = fl.size if sh is None else sh.width
         return LanczosSGDState(
             params=dict(params),
             momentum={n: torch.zeros_like(p) for n, p in params.items()},
             step=0,
             eigvals=torch.ones(cfg.k, dtype=torch.float32, device=device),
-            basis=torch.zeros((cfg.k, fl.size), dtype=torch.float32, device=device),
+            basis=torch.zeros((cfg.k, cols), dtype=torch.float32, device=device),
         )
 
     def fresh_spectrum(params, batch, g_flat):
         matvec_tree = _accum_hvp(_hvp, params, batch, cfg.accum_steps)
         res = lanczos(lambda v: fl.flatten(matvec_tree(fl.unflatten(v))), fl.size, cfg.k,
-                      v0=g_flat, reorth=True, store_basis=True)
+                      v0=g_flat, reorth=True, store_basis=True, basis_sharding=basis_sharding)
         return ritz_from_tridiag(res)
+
+    def adjust(g_flat, V, eigvals):
+        if sh is None:
+            return spectral_adjust(g_flat, V, eigvals, cfg.delta)
+        return sh.gather(sh.rank_k(sh.part(g_flat), V, adjust_coeffs(eigvals, cfg.delta)))
 
     def step_fn(state: LanczosSGDState, batch):
         loss, grad = _grad_and_loss(loss_fn, state.params, batch, cfg.accum_steps)
@@ -190,7 +209,7 @@ def make_lanczos_sgd_step(
             if m > 0 and state.step != 0:  # step 0: no EMA of the placeholders
                 eigvals = m * state.eigvals + (1 - m) * eigvals
                 _blend_rows_(V, state.basis, m)
-        adjusted = fl.unflatten(spectral_adjust(g_flat, V, eigvals, cfg.delta))
+        adjusted = fl.unflatten(adjust(g_flat, V, eigvals))
         params, buf = _momentum_step(cfg, state, adjusted)
         metrics = {
             "loss": loss.detach(),

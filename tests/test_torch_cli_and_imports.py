@@ -87,12 +87,17 @@ def _imported_modules(path: Path):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    files = sorted((ROOT / "hessian_llm_vision_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "hessian_llm_vision_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_ranks.py"]
     assert len(files) > 15
-    # the remaining CLIs, the TPE sampler and the dispatch are among them
+    # the remaining CLIs, the TPE sampler, the dispatch, the data axis, the
+    # sharded basis and the host op are among them
     port = ROOT / "hessian_llm_vision_tpu_torch"
     for name in ("cli/forget.py", "cli/evaluate.py", "cli/sweep.py", "cli/hpo.py",
-                 "cli/devices_info.py", "utils/tpe.py", "__main__.py"):
+                 "cli/devices_info.py", "utils/tpe.py", "__main__.py", "krylov/sharded.py",
+                 "ops/native/__init__.py", *(f"parallel/{m}.py" for m in (
+                     "__init__", "dist_init", "mesh", "hvp_sharded", "probe_parallel",
+                     "offload", "spawn", "dryrun"))):
         assert port / name in files, name
     bad = [
         (str(f.relative_to(ROOT)), mod)

@@ -138,8 +138,6 @@ def test_thick_restart_breakdown_rotation_and_checks():
         tr.lanczos_thick_restart(op.matvec, d, 3)
     with pytest.raises(ValueError, match="inner >= k\\+4"):
         tr.lanczos_thick_restart(op.matvec, d, 8, v0=torch.ones(d), inner=8)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tr.lanczos_thick_restart(op.matvec, d, 3, v0=torch.ones(d), basis_sharding=object())
     # the in-place restart: rows 0..kk-1 <- S^T Q, row kk <- old row m, rest 0
     rng = np.random.RandomState(5)
     Q = torch.as_tensor(rng.randn(7, 50).astype(np.float32))

@@ -111,15 +111,38 @@ def test_other_ported_paths_run(tmp_path, extra, capsys):
 
 
 # the precision flags (--precision_check, --hvp_precision auto|mixed|default,
-# --bf16, --block_precision) are ported: tests/test_torch_precision_cli.py
+# --bf16, --block_precision) are ported: tests/test_torch_precision_cli.py;
+# --probe_parallel too: below and tests/test_torch_parallel.py
 @pytest.mark.parametrize("extra,message", [
-    (["--host_loop", "--probes", "2", "--probe_parallel"], "not ported yet"),
     # the port reads no hub dataset: only the JAX CLI's offline fallback
     (["--dataset", "wikipedia"], "pass --allow_fallback"),
-], ids=["host_loop_--probes_2_--probe_parallel", "dataset_wikipedia"])
+], ids=["dataset_wikipedia"])
 def test_unported_flags_exit(extra, message):
     with pytest.raises(SystemExit, match=message):
         spectrum.main(TINY + extra)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--probes", "2", "--probe_parallel"],
+    ["--host_loop", "--probe_parallel"],
+    ["--host_loop", "--probes", "2", "--probe_parallel", "--num_batches", "1", "--fused_step"],
+    ["--host_loop", "--probes", "2", "--probe_parallel", "--num_batches", "1", "--bigmodel"],
+    ["--host_loop", "--probes", "2", "--probe_parallel", "--t_checkpoint", "t"],
+], ids=["no_host_loop", "one_probe", "fused_step", "bigmodel", "t_checkpoint"])
+def test_probe_parallel_flag_checks(extra):
+    # the JAX CLI's combinations and message (cli/spectrum_flags.py)
+    with pytest.raises(SystemExit, match="^--probe_parallel needs --host_loop and --probes >= 2"):
+        spectrum.main(TINY + extra)
+
+
+def test_probe_parallel_without_a_group_runs_the_probes_in_turn(tmp_path, capsys):
+    argv = TINY + ["--host_loop", "--lanczos_iters", "5", "--probes", "2"]
+    par, res = spectrum.main(argv + ["--probe_parallel", "--out_spectrum", str(tmp_path / "p")])
+    out = capsys.readouterr().out
+    seq, _ = spectrum.main(argv)
+    assert torch.equal(par.eigvals, seq.eigvals) and torch.equal(par.gammas, seq.gammas)
+    assert out.count("probe-parallel lanczos: probe") == 2 and "on rank 0 of 1" in out
+    assert res.alphas.shape == (5,) and (tmp_path / "p.npz").exists()
 
 
 def test_flag_checks_and_no_card_exit():

@@ -88,12 +88,13 @@ def test_thick_restart_refuses_what_it_drops(extra, dropped):
         spectrum.main(TINY + ["--thick_restart", "2", "--lanczos_iters", "8"] + extra)
 
 
-# A11's --precision_check is ported (tests/test_torch_precision_cli.py)
-@pytest.mark.parametrize("extra", [["--host_loop", "--probes", "2", "--probe_parallel"]],
-                         ids=["A10g"])
-def test_later_items_still_refuse(extra):
-    with pytest.raises(SystemExit, match="not ported yet \\(ROADMAP A1"):
-        spectrum.main(TINY + extra)
+# A11's --precision_check (tests/test_torch_precision_cli.py) and A10g's
+# --probe_parallel (tests/test_torch_parallel.py) are ported: no flag of the
+# JAX CLI refuses as "not ported yet" any more
+def test_no_flag_refuses_as_not_ported(capsys):
+    spectrum.build_parser().print_help()
+    assert "not ported" not in capsys.readouterr().out
+    assert not hasattr(spectrum, "_UNPORTED_FLAGS")
 
 
 def test_thick_restart_artifact_equals_library_call(tmp_path, capsys):
