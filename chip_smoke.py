@@ -5,9 +5,10 @@ train CLI's optimisers on GPT-2 124M through the CLIs, then the other
 language-model families (Pythia-1.4B at full width, LLaMA-134m, the MoE
 GPT-2, LoRA), the vision models (VGG-16 and ResNet-50 at full width,
 SpiralMLP, SimpleNet), the remaining CLIs (forget, evaluate, sweep, hpo,
-devices-info through the python -m dispatch) and the data axis of
-parallel/ (one NCCL rank; two gloo ranks sharing the card), and checks the
-results.
+devices-info through the python -m dispatch), the data axis of parallel/
+(one NCCL rank; two gloo ranks sharing the card) and its model axis
+(tensor, sequence and expert parallelism on two gloo ranks sharing the
+card), and checks the results.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -37,7 +38,7 @@ Phases (any failure exits non-zero and prints no result line):
      loop and in-core CGS2: lambda_max and lambda_min within 1e-5
      relative, the first 3 alphas within 1e-5 of the spectrum's scale;
      (b) the headline job through cli.spectrum.main -- GPT-2 124M, 4
-     batches x bs8 x seq512, 15 T-only iterations of the dataset-mean
+     batches x bs8 x seq512, 10 T-only iterations of the dataset-mean
      Hessian (bench.py's 35, cut to leave room for phase 16) -- with its gates (finite Ritz values, lambda_max > 0 >
      lambda_min, weights summing to 1, |trace| <= 1e-2 lambda_max, the
      artifact read back, no rank-k launch) and one {"spectrum": ...} JSON
@@ -53,7 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
      moments before phase 13, 30 before phase 14): spikes converged and agreeing with the SLQ
      extreme, the deflated operator annihilating each spike vector, the bulk
      range inside the SLQ range, mu_0 = 1, 2 x 31 launches of each kernel in
-     the KPM stage; (c) in-core --hutchpp 15 (30 before phase 13): a finite
+     the KPM stage; (c) in-core --hutchpp 9 (30 before phase 13, 15 before
+     phase 17): a finite
      trace in the artifact; one {"spectrum_ext": ...}
      JSON line of their times, matvecs and memory; (d) on gpt2-tiny, card
      against CPU: thick restart, deflated KPM, Hutch++ and --host_basis.
@@ -63,10 +65,10 @@ Phases (any failure exits non-zero and prints no result line):
      phase 13, 5 before phase 14, 4 before phase 16): 12 block artifacts and the grid,
      weights summing to 1, lambda_max > 0, per-block |trace| small, h_0's T
      equal to an in-core LayerHessianOperator run; (b) --operator ggn
-     --host_loop: Ritz values >= 0, the GGN matvec against jvp, an explicit
+     --host_loop, 12 iterations (20 before phase 17): Ritz values >= 0, the GGN matvec against jvp, an explicit
      float64 softmax Hessian and vjp; (c) --linearized against the plain
-     host loop, 6 iterations each (20 before phase 13, 10 before phase
-     14); (d) --bigmodel with
+     host loop, 4 iterations each (20 before phase 13, 10 before phase
+     14, 6 before phase 17); (d) --bigmodel with
      float32 and bfloat16 vectors against the same plain run; (e) phase 4's training with --refresh_linearized; (f)
      the empirical Fisher over 8 per-example gradients with a bf16 G, the
      kernel pair against its plain versions and an f32 G; (g) every new
@@ -134,8 +136,8 @@ Phases (any failure exits non-zero and prints no result line):
  13. the other language-model families through cli.spectrum.main and
      cli.train.main at fp32 HVPs, on one stdlib batch: (a) Pythia-1.4B (P =
      1,414,647,808) at full width and depth, --host_loop --bigmodel with
-     bf16 Krylov vectors, 1 x bs1 x seq512, 6 iterations (15 before phase
-     15, 10 before phase 16): finite Ritz
+     bf16 Krylov vectors, 1 x bs1 x seq512, 4 iterations (15 before phase
+     15, 10 before phase 16, 6 before phase 17): finite Ritz
      values, lambda_max > 0 > lambda_min, the weights summing to 1 within
      1e-6, |trace| <= 1e-2 lambda_max, the artifact read back, no rank-k
      launch; its peak memory, seconds per iteration and init seconds (drawn
@@ -148,8 +150,8 @@ Phases (any failure exits non-zero and prints no result line):
      1e-5 of the plain w, its adjusted gradient within 1e-5 (plus the f32
      rounding of g + term, itself <= 1e-3) of the plain one, both relative
      to the adjust term, and the update within 1e-5 of a plain replay; (c)
-     LLaMA-134m, 1 x bs8 x seq512, 6 iterations (20 before phase 15, 10
-     before phase 16) with
+     LLaMA-134m, 1 x bs8 x seq512, 4 iterations (20 before phase 15, 10
+     before phase 16, 6 before phase 17) with
      (a)'s gates, its f32
      HVP against a float64 central difference within 2e-5, and phase 4's
      LanczosSGD for 2 steps (4 before phase 16) with each kernel once per
@@ -236,6 +238,33 @@ Phases (any failure exits non-zero and prints no result line):
      cli.spectrum.main on both ranks equal to --probes 2 in one process
      within 1e-4, rank 0 alone printing the report and writing the
      artifact; the ranks without JAX; one {"data_axis_two_ranks": ...} line.
+ 17. the model axis (parallel/) on the same two gloo ranks (16b and 17
+     share one spawn, which saves the ranks' start), each building the whole model from its seed on the card and keeping
+     its part, rank 0 also running the whole-model references: (a) GPT-2
+     124M (1024 positions, P = 124,439,808) tensor-parallel over 2, 2 x
+     bs2 x seq512: loss within 1e-6, the gathered gradient and HVP within
+     1e-5, the HVP's seconds and one more HVP's with the model's gloo
+     collectives timed apart,
+     each rank about half of the split leaves' bytes; a 10-iteration
+     Lanczos with its basis on the model axis, (10, 62,219,904) f32 a rank,
+     each CGS2 projection pass 1 on the rank's block, an all-reduce of w,
+     pass 2 (each kernel 20 times a rank), T within 1e-4 and Ritz values
+     within 1e-3 of the whole model's, the pair against its plain version
+     there (1e-5, bit for bit repeated, pass 1's bulk path); (b) the same
+     model sequence-parallel over 2 at bs1 x seq1024: loss, gradient and
+     HVP; (c) Pythia-1.4B tensor-parallel over 2 (embed_in and embed_out
+     vocab-parallel) on 13b's weights and first batch: the loss within 1e-6
+     of 13b's step 0, one gradient and two HVPs through inner products
+     with seeded vectors u, |x.u - y.u| sqrt(P) / (|y| |u|) within 1e-5
+     (the whole vectors' bar: an error e of y moves y.u by about
+     e |y| |u| / sqrt(P)); the unsharded ones come after 13b from its
+     weights drawn again from the seed and its first batch, outside 13b's
+     timings and peak, so no second unsharded training run; 13b's first
+     refresh (4 iterations from the gradient) within 1e-4, each rank's
+     parameter bytes
+     and peak; (d) gpt2-moe expert-parallel over 2, dense and top-2 gating,
+     bs4 x seq256: loss, gradient and HVP; the ranks without JAX; one
+     {"model_axis_two_ranks": ...} line.
 Phase 3 also checks (4, 124,046,592) in both dtypes, (8, 124,046,592) and
 (16, 124,046,592) in bf16 -- the deflation projector's, the empirical
 Fisher's and the CGS2 pass's shapes, timed only (4, P) in bf16 since phase 13
@@ -246,8 +275,9 @@ without vector loads) and 13b's (4, 1,414,647,808) in bf16, the first with k x P
 >= 2**31 at full width (V alone 11.3 GB), where pass 1 is held to a
 float64 w on two draws (within 1e-5 and no farther than cuBLAS's f32 sum,
 which on some draws lies 1e-5 off itself), and 15b's (10, 14,913,093) in
-f32 (P = 5 mod 8, the same two paths) and 16b's (10, 62,023,296) in f32
-(each rank's half of P); it checks small leaves at
+f32 (P = 5 mod 8, the same two paths), 16b's (10, 62,023,296) in f32
+(each rank's half of P) and 17a's (10, 62,219,904) in f32 (each model
+rank's block); it checks small leaves at
 unaligned offsets of g, the bf16 MLP leaf with g 1-7 elements off 16
 bytes, and (256, 2**24) bf16, whose pass 2 sweeps each chunk's rows in 22
 stages.  Every phase prints its wall seconds on a line of its own.  Then
@@ -255,7 +285,7 @@ it prints one JSON line of kernels (launches per
 path), the card line, and finally {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port only (no JAX: the card machine has none);
-16b's ranks import this file for ``data_axis_rank``.
+16b's and 17's ranks import this file for ``axes_rank``.
 """
 
 from __future__ import annotations
@@ -314,10 +344,10 @@ TRAIN_ARGV = [
 SPECTRUM_ARGV = [
     "--model", "gpt2", "--dataset", "random", "--num_batches", "4", "--batch_size", "8",
     "--max_length", "512", "--attn_block_q", "512", "--loss_chunk", "512",
-    "--lanczos_iters", "15", "--host_loop", "--fused_iter", "--vector_seed", "997",
+    "--lanczos_iters", "10", "--host_loop", "--fused_iter", "--vector_seed", "997",
     "--hvp_precision", "high",
 ]
-HEADLINE_ITERS = 15  # bench.py's 35, cut to leave room for phase 16
+HEADLINE_ITERS = 10  # bench.py's 35, cut to leave room for phase 16 (15) and 17 (10)
 TINY_SPECTRUM_ARGV = [
     "--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "32", "--num_batches", "2",
     "--lanczos_iters", "12", "--vector_seed", "5", "--hvp_precision", "high",
@@ -344,8 +374,8 @@ KPM_MOMENTS = 20
 KPM_ARGV = EXT_BASE + ["--host_loop", "--lanczos_iters", "35", "--kpm", str(KPM_MOMENTS),
                        "--kpm_probes", "1", "--kpm_deflate", "4", "--tr_dtype", "bfloat16",
                        "--tr_tol", "2e-3"]
-# 15 matvecs of Hutch++ (30 before phase 13)
-HUTCHPP_MATVECS = 15
+# 9 matvecs of Hutch++ (30 before phase 13, 15 before phase 17)
+HUTCHPP_MATVECS = 9
 HUTCHPP_ARGV = EXT_BASE + ["--lanczos_iters", "10", "--hutchpp", str(HUTCHPP_MATVECS)]
 TR_RESIDUAL_LIMIT = 1e-2  # of max |lambda|, independent residual per pair
 TR_ORTHO_LIMIT = 5e-3  # max |V V^T - I|: the bf16 storage floor
@@ -368,9 +398,11 @@ HVP_FD_LIMIT = 2e-5
 LW_ITERS = 3
 LW_ARGV = EXT_BASE + ["--layerwise", "--layerwise_group", "block", "--host_loop",
                       "--lanczos_iters", str(LW_ITERS)]
-GGN_ARGV = EXT_BASE + ["--operator", "ggn", "--host_loop", "--lanczos_iters", "20"]
-# 9c/9d: 6 iterations per run (20 before phase 13, 10 before phase 14)
-PLAIN_ITERS = 6
+GGN_ITERS = 12  # 20 before phase 17
+GGN_ARGV = EXT_BASE + ["--operator", "ggn", "--host_loop", "--lanczos_iters", str(GGN_ITERS)]
+# 9c/9d: 4 iterations per run (20 before phase 13, 10 before phase 14, 6
+# before phase 17)
+PLAIN_ITERS = 4
 PLAIN_ARGV = EXT_BASE + ["--host_loop", "--lanczos_iters", str(PLAIN_ITERS)]
 LW_TRACE_TOL = 1e-2  # |trace| over max(1, max |lambda|) per block (the golden test's)
 LW_T_RTOL = 1e-5  # h_0's T against the in-core operator, of max |T|
@@ -507,10 +539,10 @@ LM_BASE = ["--dataset", f"local:{STDLIB}", "--num_batches", "1", "--hvp_precisio
            "--vector_seed", "997"]
 LM_GAMMA_TOL = 1e-6  # |sum of the SLQ weights - 1|
 # 13a: artifacts/pythia1p4b_r3's protocol (bs1, --bigmodel with bf16 Krylov
-# vectors, 15 iterations) at seq512, cut to 6 iterations to leave room for
-# phases 15 and 16; the JAX package cut it to seq256 only to fit a 16 GB chip
+# vectors, 15 iterations) at seq512, cut to 4 iterations to leave room for
+# phases 15-17; the JAX package cut it to seq256 only to fit a 16 GB chip
 PYTHIA_SPECTRUM_ARGV = ["--model", "pythia-1.4b", "--batch_size", "1", "--max_length", "512",
-                        "--host_loop", "--bigmodel", "--lanczos_iters", "6"] + LM_BASE
+                        "--host_loop", "--bigmodel", "--lanczos_iters", "4"] + LM_BASE
 # 13b: LanczosSGD at full width, k=4, a bf16 basis, one refresh and one
 # frozen step (--max_length is added: 512, or 256 if 512 does not fit).
 # delta 1e4 (> 10 max |lambda|) makes the adjust coefficients 1/lambda -
@@ -524,10 +556,10 @@ PYTHIA_TRAIN_ARGV = ["--model", "pythia-1.4b", "--dataset", f"local:{STDLIB}", "
 TERM_RTOL = 1e-5  # 13b frozen step's w and adjust term against the plain versions (phase 3's bar)
 TERM_FLOOR_MAX = 1e-3  # the f32 rounding of g + term, of the term: the comparison must resolve it
 # 13c, 13d: the llama134m_r3 and moe_r3 protocols, 1 x bs8 x seq512, 20
-# iterations, cut to 6 to leave room for phases 15 and 16
+# iterations, cut to 4 to leave room for phases 15-17
 LLAMA_SPECTRUM_ARGV = ["--model", "llama-134m", "--batch_size", "8", "--max_length", "512",
                        "--attn_block_q", "512", "--loss_chunk", "512", "--host_loop",
-                       "--lanczos_iters", "6"] + LM_BASE
+                       "--lanczos_iters", "4"] + LM_BASE
 MOE_SPECTRUM_ARGV = [a if a != "llama-134m" else "gpt2-moe" for a in LLAMA_SPECTRUM_ARGV]
 # phase 4's run, 2 steps (4 before phase 16)
 LLAMA_TRAIN_ARGV = [a if a != "gpt2" else "llama-134m" for a in TRAIN_ARGV]
@@ -712,6 +744,26 @@ PROBE_PAR_ARGV = ["--model", "gpt2", "--dataset", "random", "--num_batches", "1"
                   "4", "--probes", "2", "--hvp_precision", "high", "--vector_seed", "997"]
 PROBE_PAR_RTOL = 1e-4
 DP_TIMEOUT = 300.0
+# phase 17: the model axis on two gloo ranks sharing the card, every rank
+# building the whole model from its seed on the card and keeping its part.
+# 17a: GPT-2 124M at full width, depth and context (n_positions 1024, P =
+# 124,439,808), tensor-parallel over 2, both ranks on one batch of bs2 x
+# seq512 (2 x bs2 x seq512, in 16b's notation); 17b: the
+# same model sequence-parallel over 2 at bs1 x seq1024; 17c: Pythia-1.4B
+# tensor-parallel over 2 on 13b's weights and first batch, held to 13b's
+# unsharded step 0 (no second unsharded 1.4B run); 17d: gpt2-moe (dense and
+# top-2 gating) expert-parallel over 2 at bs4 x seq256
+MA_RANKS = 2
+MA_SEED = 17
+MA_TP_BATCHES, MA_TP_SHAPE = 1, (2, 512)
+MA_SP_SHAPE = (1, 1024)
+MA_MOE_SHAPE = (4, 256)
+MA_ITERS = 10  # 17a's model-axis Lanczos: rows of each rank's basis block
+MA_PYTHIA_K = 4  # 13b's k: its first refresh is 17c's host loop
+MA_PROBES = 2  # 17c's seeded vectors
+MA_LOSS_RTOL = 1e-6
+MA_REL = 1e-5  # gradient and HVP (124M: whole vectors; 1.4B: inner products)
+MA_TIMEOUT = 420.0
 CARD = torch.device("cuda")
 
 
@@ -1538,7 +1590,7 @@ def ggn_124m(spectrum_cli, kernels, hvp_ms: float) -> dict:
            "max_memory_allocated_bytes": peak, "rank_k_launches": launches}
     print(json.dumps({"ggn_124m": out}))
     check_gates("9b GGN host loop", {
-        "20 iterations": len(iters) == 20,
+        f"{GGN_ITERS} iterations": len(iters) == GGN_ITERS,
         "Ritz values >= -1e-4 lambda_max": lam_min >= -GGN_PSD_TOL * lam_max,
         "matvec = the explicit product": err <= GGN_INDEP_LIMIT,
         "no rank-k launch": all(n == 0 for n in launches.values()),
@@ -3015,27 +3067,11 @@ def pythia_1p4b(spectrum_cli, train_cli, spectra, kernels, spectral) -> dict:
     out = {"13a_spectrum": lm_spectrum(spectrum_cli, spectra, kernels, PYTHIA_SPECTRUM_ARGV,
                                        "13a Pythia-1.4B spectrum")}
     print(json.dumps({"13a_pythia_spectrum": out["13a_spectrum"]}))
-    cut = []
-    for seq in ("512", "256"):  # the one allowed cut: seq 256, the JAX protocol's
-        argv = PYTHIA_TRAIN_ARGV + ["--max_length", seq]
-        try:
-            res = lm_lanczos_sgd(train_cli, kernels, spectral, argv,
-                                 "13b Pythia-1.4B LanczosSGD", replay=True)
-            break
-        except torch.cuda.OutOfMemoryError as e:
-            cut.append({"max_length": int(seq), "error": str(e).splitlines()[0]})
-            print(f"13b: out of memory at seq {seq}; cutting to seq 256", flush=True)
-            gc.collect()
-            torch.cuda.empty_cache()
-    else:
-        raise SystemExit(f"13b: LanczosSGD on Pythia-1.4B fits at no length: {cut}")
-    res.update({"max_length": int(seq), "oom_at": cut})
-    check_gates("13b Pythia-1.4B LanczosSGD", {
-        "every adjust at (4, 1,414,647,808) bf16": all(
-            sh == (4, PYTHIA_P) and dt == "torch.bfloat16" for _, sh, dt in res["adjust_shapes"]),
-    })
-    out["13b_lanczos_sgd"] = res
-    print(json.dumps({"13b_pythia_lanczos_sgd": res}))
+    out["13b_lanczos_sgd"], out["17c_reference"] = pythia_lanczos_sgd(train_cli, kernels,
+                                                                      spectral)
+    print(json.dumps({"13b_pythia_lanczos_sgd": out["13b_lanczos_sgd"]}))
+    print(json.dumps({"13b_step0_for_17c": {k: v for k, v in out["17c_reference"].items()
+                                            if k != "input_ids"}}))
     return out
 
 
@@ -4034,19 +4070,8 @@ def data_axis_rank(mesh, *, tmp: str) -> dict:
     return res
 
 
-def data_axis_two_ranks() -> dict:
-    """Phase 16b: ``data_axis_rank`` on two gloo ranks spawned on this card,
-    and its gates."""
-    from hessian_llm_vision_tpu_torch.parallel.spawn import run_ranks
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks, wall = _synced(lambda: run_ranks(
-            f"{os.path.abspath(__file__)}:data_axis_rank", DP_RANKS, tmp, backend="gloo",
-            kwargs={"tmp": tmp}, timeout=DP_TIMEOUT))
-        artifact = os.path.isfile(os.path.join(tmp, "pp.npz"))
-    res = [r["result"] for r in ranks]
+def data_axis_gates(res: list, artifact: bool, without_jax: bool) -> dict:
+    """Phase 16b's summary and gates, from each rank's ``data_axis_rank``."""
     for r in res:
         print(f"16b rank {r['rank']}'s --probe_parallel output:\n{r['probe_parallel_stdout']}",
               flush=True)
@@ -4055,7 +4080,7 @@ def data_axis_two_ranks() -> dict:
     B, B_ref = np.asarray(lead["T"][1]), np.asarray(lead["T_ref"][1])
     ritz, ritz_ref = np.asarray(lead["ritz"]), np.asarray(lead["ritz_ref"])
     summary = {
-        "wall_s": wall, "ranks": len(res),
+        "s": [r["s"] for r in res], "ranks": len(res),
         "times_per_rank": [r["times"] for r in res],
         "hvp_rel_vs_whole_batch": lead["hvp_rel_vs_whole_batch"],
         "T_max_abs_diff": float(max(np.abs(T - T_ref).max(), np.abs(B - B_ref).max())),
@@ -4073,7 +4098,7 @@ def data_axis_two_ranks() -> dict:
             float(np.abs(np.asarray(r["probe_parallel_eigvals"])
                          - np.asarray(res[1]["probes_in_turn_eigvals"])).max()
                   / np.abs(res[1]["probes_in_turn_eigvals"]).max()) for r in res),
-        "modules_without_jax": all("jax" not in r["modules"] for r in ranks),
+        "modules_without_jax": without_jax,
     }
     print(json.dumps({"data_axis_two_ranks": summary}), flush=True)
     for r in res:
@@ -4111,6 +4136,620 @@ def data_axis_two_ranks() -> dict:
     return summary
 
 
+def axes_rank(mesh, *, tmp: str, pythia_ref: dict, pythia_argv: list) -> dict:
+    """Phases 16b and 17 on one of two gloo ranks sharing the card (run by
+    ``parallel.spawn.run_ranks``; one spawn for both saves the ranks'
+    start): ``data_axis_rank`` on the spawn's data axis, then
+    ``model_axis_rank`` on a model axis of its own."""
+    t0 = time.perf_counter()
+    res = {"16b": data_axis_rank(mesh, tmp=tmp)}
+    res["16b"]["s"] = time.perf_counter() - t0
+    _free()
+    res["17"] = model_axis_rank(pythia_ref=pythia_ref, pythia_argv=pythia_argv)
+    return res
+
+
+def axes_two_ranks(pythia_ref: dict, pythia_seq: int) -> tuple[dict, dict]:
+    """Phases 16b and 17: ``axes_rank`` on two gloo ranks spawned on this
+    card, then each phase's gates."""
+    from hessian_llm_vision_tpu_torch.parallel.spawn import run_ranks
+
+    _free()
+    argv = PYTHIA_TRAIN_ARGV + ["--max_length", str(pythia_seq)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, wall = _synced(lambda: run_ranks(
+            f"{os.path.abspath(__file__)}:axes_rank", DP_RANKS, tmp, backend="gloo",
+            kwargs={"tmp": tmp, "pythia_ref": pythia_ref, "pythia_argv": argv},
+            timeout=DP_TIMEOUT + MA_TIMEOUT))
+        artifact = os.path.isfile(os.path.join(tmp, "pp.npz"))
+    without_jax = all("jax" not in r["modules"] and "hessian_llm_vision_tpu" not in r["modules"]
+                      for r in ranks)
+    res = [r["result"] for r in ranks]
+    dp = data_axis_gates([r["16b"] for r in res], artifact, without_jax)
+    ma = model_axis_gates([r["17"] for r in res], pythia_ref, without_jax)
+    dp["spawn_wall_s"] = ma["spawn_wall_s"] = wall
+    return dp, ma
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the model axis (tensor, sequence and expert parallelism)
+
+def tp_block_columns() -> int:
+    """17a's per-rank basis columns: GPT-2 124M's owned vector on a model
+    axis of 2 (``utils/flatten.py::ModelAxisLayout``), from a meta model."""
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from hessian_llm_vision_tpu_torch.parallel.mesh import Mesh
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params, tp_layout
+    from hessian_llm_vision_tpu_torch.utils.flatten import ModelAxisLayout
+
+    cfg, axis = GPT2Config.gpt2_124m(), Mesh(1, MA_RANKS)
+    with torch.device("meta"):
+        params = dict(GPT2LMHead(cfg).named_parameters())
+    splits = tp_layout(params, axis, cfg)
+    return ModelAxisLayout(shard_params(params, splits, axis), splits, MA_RANKS, 0).length
+
+
+def seeded_leaf(index: int, shape, seed: int, device) -> torch.Tensor:
+    """Leaf ``index`` (in the flat order) of seeded vector ``seed``: the same
+    numbers in every process on one card, leaf by leaf (no whole vector)."""
+    gen = torch.Generator(device=device).manual_seed(seed * 100_003 + index)
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def seeded_tree(shapes: dict, seed: int, device, splits=None, axis=None) -> dict:
+    """Seeded vector ``seed`` as a dict of leaves of the whole ``shapes``,
+    each leaf this rank's part under ``splits``."""
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_leaf
+    from hessian_llm_vision_tpu_torch.utils.flatten import flat_order
+
+    out = {}
+    for i, name in enumerate(flat_order(shapes)):
+        leaf = seeded_leaf(i, shapes[name], seed, device)
+        out[name] = leaf if not splits else shard_leaf(leaf, splits[name], axis.model_index,
+                                                       axis.num_model)
+    return out
+
+
+def tree_dot(a: dict, b, shapes: dict, splits=None, axis=None) -> float:
+    """The whole vectors' dot product, float64-summed; ``b`` a dict or the
+    seed of a seeded vector (drawn leaf by leaf).  On a model axis the split
+    leaves' parts sum over the ranks and the replicated leaves count once."""
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_leaf
+    from hessian_llm_vision_tpu_torch.utils.flatten import flat_order
+
+    device = next(iter(a.values())).device
+    total = torch.zeros(1, dtype=torch.float64, device=device)
+    for i, name in enumerate(flat_order(shapes)):
+        split = splits[name] if splits else None
+        if axis is not None and split is None and axis.model_index != 0:
+            continue
+        y = b[name] if isinstance(b, dict) else seeded_leaf(i, shapes[name], b, device)
+        if split is not None and not isinstance(b, dict):
+            y = shard_leaf(y, split, axis.model_index, axis.num_model)
+        total += torch.dot(a[name].reshape(-1).double(), y.reshape(-1).double())
+    if axis is not None:
+        axis.all_reduce_model_(total)
+    return float(total)
+
+
+def seeded_products(grad: dict, hvp, shapes: dict, splits=None, axis=None) -> dict:
+    """17c's numbers, for either side: |g|, g . u_j, and for u_0 and u_1 the
+    norm of H u_i and u_j . H u_i (u_j seeded vectors, ``hvp(tangent
+    dict)``), and |u_j|."""
+    device = next(iter(grad.values())).device
+    seeds = [MA_SEED + j for j in range(MA_PROBES)]
+    out = {"g_norm": math.sqrt(tree_dot(grad, grad, shapes, splits, axis)),
+           "g_dot_u": [tree_dot(grad, s, shapes, splits, axis) for s in seeds],
+           "u_norm": [], "hu_norm": [], "u_dot_hu": []}
+    for s in seeds:
+        u = seeded_tree(shapes, s, device, splits, axis)
+        out["u_norm"].append(math.sqrt(tree_dot(u, u, shapes, splits, axis)))
+        hu = hvp(u)
+        del u
+        out["hu_norm"].append(math.sqrt(tree_dot(hu, hu, shapes, splits, axis)))
+        out["u_dot_hu"].append([tree_dot(hu, t, shapes, splits, axis) for t in seeds])
+        del hu
+    return out
+
+
+@contextlib.contextmanager
+def pythia_reference(ref: dict):
+    """13b's first batch and its first refresh's T, recorded while 13b runs
+    (the trainer reads every alpha and beta to the host itself, so this
+    adds no synchronisation); :func:`pythia_step0` takes the rest of 17c's
+    reference after 13b, outside its timings and its peak."""
+    from hessian_llm_vision_tpu_torch.optim import lanczos_sgd_host as lsh
+
+    grad, step = lsh.HostLanczosSGDTrainer._grad, lsh.host_recurrence_step
+
+    def first_grad(self, params, batch):
+        ref.setdefault("input_ids", batch["input_ids"])
+        return grad(self, params, batch)
+
+    def recorded(*args, **kw):
+        out = step(*args, **kw)
+        if len(ref.setdefault("alphas", [])) < MA_PYTHIA_K:  # the first refresh
+            ref["alphas"].append(float(out[0]))
+            ref.setdefault("betas", []).append(float(out[1]))
+        return out
+
+    lsh.HostLanczosSGDTrainer._grad, lsh.host_recurrence_step = first_grad, recorded
+    try:
+        yield ref
+    finally:
+        lsh.HostLanczosSGDTrainer._grad, lsh.host_recurrence_step = grad, step
+
+
+def pythia_model(train_cli, argv: list) -> tuple:
+    """``(args, model, params, init seconds)``: 13b's weights, the train
+    CLI's init from its seed, drawn on the card."""
+    from hessian_llm_vision_tpu_torch.cli import workloads
+
+    args = train_cli.build_parser().parse_args(argv)
+    model_cls, cfg = workloads.lm_config(args)
+    model, init_s = _synced(lambda: workloads.init_model(model_cls, cfg, args.seed, CARD))
+    return args, model, {n: p.detach() for n, p in model.named_parameters()}, init_s
+
+
+def pythia_trainer(args, loss_fn, params: dict, basis_sharding=None):
+    """13b's trainer as ``cli.train`` builds it from ``args``: a bf16
+    basis, the refresh at "high"."""
+    from hessian_llm_vision_tpu_torch.cli.train_optimizers import _lanczos_config
+    from hessian_llm_vision_tpu_torch.optim import lanczos_sgd_host as lsh
+
+    return lsh.HostLanczosSGDTrainer(
+        loss_fn, params, _lanczos_config(args, args.lr, 1), batch_size=args.batch_size,
+        basis_dtype=torch.bfloat16, refresh_precision="high", basis_sharding=basis_sharding)
+
+
+def pythia_step0(train_cli, argv: list, ref: dict) -> None:
+    """17c's unsharded reference, after 13b: 13b's weights drawn again from
+    the seed, its first batch, the loss and :func:`seeded_products` of the
+    gradient and of two HVPs at the trainer's refresh normalisation."""
+    from hessian_llm_vision_tpu_torch.models import losses
+
+    args, model, params, _ = pythia_model(train_cli, argv)
+    shapes = {n: tuple(p.shape) for n, p in params.items()}
+    batch = {"input_ids": ref["input_ids"]}
+    trainer = pythia_trainer(args, losses.lm_loss_fn(model, loss_chunk=args.loss_chunk), params)
+    torch.cuda.reset_peak_memory_stats()
+    (loss, g), ref["grad_s"] = _synced(lambda: trainer._grad(params, batch))
+    products, ref["products_s"] = _synced(lambda: seeded_products(
+        trainer.fl.unflatten(g), lambda u: trainer._hvp(params, batch, u), shapes))
+    ref.update(loss=float(loss), input_ids=batch["input_ids"].cpu(),
+               peak_bytes=torch.cuda.max_memory_allocated(), **products)
+    del model, params, trainer, g
+    _free()
+
+
+def pythia_lanczos_sgd(train_cli, kernels, spectral) -> tuple[dict, dict]:
+    """13b: LanczosSGD on Pythia-1.4B at seq 512 (or its one allowed cut,
+    seq 256), recording 17c's reference; then :func:`pythia_step0`."""
+    cut = []
+    for seq in ("512", "256"):  # the one allowed cut: seq 256, the JAX protocol's
+        argv = PYTHIA_TRAIN_ARGV + ["--max_length", seq]
+        try:
+            with pythia_reference({}) as ref:
+                res = lm_lanczos_sgd(train_cli, kernels, spectral, argv,
+                                     "13b Pythia-1.4B LanczosSGD", replay=True)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            cut.append({"max_length": int(seq), "error": str(e).splitlines()[0]})
+            print(f"13b: out of memory at seq {seq}; cutting to seq 256", flush=True)
+            _free()
+    else:
+        raise SystemExit(f"13b: LanczosSGD on Pythia-1.4B fits at no length: {cut}")
+    res.update({"max_length": int(seq), "oom_at": cut})
+    pythia_step0(train_cli, argv, ref)
+    check_gates("13b Pythia-1.4B LanczosSGD", {
+        "every adjust at (4, 1,414,647,808) bf16": all(
+            sh == (4, PYTHIA_P) and dt == "torch.bfloat16" for _, sh, dt in res["adjust_shapes"]),
+        "17c's reference, drawn again, has step 0's loss": abs(
+            ref["loss"] - res["steps"][0]["loss"]) <= MA_LOSS_RTOL * abs(res["steps"][0]["loss"]),
+    })
+    return res, ref
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """The seconds, calls and bytes of the model's own collectives
+    (``models/collectives.py``) inside the block, each synchronised."""
+    from hessian_llm_vision_tpu_torch.models import collectives
+
+    clock = {"s": 0.0, "calls": 0, "bytes": 0}
+    plain = collectives._sum_over_model, collectives._gather_over_model
+
+    def timed(fn):
+        def run(t, *args):
+            out, s = _synced(lambda: fn(t, *args))
+            clock["s"] += s
+            clock["calls"] += 1
+            clock["bytes"] += out.numel() * out.element_size()
+            return out
+        return run
+
+    collectives._sum_over_model, collectives._gather_over_model = map(timed, plain)
+    try:
+        yield clock
+    finally:
+        collectives._sum_over_model, collectives._gather_over_model = plain
+
+
+def _lm_parts(model, params: dict, axis, mode: str):
+    """(this rank's params, the model on the axis, the splits) of a whole
+    model: "tp"/"ep" split leaves, "sp" the tokens.  The axis's model is
+    built on the meta device: only ``params`` hold memory."""
+    from hessian_llm_vision_tpu_torch.models.moe import ep_layout
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import (
+        model_parallel_config,
+        shard_params,
+        tp_layout,
+    )
+    from hessian_llm_vision_tpu_torch.parallel.seq_parallel import seq_parallel_config
+
+    cfg = model.config
+    if mode == "sp":
+        splits, cfg_axis = dict.fromkeys(params), seq_parallel_config(cfg, axis, data_axis=None)
+    else:
+        splits = tp_layout(params, axis, cfg) if mode == "tp" else ep_layout(params, axis)
+        cfg_axis = model_parallel_config(cfg, axis)
+    with torch.device("meta"):
+        on_axis = type(model)(cfg_axis)
+    return shard_params(params, splits, axis), on_axis, splits
+
+
+def _loss_grad_hvp(loss_fn, params, batch, v) -> tuple:
+    from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss, hvp
+
+    (loss, grad), grad_s = _synced(lambda: grad_and_loss(loss_fn, params, batch))
+    hv, hvp_s = _synced(lambda: hvp(loss_fn, params, batch, v))
+    return float(loss), grad, hv, grad_s, hvp_s
+
+
+def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False) -> dict:
+    """One model on the axis against the same model whole in one process:
+    loss, gathered gradient and HVP (the last rank runs the whole model's,
+    and compares), and with ``iters`` the Lanczos with its basis on the
+    model axis (the rank-k pair on each rank's aligned block) against the
+    whole model's (rank 0 runs it, and compares).  ``timed``: one more HVP,
+    with the model's collectives timed apart."""
+    import torch.distributed as dist
+
+    from hessian_llm_vision_tpu_torch.curvature.hvp import hvp
+    from hessian_llm_vision_tpu_torch.krylov.driver import dataset_matvec
+    from hessian_llm_vision_tpu_torch.krylov.lanczos import lanczos
+    from hessian_llm_vision_tpu_torch.krylov.sharded import p_shard
+    from hessian_llm_vision_tpu_torch.krylov.slq import ritz_decomposition
+    from hessian_llm_vision_tpu_torch.models import losses
+    from hessian_llm_vision_tpu_torch.models.convert import gather_model_axis
+    from hessian_llm_vision_tpu_torch.ops import kernels
+    from hessian_llm_vision_tpu_torch.parallel.mesh import basis_sharding
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener, ModelAxisLayout
+
+    fl = Flattener(params)
+    v = torch.randn(fl.size, generator=torch.Generator(device=CARD).manual_seed(MA_SEED),
+                    device=CARD)
+    res, ref = {}, {}
+    checker = axis.model_index == axis.num_model - 1
+    whole_loss = losses.lm_loss_fn(model)
+    if checker:  # the whole model in one process
+        ref["loss"], g, hv, _, ref["hvp_s"] = _loss_grad_hvp(whole_loss, params, batches[0],
+                                                             fl.unflatten(v))
+        ref["grad"], ref["hvp"] = fl.flatten(g), fl.flatten(hv)
+        del g, hv
+    if iters and axis.model_index == 0:  # meanwhile its Lanczos
+        whole = lanczos(dataset_matvec(whole_loss, params, batches), fl.size, iters, v0=v)
+        ref["T"] = [whole.alphas.tolist(), whole.betas.tolist()]
+        ref["ritz"] = sorted(ritz_decomposition(whole).eigvals.tolist())
+        del whole
+    dist.barrier()
+    local, on_axis, splits = _lm_parts(model, params, axis, mode)
+    loss_fn = losses.lm_loss_fn(on_axis)
+    tangent = shard_params(fl.unflatten(v), splits, axis)
+    torch.cuda.reset_peak_memory_stats()
+    res["loss"], g, hv, res["grad_s"], res["hvp_s"] = _loss_grad_hvp(
+        loss_fn, local, batches[0], tangent)
+    if timed:
+        dist.barrier()
+        with collective_clock() as clock:
+            _synced(lambda: hvp(loss_fn, local, batches[0], tangent))
+        res["collectives"] = {"hvp_s": clock["s"], "calls": clock["calls"],
+                              "bytes": clock["bytes"]}
+    split_bytes = sum(local[k].numel() for k, s in splits.items() if s is not None)
+    whole_split = sum(params[k].numel() for k, s in splits.items() if s is not None)
+    res["split_share"] = split_bytes / whole_split if whole_split else 0.0
+    res["param_bytes"] = sum(t.numel() * t.element_size() for t in local.values())
+    G = fl.flatten(gather_model_axis(g, axis, splits))
+    H = fl.flatten(gather_model_axis(hv, axis, splits))
+    del g, hv
+    if iters:
+        layout = ModelAxisLayout(local, splits, axis.num_model, axis.model_index)
+        both = basis_sharding(axis, layout)
+        v_rank = Flattener(local).flatten(tangent)
+        del tangent
+        kernels.reset_launch_counts()
+        dist.barrier()
+        lres, res["lanczos_s"] = _synced(lambda: lanczos(
+            dataset_matvec(loss_fn, local, batches), layout.size, iters, v0=v_rank,
+            basis_sharding=both))
+        res["launches"] = dict(kernels.LAUNCHES)
+        res["T"] = [lres.alphas.tolist(), lres.betas.tolist()]
+        res["ritz"] = sorted(ritz_decomposition(lres).eigvals.tolist())
+        res["basis_block"] = list(lres.basis.shape)
+        sh = p_shard(both, layout.size)
+        first = gather_model_axis(sh.gather(lres.basis[0].contiguous()), axis, layout)
+        res["first_row_rel"] = rel_l2(first, v / torch.linalg.vector_norm(v))
+        del first
+        rows = lres.basis
+        gv = torch.randn(rows.shape[1], generator=torch.Generator(device=CARD).manual_seed(18),
+                         device=CARD)
+        c = torch.randn(iters, generator=torch.Generator(device=CARD).manual_seed(19),
+                        device=CARD)
+        res["pair"] = _pair_check(kernels, rows, gv, c)
+        del lres, rows, gv
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if checker:
+        res.update({"loss_rel": abs(res["loss"] - ref["loss"]) / abs(ref["loss"]),
+                    "grad_rel": rel_l2(G, ref["grad"]), "hvp_rel": rel_l2(H, ref["hvp"]),
+                    "whole_hvp_s": ref["hvp_s"]})
+    if "T" in ref:
+        res["T_ref"], res["ritz_ref"] = ref["T"], ref["ritz"]
+    return res
+
+
+def _pair_check(kernels, rows, g, c) -> dict:
+    """The rank-k pair on a rank's basis block against its plain version,
+    repeated bit for bit, and pass 1's launch plan there."""
+    from hessian_llm_vision_tpu_torch.ops import spectral
+
+    w = kernels.rank_k_dots(g, rows, c)
+    out = kernels.rank_k_axpy(g, rows, w)
+    return {"shape": list(rows.shape), "dtype": str(rows.dtype),
+            "rel_l2_dots": rel_l2(w, spectral.rank_k_dots_reference(g, rows, c)),
+            "rel_l2_apply": rel_l2(out, spectral.rank_k_apply_reference(g, rows, c)),
+            "bitwise_repeatable": torch.equal(w, kernels.rank_k_dots(g, rows, c))
+            and torch.equal(out, kernels.rank_k_axpy(g, rows, w)),
+            "dots_plan": dataclasses.asdict(kernels.dots_launch_plan(
+                rows.shape[0], rows.shape[1], rows.dtype, CARD,
+                (rows.data_ptr(), g.data_ptr())))}
+
+
+def _token_batches(vocab: int, shape: tuple, n: int, seed: int) -> list:
+    ids = np.random.RandomState(seed).randint(0, vocab, size=(n,) + tuple(shape))
+    return [{"input_ids": torch.as_tensor(i, device=CARD)} for i in ids]
+
+
+def pythia_on_axis(axis, pythia_ref: dict, argv: list) -> dict:
+    """17c: Pythia-1.4B tensor-parallel on 13b's weights (the train CLI's
+    init from its seed) and first batch: the loss, one gradient, two HVPs
+    and 13b's first refresh (a 4-iteration host loop from the gradient,
+    the trainer's basis on the model axis), held to 13b's unsharded numbers
+    through inner products with seeded vectors."""
+    import torch.distributed as dist
+
+    from hessian_llm_vision_tpu_torch.cli import train as train_cli
+    from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss
+    from hessian_llm_vision_tpu_torch.models import losses
+    from hessian_llm_vision_tpu_torch.optim import lanczos_sgd_host as lsh
+    from hessian_llm_vision_tpu_torch.parallel.mesh import basis_sharding
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener, ModelAxisLayout
+
+    args, model, params, init_s = pythia_model(train_cli, argv)
+    shapes = {n: tuple(p.shape) for n, p in params.items()}
+    local, on_axis, splits = _lm_parts(model, params, axis, "tp")
+    del model, params
+    _free()
+    res = {"init_s": init_s, "max_length": int(pythia_ref["input_ids"].shape[1]),
+           "P": sum(math.prod(s) for s in shapes.values()),
+           "param_bytes": sum(t.numel() * t.element_size() for t in local.values()),
+           "split_leaves": sum(1 for s in splits.values() if s is not None),
+           "vocab_parallel": [n for n in ("embed_in", "embed_out.kernel") if splits[n]]}
+    batch = {"input_ids": pythia_ref["input_ids"].to(CARD)}
+    loss_fn = losses.lm_loss_fn(on_axis, loss_chunk=args.loss_chunk)
+    layout = ModelAxisLayout(local, splits, axis.num_model, axis.model_index)
+    trainer = pythia_trainer(args, loss_fn, local, basis_sharding(axis, layout))
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    (loss, grad), res["grad_s"] = _synced(lambda: grad_and_loss(loss_fn, local, batch))
+    res["loss"] = float(loss)
+    hvps = []
+
+    def hvp(u):
+        out, s = _synced(lambda: trainer._hvp(local, batch, u))
+        hvps.append(s)
+        return out
+
+    res["products"] = seeded_products(grad, hvp, shapes, splits, axis)
+    res["hvp_s"] = hvps
+    g_rank = Flattener(local).flatten(grad)
+    del grad
+    T, step = {"alphas": [], "betas": []}, lsh.host_recurrence_step
+
+    def recorded(*a, **kw):
+        out = step(*a, **kw)
+        T["alphas"].append(float(out[0]))
+        T["betas"].append(float(out[1]))
+        return out
+
+    lsh.host_recurrence_step = recorded
+    try:
+        dist.barrier()
+        _, res["host_loop_s"] = _synced(lambda: trainer.refresh_spectrum(local, batch, g_rank))
+    finally:
+        lsh.host_recurrence_step = step
+    res["T"] = T
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def model_axis_rank(*, pythia_ref: dict, pythia_argv: list) -> dict:
+    """Phase 17 on one of the two gloo ranks, after 16b in the same spawn:
+    17a-17d, each model built whole from its seed on every rank, then
+    split; the ranks share the whole-model references."""
+    import torch.distributed as dist
+
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from hessian_llm_vision_tpu_torch.models.moe import make_ep_mesh
+    from hessian_llm_vision_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    axis, ep_axis = make_mesh(1, MA_RANKS), make_ep_mesh(1, MA_RANKS)
+    res = {"rank": axis.model_index, "mesh": axis.shape, "ep_mesh": ep_axis.shape}
+    t_start = t0 = time.perf_counter()
+    cfg = GPT2Config.gpt2_124m()
+    with torch.device(CARD):
+        model = GPT2LMHead(cfg, generator=torch.Generator(CARD).manual_seed(MA_SEED))
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    res["gpt2_params"] = sum(p.numel() for p in params.values())
+    tp_batches = _token_batches(cfg.vocab_size, MA_TP_SHAPE, MA_TP_BATCHES, MA_SEED)
+    res["17a"] = _vs_whole("tp", model, params, tp_batches, axis, iters=MA_ITERS, timed=True)
+    res["17a"]["s"] = time.perf_counter() - t0
+    _free()
+    t0 = time.perf_counter()
+    sp_batches = _token_batches(cfg.vocab_size, MA_SP_SHAPE, 1, MA_SEED + 1)
+    res["17b"] = _vs_whole("sp", model, params, sp_batches, axis)
+    res["17b"]["s"] = time.perf_counter() - t0
+    del model, params
+    _free()
+    t0 = time.perf_counter()
+    res["17c"] = pythia_on_axis(axis, pythia_ref, pythia_argv)
+    res["17c"]["s"] = time.perf_counter() - t0
+    _free()
+    t0 = time.perf_counter()
+    for gating, top_k in (("dense", 0), ("top2", 2)):
+        cfg = GPT2Config.moe_80m(moe_top_k=top_k)
+        with torch.device(CARD):
+            model = GPT2LMHead(cfg, generator=torch.Generator(CARD).manual_seed(MA_SEED))
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        batches = _token_batches(cfg.vocab_size, MA_MOE_SHAPE, 1, MA_SEED + 2)
+        res[f"17d_{gating}"] = _vs_whole("ep", model, params, batches, ep_axis)
+        del model, params
+        _free()
+    res["17d_s"] = time.perf_counter() - t0
+    dist.barrier()
+    res["s"] = time.perf_counter() - t_start
+    return res
+
+
+def axes_alone(train_cli, kernels, spectral) -> tuple[dict, dict]:
+    """13b with 17c's reference, then phases 16b and 17 (the kernels
+    built)."""
+    res, ref = pythia_lanczos_sgd(train_cli, kernels, spectral)
+    return axes_two_ranks(ref, res["max_length"])
+
+
+def model_axis_gates(res: list, q: dict, without_jax: bool) -> dict:
+    """Phase 17's summary and gates, from each rank's ``model_axis_rank``
+    and 13b's unsharded reference ``q``."""
+    lead, last = res[0], res[-1]  # rank 0 holds the whole Lanczos, the last rank the rest
+    a, b = {**lead["17a"], **last["17a"]}, last["17b"]
+    a["T"] = lead["17a"]["T"]
+    T, T_ref = np.concatenate(a["T"]), np.concatenate(a["T_ref"])  # alphas, then betas
+    ritz, ritz_ref = np.asarray(a["ritz"]), np.asarray(a["ritz_ref"])
+    c = [r["17c"] for r in res]
+    p, root_P = c[0]["products"], math.sqrt(c[0]["P"])
+    # inner products with seeded vectors u, held to the whole vectors' bar:
+    # a relative error e of y moves y.u by about e |y| |u| / sqrt(P), so
+    # |x.u - y.u| sqrt(P) / (|y| |u|) is read against 1e-5
+    g_dot = max(abs(x - y) * root_P / (q["g_norm"] * u)
+                for x, y, u in zip(p["g_dot_u"], q["g_dot_u"], p["u_norm"]))
+    hu_dot = max(abs(x - y) * root_P / (q["hu_norm"][i] * u) for i in range(MA_PROBES)
+                 for x, y, u in zip(p["u_dot_hu"][i], q["u_dot_hu"][i], p["u_norm"]))
+    pT = np.asarray([c[0]["T"]["alphas"], c[0]["T"]["betas"]])
+    qT = np.asarray([q["alphas"], q["betas"]])
+    summary = {
+        "s": lead["s"], "ranks": len(res), "gpt2_params": lead["gpt2_params"],
+        "17a_tp": {k: a[k] for k in ("loss_rel", "grad_rel", "hvp_rel", "first_row_rel",
+                                     "basis_block", "lanczos_s", "hvp_s", "grad_s",
+                                     "whole_hvp_s", "s")}
+        | {"T_max_abs_diff": float(np.abs(T - T_ref).max()),
+           "ritz_max_rel": float(np.abs(ritz - ritz_ref).max() / np.abs(ritz_ref).max()),
+           "ritz_extremes": [float(ritz[0]), float(ritz[-1])],
+           "split_share": [r["17a"]["split_share"] for r in res],
+           "param_bytes": [r["17a"]["param_bytes"] for r in res],
+           "launches": [r["17a"]["launches"] for r in res],
+           "pair": [r["17a"]["pair"] for r in res],
+           "collectives": [r["17a"]["collectives"] for r in res],
+           "hvp_s_per_rank": [r["17a"]["hvp_s"] for r in res],
+           "peak_bytes": [r["17a"]["peak_bytes"] for r in res]},
+        "17b_sp": {k: b[k] for k in ("loss_rel", "grad_rel", "hvp_rel", "hvp_s", "whole_hvp_s",
+                                     "s")}
+        | {"peak_bytes": [r["17b"]["peak_bytes"] for r in res]},
+        "17c_pythia_tp": {"loss": c[0]["loss"], "loss_13b": q["loss"],
+                          "loss_rel": abs(c[0]["loss"] - q["loss"]) / abs(q["loss"]),
+                          "g_dot_rel": g_dot, "hu_dot_rel": hu_dot, "P": c[0]["P"],
+                          "T_max_abs_diff": float(np.abs(pT - qT).max()),
+                          "T": pT.tolist(), "T_13b": qT.tolist(),
+                          "max_length": c[0]["max_length"],
+                          "vocab_parallel": c[0]["vocab_parallel"],
+                          "param_bytes": [r["param_bytes"] for r in c],
+                          "peak_bytes": [r["peak_bytes"] for r in c],
+                          "grad_s": c[0]["grad_s"], "hvp_s": c[0]["hvp_s"],
+                          "host_loop_s": c[0]["host_loop_s"], "init_s": c[0]["init_s"],
+                          "s": c[0]["s"], "reference_grad_s": q["grad_s"],
+                          "reference_products_s": q["products_s"],
+                          "reference_peak_bytes": q["peak_bytes"]},
+        **{f"17d_ep_{g}": {k: last[f"17d_{g}"][k] for k in ("loss_rel", "grad_rel", "hvp_rel",
+                                                             "hvp_s", "whole_hvp_s")}
+           | {"split_share": [r[f"17d_{g}"]["split_share"] for r in res]}
+           for g in ("dense", "top2")},
+        "17d_s": last["17d_s"],
+        "modules_without_jax": without_jax,
+    }
+    print(json.dumps({"model_axis_two_ranks": summary}), flush=True)
+    for r in res:
+        t = r["17a"]
+        print(f"17a rank {r['rank']}: TP HVP {t['hvp_s']:.4f} s (whole model on one process "
+              f"{a['whole_hvp_s']:.4f} s); its model's gloo collectives "
+              f"{t['collectives']['hvp_s']:.4f} s of an HVP in {t['collectives']['calls']} calls, "
+              f"{t['collectives']['bytes']} bytes; peak {t['peak_bytes']} bytes; 17c peak "
+              f"{r['17c']['peak_bytes']} bytes, params {r['17c']['param_bytes']} bytes "
+              f"(13a's whole-model HVP peak: 43.86 GB)", flush=True)
+    per_iter = 2  # CGS2: two projections an iteration
+    check_gates("17 the model axis on two gloo ranks", {
+        "17a loss within 1e-6": a["loss_rel"] <= MA_LOSS_RTOL,
+        "17a gathered grad and HVP within 1e-5": max(a["grad_rel"], a["hvp_rel"]) <= MA_REL,
+        "17a T within 1e-4": np.allclose(T, T_ref, rtol=DP_T_TOL, atol=DP_T_TOL),
+        "17a every rank's T the same": all(r["17a"]["T"] == a["T"] for r in res),
+        "17a Ritz values within 1e-3": summary["17a_tp"]["ritz_max_rel"] <= DP_RITZ_RTOL,
+        "17a the basis's first row the start vector": a["first_row_rel"] <= MA_REL,
+        "17a each rank's block (10, P_local), P_local a multiple of 8": all(
+            r["17a"]["basis_block"][0] == MA_ITERS and r["17a"]["basis_block"][1] % 8 == 0
+            for r in res),
+        "17a about half of the split leaves' bytes on each rank": all(
+            abs(r["17a"]["split_share"] - 0.5) < 1e-9 for r in res),
+        "17a the pair on each rank, pass 1 then pass 2 per projection": all(
+            r["17a"]["launches"] == {"rank_k_dots": per_iter * MA_ITERS,
+                                     "rank_k_axpy": per_iter * MA_ITERS} for r in res),
+        "17a the pair against its plain version": all(
+            p["rel_l2_dots"] <= 1e-5 and p["rel_l2_apply"] <= 1e-5 and p["bitwise_repeatable"]
+            for p in summary["17a_tp"]["pair"]),
+        "17a pass 1's bulk path at P_local": all(p["dots_plan"]["bulk"]
+                                                 for p in summary["17a_tp"]["pair"]),
+        "17b loss within 1e-6": b["loss_rel"] <= MA_LOSS_RTOL,
+        "17b gathered grad and HVP within 1e-5": max(b["grad_rel"], b["hvp_rel"]) <= MA_REL,
+        "17c loss within 1e-6 of 13b's": summary["17c_pythia_tp"]["loss_rel"] <= MA_LOSS_RTOL,
+        "17c gradient within 1e-5 (seeded inner products, scaled by sqrt(P))": g_dot <= MA_REL,
+        "17c two HVPs within 1e-5 (seeded inner products, scaled by sqrt(P))": hu_dot <= MA_REL,
+        "17c 13b's 4-iteration T within 1e-4": np.allclose(pT, qT, rtol=DP_T_TOL,
+                                                          atol=DP_T_TOL),
+        "17c vocab-parallel embed_in and embed_out":
+            c[0]["vocab_parallel"] == ["embed_in", "embed_out.kernel"],
+        **{f"17d {g} EP loss, grad and HVP": last[f"17d_{g}"]["loss_rel"] <= MA_LOSS_RTOL
+           and max(last[f"17d_{g}"]["grad_rel"], last[f"17d_{g}"]["hvp_rel"]) <= MA_REL
+           for g in ("dense", "top2")},
+        "the ranks ran without JAX": summary["modules_without_jax"],
+    })
+    return summary
+
+
 def main() -> int:
     t_start = phase(1, "device")
     if not torch.cuda.is_available():
@@ -4138,7 +4777,8 @@ def main() -> int:
                                ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dtype, CARD))):
                 print(json.dumps({name: {"dtype": str(dtype).removeprefix("torch."), "k": k,
                                          "P": p, **dataclasses.asdict(plan)}}))
-    for dt, k, p in (PYTHIA_SHAPE, FORGET_SHAPE, DP_SHAPE):
+    tp_shape = (torch.float32, MA_ITERS, tp_block_columns())
+    for dt, k, p in (PYTHIA_SHAPE, FORGET_SHAPE, DP_SHAPE, tp_shape):
         for name, plan in (("rank_k_dots_plan", kernels.dots_launch_plan(k, p, dt, CARD)),
                            ("rank_k_axpy_plan", kernels.axpy_launch_plan(k, p, dt, CARD))):
             print(json.dumps({name: {"dtype": str(dt).removeprefix("torch."), "k": k, "P": p,
@@ -4174,6 +4814,10 @@ def main() -> int:
     checks[DP_SHAPE] = check_rank_k(kernels, spectral, *DP_SHAPE,
                                     torch.Generator(device=CARD).manual_seed(PHASE3_SEED),
                                     timed=True)
+    # 17a's per-rank block of the basis on the model axis, on a generator of its own
+    checks[tp_shape] = check_rank_k(kernels, spectral, *tp_shape,
+                                    torch.Generator(device=CARD).manual_seed(PHASE3_SEED),
+                                    timed=True)
     torch.cuda.empty_cache()
     failed = [key for key, r in checks.items() if not r["ok"]]
     if failed:
@@ -4191,7 +4835,7 @@ def main() -> int:
     # per call, µs: wall (events, in turns), host (perf_counter), device (trace)
     for key in ([(dt, k, P_124M) for dt, k in timed] + [(dt, k, p) for dt in TIMED_DTYPES
                                                        for k, p in LEAF_TIMED + VISION_SHAPES]
-                + [PYTHIA_SHAPE, FORGET_SHAPE, DP_SHAPE]):
+                + [PYTHIA_SHAPE, FORGET_SHAPE, DP_SHAPE, tp_shape]):
         for name in TPU_KERNELS:
             t = checks[key][name]
             print(f"{str(key[0]).removeprefix('torch.'):8s} k={key[1]:2d} P={key[2]:>9d} {name}: "
@@ -4375,10 +5019,17 @@ def main() -> int:
                    "pair on each half of P, --probe_parallel)")
     dp1 = data_axis_one_rank(spectrum_cli, kernels)
     print(f"phase 16a took {time.perf_counter() - t0:.1f} s")
+    phase(17, "the model axis on the same two gloo ranks (one spawn for 16b and 17): GPT-2 124M "
+              "tensor-parallel (loss, grad, HVP, the Lanczos with its basis on the model axis) "
+              "and sequence-parallel at seq1024, Pythia-1.4B tensor-parallel against 13b's "
+              "step 0, gpt2-moe expert-parallel (dense and top-2)")
     t1 = time.perf_counter()
-    dp2 = data_axis_two_ranks()
-    print(f"phase 16b took {time.perf_counter() - t1:.1f} s")
-    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    dp2, ma = axes_two_ranks(fam["13ab"].pop("17c_reference"),
+                             fam["13ab"]["13b_lanczos_sgd"]["max_length"])
+    print(f"phase 16b took {max(dp2['s']):.1f} s in the ranks")
+    print(f"phase 17 took {ma['s']:.1f} s in the ranks")
+    print(f"phases 16b and 17 took {time.perf_counter() - t1:.1f} s (one spawn)")
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s (16a, 16b and 17)")
     lw = rest["12cdf"]
     by_path = {"phase4_train_4_steps": launches,
                "phase7b_spectrum": headline["rank_k_launches"],
@@ -4423,7 +5074,9 @@ def main() -> int:
                "phase15d_evaluate": rc["15d"]["launches"],
                **{f"phase15e_point{i}": c["launches"] for i, c in enumerate(rc["15e"]["per_point"])},
                "phase16a_one_rank_host_loop": dp1["launches"],
-               **{f"phase16b_sharded_lanczos_rank{i}": c for i, c in enumerate(dp2["launches"])}}
+               **{f"phase16b_sharded_lanczos_rank{i}": c for i, c in enumerate(dp2["launches"])},
+               **{f"phase17a_model_axis_lanczos_rank{i}": c
+                  for i, c in enumerate(ma["17a_tp"]["launches"])}}
     # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d), GN/NGD
     # and Adam with snapshots take no rank-k apply; every other path must
     # have launched both kernels
@@ -4449,7 +5102,7 @@ def main() -> int:
                          for dt in TIMED_DTYPES
                          for k, p in LEAF_TIMED + VISION_SHAPES + (PYTHIA_SHAPE[1:],
                                                                    FORGET_SHAPE[1:],
-                                                                   DP_SHAPE[1:])
+                                                                   DP_SHAPE[1:], tp_shape[1:])
                          if (dt, k, p) in checks},
                       "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
                       "checks_passed": len(checks)})

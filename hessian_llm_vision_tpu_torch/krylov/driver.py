@@ -38,9 +38,11 @@ from hessian_llm_vision_tpu_torch.curvature.hvp import (
 from hessian_llm_vision_tpu_torch.krylov.lanczos import (
     LanczosResult,
     host_recurrence_step,
+    raw_start,
     stack_tridiag,
     start_vector,
 )
+from hessian_llm_vision_tpu_torch.krylov.sharded import p_shard
 from hessian_llm_vision_tpu_torch.krylov.thick_restart import (
     ThickRestartResult,
     lanczos_thick_restart,
@@ -266,14 +268,20 @@ def dataset_matvec(
     return matvec
 
 
-def _t_only(matvec, q_cur, num_iters, callback, progress, label="lanczos") -> LanczosResult:
-    """The three-term recurrence from the unit ``q_cur``, T only."""
+def _t_only(matvec, q_cur, num_iters, callback, progress, label="lanczos",
+            sh=None) -> LanczosResult:
+    """The three-term recurrence from the unit ``q_cur``, T only; with
+    ``sh`` (``krylov/sharded.py``) on this rank's parts of the vectors,
+    ``q_cur`` the start direction before ``sh.start`` normalises it."""
+    if sh is not None:
+        q_cur, whole = sh.start(q_cur), matvec
+        matvec = lambda q: sh.local(whole(sh.gather(q)).float())  # noqa: E731
     q_prev = torch.zeros_like(q_cur)
     beta_prev = torch.zeros((), dtype=torch.float32, device=q_cur.device)
     alphas, betas = [], []
     for i in range(num_iters):
         t0 = time.perf_counter()
-        alpha, beta, q_next = host_recurrence_step(matvec(q_cur), q_cur, q_prev, beta_prev)
+        alpha, beta, q_next = host_recurrence_step(matvec(q_cur), q_cur, q_prev, beta_prev, sh)
         q_prev, q_cur, beta_prev = q_cur, q_next, beta
         alphas.append(alpha)
         betas.append(beta)
@@ -309,6 +317,7 @@ def dataset_spectrum_host(
     operator: str = "hessian",
     model_fn: Optional[Callable] = None,
     out_loss_fn: Optional[Callable] = None,
+    basis_sharding=None,
 ) -> LanczosResult:
     """T-only Lanczos of the dataset-mean curvature operator, host-driven.
 
@@ -320,12 +329,18 @@ def dataset_spectrum_host(
     to ``ritz_decomposition``.  ``callback(i, alphas, betas)`` receives
     host copies of T each iteration (resumable checkpoints); ``progress``
     prints each iteration's seconds, synchronised with the device.
+    ``basis_sharding`` (``parallel.mesh.basis_sharding``): the Lanczos
+    vectors split over the mesh's ranks (``krylov/sharded.py``); with the
+    model-axis layout of a model-parallel model, which needs it, ``v0`` is
+    this rank's rank vector.
     """
     fl = flattener or Flattener(params)
     matvec = dataset_matvec(loss_fn, params, batch_list, normalization=normalization,
                             batch_size=batch_size, precision=precision, flattener=fl,
                             operator=operator, model_fn=model_fn, out_loss_fn=out_loss_fn)
-    return _t_only(matvec, start_vector(v0, generator, fl.size), num_iters, callback, progress)
+    sh = p_shard(basis_sharding, fl.size)
+    q = start_vector(v0, generator, fl.size) if sh is None else raw_start(v0, generator, fl.size)
+    return _t_only(matvec, q, num_iters, callback, progress, sh=sh)
 
 
 def dataset_thick_restart_host(

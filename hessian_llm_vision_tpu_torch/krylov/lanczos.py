@@ -22,7 +22,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from hessian_llm_vision_tpu_torch.krylov.sharded import PShard
+from hessian_llm_vision_tpu_torch.krylov.sharded import PShard, normalize, p_shard
 from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 _EPS = 1e-30
@@ -49,28 +49,34 @@ class LanczosResult(NamedTuple):
         )
 
 
-def _normalize(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.clamp(norm(v), min=_EPS)
+def raw_start(v0: Optional[torch.Tensor], generator: Optional[torch.Generator],
+              dim: int) -> torch.Tensor:
+    """The f32 start direction, not normalised: ``v0``, or a Gaussian draw
+    from ``generator`` on its device; exactly one of the two must be given.
+    A sharded run normalises it over the ranks (``PShard.start``)."""
+    if (v0 is None) == (generator is None):
+        raise ValueError("pass exactly one of v0 / generator")
+    if v0 is None:
+        v0 = torch.randn(dim, generator=generator, device=generator.device)
+    return v0.float()
 
 
 def start_vector(v0: Optional[torch.Tensor], generator: Optional[torch.Generator],
                  dim: int) -> torch.Tensor:
     """The unit f32 start vector: ``v0`` normalised, or a Gaussian draw from
     ``generator`` on its device; exactly one of the two must be given."""
-    if (v0 is None) == (generator is None):
-        raise ValueError("pass exactly one of v0 / generator")
-    if v0 is None:
-        v0 = torch.randn(dim, generator=generator, device=generator.device)
-    return _normalize(v0.float())
+    return normalize(raw_start(v0, generator, dim))
 
 
-def host_recurrence_step(w, q_cur, q_prev, beta_prev):
+def host_recurrence_step(w, q_cur, q_prev, beta_prev, sh=None):
     """One Lanczos three-term update; returns ``(alpha, beta, q_next)`` with
-    ``alpha`` and ``beta`` as 0-d f32 tensors on the vectors' device."""
+    ``alpha`` and ``beta`` as 0-d f32 tensors on the vectors' device.
+    ``sh`` (``krylov/sharded.py``): the vectors are this rank's parts, and
+    the dot product and norm sum over the ranks."""
     w = w.float()
-    alpha = torch.dot(q_cur, w)
+    alpha = torch.dot(q_cur, w) if sh is None else sh.dot(q_cur, w)
     w = w - alpha * q_cur - beta_prev * q_prev
-    beta = norm(w)
+    beta = norm(w) if sh is None else sh.norm(w)
     return alpha, beta, w / torch.clamp(beta, min=_EPS)
 
 
@@ -98,8 +104,8 @@ def lanczos(
     if reorth and not store_basis:
         raise ValueError("reorth=True requires store_basis=True")
     if basis_sharding is not None:
-        return _lanczos_sharded(matvec, PShard(basis_sharding, dim), num_iters,
-                                start_vector(v0, generator, dim), reorth, store_basis)
+        return _lanczos_sharded(matvec, p_shard(basis_sharding, dim), num_iters,
+                                raw_start(v0, generator, dim), reorth, store_basis)
     q_cur = start_vector(v0, generator, dim)
     q_prev = torch.zeros_like(q_cur)
     beta_prev = torch.zeros((), dtype=torch.float32, device=q_cur.device)
@@ -133,7 +139,7 @@ def _lanczos_sharded(matvec, sh: PShard, num_iters: int, q_full: torch.Tensor,
     """:func:`lanczos` with the basis split along P: the operator takes the
     whole vector (gathered from the slices) and each rank keeps its range
     of the result; α, β and the CGS2 coefficients are sums over the ranks."""
-    q_cur = sh.local(q_full)
+    q_cur = sh.start(q_full)
     del q_full
     q_prev = torch.zeros_like(q_cur)
     beta_prev = torch.zeros((), dtype=torch.float32, device=q_cur.device)

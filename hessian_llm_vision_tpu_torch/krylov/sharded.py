@@ -18,6 +18,18 @@ stay zero.  The curvature product still takes the whole vector, so:
   CPU the squares of a norm are summed in float64, as ``utils/norms.py``
   does.
 
+On the model axis (:class:`ModelShard`, a ``basis_sharding`` given the
+model-parallel layout of ``utils/flatten.py::ModelAxisLayout``) a rank's
+curvature product takes and gives its *rank vector* (its slices of the
+split leaves, the replicated leaves whole), and its Krylov vectors hold its
+*owned* part (those slices and its share of the replicated leaves, so
+that every parameter is counted once, padded to a multiple of 8 entries),
+split further over the data axis.  Before each product the replicated part
+is put back together over the model axis (one all-reduce of zero-padded
+shares); the product's replicated part comes out equal on every model
+rank, and each keeps its share.  Dot products, norms and the rank-k pair's
+``w`` sum over the whole mesh.
+
 Only ``all_reduce`` and ``broadcast`` are used: gloo runs just those two on
 CUDA tensors, and two ranks sharing one card can only use gloo.
 """
@@ -30,6 +42,11 @@ import torch
 
 from hessian_llm_vision_tpu_torch.ops import kernels
 from hessian_llm_vision_tpu_torch.utils.norms import norm as _norm
+
+
+def normalize(v: torch.Tensor) -> torch.Tensor:
+    """``v`` over its 2-norm (``utils/norms.py``), floored at 1e-30."""
+    return v / torch.clamp(_norm(v), min=1e-30)
 
 
 class PShard:
@@ -46,7 +63,7 @@ class PShard:
             raise ValueError(f"P={dim} is smaller than the {n} ranks that split it")
         self.mesh, self.n, self.dim = mesh, n, dim
         self.size = -(-dim // n)
-        self.lo = mesh.index * self.size if n > 1 else 0
+        self.lo = mesh.data_index * self.size if n > 1 else 0
         self.width = min(self.size, dim - self.lo)
 
     def part(self, full: torch.Tensor) -> torch.Tensor:
@@ -74,7 +91,7 @@ class PShard:
         buf = loc.new_empty(self.size * self.n)
         for r in range(self.n):
             view = buf[r * self.size:(r + 1) * self.size]
-            if r == self.mesh.index:
+            if r == self.mesh.data_index:
                 view[:loc.shape[0]].copy_(loc)
                 view[loc.shape[0]:].zero_()
             self.mesh.broadcast_(view, r)
@@ -108,8 +125,87 @@ class PShard:
         minus = -torch.ones(rows.shape[0], dtype=torch.float32, device=rows.device)
         return self.rank_k(g, rows, minus)
 
+    def start(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the start vector ``full`` (the same on every
+        rank), normalised."""
+        return self.local(normalize(full))
+
+
+class ModelShard(PShard):
+    """This rank's part of a model-parallel rank vector (``dim`` entries)
+    under a ``basis_sharding`` that carries its ``ModelAxisLayout``: the
+    owned vector (``layout.length``) split over the data axis into
+    ``size`` columns, a multiple of 8, the pad stored as zeros (``width ==
+    size``)."""
+
+    def __init__(self, sharding, dim: int):
+        layout, mesh = sharding.layout, sharding.mesh
+        if dim != layout.size:
+            raise ValueError(f"a rank vector of {dim} entries under a layout of {layout.size}")
+        self.mesh, self.layout, self.dim = mesh, layout, dim
+        self.n = mesh.size
+        self.size = layout.length if mesh.num_data == 1 else (
+            -(-layout.length // (8 * mesh.num_data)) * 8)
+        self.lo = mesh.data_index * self.size
+        self.width = self.size
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        owned = self.layout.owned(full)
+        if self.mesh.num_data == 1:
+            return owned
+        part = owned[self.lo:self.lo + self.size]
+        if part.shape[0] == self.size:
+            return part.clone()
+        out = owned.new_zeros(self.size)
+        out[:part.shape[0]] = part
+        return out
+
+    part = local
+
+    def trim(self, rows: torch.Tensor) -> torch.Tensor:
+        return rows
+
+    def gather(self, loc: torch.Tensor) -> torch.Tensor:
+        """The rank vector from every rank's part: the owned vector over the
+        data axis (one broadcast per data rank), then the replicated
+        leaves over the model axis (one all-reduce of zero-padded shares)."""
+        lay, mesh = self.layout, self.mesh
+        owned = loc
+        if mesh.num_data > 1:
+            buf = loc.new_empty(self.size * mesh.num_data)
+            for r in range(mesh.num_data):
+                view = buf[r * self.size:(r + 1) * self.size]
+                if r == mesh.data_index:
+                    view.copy_(loc)
+                mesh.broadcast_(view, r)
+            owned = buf
+        shares = owned.new_zeros(lay.share * mesh.num_model)
+        lo = mesh.model_index * lay.share
+        shares[lo:lo + lay.share_width] = lay.replicated_share(owned)
+        mesh.all_reduce_model_(shares)
+        return lay.rank_vector(owned, shares[:lay.replicated_size])
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce_mesh_(t)
+
+    def norm(self, v: torch.Tensor) -> torch.Tensor:
+        wide = torch.float64 if v.device.type == "cpu" else None
+        sq = torch.linalg.vector_norm(v, dtype=wide).square().reshape(1)
+        return self.sum_(sq).sqrt()[0].to(v.dtype)
+
+    def start(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the rank vector ``full``, normalised over the
+        whole mesh (each rank's rank vector has a norm of its own)."""
+        loc = self.local(full)
+        return loc / self.norm(loc)
+
 
 def p_shard(basis_sharding, dim: int) -> Optional[PShard]:
-    """The :class:`PShard` of ``basis_sharding`` for a P of ``dim``; None
-    when no sharding is given."""
-    return None if basis_sharding is None else PShard(basis_sharding, dim)
+    """The :class:`PShard` (or :class:`ModelShard`, given a model-axis
+    layout) of ``basis_sharding`` for a P of ``dim``; None when no sharding
+    is given."""
+    if basis_sharding is None:
+        return None
+    if getattr(basis_sharding, "layout", None) is not None:
+        return ModelShard(basis_sharding, dim)
+    return PShard(basis_sharding, dim)

@@ -186,11 +186,9 @@ def lanczos_thick_restart(
     if v0 is None:
         v0 = torch.randn(dim, generator=generator).to(device or "cpu")
     redirect = generator if generator is not None else torch.Generator().manual_seed(0)
-    q = v0.float()
-    q = q / torch.clamp(norm(q), min=_EPS)
     sh = p_shard(basis_sharding, dim)
-    if sh is not None:
-        q = sh.local(q)
+    q = v0.float()
+    q = q / torch.clamp(norm(q), min=_EPS) if sh is None else sh.start(q)
 
     Q = torch.zeros((m + 1, q.shape[0]), dtype=store_dtype, device=q.device)
     _set_row(Q, 0, q)

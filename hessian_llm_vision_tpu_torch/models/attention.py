@@ -15,6 +15,10 @@ Two paths behind one function:
   under the causal mask.  The values equal the dense path's; the JAX
   package's per-block rematerialisation is not ported, so this path saves
   no memory under autodiff yet.
+
+``q_offset``: the queries are positions ``[q_offset, q_offset + Tq)`` of
+the keys' ``[0, Tk)``, as on a rank of a sequence-parallel model, whose
+queries are its slice of T and whose keys and values are gathered whole.
 """
 
 from __future__ import annotations
@@ -42,18 +46,21 @@ def causal_attention(
     v: torch.Tensor,
     *,
     block_q: int | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Causal softmax attention.  q, k, v: (B, T, H, D) -> (B, T, H, D).
+    """Causal softmax attention.  q (B, Tq, H, D), k and v (B, Tk, H, D)
+    -> (B, Tq, H, D); Tq = Tk unless ``q_offset`` places the queries.
 
-    A ``block_q`` that does not divide T is an error, as in the JAX
+    A ``block_q`` that does not divide Tq is an error, as in the JAX
     package: silently running dense would defeat the memory plan the flag
     exists for.
     """
     B, T, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
-    pos = torch.arange(T, device=q.device)
+    pos = torch.arange(T, device=q.device) + q_offset
+    keys = torch.arange(k.shape[1], device=q.device)
     if block_q is None or block_q >= T:
-        mask = pos[:, None] >= pos[None, :]
+        mask = pos[:, None] >= keys[None, :]
         return _masked_softmax_attend(q, k, v, mask, scale)
     if T % block_q != 0:
         raise ValueError(
@@ -62,6 +69,6 @@ def causal_attention(
         )
     out = []
     for s in range(0, T, block_q):
-        mask = pos[s : s + block_q, None] >= pos[None, :]
+        mask = pos[s : s + block_q, None] >= keys[None, :]
         out.append(_masked_softmax_attend(q[:, s : s + block_q], k, v, mask, scale))
     return torch.cat(out, dim=1)

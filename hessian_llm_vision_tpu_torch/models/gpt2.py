@@ -20,9 +20,23 @@ the JAX model's (``models/precision.py``): block -> attention / MLP
 sublayer -> attention scores, the innermost winning; every matmul runs
 through :func:`precision.matmul` / :func:`precision.einsum`.  With
 ``n_experts > 0`` every block's MLP is the mixture of experts of
-``models/moe.py`` (``h_{i}.moe``).  Dropout, an untied head and sequence
-sharding of the JAX config are not ported; :class:`GPT2Config` raises on
-any non-default value of them.
+``models/moe.py`` (``h_{i}.moe``).  Dropout and an untied head of the JAX
+config are not ported; :class:`GPT2Config` raises on any non-default value
+of them.
+
+The model axis of a mesh (``parallel/``) splits the model in one of two
+ways.  ``model_parallel`` (``parallel.param_sharding.model_parallel_config``):
+the layers whose leaves this rank holds in part split their work -- the
+attention's heads (``c_attn`` per head, column-parallel, ``attn.c_proj``
+row-parallel), the MLP's width (``c_fc`` and ``mlp.c_proj``), the
+vocabulary (``wte`` as embedding and as tied head) and the experts (EP,
+``models/moe.py``) -- with the collectives of ``models/collectives.py``;
+each layer reads from its leaves' shapes whether it is split.
+``seq_sharding`` (``parallel.seq_parallel.seq_parallel_config``): rank m of
+the model axis runs tokens ``[m·T/n, (m+1)·T/n)`` of the residual stream,
+at their positions, and attention gathers keys and values along T; the
+loss closure sums every parameter's gradient over the axis.  The two on
+one axis are not ported (ROADMAP A13c).
 
 :class:`Dense`, :class:`LayerNorm` and :func:`init_weights` are shared
 with the NeoX and LLaMA modules.
@@ -40,14 +54,69 @@ from torch import nn
 
 from hessian_llm_vision_tpu_torch.models import precision
 from hessian_llm_vision_tpu_torch.models.attention import causal_attention
+from hessian_llm_vision_tpu_torch.models.collectives import (
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+    vocab_parallel_embedding,
+)
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
 
 # JAX config fields the port does not implement, with the only value it takes
 _UNPORTED_DEFAULTS = {
     "dropout": 0.0,
     "tie_word_embeddings": True,
-    "seq_sharding": None,
 }
+
+
+def check_model_axis(config) -> None:
+    """Tensor (or expert) and sequence parallelism on one model axis are
+    refused, naming the slice that ports them."""
+    if config.model_parallel is not None and config.seq_sharding is not None:
+        raise NotImplementedError(
+            f"{type(config).__name__}: model_parallel and seq_sharding on one model axis are "
+            "not ported yet (ROADMAP A13c)")
+
+
+def seq_slice(input_ids: torch.Tensor, seq_sharding) -> tuple[torch.Tensor, int]:
+    """This rank's tokens of the whole ``input_ids`` (B, T) under
+    ``seq_sharding``, and the position of the first."""
+    mesh = seq_sharding.mesh
+    T, n = input_ids.shape[1], mesh.num_model
+    if T % n:
+        raise ValueError(f"seq_len={T} does not split over {n} ranks of the model axis")
+    lo = mesh.model_index * (T // n)
+    return input_ids[:, lo:lo + T // n], lo
+
+
+def gather_kv(k: torch.Tensor, v: torch.Tensor, seq_sharding) -> tuple:
+    """Every rank's keys and values along T (dim 1) under ``seq_sharding``."""
+    mesh = seq_sharding.mesh
+    return gather_from_model(k, mesh, 1), gather_from_model(v, mesh, 1)
+
+
+def dense_rows(layer: "Dense", x: torch.Tensor, mesh, whole: int) -> torch.Tensor:
+    """``x @ kernel + bias`` of a fan-in layer; when ``kernel`` holds this
+    rank's rows of ``whole`` (row-parallel), the product is summed over
+    the model axis before the bias."""
+    if layer.kernel.shape[0] == whole:
+        return layer(x)
+    y = reduce_from_model(precision.matmul(x, _as(layer.kernel, x)), mesh)
+    return y if layer.bias is None else y + _as(layer.bias, x)
+
+
+def split_input(x: torch.Tensor, mesh, split: bool) -> torch.Tensor:
+    """The input of a column-parallel layer (``split``): its gradient summed
+    over the model axis."""
+    return copy_to_model(x, mesh) if split else x
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor, vocab_size: int, mesh) -> torch.Tensor:
+    """Rows of ``table`` for ``ids``; vocab-parallel when ``table`` holds
+    this rank's rows of ``vocab_size``."""
+    if table.shape[0] == vocab_size:
+        return table[ids]
+    return vocab_parallel_embedding(table, ids, mesh)
 
 
 def check_dtype(config) -> None:
@@ -82,10 +151,14 @@ class GPT2Config:
     n_experts: int = 0
     moe_top_k: int = 0
     moe_capacity_factor: float = 1.25
+    # the model axis (parallel/): a Mesh whose model axis splits the layers
+    # this rank holds in part (tensor and expert parallelism), or a
+    # seq_parallel.seq_sharding whose model axis splits the tokens
+    model_parallel: object = None
+    seq_sharding: object = None
     # not ported: any value other than the default raises
     dropout: float = 0.0
     tie_word_embeddings: bool = True
-    seq_sharding: object = None
 
     def __post_init__(self):
         for name, default in _UNPORTED_DEFAULTS.items():
@@ -95,6 +168,10 @@ class GPT2Config:
                     f"yet (only {default!r})"
                 )
         check_dtype(self)
+        check_model_axis(self)
+        if self.seq_sharding is not None and self.moe_top_k:
+            raise NotImplementedError("top-k MoE routing under sequence parallelism is not "
+                                      "ported (each rank would route its own tokens)")
         precision.per_layer_precision(self.block_matmul_precision, self.n_layer)
         for p in (self.attn_matmul_precision, self.mlp_matmul_precision,
                   self.attn_scores_precision):
@@ -193,24 +270,30 @@ class CausalSelfAttention(nn.Module):
     def forward(self, x):
         cfg = self.config
         B, T, C = x.shape
-        q, k, v = self.c_attn(x).split(C, dim=-1)
-        heads = (B, T, cfg.n_head, cfg.head_dim)
+        D = cfg.head_dim
+        H = self.c_attn.kernel.shape[1] // (3 * D)  # this rank's heads
+        x = split_input(x, cfg.model_parallel, H < cfg.n_head)
+        q, k, v = (t.reshape(B, T, H, D) for t in self.c_attn(x).split(H * D, dim=-1))
+        offset = 0
+        if cfg.seq_sharding is not None:
+            k, v = gather_kv(k, v, cfg.seq_sharding)
+            offset = cfg.seq_sharding.mesh.model_index * T
         with precision.precision_scope(cfg.attn_scores_precision):
-            y = causal_attention(
-                q.reshape(heads), k.reshape(heads), v.reshape(heads),
-                block_q=cfg.attn_block_q,
-            )
-        return self.c_proj(y.reshape(B, T, C))
+            y = causal_attention(q, k, v, block_q=cfg.attn_block_q, q_offset=offset)
+        return dense_rows(self.c_proj, y.reshape(B, T, H * D), cfg.model_parallel, C)
 
 
 class MLPBlock(nn.Module):
     def __init__(self, config: GPT2Config):
         super().__init__()
+        self.config = config
         self.c_fc = Dense(config.n_embd, 4 * config.n_embd)
         self.c_proj = Dense(4 * config.n_embd, config.n_embd)
 
     def forward(self, x):
-        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+        mesh, width = self.config.model_parallel, 4 * self.config.n_embd
+        x = split_input(x, mesh, self.c_fc.kernel.shape[1] < width)
+        return dense_rows(self.c_proj, F.gelu(self.c_fc(x), approximate="tanh"), mesh, width)
 
 
 class Block(nn.Module):
@@ -264,12 +347,20 @@ class GPT2LMHead(nn.Module):
         init_weights(self, generator)
 
     def forward(self, input_ids: torch.Tensor, return_hidden: bool = False):
+        """``input_ids`` (B, T) -> logits (B, T, V); under ``seq_sharding``
+        this rank's T-slice of them, and under a vocab-parallel ``wte`` its
+        slice of V."""
         cfg = self.config
+        lo = 0
+        if cfg.seq_sharding is not None:
+            input_ids, lo = seq_slice(input_ids, cfg.seq_sharding)
         T = input_ids.shape[1]
+        tok = embed(self.wte, input_ids, cfg.vocab_size, cfg.model_parallel)
+        pos = self.wpe[lo:lo + T][None]
         if cfg.dtype == torch.bfloat16:
-            x = self.wte[input_ids].to(cfg.dtype) + self.wpe[:T][None].to(cfg.dtype)
+            x = tok.to(cfg.dtype) + pos.to(cfg.dtype)
         else:
-            x = self.wte[input_ids] + self.wpe[:T][None]
+            x = tok + pos
         per_prec = precision.per_layer_precision(cfg.block_matmul_precision, cfg.n_layer)
         for i in range(cfg.n_layer):
             with precision.precision_scope(per_prec[i]):
@@ -279,6 +370,7 @@ class GPT2LMHead(nn.Module):
             # final pre-logit states; pair with output_kernel() for the
             # chunked-vocab loss (losses.chunked_causal_lm_loss)
             return x
+        x = split_input(x, cfg.model_parallel, self.wte.shape[0] < cfg.vocab_size)
         return at_least_f32(precision.einsum("btc,vc->btv", x, _as(self.wte, x)))
 
     @staticmethod

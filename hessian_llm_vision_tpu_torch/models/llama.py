@@ -10,7 +10,12 @@ sequential pre-norm residual and an untied ``lm_head``.
 Parameter names and layouts are flax's (``layer_{i}.self_attn.q_proj.
 kernel`` (in, out), ``embed_tokens`` (vocab, C), RMSNorm ``scale``), so
 ``models/convert.py`` carries the JAX params by name.  The compute dtype
-and the per-block precision scopes are GPT-2's.
+and the per-block precision scopes are GPT-2's, and so is the model axis:
+under ``model_parallel`` q/k/v and gate/up split by columns, o/down by
+rows, ``embed_tokens`` / ``lm_head`` the vocabulary, and k/v stay whole
+(their gradient summed over the axis where they are used) when the kv
+heads do not divide the axis; under ``seq_sharding`` a rank's tokens take
+their rotary angles at their own positions.
 """
 
 from __future__ import annotations
@@ -24,7 +29,19 @@ from torch import nn
 
 from hessian_llm_vision_tpu_torch.models import precision
 from hessian_llm_vision_tpu_torch.models.attention import causal_attention
-from hessian_llm_vision_tpu_torch.models.gpt2 import Dense, check_dtype, init_weights
+from hessian_llm_vision_tpu_torch.models.collectives import copy_to_model
+from hessian_llm_vision_tpu_torch.models.gpt2 import (
+    Dense,
+    _as,
+    check_dtype,
+    check_model_axis,
+    dense_rows,
+    embed,
+    gather_kv,
+    init_weights,
+    seq_slice,
+    split_input,
+)
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
 from hessian_llm_vision_tpu_torch.models.pythia import rotary_cos_sin, rotate_half
 
@@ -46,9 +63,13 @@ class LlamaConfig:
     attn_block_q: Optional[int] = None
     # matmul precision of the transformer blocks (models/precision.py)
     block_matmul_precision: object = None
+    # the model axis, as GPT2Config's (models/gpt2.py)
+    model_parallel: object = None
+    seq_sharding: object = None
 
     def __post_init__(self):
         check_dtype(self)
+        check_model_axis(self)
         precision.per_layer_precision(self.block_matmul_precision, self.num_layers)
         if self.hidden_size % self.num_heads or self.num_heads % self.kv_heads:
             raise ValueError(f"hidden_size={self.hidden_size}, num_heads={self.num_heads} and "
@@ -101,10 +122,10 @@ class RMSNorm(nn.Module):
         return (normed * self.scale).to(x.dtype)
 
 
-def _rope_full(q, k, theta: float):
+def _rope_full(q, k, theta: float, offset: int = 0):
     """Rotary embeddings over the full head dim of q (B, T, Hq, D) and k
-    (B, T, Hk, D)."""
-    cos, sin = rotary_cos_sin(q.shape[1], q.shape[-1], theta, q.device)
+    (B, T, Hk, D) at positions ``[offset, offset + T)``."""
+    cos, sin = rotary_cos_sin(q.shape[1], q.shape[-1], theta, q.device, offset)
     return rotate_half(q, cos, sin), rotate_half(k, cos, sin)
 
 
@@ -120,17 +141,32 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x):
         cfg = self.config
-        B, T, _ = x.shape
-        D, Hq, Hk = cfg.head_dim, cfg.num_heads, cfg.kv_heads
+        B, T, C = x.shape
+        D, mesh = cfg.head_dim, cfg.model_parallel
+        Hq = self.q_proj.kernel.shape[1] // D  # this rank's query heads
+        Hk = self.k_proj.kernel.shape[1] // D  # and kv heads (all of them when not split)
+        x = split_input(x, mesh, Hq < cfg.num_heads)
         q = self.q_proj(x).reshape(B, T, Hq, D)
-        k = self.k_proj(x).reshape(B, T, Hk, D)
-        v = self.v_proj(x).reshape(B, T, Hk, D)
-        q, k = _rope_full(q, k, cfg.rope_theta)
-        if Hk != Hq:  # grouped-query: each kv head serves its group of query heads
-            k = k.repeat_interleave(Hq // Hk, dim=2)
-            v = v.repeat_interleave(Hq // Hk, dim=2)
-        y = causal_attention(q, k, v, block_q=cfg.attn_block_q)
-        return self.o_proj(y.reshape(B, T, Hq * D))
+        if Hq < cfg.num_heads and Hk == cfg.kv_heads:
+            # whole k and v under split queries: their gradient summed over the axis
+            k = precision.matmul(x, _as(copy_to_model(self.k_proj.kernel, mesh), x))
+            v = precision.matmul(x, _as(copy_to_model(self.v_proj.kernel, mesh), x))
+        else:
+            k, v = self.k_proj(x), self.v_proj(x)
+        k, v = k.reshape(B, T, Hk, D), v.reshape(B, T, Hk, D)
+        offset = 0 if cfg.seq_sharding is None else cfg.seq_sharding.mesh.model_index * T
+        q, k = _rope_full(q, k, cfg.rope_theta, offset)
+        if cfg.seq_sharding is not None:
+            k, v = gather_kv(k, v, cfg.seq_sharding)
+        group = cfg.num_heads // cfg.kv_heads
+        if group > 1:  # grouped-query: each kv head serves its group of query heads
+            k = k.repeat_interleave(group, dim=2)
+            v = v.repeat_interleave(group, dim=2)
+        if k.shape[2] != Hq:  # this rank's query heads of the whole kv heads
+            first = mesh.model_index * Hq
+            k, v = k[:, :, first:first + Hq], v[:, :, first:first + Hq]
+        y = causal_attention(q, k, v, block_q=cfg.attn_block_q, q_offset=offset)
+        return dense_rows(self.o_proj, y.reshape(B, T, Hq * D), mesh, C)
 
 
 class LlamaMLP(nn.Module):
@@ -138,13 +174,16 @@ class LlamaMLP(nn.Module):
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
+        self.config = config
         C, I = config.hidden_size, config.intermediate_size
         self.gate_proj = Dense(C, I, use_bias=False)
         self.up_proj = Dense(C, I, use_bias=False)
         self.down_proj = Dense(I, C, use_bias=False)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        mesh, width = self.config.model_parallel, self.config.intermediate_size
+        x = split_input(x, mesh, self.gate_proj.kernel.shape[1] < width)
+        return dense_rows(self.down_proj, F.silu(self.gate_proj(x)) * self.up_proj(x), mesh, width)
 
 
 class LlamaBlock(nn.Module):
@@ -184,8 +223,12 @@ class LlamaLMHead(nn.Module):
         init_weights(self, generator)
 
     def forward(self, input_ids: torch.Tensor, return_hidden: bool = False):
+        """``input_ids`` (B, T) -> logits (B, T, V), or this rank's slices of
+        them under the model axis (``models/gpt2.py``)."""
         cfg = self.config
-        x = self.embed_tokens[input_ids]
+        if cfg.seq_sharding is not None:
+            input_ids, _ = seq_slice(input_ids, cfg.seq_sharding)
+        x = embed(self.embed_tokens, input_ids, cfg.vocab_size, cfg.model_parallel)
         if cfg.dtype == torch.bfloat16:
             x = x.to(cfg.dtype)
         per_prec = precision.per_layer_precision(cfg.block_matmul_precision, cfg.num_layers)
@@ -195,6 +238,7 @@ class LlamaLMHead(nn.Module):
         x = self.norm(x)
         if return_hidden:
             return x
+        x = split_input(x, cfg.model_parallel, self.lm_head.kernel.shape[1] < cfg.vocab_size)
         return at_least_f32(self.lm_head(x))
 
     @staticmethod

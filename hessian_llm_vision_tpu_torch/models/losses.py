@@ -11,6 +11,13 @@ evaluated with ``torch.func.functional_call``, so the same closure serves
 ``include_padding=True`` is the reference / HF ``labels=input_ids``
 convention (mean over all B*(T-1) targets, pads included); the default
 masks pad targets through ``attention_mask``.
+
+On the model axis of a mesh (``parallel/``) the LM losses take a model's
+slices: logits split over the vocabulary (``vocab_mesh``: a log-softmax
+whose sums run over the axis, ``models/collectives.py``) and a rank's
+T-slice of a sequence-parallel model (``seq_mesh``: its targets taken from
+the whole ``input_ids``, so the last token of every slice keeps its next
+token, and its sum of token losses summed over the axis).
 """
 
 from __future__ import annotations
@@ -22,6 +29,11 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from hessian_llm_vision_tpu_torch.models import precision
+from hessian_llm_vision_tpu_torch.models.collectives import (
+    copy_to_model,
+    reduce_from_model,
+    vocab_parallel_log_likelihood,
+)
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -36,9 +48,26 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
     return -logp.gather(-1, labels[:, None]).squeeze(-1).mean()
 
 
-def _token_log_likelihood(logits, targets):
+def _token_log_likelihood(logits, targets, vocab_mesh=None):
+    if vocab_mesh is not None:
+        return vocab_parallel_log_likelihood(at_least_f32(logits), targets, vocab_mesh)
     logp = F.log_softmax(at_least_f32(logits), dim=-1)
     return logp.gather(-1, targets[..., None]).squeeze(-1)
+
+
+def _targets(input_ids, attention_mask, include_padding, local_len: int, seq_mesh):
+    """``(first, stop, weights (B, T-1))``: the positions ``[first, stop)``
+    whose next-token losses this rank sums (all of them, or under
+    ``seq_mesh`` those of its T-slice of ``local_len`` tokens, the last
+    position of the sequence having no target) and every target's weight."""
+    B, T = input_ids.shape
+    first = 0 if seq_mesh is None else seq_mesh.model_index * local_len
+    stop = min(first + local_len, T - 1)
+    if attention_mask is not None and not include_padding:
+        w = attention_mask[:, 1:].float()
+    else:
+        w = torch.ones(B, T - 1, device=input_ids.device)
+    return first, stop, w
 
 
 def causal_lm_loss(
@@ -47,14 +76,21 @@ def causal_lm_loss(
     attention_mask: Optional[torch.Tensor] = None,
     *,
     include_padding: bool = False,
+    vocab_mesh=None,
+    seq_mesh=None,
 ) -> torch.Tensor:
     """Shifted next-token CE: mean over unmasked targets (default) or over
-    all targets (``include_padding=True``)."""
-    token_ll = _token_log_likelihood(logits[:, :-1], input_ids[:, 1:])
-    if attention_mask is not None and not include_padding:
-        mask = attention_mask[:, 1:].float()
-        return -(token_ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return -token_ll.mean()
+    all targets (``include_padding=True``).  ``vocab_mesh``: ``logits`` are
+    this rank's slice of the vocabulary; ``seq_mesh``: this rank's T-slice
+    of the positions, and ``input_ids`` the whole sequences."""
+    first, stop, w = _targets(input_ids, attention_mask, include_padding, logits.shape[1],
+                              seq_mesh)
+    token_ll = _token_log_likelihood(logits[:, :stop - first], input_ids[:, first + 1:stop + 1],
+                                     vocab_mesh)
+    total = (token_ll * w[:, first:stop]).sum()
+    if seq_mesh is not None:
+        total = reduce_from_model(total, seq_mesh)
+    return -total / torch.clamp(w.sum(), min=1.0)
 
 
 def chunked_causal_lm_loss(
@@ -65,29 +101,38 @@ def chunked_causal_lm_loss(
     *,
     chunk: int = 128,
     include_padding: bool = False,
+    vocab_mesh=None,
+    seq_mesh=None,
 ) -> torch.Tensor:
     """Shifted next-token CE computed over sequence chunks of the vocab
     projection, never forming the whole (B, T, V) logits at once.
 
     ``hidden`` (B, T, C) are the final pre-logit states, ``out_kernel``
     (C, V) the output projection.  Equal to :func:`causal_lm_loss` on the
-    dense logits.  The JAX package's per-chunk rematerialisation is not
-    ported: under autodiff each chunk's logits stay live.
+    dense logits.  ``vocab_mesh``: ``out_kernel`` holds this rank's columns
+    of the vocabulary (the hidden states enter it through
+    ``copy_to_model``); ``seq_mesh``: ``hidden`` is this rank's T-slice and
+    ``input_ids`` the whole sequences.  The JAX package's per-chunk
+    rematerialisation is not ported: under autodiff each chunk's logits
+    stay live.
     """
-    B, T, _ = hidden.shape
-    h = at_least_f32(hidden[:, :-1])
-    targets = input_ids[:, 1:]
-    if attention_mask is not None and not include_padding:
-        w = attention_mask[:, 1:].float()
-    else:
-        w = torch.ones(B, T - 1, device=hidden.device)
+    first, stop, w = _targets(input_ids, attention_mask, include_padding, hidden.shape[1],
+                              seq_mesh)
+    h = at_least_f32(hidden[:, :stop - first])
+    if vocab_mesh is not None:
+        h = copy_to_model(h, vocab_mesh)
+    targets = input_ids[:, first + 1:stop + 1]
+    wl = w[:, first:stop]
     wk = at_least_f32(out_kernel)
     partials = []
-    for s in range(0, T - 1, chunk):
+    for s in range(0, stop - first, chunk):
         ll = _token_log_likelihood(precision.matmul(h[:, s : s + chunk], wk),
-                                   targets[:, s : s + chunk])
-        partials.append((ll * w[:, s : s + chunk]).sum())
-    return -torch.stack(partials).sum() / torch.clamp(w.sum(), min=1.0)
+                                   targets[:, s : s + chunk], vocab_mesh)
+        partials.append((ll * wl[:, s : s + chunk]).sum())
+    total = torch.stack(partials).sum()
+    if seq_mesh is not None:
+        total = reduce_from_model(total, seq_mesh)
+    return -total / torch.clamp(w.sum(), min=1.0)
 
 
 def lm_loss_fn(
@@ -102,23 +147,46 @@ def lm_loss_fn(
     this size (:func:`chunked_causal_lm_loss`) against the model's own
     ``output_kernel`` (GPT-2's tied ``wte``, NeoX's ``embed_out``,
     LLaMA's ``lm_head``); ``None`` = dense logits.
+
+    On the model axis (the config's ``model_parallel`` or ``seq_sharding``)
+    ``params`` are this rank's: a vocab-parallel head gives vocab-parallel
+    logits, and under ``seq_sharding`` every parameter enters the model
+    through ``copy_to_model`` (each rank's tokens give part of every
+    gradient) and the loss is the sum over the axis of the ranks' token
+    losses over the whole batch's count.
     """
+    cfg = getattr(model, "config", None)
+    mp = getattr(cfg, "model_parallel", None)
+    sp = getattr(cfg, "seq_sharding", None)
+    seq_mesh = None if sp is None else sp.mesh
+
+    def vocab_mesh(width: int):
+        return mp if mp is not None and width < cfg.vocab_size else None
+
+    def inputs(params):
+        if seq_mesh is None:
+            return params
+        return {k: copy_to_model(p, seq_mesh) for k, p in params.items()}
 
     def loss(params, batch):
-        logits = functional_call(model, params, (batch["input_ids"],))
+        logits = functional_call(model, inputs(params), (batch["input_ids"],))
         return causal_lm_loss(
             logits, batch["input_ids"], batch.get("attention_mask"),
-            include_padding=include_padding,
+            include_padding=include_padding, vocab_mesh=vocab_mesh(logits.shape[-1]),
+            seq_mesh=seq_mesh,
         )
 
     def loss_chunked(params, batch):
+        params = inputs(params)
         hidden = functional_call(
             model, params, (batch["input_ids"],), {"return_hidden": True}
         )
+        kernel = model.output_kernel(params)
         return chunked_causal_lm_loss(
-            hidden, model.output_kernel(params), batch["input_ids"],
+            hidden, kernel, batch["input_ids"],
             batch.get("attention_mask"), chunk=loss_chunk,
-            include_padding=include_padding,
+            include_padding=include_padding, vocab_mesh=vocab_mesh(kernel.shape[1]),
+            seq_mesh=seq_mesh,
         )
 
     fn = loss_chunked if loss_chunk else loss

@@ -12,9 +12,16 @@ of a static capacity (:func:`_topk_moe`).  The routing is piecewise
 constant, so gradients and HVPs carry no routing curvature: curvature jobs
 over such a config warn (:func:`warn_if_topk_curvature`).
 
-The JAX package's expert-parallel helpers (``moe_param_sharding``,
-``shard_params_for_ep``, ``make_ep_mesh``) are not ported: they belong to
-the parallelism item (ROADMAP A13b).
+Expert parallelism (:func:`make_ep_mesh`, :func:`moe_param_sharding`,
+:func:`shard_params_for_ep`): each rank of the mesh's ``ep`` axis holds
+E/ep of the stacked expert leaves, and a config built with
+``parallel.param_sharding.model_parallel_config(cfg, ep_mesh)`` splits the
+experts' work.  Dense gating: every rank mixes its experts' outputs for
+all tokens and the sum over the axis adds the rest.  Top-k: the gate is
+replicated, so every rank computes the same dispatch and keeps its
+experts' slots.  The gate's probabilities and the tokens reach the
+experts through ``copy_to_model``, so their gradients are summed over the
+axis and come out whole on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hessian_llm_vision_tpu_torch.models import precision
+from hessian_llm_vision_tpu_torch.models.collectives import copy_to_model, reduce_from_model
 from hessian_llm_vision_tpu_torch.models.gpt2 import Dense, _as
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
 
@@ -55,22 +63,32 @@ class MoEMLP(nn.Module):
         cfg = self.config
         probs = torch.softmax(at_least_f32(self.gate(x)), dim=-1).to(x.dtype)
         w1, b1, w2, b2 = (_as(p, x) for p in (self.w1, self.b1, self.w2, self.b2))
+        local = w1.shape[0]  # this rank's experts: all of them, or E/ep under EP
+        mesh, first = cfg.model_parallel, 0
+        if local < cfg.n_experts:
+            x, probs = copy_to_model(x, mesh), copy_to_model(probs, mesh)
+            first = mesh.model_index * local
         if cfg.moe_top_k:
-            return _topk_moe(x, probs, w1, b1, w2, b2, cfg.moe_top_k, cfg.moe_capacity_factor)
-        h = F.gelu(precision.einsum("btc,ecf->btef", x, w1) + b1, approximate="tanh")
-        y = precision.einsum("btef,efc->btec", h, w2) + b2
-        return precision.einsum("btec,bte->btc", y, probs)
+            y = _topk_moe(x, probs, w1, b1, w2, b2, cfg.moe_top_k, cfg.moe_capacity_factor,
+                          first)
+        else:
+            h = F.gelu(precision.einsum("btc,ecf->btef", x, w1) + b1, approximate="tanh")
+            y = precision.einsum("btef,efc->btec", h, w2) + b2
+            y = precision.einsum("btec,bte->btc", y, probs[..., first:first + local])
+        return y if local == cfg.n_experts else reduce_from_model(y, mesh)
 
 
-def _topk_moe(x, probs, w1, b1, w2, b2, top_k: int, cap_factor: float):
+def _topk_moe(x, probs, w1, b1, w2, b2, top_k: int, cap_factor: float, first: int = 0):
     """Capacity-based top-k dispatch, as the JAX package's: each token goes
     to its ``top_k`` experts with renormalised gate weights; each expert
     holds ``cap = ceil(top_k N / E * cap_factor)`` token slots, filled in
     top-k rank order, then token order (a cumulative sum); a token past an
     expert's capacity is dropped from it.  With ``top_k == E`` and room for
-    every token it equals the dense mix."""
+    every token it equals the dense mix.  The experts of ``w1`` ... are
+    ``[first, first + len(w1))`` of the E that ``probs`` routes over (an
+    expert-parallel rank's), and only their slots are computed."""
     B, T, C = x.shape
-    E = w1.shape[0]
+    E = probs.shape[-1]
     N = B * T
     cap = max(1, min(int(math.ceil(top_k * N / E * cap_factor)), N))
     pf = at_least_f32(probs.reshape(N, E))
@@ -86,6 +104,7 @@ def _topk_moe(x, probs, w1, b1, w2, b2, top_k: int, cap_factor: float):
         slot = (pos[..., None] == slots).to(pf.dtype)  # (N, E, cap); none past cap
         combine = combine + vals[:, j, None, None] * within[..., None] * slot
         counts = counts + mask.sum(0)
+    combine = combine[:, first:first + w1.shape[0]]
     dispatch = (combine > 0).to(x.dtype)
     expert_in = precision.einsum("nec,nd->ecd", dispatch, x.reshape(N, C))
     h = F.gelu(precision.einsum("ecd,edf->ecf", expert_in, w1) + b1[:, None, :],
@@ -130,3 +149,45 @@ def warn_if_topk_curvature(model_or_config, *, what: str = "curvature job") -> O
         warnings.warn(f"[{what}] {msg}", TopKCurvatureWarning, stacklevel=2)
         print(f"WARNING [{what}]: {msg}", file=sys.stderr)
     return msg
+
+
+_EXPERT_LEAF = ("w1", "w2", "b1", "b2")
+
+
+def moe_param_sharding(params, mesh, *, ep_axis: str = "ep") -> dict:
+    """``{name: spec}``: the stacked expert leaves (``...moe.w1|w2|b1|b2``)
+    split dim 0 over ``ep_axis``; everything else replicated, and so is an
+    expert leaf whose count does not divide the axis."""
+    ep = mesh.shape[ep_axis]
+    out = {}
+    for name, leaf in params.items():
+        *path, last = name.split(".")
+        expert = bool(path) and path[-1] == "moe" and last in _EXPERT_LEAF
+        out[name] = ((ep_axis,) + (None,) * (len(leaf.shape) - 1)
+                     if expert and leaf.shape[0] % ep == 0 else ())
+    return out
+
+
+def ep_layout(params, mesh, *, ep_axis: str = "ep") -> dict:
+    """``{name: Split or None}`` of :func:`moe_param_sharding` (the layout
+    that ``parallel/param_sharding.py`` and ``utils/flatten.py`` read)."""
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import Split
+
+    return {k: Split(0) if spec else None
+            for k, spec in moe_param_sharding(params, mesh, ep_axis=ep_axis).items()}
+
+
+def shard_params_for_ep(params, mesh, *, ep_axis: str = "ep") -> dict:
+    """This rank's experts of the whole ``params`` (any dict with the
+    model's names); every other leaf whole."""
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params
+
+    return shard_params(params, ep_layout(params, mesh, ep_axis=ep_axis), mesh)
+
+
+def make_ep_mesh(num_data: int, num_experts_axis: int):
+    """Mesh('data', 'ep') over the ranks of the default group: batch axis x
+    expert axis."""
+    from hessian_llm_vision_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(num_data, num_experts_axis, axis_names=("data", "ep"))

@@ -12,7 +12,12 @@ query_key_value.kernel`` of shape (in, 3C) with q, k and v concatenated,
 ``embed_in`` (vocab, C), LayerNorm ``scale`` and ``bias``), so
 ``models/convert.py`` carries the JAX params by name and the flat order is
 the JAX ``Flattener``'s.  The compute dtype and the per-block precision
-scopes are GPT-2's (``models/gpt2.py``, ``models/precision.py``).
+scopes are GPT-2's (``models/gpt2.py``, ``models/precision.py``), and so
+is the model axis: under ``model_parallel`` ``query_key_value`` splits per
+head and ``attention.dense`` by rows, ``dense_h_to_4h`` / ``dense_4h_to_h``
+split the MLP's width, and ``embed_in`` / ``embed_out`` the vocabulary;
+under ``seq_sharding`` a rank's tokens take their rotary angles at their
+own positions.
 """
 
 from __future__ import annotations
@@ -26,7 +31,18 @@ from torch import nn
 
 from hessian_llm_vision_tpu_torch.models import precision
 from hessian_llm_vision_tpu_torch.models.attention import causal_attention
-from hessian_llm_vision_tpu_torch.models.gpt2 import Dense, LayerNorm, check_dtype, init_weights
+from hessian_llm_vision_tpu_torch.models.gpt2 import (
+    Dense,
+    LayerNorm,
+    check_dtype,
+    check_model_axis,
+    dense_rows,
+    embed,
+    gather_kv,
+    init_weights,
+    seq_slice,
+    split_input,
+)
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
 
 
@@ -45,9 +61,13 @@ class NeoXConfig:
     attn_block_q: Optional[int] = None
     # matmul precision of the transformer blocks (models/precision.py)
     block_matmul_precision: object = None
+    # the model axis, as GPT2Config's (models/gpt2.py)
+    model_parallel: object = None
+    seq_sharding: object = None
 
     def __post_init__(self):
         check_dtype(self)
+        check_model_axis(self)
         precision.per_layer_precision(self.block_matmul_precision, self.num_layers)
         if self.hidden_size % self.num_heads:
             raise ValueError(f"hidden_size={self.hidden_size} not divisible by "
@@ -86,17 +106,20 @@ def rotate_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
     return x * cos.to(x.dtype) + torch.cat([-x2, x1], dim=-1) * sin.to(x.dtype)
 
 
-def rotary_cos_sin(T: int, dim: int, base: float, device) -> tuple:
-    """(1, T, 1, dim) cos and sin of the rotary angles, computed in f32."""
+def rotary_cos_sin(T: int, dim: int, base: float, device, offset: int = 0) -> tuple:
+    """(1, T, 1, dim) cos and sin of the rotary angles of positions
+    ``[offset, offset + T)``, computed in f32."""
     inv_freq = 1.0 / (base ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
-    freqs = torch.outer(torch.arange(T, dtype=torch.float32, device=device), inv_freq)
+    pos = torch.arange(offset, offset + T, dtype=torch.float32, device=device)
+    freqs = torch.outer(pos, inv_freq)
     emb = torch.cat([freqs, freqs], dim=-1)[None, :, None, :]
     return emb.cos(), emb.sin()
 
 
-def _rotary(q, k, base: int, rot_dim: int):
-    """Rotary embeddings on the first ``rot_dim`` dims of q and k (B, T, H, D)."""
-    cos, sin = rotary_cos_sin(q.shape[1], rot_dim, base, q.device)
+def _rotary(q, k, base: int, rot_dim: int, offset: int = 0):
+    """Rotary embeddings on the first ``rot_dim`` dims of q and k (B, T, H, D)
+    at positions ``[offset, offset + T)``."""
+    cos, sin = rotary_cos_sin(q.shape[1], rot_dim, base, q.device, offset)
 
     def rot(x):
         return torch.cat([rotate_half(x[..., :rot_dim], cos, sin), x[..., rot_dim:]], dim=-1)
@@ -115,23 +138,32 @@ class NeoXAttention(nn.Module):
     def forward(self, x):
         cfg = self.config
         B, T, C = x.shape
-        heads = (B, T, cfg.num_heads, cfg.head_dim)
-        q, k, v = (t.reshape(heads) for t in self.query_key_value(x).split(C, dim=-1))
-        rot_dim = int(cfg.head_dim * cfg.rotary_pct)
+        D = cfg.head_dim
+        H = self.query_key_value.kernel.shape[1] // (3 * D)  # this rank's heads
+        x = split_input(x, cfg.model_parallel, H < cfg.num_heads)
+        q, k, v = (t.reshape(B, T, H, D) for t in self.query_key_value(x).split(H * D, dim=-1))
+        offset = 0 if cfg.seq_sharding is None else cfg.seq_sharding.mesh.model_index * T
+        rot_dim = int(D * cfg.rotary_pct)
         if rot_dim > 0:
-            q, k = _rotary(q, k, cfg.rotary_emb_base, rot_dim)
-        y = causal_attention(q, k, v, block_q=cfg.attn_block_q)
-        return self.dense(y.reshape(B, T, C))
+            q, k = _rotary(q, k, cfg.rotary_emb_base, rot_dim, offset)
+        if cfg.seq_sharding is not None:
+            k, v = gather_kv(k, v, cfg.seq_sharding)
+        y = causal_attention(q, k, v, block_q=cfg.attn_block_q, q_offset=offset)
+        return dense_rows(self.dense, y.reshape(B, T, H * D), cfg.model_parallel, C)
 
 
 class NeoXMLP(nn.Module):
     def __init__(self, config: NeoXConfig):
         super().__init__()
+        self.config = config
         self.dense_h_to_4h = Dense(config.hidden_size, 4 * config.hidden_size)
         self.dense_4h_to_h = Dense(4 * config.hidden_size, config.hidden_size)
 
     def forward(self, x):
-        return self.dense_4h_to_h(F.gelu(self.dense_h_to_4h(x), approximate="tanh"))
+        mesh, width = self.config.model_parallel, 4 * self.config.hidden_size
+        x = split_input(x, mesh, self.dense_h_to_4h.kernel.shape[1] < width)
+        h = F.gelu(self.dense_h_to_4h(x), approximate="tanh")
+        return dense_rows(self.dense_4h_to_h, h, mesh, width)
 
 
 class NeoXBlock(nn.Module):
@@ -171,8 +203,12 @@ class NeoXLMHead(nn.Module):
         init_weights(self, generator)
 
     def forward(self, input_ids: torch.Tensor, return_hidden: bool = False):
+        """``input_ids`` (B, T) -> logits (B, T, V), or this rank's slices of
+        them under the model axis (``models/gpt2.py``)."""
         cfg = self.config
-        x = self.embed_in[input_ids]
+        if cfg.seq_sharding is not None:
+            input_ids, _ = seq_slice(input_ids, cfg.seq_sharding)
+        x = embed(self.embed_in, input_ids, cfg.vocab_size, cfg.model_parallel)
         if cfg.dtype == torch.bfloat16:
             x = x.to(cfg.dtype)
         per_prec = precision.per_layer_precision(cfg.block_matmul_precision, cfg.num_layers)
@@ -182,6 +218,7 @@ class NeoXLMHead(nn.Module):
         x = self.final_layer_norm(x)
         if return_hidden:
             return x
+        x = split_input(x, cfg.model_parallel, self.embed_out.kernel.shape[1] < cfg.vocab_size)
         return at_least_f32(self.embed_out(x))
 
     @staticmethod

@@ -213,7 +213,7 @@ def make_lanczos_sgd_step(
         params, buf = _momentum_step(cfg, state, adjusted)
         metrics = {
             "loss": loss.detach(),
-            "grad_norm": norm(g_flat),
+            "grad_norm": norm(g_flat) if sh is None else sh.norm(sh.part(g_flat)),
             "eig_max": eigvals[-1],
             "eig_min": eigvals[0],
             "lr": _lr_at(cfg.lr, state.step),

@@ -16,6 +16,13 @@ in place, so no f32 (k, P) transient is formed for a bf16 basis.
 ``step`` updates ``state.params`` and ``state.momentum`` IN PLACE under
 ``torch.no_grad()`` -- the tensors given to :meth:`init` are the ones that
 change; pass clones if the caller needs the originals.
+
+With ``basis_sharding`` (``parallel.mesh.basis_sharding``, and the one way
+to run a model-parallel loss, whose flat vectors are each rank's own:
+``utils/flatten.py::ModelAxisLayout``) the refresh's vectors and the stored
+basis are this rank's parts (``krylov/sharded.py``), and the adjust runs
+the rank-k pair on them with one all-reduce of its k coefficients between
+the passes.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ import torch
 
 from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss, hvp_fn
 from hessian_llm_vision_tpu_torch.krylov.lanczos import host_recurrence_step
-from hessian_llm_vision_tpu_torch.ops.spectral import spectral_adjust
+from hessian_llm_vision_tpu_torch.krylov.sharded import p_shard
+from hessian_llm_vision_tpu_torch.ops.spectral import adjust_coeffs, spectral_adjust
 from hessian_llm_vision_tpu_torch.optim.lanczos_sgd import LanczosSGDConfig
 from hessian_llm_vision_tpu_torch.optim.manual import _lr_at
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
@@ -81,6 +89,7 @@ class HostLanczosSGDTrainer:
         refresh_batch_size: Optional[int] = None,
         refresh_precision: str = "high",
         refresh_linearized: bool = False,
+        basis_sharding=None,
     ):
         """``basis_dtype=torch.bfloat16`` halves the stored (k, P) basis;
         the Lanczos recurrence stays f32.  ``refresh_batch_size``: run the
@@ -97,7 +106,9 @@ class HostLanczosSGDTrainer:
         ``refresh_linearized``: pay the refresh's primal forward and
         backward once per refresh (``curvature/linearized.py``) and run
         the k Lanczos iterations on the tangent map; the residuals live on
-        the device during the refresh (``residual_bytes`` counts them)."""
+        the device during the refresh (``residual_bytes`` counts them).
+        ``basis_sharding``: the basis split over a mesh's ranks (the
+        module's docstring)."""
         self.cfg = config
         self.refresh_linearized = refresh_linearized
         self.basis_dtype = basis_dtype
@@ -105,6 +116,9 @@ class HostLanczosSGDTrainer:
         self.loss_fn = loss_fn
         self._batch_size = batch_size
         self.fl = Flattener(params_template)
+        self.sh = p_shard(basis_sharding, self.fl.size)
+        if self.sh is not None and refresh_linearized:
+            raise NotImplementedError("refresh_linearized with a sharded basis is not ported")
         self.precision_guard = None
         self._refresh_count = 0
         self._build_refresh_hvp(loss_fn, refresh_precision)
@@ -152,9 +166,13 @@ class HostLanczosSGDTrainer:
     def refresh_spectrum(self, params: Params, batch, g_flat: torch.Tensor):
         """Grad-seeded k-iteration Lanczos; returns (eigvals (k,) f32,
         Ritz basis (k, P) in ``basis_dtype``)."""
-        k = self.cfg.k
-        basis = torch.zeros((k, g_flat.shape[0]), dtype=self.basis_dtype, device=g_flat.device)
-        q_cur = g_flat / torch.clamp(norm(g_flat), min=1e-30)
+        k, sh = self.cfg.k, self.sh
+        if sh is None:
+            q_cur = g_flat / torch.clamp(norm(g_flat), min=1e-30)
+        else:
+            q_cur = sh.local(g_flat)
+            q_cur = q_cur / torch.clamp(sh.norm(q_cur), min=1e-30)
+        basis = torch.zeros((k, q_cur.shape[0]), dtype=self.basis_dtype, device=g_flat.device)
         q_prev = torch.zeros_like(q_cur)
         beta_prev = torch.zeros((), dtype=torch.float32, device=g_flat.device)
         consts = None
@@ -162,13 +180,15 @@ class HostLanczosSGDTrainer:
             # one primal forward+backward for all k iterations
             consts = self._resid(params, batch)
             matvec = lambda v: self._tangent(v, consts)  # noqa: E731
-        else:
+        elif sh is None:
             matvec = lambda v: self._hvp_flat(v, params, batch)  # noqa: E731
+        else:
+            matvec = lambda v: sh.local(self._hvp_flat(sh.gather(v), params, batch))  # noqa: E731
         alphas, betas = [], []
         for i in range(k):
             basis[i] = q_cur  # in-place row write, cast to basis_dtype
             w = matvec(q_cur)
-            alpha, beta, q_next = host_recurrence_step(w, q_cur, q_prev, beta_prev)
+            alpha, beta, q_next = host_recurrence_step(w, q_cur, q_prev, beta_prev, sh)
             q_prev, q_cur, beta_prev = q_cur, q_next, beta
             alphas.append(float(alpha))
             betas.append(float(beta))
@@ -185,8 +205,12 @@ class HostLanczosSGDTrainer:
 
     @torch.no_grad()
     def _adjust_update(self, state: HostLanczosSGDState, g_flat: torch.Tensor) -> None:
-        cfg = self.cfg
-        adj = spectral_adjust(g_flat, state.basis, state.eigvals, cfg.delta)
+        cfg, sh = self.cfg, self.sh
+        if sh is None:
+            adj = spectral_adjust(g_flat, state.basis, state.eigvals, cfg.delta)
+        else:
+            adj = sh.gather(sh.rank_k(sh.local(g_flat), state.basis,
+                                      adjust_coeffs(state.eigvals, cfg.delta)))
         lr_t = _lr_at(cfg.lr, state.step)
         for name, a in self.fl.unflatten(adj).items():
             p, buf = state.params[name], state.momentum[name]

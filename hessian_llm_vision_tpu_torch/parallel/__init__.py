@@ -1,11 +1,13 @@
-"""Parallelism on ``torch.distributed``: the data axis (port of the data
-half of ``parallel/``).
+"""Parallelism on ``torch.distributed`` (port of ``parallel/``).
 
-The batch or the probes split over the ranks, the parameters replicate,
-and the Krylov basis splits along P (``krylov/sharded.py``).  The model
-axis -- tensor parallelism, sequence parallelism, the pipeline and
-expert parallelism -- is ROADMAP A13b.  ``parallel.spawn`` (n ranks in new
-interpreters) and ``parallel.dryrun`` are imported on their own.
+The data axis: the batch or the probes split over the ranks, the
+parameters replicate, and the Krylov basis splits along P
+(``krylov/sharded.py``).  The model axis: tensor parallelism
+(``param_sharding``), sequence parallelism (``seq_parallel``) and expert
+parallelism (``models/moe.py``), with the differentiable collectives of
+``models/collectives.py`` inside the model, and the basis split over both
+axes.  The GPipe pipeline is ROADMAP A13c.  ``parallel.spawn`` (n ranks in
+new interpreters) and ``parallel.dryrun`` are imported on their own.
 """
 
 from hessian_llm_vision_tpu_torch.parallel.dist_init import (
@@ -30,8 +32,18 @@ from hessian_llm_vision_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from hessian_llm_vision_tpu_torch.parallel.offload import to_device, to_host
+from hessian_llm_vision_tpu_torch.parallel.param_sharding import (
+    DEFAULT_TP_RULES,
+    model_parallel_config,
+    shard_params_for_tp,
+    tp_spec_tree,
+)
 from hessian_llm_vision_tpu_torch.parallel.probe_parallel import (
     probe_parallel_spectrum_host,
+)
+from hessian_llm_vision_tpu_torch.parallel.seq_parallel import (
+    seq_parallel_config,
+    seq_sharding,
 )
 
 __all__ = [
@@ -52,5 +64,11 @@ __all__ = [
     "sharded_grad_fn",
     "to_host",
     "to_device",
+    "shard_params_for_tp",
+    "tp_spec_tree",
+    "DEFAULT_TP_RULES",
+    "model_parallel_config",
+    "seq_sharding",
+    "seq_parallel_config",
     "probe_parallel_spectrum_host",
 ]

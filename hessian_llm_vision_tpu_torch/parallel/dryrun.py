@@ -1,20 +1,27 @@
-"""The data axis on n CPU ranks, one line of summary (the data-axis half of
-the JAX package's ``__graft_entry__.py::dryrun_multichip``).
+"""The parallel axes on n CPU ranks, one line of summary (the JAX package's
+``__graft_entry__.py::dryrun_multichip``).
 
-``dryrun_multichip(n)`` spawns n gloo ranks on the CPU (``parallel/spawn.py``)
-and, on a tiny GPT-2 with one global batch of 2n sequences, runs the
-data-parallel loss, gradient and HVP (held to one process on the whole
-batch), thick restart with the basis split along P, probe-parallel SLQ
-(held to the probes run in turn) and one fused LanczosSGD step with a
-P-sharded basis.  The model axis (tensor, sequence, pipeline and expert
-parallelism) joins it with ROADMAP A13b.
+``dryrun_multichip(n)`` spawns n gloo ranks on the CPU (``parallel/spawn.py``).
+The data axis (:func:`dryrun_rank`): on a tiny GPT-2 with one global batch
+of 2n sequences, the data-parallel loss, gradient and HVP (held to one
+process on the whole batch), thick restart with the basis split along P,
+probe-parallel SLQ (held to the probes run in turn) and one fused
+LanczosSGD step with a P-sharded basis.  The model axis
+(:func:`dryrun_model_rank`, on n >= 4 even ranks, as the JAX function
+takes a model axis of 2 there): on a data n/2 x model 2 mesh, tensor-
+parallel params with a data-parallel loss and the basis split over both
+axes (a fused LanczosSGD step, the host-loop spectrum, two steps of the
+host trainer), the sequence-parallel host-loop spectrum at batch size 1,
+and Lanczos through the expert-parallel MoE GPT-2, each held to one
+process on the whole model.  The pipeline part is ROADMAP A13c.
 
     python -c "from hessian_llm_vision_tpu_torch.parallel.dryrun import \\
-        dryrun_multichip; dryrun_multichip(2)"
+        dryrun_multichip; dryrun_multichip(4)"
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import tempfile
 
@@ -106,13 +113,153 @@ def dryrun_rank(mesh) -> dict:
     }
 
 
+def _t_diff(a, b) -> float:
+    """The largest difference of two tridiagonals' entries, relative to the
+    largest entry of ``b``."""
+    scale = max(float(b.alphas.abs().max()), float(b.betas.abs().max()))
+    return max(float((a.alphas - b.alphas).abs().max()),
+               float((a.betas - b.betas).abs().max())) / scale
+
+
+def _ritz_rel(a, b) -> float:
+    from hessian_llm_vision_tpu_torch.krylov.slq import ritz_decomposition
+
+    ea, eb = (np.sort(ritz_decomposition(r).eigvals.numpy()) for r in (a, b))
+    return float(np.abs(ea - eb).max() / np.abs(eb).max())
+
+
+def dryrun_model_rank(mesh) -> dict:
+    """One rank's share of the model-axis half of :func:`dryrun_multichip`
+    on the ranks of ``mesh`` (an even number, at least 4).  Rank 0 alone
+    runs the one-process references and reports the differences; every
+    rank reports the sharded runs' numbers."""
+    from hessian_llm_vision_tpu_torch.curvature.operators import HessianOperator
+    from hessian_llm_vision_tpu_torch.krylov.driver import dataset_spectrum_host
+    from hessian_llm_vision_tpu_torch.krylov.lanczos import lanczos
+    from hessian_llm_vision_tpu_torch.models import losses
+    from hessian_llm_vision_tpu_torch.models.convert import gather_model_axis
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from hessian_llm_vision_tpu_torch.models.moe import ep_layout, make_ep_mesh
+    from hessian_llm_vision_tpu_torch.optim.lanczos_sgd import (
+        LanczosSGDConfig,
+        make_lanczos_sgd_step,
+    )
+    from hessian_llm_vision_tpu_torch.optim.lanczos_sgd_host import HostLanczosSGDTrainer
+    from hessian_llm_vision_tpu_torch.parallel.hvp_sharded import make_sharded_loss
+    from hessian_llm_vision_tpu_torch.parallel.mesh import basis_sharding, make_mesh, shard_batch
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import (
+        model_parallel_config,
+        shard_params,
+        tp_layout,
+    )
+    from hessian_llm_vision_tpu_torch.parallel.seq_parallel import seq_parallel_config
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener, ModelAxisLayout
+
+    n, lead = mesh.size, mesh.index == 0
+    mm = make_mesh(n // 2, 2)
+    ep_mesh = make_ep_mesh(n // 2, 2)
+    cfg = GPT2Config(vocab_size=VOCAB, n_positions=64, n_embd=32, n_layer=2, n_head=2)
+    model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0))
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    loss_fn, fl = losses.lm_loss_fn(model), Flattener(params)
+    splits = tp_layout(params, mm, cfg)
+    tp_params = shard_params(params, splits, mm)
+    tp_model = GPT2LMHead(model_parallel_config(cfg, mm))
+    layout = ModelAxisLayout(tp_params, splits, mm.num_model, mm.model_index)
+    sharded = make_sharded_loss(losses.lm_loss_fn(tp_model), mm)
+    both = basis_sharding(mm, layout)  # P split over data and model
+    ids = np.random.RandomState(1).randint(0, VOCAB, size=(4, 2 * mm.num_data, SEQ))
+    batches = [{"input_ids": torch.as_tensor(i)} for i in ids]
+    local = [shard_batch(b, mm) for b in batches]
+    out = {"mesh": mm.shape, "params": fl.size, "rank_vector": layout.size,
+           "split_leaves": sum(1 for s in splits.values() if s is not None)}
+
+    step_cfg = LanczosSGDConfig(k=4, delta=1e-4, lr=1e-3, momentum=0.9, weight_decay=1e-4,
+                                normalization="mean")
+    init_n, step_n = make_lanczos_sgd_step(sharded, tp_params, step_cfg, basis_sharding=both)
+    state_n, m_n = step_n(init_n({k: p.clone() for k, p in tp_params.items()}), local[0])
+    stepped = Flattener(params).flatten(gather_model_axis(state_n.params, mm, splits))
+    out.update({"step_loss": float(m_n["loss"]), "step_eig_max": float(m_n["eig_max"]),
+                "step_basis_columns": int(state_n.basis.shape[1])})
+    if lead:
+        init_1, step_1 = make_lanczos_sgd_step(loss_fn, params, step_cfg)
+        state_1, m_1 = step_1(init_1({k: p.clone() for k, p in params.items()}), batches[0])
+        out.update({"step_eig_max_rel": abs(float(m_n["eig_max"]) / float(m_1["eig_max"]) - 1),
+                    "step_params_rel": _rel(stepped, fl.flatten(state_1.params))})
+
+    v = torch.randn(fl.size, generator=torch.Generator().manual_seed(2))
+    v_rank = Flattener(tp_params).flatten(shard_params(fl.unflatten(v), splits, mm))
+    host_n = dataset_spectrum_host(sharded, tp_params, local[:2], 3, v0=v_rank,
+                                   basis_sharding=both)
+    out["host_loop_alpha0"] = float(host_n.alphas[0])
+    if lead:
+        host_1 = dataset_spectrum_host(loss_fn, params, batches[:2], 3, v0=v)
+        out["host_loop_T_diff"] = _t_diff(host_n, host_1)
+
+    trainer_cfg = LanczosSGDConfig(k=3, delta=1e-3, lr=1e-3, momentum=0.9, refresh_every=2,
+                                   normalization="mean")
+    t_n = HostLanczosSGDTrainer(sharded, tp_params, trainer_cfg, basis_sharding=both)
+    s_n = t_n.init({k: p.clone() for k, p in tp_params.items()})
+    for part in local[:2]:
+        s_n, hm_n = t_n.step(s_n, part)
+    trained = Flattener(params).flatten(gather_model_axis(s_n.params, mm, splits))
+    out["trainer_loss"] = float(hm_n["loss"])
+    if lead:
+        t_1 = HostLanczosSGDTrainer(loss_fn, params, trainer_cfg)
+        s_1 = t_1.init({k: p.clone() for k, p in params.items()})
+        for whole in batches[:2]:
+            s_1, _ = t_1.step(s_1, whole)
+        out["trainer_params_rel"] = _rel(trained, fl.flatten(s_1.params))
+
+    # sequence parallelism at batch size 1 (nothing for the data axis)
+    sp_model = GPT2LMHead(seq_parallel_config(cfg, mm, data_axis=None))
+    sp_batches = [{"input_ids": torch.as_tensor(i[:1])} for i in ids[2:]]
+    sp_n = dataset_spectrum_host(losses.lm_loss_fn(sp_model), params, sp_batches, 3, v0=v)
+    out["seq_parallel_alpha0"] = float(sp_n.alphas[0])
+    if lead:
+        sp_1 = dataset_spectrum_host(loss_fn, params, sp_batches, 3, v0=v)
+        out["seq_parallel_T_diff"] = _t_diff(sp_n, sp_1)
+
+    # expert parallelism: Lanczos through the EP MoE GPT-2, its basis on the axis
+    moe_cfg = dataclasses.replace(cfg, n_experts=4)
+    moe = GPT2LMHead(moe_cfg, generator=torch.Generator().manual_seed(8))
+    moe_params = {k: p.detach() for k, p in moe.named_parameters()}
+    ep_splits = ep_layout(moe_params, ep_mesh)
+    ep_params = shard_params(moe_params, ep_splits, ep_mesh)
+    ep_model = GPT2LMHead(model_parallel_config(moe_cfg, ep_mesh))
+    moe_fl = Flattener(moe_params)
+    w = torch.randn(moe_fl.size, generator=torch.Generator().manual_seed(9))
+    w_rank = Flattener(ep_params).flatten(shard_params(moe_fl.unflatten(w), ep_splits, ep_mesh))
+    ep_op = HessianOperator(losses.lm_loss_fn(ep_model), ep_params, batches[0])
+    ep_n = lanczos(ep_op.matvec, ep_op.dim, 4, v0=w_rank, basis_sharding=basis_sharding(
+        ep_mesh, ModelAxisLayout(ep_params, ep_splits, ep_mesh.num_model,
+                                 ep_mesh.model_index)))
+    out.update({"ep_mesh": ep_mesh.shape, "ep_alpha0": float(ep_n.alphas[0])})
+    if lead:
+        ep_1 = lanczos(HessianOperator(losses.lm_loss_fn(moe), moe_params, batches[0]).matvec,
+                       moe_fl.size, 4, v0=w)
+        out.update({"ep_T_diff": _t_diff(ep_n, ep_1), "ep_ritz_rel": _ritz_rel(ep_n, ep_1)})
+    return out
+
+
+def dryrun_all(mesh) -> dict:
+    """:func:`dryrun_rank`, and :func:`dryrun_model_rank` on an even mesh
+    of at least 4 ranks."""
+    out = dryrun_rank(mesh)
+    n = mesh.size
+    out["model_axis"] = dryrun_model_rank(mesh) if n >= 4 and n % 2 == 0 else (
+        "needs an even number of ranks, at least 4")
+    out["pipeline"] = "not ported yet (ROADMAP A13c)"
+    return out
+
+
 def dryrun_multichip(n_devices: int = 2, *, timeout: float = 600.0) -> dict:
-    """The data axis on ``n_devices`` gloo ranks on the CPU; prints one
+    """The parallel axes on ``n_devices`` gloo ranks on the CPU; prints one
     JSON line and returns its summary (rank 0's numbers)."""
     from hessian_llm_vision_tpu_torch.parallel.spawn import run_ranks
 
     with tempfile.TemporaryDirectory() as workdir:
-        ranks = run_ranks(f"{__name__}:dryrun_rank", n_devices, workdir, threads=1,
+        ranks = run_ranks(f"{__name__}:dryrun_all", n_devices, workdir, threads=1,
                           timeout=timeout)
     return report(ranks[0]["result"])
 

@@ -86,7 +86,7 @@ def probe_parallel_spectrum_host(
             "pad the probe count or shrink the mesh; a silent remainder would skew "
             "the SLQ average")
     per_rank = n_probes // n
-    mine = range(mesh.index * per_rank, (mesh.index + 1) * per_rank)
+    mine = range(mesh.data_index * per_rank, (mesh.data_index + 1) * per_rank)
     device = next(iter(params.values())).device
     starts = {}
     for i in range(n_probes):  # every draw, in probe order, on every rank
@@ -106,7 +106,7 @@ def probe_parallel_spectrum_host(
         )
         T[0, i] = res.alphas
         T[1, i, :num_iters - 1] = res.betas
-        if progress and mesh.index == 0:
+        if progress and mesh.data_index == 0:
             if T.is_cuda:
                 torch.cuda.synchronize(T.device)
             print(f"probe-parallel lanczos: probe {i + 1}/{n_probes} on rank 0 of {n}, "

@@ -9,6 +9,10 @@ recursively sorted keys, which is the order of the dotted names sorted by
 ``tuple(name.split("."))`` -- ``h_10`` precedes ``h_2`` and a GPT-2 vector
 ends ``ln_f.bias, ln_f.scale, wpe, wte``.  Flat vectors of the two packages
 therefore compare element by element, with no name map.
+
+On the model axis of a mesh a rank holds its slices of the split leaves
+and the whole replicated ones; :class:`ModelAxisLayout` is the flat layout
+of its Krylov vectors there, in which every parameter is counted once.
 """
 
 from __future__ import annotations
@@ -62,3 +66,76 @@ class Flattener:
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"Flattener(P={self.size}, leaves={len(self._sizes)})"
+
+
+def _round_up(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
+class ModelAxisLayout:
+    """The flat layout of a model-parallel rank's Krylov vectors.
+
+    ``template`` holds this rank's leaves (its slices of the split ones,
+    the replicated ones whole); ``splits`` names the split leaves (``{name:
+    Split or None}``, ``parallel/param_sharding.py``).  The rank's *rank
+    vector* is ``Flattener(template)``'s (what its curvature products take
+    and give); its *owned* vector holds, in flax order, its slices of the
+    split leaves, then its contiguous share ``[m·s, (m+1)·s)`` of the
+    replicated leaves' concatenation R (s = ceil(|R| / n)), zero-padded to
+    ``length``, a multiple of 8 entries (16-byte rows for the rank-k
+    kernels at f32 and bf16).  The owned vectors of the n model ranks hold
+    every parameter once.  Pure bookkeeping: the collectives that put the
+    pieces together are ``krylov/sharded.py::ModelShard``'s."""
+
+    def __init__(self, template: Mapping[str, torch.Tensor], splits: Mapping[str, object],
+                 num_model: int, model_index: int):
+        self.fl = Flattener(template)
+        self.splits = dict(splits)
+        self.num_model, self.model_index = num_model, model_index
+        segs = list(zip(self.fl.names, self.fl._offsets, self.fl._sizes))
+        self.split_segments = [(off, size) for n, off, size in segs if self.splits.get(n)]
+        self.replicated_segments = [(off, size) for n, off, size in segs
+                                    if not self.splits.get(n)]
+        self.split_size = sum(size for _, size in self.split_segments)
+        self.replicated_size = sum(size for _, size in self.replicated_segments)
+        self.share = -(-self.replicated_size // num_model)
+        self.share_lo = model_index * self.share
+        self.share_width = max(0, min(self.share, self.replicated_size - self.share_lo))
+        self.length = _round_up(self.split_size + self.share, 8)
+        # this rank's share of R as (rank-vector offset, size) pieces
+        self.share_pieces, r_off = [], 0
+        lo, hi = self.share_lo, self.share_lo + self.share_width
+        for off, size in self.replicated_segments:
+            a, b = max(lo, r_off), min(hi, r_off + size)
+            if a < b:
+                self.share_pieces.append((off + a - r_off, b - a))
+            r_off += size
+
+    @property
+    def size(self) -> int:
+        """Entries of the rank vector."""
+        return self.fl.size
+
+    def owned(self, rank_vec: torch.Tensor) -> torch.Tensor:
+        """The owned vector (``length``) of a rank vector."""
+        pieces = [rank_vec[off:off + size] for off, size in self.split_segments + self.share_pieces]
+        pad = self.length - self.split_size - self.share_width
+        pieces.append(rank_vec.new_zeros(pad))
+        return torch.cat(pieces)
+
+    def replicated_share(self, owned: torch.Tensor) -> torch.Tensor:
+        """This rank's share of R in an owned vector."""
+        return owned[self.split_size:self.split_size + self.share_width]
+
+    def rank_vector(self, owned: torch.Tensor, replicated: torch.Tensor) -> torch.Tensor:
+        """The rank vector from an owned vector and the whole R."""
+        out = owned.new_empty(self.fl.size)
+        pos = 0
+        for off, size in self.split_segments:
+            out[off:off + size] = owned[pos:pos + size]
+            pos += size
+        pos = 0
+        for off, size in self.replicated_segments:
+            out[off:off + size] = replicated[pos:pos + size]
+            pos += size
+        return out

@@ -122,10 +122,12 @@ def test_convert_round_trip_and_param_count():
 
 
 # dtype bfloat16 and the precision fields are ported (test_torch_precision_model.py),
-# the MoE fields too (test_torch_lm_families.py)
+# the MoE fields too (test_torch_lm_families.py); seq_sharding is ported
+# (test_torch_model_parallel.py), but not beside a split model axis
 @pytest.mark.parametrize("field,value", [
     ("dropout", 0.1), ("seq_sharding", "seq"), ("tie_word_embeddings", False),
 ])
 def test_unported_config_fields_raise(field, value):
+    beside = {"model_parallel": "mesh"} if field == "seq_sharding" else {}
     with pytest.raises(NotImplementedError, match="not ported"):
-        GPT2Config.tiny(**{field: value})
+        GPT2Config.tiny(**{field: value}, **beside)

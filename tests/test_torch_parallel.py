@@ -627,7 +627,7 @@ def test_mesh_vocabulary_without_a_group():
     assert dist_init.initialize() is False and not dist_init.is_multihost()
     mesh = make_mesh()
     assert (mesh.shape, mesh.size, mesh.index) == ({"data": 1, "model": 1}, 1, 0)
-    with pytest.raises(NotImplementedError, match="A13b"):
+    with pytest.raises(ValueError, match="requested 2 ranks, have 1"):
         make_mesh(num_data=1, num_model=2)
     with pytest.raises(ValueError, match="requested 2 ranks, have 1"):
         make_mesh(num_data=2)

@@ -1,4 +1,5 @@
-"""Rank functions of ``tests/test_torch_parallel.py``.
+"""Rank functions of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_model_parallel.py``.
 
 Each runs on every rank of a gloo group that
 ``hessian_llm_vision_tpu_torch.parallel.spawn.run_ranks`` starts on the CPU,
@@ -15,7 +16,7 @@ import torch
 from hessian_llm_vision_tpu_torch.curvature.operators import MatrixOperator
 from hessian_llm_vision_tpu_torch.krylov import deflate, driver
 from hessian_llm_vision_tpu_torch.krylov.lanczos import lanczos
-from hessian_llm_vision_tpu_torch.krylov.sharded import PShard
+from hessian_llm_vision_tpu_torch.krylov.sharded import PShard, p_shard
 from hessian_llm_vision_tpu_torch.krylov.thick_restart import lanczos_thick_restart
 from hessian_llm_vision_tpu_torch.models import losses
 from hessian_llm_vision_tpu_torch.models.mlp import SpiralMLP
@@ -208,3 +209,133 @@ def probes(mesh, *, params, x, y, per_probe, v0s, ggn_v0s, cli_argv):
     spec, _ = spectrum.main(cli_argv)
     out["cli_eigvals"] = _np(spec.eigvals)
     return out
+
+
+# ------------------------------------------------------- the model axis
+# (tests/test_torch_model_parallel.py)
+
+def _lm(family: str, cfg_kw: dict, axis=None, mode: str = "tp"):
+    """The port's model of ``family`` at ``cfg_kw``, on the model axis of
+    ``axis`` by ``mode`` ("tp" and "ep": split leaves; "sp": split tokens)."""
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from hessian_llm_vision_tpu_torch.models.llama import LlamaConfig, LlamaLMHead
+    from hessian_llm_vision_tpu_torch.models.pythia import NeoXConfig, NeoXLMHead
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import model_parallel_config
+    from hessian_llm_vision_tpu_torch.parallel.seq_parallel import seq_parallel_config
+
+    config_cls, model_cls = {"gpt2": (GPT2Config, GPT2LMHead), "neox": (NeoXConfig, NeoXLMHead),
+                             "llama": (LlamaConfig, LlamaLMHead)}[family]
+    cfg = config_cls(**cfg_kw)
+    if axis is not None:
+        cfg = (seq_parallel_config(cfg, axis, data_axis=None) if mode == "sp"
+               else model_parallel_config(cfg, axis))
+    return cfg, model_cls(cfg)
+
+
+def _splits(mode: str, params: dict, axis, cfg) -> dict:
+    from hessian_llm_vision_tpu_torch.models.moe import ep_layout
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import tp_layout
+
+    if mode == "tp":
+        return tp_layout(params, axis, cfg)
+    if mode == "ep":
+        return ep_layout(params, axis)
+    return {k: None for k in params}
+
+
+def _model_axis_case(case: dict, axis, data_mesh=None) -> dict:
+    """One case's loss, gradient and HVP on the model axis of ``axis``,
+    the gradient and HVP gathered into the JAX package's flat order; with
+    ``data_mesh`` (= ``axis``) the batch split over its data axis too."""
+    from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss, hvp
+    from hessian_llm_vision_tpu_torch.models.convert import gather_model_axis
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params
+
+    params = {k: torch.as_tensor(v) for k, v in case["params"].items()}
+    fl = Flattener(params)
+    cfg, model = _lm(case["family"], case["config"], axis, case["mode"])
+    splits = _splits(case["mode"], params, axis, cfg)
+    local = shard_params(params, splits, axis)
+    tangent = shard_params(fl.unflatten(torch.as_tensor(case["v"])), splits, axis)
+    loss_fn = losses.lm_loss_fn(model, loss_chunk=case.get("chunk"))
+    batch = {"input_ids": torch.as_tensor(case["ids"])}
+    if data_mesh is not None:
+        loss_fn, batch = make_sharded_loss(loss_fn, data_mesh), shard_batch(batch, data_mesh)
+    loss, grad = grad_and_loss(loss_fn, local, batch)
+    hv = hvp(loss_fn, local, batch, tangent)
+    whole = gather_model_axis(local, axis, splits)
+    split_bytes = sum(local[k].numel() for k, s in splits.items() if s is not None)
+    return {
+        "loss": float(loss),
+        "grad": _np(fl.flatten(gather_model_axis(grad, axis, splits))),
+        "hvp": _np(fl.flatten(gather_model_axis(hv, axis, splits))),
+        "round_trip": all(torch.equal(whole[k], params[k]) for k in params),
+        "split": sorted(k for k, s in splits.items() if s is not None),
+        "split_share": split_bytes / sum(params[k].numel() for k, s in splits.items()
+                                         if s is not None) if split_bytes else 0.0,
+    }
+
+
+def _model_axis_lanczos(case: dict, axis, iters: int, data_mesh=None) -> dict:
+    """The host-loop T-only spectrum and the reorthogonalised Lanczos with
+    the basis on the model axis (split over both axes with ``data_mesh``)
+    of a tensor-parallel case, from the JAX start vector ``case["v"]``."""
+    from hessian_llm_vision_tpu_torch.models.convert import gather_model_axis
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params
+    from hessian_llm_vision_tpu_torch.utils.flatten import ModelAxisLayout
+
+    params = {k: torch.as_tensor(v) for k, v in case["params"].items()}
+    fl = Flattener(params)
+    cfg, model = _lm(case["family"], case["config"], axis, case["mode"])
+    splits = _splits(case["mode"], params, axis, cfg)
+    local = shard_params(params, splits, axis)
+    layout = ModelAxisLayout(local, splits, axis.num_model, axis.model_index)
+    both = basis_sharding(axis, layout)
+    v0 = Flattener(local).flatten(shard_params(fl.unflatten(torch.as_tensor(case["v"])), splits,
+                                               axis))
+    loss_fn = losses.lm_loss_fn(model)
+    batches = [{"input_ids": torch.as_tensor(case["ids"])}]
+    if data_mesh is not None:
+        loss_fn = make_sharded_loss(loss_fn, data_mesh)
+        batches = [shard_batch(b, data_mesh) for b in batches]
+    host = driver.dataset_spectrum_host(loss_fn, local, batches, iters, v0=v0,
+                                        basis_sharding=both)
+    res = lanczos(driver.dataset_matvec(loss_fn, local, batches), layout.size, iters, v0=v0,
+                  basis_sharding=both)
+    sh = p_shard(both, layout.size)
+    return {
+        "host_alphas": _np(host.alphas), "host_betas": _np(host.betas),
+        "alphas": _np(res.alphas), "betas": _np(res.betas),
+        "basis_block": list(res.basis.shape), "basis_aligned": res.basis.shape[1] % 8 == 0,
+        "basis": np.stack([_np(gather_model_axis(sh.gather(r.contiguous()), axis, layout))
+                           for r in res.basis]),
+    }
+
+
+def model_axis_two(mesh, *, cases: dict, lanczos_case: str, iters: int) -> dict:
+    """Every case on the model axis of 2 ranks (a 1 x 2 mesh, the EP cases
+    on a 1 x 2 ``ep`` mesh), and the model-axis Lanczos of ``lanczos_case``."""
+    from hessian_llm_vision_tpu_torch.models.moe import make_ep_mesh
+    from hessian_llm_vision_tpu_torch.parallel.mesh import make_mesh
+
+    axis, ep_axis = make_mesh(1, 2), make_ep_mesh(1, 2)
+    out = {"model_index": axis.model_index, "ep_shape": ep_axis.shape}
+    for name, case in cases.items():
+        out[name] = _model_axis_case(case, ep_axis if case["mode"] == "ep" else axis)
+    out["lanczos"] = _model_axis_lanczos(cases[lanczos_case], axis, iters)
+    return out
+
+
+def model_axis_four(mesh, *, case: dict, iters: int) -> dict:
+    """A data 2 x model 2 mesh: the DP x TP loss, gradient and HVP of
+    ``case`` (each data rank its half of the batch), the Lanczos with the
+    basis split over both axes, and ``parallel/dryrun.py``'s model-axis
+    half."""
+    from hessian_llm_vision_tpu_torch.parallel.dryrun import dryrun_model_rank
+    from hessian_llm_vision_tpu_torch.parallel.mesh import make_mesh
+
+    grid = make_mesh(2, 2)
+    return {"shape": grid.shape, "data_index": grid.data_index, "model_index": grid.model_index,
+            "case": _model_axis_case(case, grid, data_mesh=grid),
+            "lanczos": _model_axis_lanczos(case, grid, iters, data_mesh=grid),
+            "dryrun": dryrun_model_rank(mesh)}
