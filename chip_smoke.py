@@ -238,9 +238,11 @@ Phases (any failure exits non-zero and prints no result line):
      cli.spectrum.main on both ranks equal to --probes 2 in one process
      within 1e-4, rank 0 alone printing the report and writing the
      artifact; the ranks without JAX; one {"data_axis_two_ranks": ...} line.
- 17. the model axis (parallel/) on the same two gloo ranks (16b and 17
+ 17. the model axis (parallel/) on the same two gloo ranks (16b, 17 and 18
      share one spawn, which saves the ranks' start), each building the whole model from its seed on the card and keeping
-     its part, rank 0 also running the whole-model references: (a) GPT-2
+     its part, rank 0 also running the whole-model references (in the
+     ranks 17c runs first, on an empty card, then 17a, 17b, 17e, 18 and
+     17d): (a) GPT-2
      124M (1024 positions, P = 124,439,808) tensor-parallel over 2, 2 x
      bs2 x seq512: loss within 1e-6, the gathered gradient and HVP within
      1e-5, the HVP's seconds and one more HVP's with the model's gloo
@@ -263,8 +265,25 @@ Phases (any failure exits non-zero and prints no result line):
      refresh (4 iterations from the gradient) within 1e-4, each rank's
      parameter bytes
      and peak; (d) gpt2-moe expert-parallel over 2, dense and top-2 gating,
-     bs4 x seq256: loss, gradient and HVP; the ranks without JAX; one
-     {"model_axis_two_ranks": ...} line.
+     bs4 x seq256: loss, gradient and HVP; (e) GPT-2 124M tensor- and
+     sequence-parallel on the one model axis at 17b's bs1 x seq1024, held
+     to 17b's whole-model references: loss, gradient and HVP, half of the
+     split leaves' bytes a rank, one more HVP with the model's gloo
+     collectives timed apart; the ranks without JAX; one
+     {"model_axis_two_ranks": ...} line, which also holds phase 18.
+ 18. the pipeline (parallel/pipeline.py) in the same spawn, after 17e:
+     GPT-2 124M (1024 positions) pipelined over 2 stages of 6 blocks on a
+     1 x 2 ('data', 'pp') mesh, 17a's batch in 2 microbatches (a GPipe
+     bubble of 1/3), held to 17a's whole-model references: loss within
+     1e-6, gathered gradient and HVP within 1e-5, half of the block bytes a
+     rank; one more HVP with the shifts and the exit (broadcasts) and the
+     gradient sums (all-reduces) timed apart; a 10-iteration Lanczos from
+     17a's start vector with its basis on the pipeline axis, (10,
+     62,219,904) f32 a rank (its stage's blocks and half of the replicated
+     leaves), each kernel 20 times a rank, T within 1e-4 and Ritz values
+     within 1e-3 of 17a's whole-model Lanczos, the basis's first row the
+     start vector, the pair against its plain version there (1e-5, bit for
+     bit repeated, pass 1's bulk path).
 Phase 3 also checks (4, 124,046,592) in both dtypes, (8, 124,046,592) and
 (16, 124,046,592) in bf16 -- the deflation projector's, the empirical
 Fisher's and the CGS2 pass's shapes, timed only (4, P) in bf16 since phase 13
@@ -277,7 +296,7 @@ float64 w on two draws (within 1e-5 and no farther than cuBLAS's f32 sum,
 which on some draws lies 1e-5 off itself), and 15b's (10, 14,913,093) in
 f32 (P = 5 mod 8, the same two paths), 16b's (10, 62,023,296) in f32
 (each rank's half of P) and 17a's (10, 62,219,904) in f32 (each model
-rank's block); it checks small leaves at
+rank's block, and each pipeline rank's in phase 18); it checks small leaves at
 unaligned offsets of g, the bf16 MLP leaf with g 1-7 elements off 16
 bytes, and (256, 2**24) bf16, whose pass 2 sweeps each chunk's rows in 22
 stages.  Every phase prints its wall seconds on a line of its own.  Then
@@ -285,7 +304,7 @@ it prints one JSON line of kernels (launches per
 path), the card line, and finally {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port only (no JAX: the card machine has none);
-16b's and 17's ranks import this file for ``axes_rank``.
+16b's, 17's and 18's ranks import this file for ``axes_rank``.
 """
 
 from __future__ import annotations
@@ -764,6 +783,13 @@ MA_PROBES = 2  # 17c's seeded vectors
 MA_LOSS_RTOL = 1e-6
 MA_REL = 1e-5  # gradient and HVP (124M: whole vectors; 1.4B: inner products)
 MA_TIMEOUT = 420.0
+# 17e: GPT-2 124M tensor- and sequence-parallel on the one model axis, on
+# 17b's batch, held to 17b's whole-model references; phase 18: GPT-2 124M
+# (1024 positions) pipelined over 2 stages of 6 blocks on a ('data', 'pp')
+# mesh of the same two ranks, 17a's batch in 2 microbatches of bs1 x
+# seq512, 17a's start vector, held to 17a's whole-model references
+PP_STAGES = 2
+PP_MICRO = 2
 CARD = torch.device("cuda")
 
 
@@ -4137,10 +4163,10 @@ def data_axis_gates(res: list, artifact: bool, without_jax: bool) -> dict:
 
 
 def axes_rank(mesh, *, tmp: str, pythia_ref: dict, pythia_argv: list) -> dict:
-    """Phases 16b and 17 on one of two gloo ranks sharing the card (run by
-    ``parallel.spawn.run_ranks``; one spawn for both saves the ranks'
+    """Phases 16b, 17 and 18 on one of two gloo ranks sharing the card (run
+    by ``parallel.spawn.run_ranks``; one spawn for all saves the ranks'
     start): ``data_axis_rank`` on the spawn's data axis, then
-    ``model_axis_rank`` on a model axis of its own."""
+    ``model_axis_rank`` on a model axis and a pipeline axis of its own."""
     t0 = time.perf_counter()
     res = {"16b": data_axis_rank(mesh, tmp=tmp)}
     res["16b"]["s"] = time.perf_counter() - t0
@@ -4150,8 +4176,8 @@ def axes_rank(mesh, *, tmp: str, pythia_ref: dict, pythia_argv: list) -> dict:
 
 
 def axes_two_ranks(pythia_ref: dict, pythia_seq: int) -> tuple[dict, dict]:
-    """Phases 16b and 17: ``axes_rank`` on two gloo ranks spawned on this
-    card, then each phase's gates."""
+    """Phases 16b, 17 and 18: ``axes_rank`` on two gloo ranks spawned on
+    this card, then the gates (17's and 18's together)."""
     from hessian_llm_vision_tpu_torch.parallel.spawn import run_ranks
 
     _free()
@@ -4173,6 +4199,27 @@ def axes_two_ranks(pythia_ref: dict, pythia_seq: int) -> tuple[dict, dict]:
 
 # ---------------------------------------------------------------------------
 # phase 17: the model axis (tensor, sequence and expert parallelism)
+
+def pp_block_columns() -> int:
+    """18's per-rank basis columns: GPT-2 124M's blocks stacked over
+    ``PP_STAGES`` stages, each rank's owned vector (its stage and its share
+    of the replicated leaves), from a meta model."""
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from hessian_llm_vision_tpu_torch.parallel.mesh import Mesh
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params
+    from hessian_llm_vision_tpu_torch.parallel.pipeline import (
+        pipeline_param_sharding,
+        stack_pipeline_params,
+    )
+    from hessian_llm_vision_tpu_torch.utils.flatten import ModelAxisLayout
+
+    cfg, axis = GPT2Config.gpt2_124m(), Mesh(1, PP_STAGES, axis_names=("data", "pp"))
+    with torch.device("meta"):
+        params = dict(GPT2LMHead(cfg).named_parameters())
+    stacked = stack_pipeline_params(params, cfg.n_layer, PP_STAGES)
+    splits = pipeline_param_sharding(stacked, axis)
+    return ModelAxisLayout(shard_params(stacked, splits, axis), splits, PP_STAGES, 0).length
+
 
 def tp_block_columns() -> int:
     """17a's per-rank basis columns: GPT-2 124M's owned vector on a model
@@ -4355,35 +4402,46 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
+_PRIMITIVES = {"sum": "_sum_over", "gather": "_gather_over_model",
+               "broadcast": "_broadcast_over_model"}
+
+
 @contextlib.contextmanager
 def collective_clock():
     """The seconds, calls and bytes of the model's own collectives
-    (``models/collectives.py``) inside the block, each synchronised."""
+    (``models/collectives.py``) inside the block, each synchronised: in
+    all, and by kind ("sum": all-reduces; "gather"; "broadcast": the
+    pipeline's shifts and exit)."""
     from hessian_llm_vision_tpu_torch.models import collectives
 
-    clock = {"s": 0.0, "calls": 0, "bytes": 0}
-    plain = collectives._sum_over_model, collectives._gather_over_model
+    clock = {"s": 0.0, "calls": 0, "bytes": 0,
+             "by": {k: {"s": 0.0, "calls": 0, "bytes": 0} for k in _PRIMITIVES}}
+    plain = {k: getattr(collectives, name) for k, name in _PRIMITIVES.items()}
 
-    def timed(fn):
+    def timed(kind, fn):
         def run(t, *args):
             out, s = _synced(lambda: fn(t, *args))
-            clock["s"] += s
-            clock["calls"] += 1
-            clock["bytes"] += out.numel() * out.element_size()
+            for c in (clock, clock["by"][kind]):
+                c["s"] += s
+                c["calls"] += 1
+                c["bytes"] += out.numel() * out.element_size()
             return out
         return run
 
-    collectives._sum_over_model, collectives._gather_over_model = map(timed, plain)
+    for kind, name in _PRIMITIVES.items():
+        setattr(collectives, name, timed(kind, plain[kind]))
     try:
         yield clock
     finally:
-        collectives._sum_over_model, collectives._gather_over_model = plain
+        for kind, name in _PRIMITIVES.items():
+            setattr(collectives, name, plain[kind])
 
 
 def _lm_parts(model, params: dict, axis, mode: str):
     """(this rank's params, the model on the axis, the splits) of a whole
-    model: "tp"/"ep" split leaves, "sp" the tokens.  The axis's model is
-    built on the meta device: only ``params`` hold memory."""
+    model: "tp"/"ep" split leaves, "sp" the tokens, "tpsp" both.  The
+    axis's model is built on the meta device: only ``params`` hold
+    memory."""
     from hessian_llm_vision_tpu_torch.models.moe import ep_layout
     from hessian_llm_vision_tpu_torch.parallel.param_sharding import (
         model_parallel_config,
@@ -4396,8 +4454,10 @@ def _lm_parts(model, params: dict, axis, mode: str):
     if mode == "sp":
         splits, cfg_axis = dict.fromkeys(params), seq_parallel_config(cfg, axis, data_axis=None)
     else:
-        splits = tp_layout(params, axis, cfg) if mode == "tp" else ep_layout(params, axis)
+        splits = tp_layout(params, axis, cfg) if mode != "ep" else ep_layout(params, axis)
         cfg_axis = model_parallel_config(cfg, axis)
+        if mode == "tpsp":
+            cfg_axis = seq_parallel_config(cfg_axis, axis, data_axis=None)
     with torch.device("meta"):
         on_axis = type(model)(cfg_axis)
     return shard_params(params, splits, axis), on_axis, splits
@@ -4411,13 +4471,45 @@ def _loss_grad_hvp(loss_fn, params, batch, v) -> tuple:
     return float(loss), grad, hv, grad_s, hvp_s
 
 
-def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False) -> dict:
+def _on_axis(mode: str, model, params: dict, axis) -> tuple:
+    """(this rank's params, its loss closure, the splits, the whole model's
+    names to the layout's and back) on the axis: ``_lm_parts``'s modes, or
+    "pp": the blocks stacked into ``PP_STAGES`` stages of the pipeline mesh
+    ``axis``, ``PP_MICRO`` microbatches."""
+    from hessian_llm_vision_tpu_torch.models import losses
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params
+    from hessian_llm_vision_tpu_torch.parallel.pipeline import (
+        make_pipelined_lm_loss,
+        pipeline_param_sharding,
+        stack_pipeline_params,
+        unstack_pipeline_params,
+    )
+
+    if mode != "pp":
+        local, on_axis, splits = _lm_parts(model, params, axis, mode)
+        return local, losses.lm_loss_fn(on_axis), splits, lambda t: t, lambda t: t
+
+    def stack(tree):
+        return stack_pipeline_params(tree, model.config.n_layer, axis.num_model)
+
+    stacked = stack(params)
+    splits = pipeline_param_sharding(stacked, axis)
+    with torch.device("meta"):
+        meta = type(model)(model.config)
+    loss_fn = make_pipelined_lm_loss(meta, axis, num_microbatches=PP_MICRO)
+    return shard_params(stacked, splits, axis), loss_fn, splits, stack, unstack_pipeline_params
+
+
+def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False,
+              ref=None) -> tuple[dict, dict]:
     """One model on the axis against the same model whole in one process:
     loss, gathered gradient and HVP (the last rank runs the whole model's,
     and compares), and with ``iters`` the Lanczos with its basis on the
     model axis (the rank-k pair on each rank's aligned block) against the
     whole model's (rank 0 runs it, and compares).  ``timed``: one more HVP,
-    with the model's collectives timed apart."""
+    with the model's collectives timed apart.  ``ref``: the whole model's
+    numbers of an earlier call on the same params, batches and start
+    vector, reused.  Returns (this run's numbers, the references)."""
     import torch.distributed as dist
 
     from hessian_llm_vision_tpu_torch.curvature.hvp import hvp
@@ -4435,23 +4527,25 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False) 
     fl = Flattener(params)
     v = torch.randn(fl.size, generator=torch.Generator(device=CARD).manual_seed(MA_SEED),
                     device=CARD)
-    res, ref = {}, {}
+    res = {}
     checker = axis.model_index == axis.num_model - 1
-    whole_loss = losses.lm_loss_fn(model)
-    if checker:  # the whole model in one process
-        ref["loss"], g, hv, _, ref["hvp_s"] = _loss_grad_hvp(whole_loss, params, batches[0],
-                                                             fl.unflatten(v))
-        ref["grad"], ref["hvp"] = fl.flatten(g), fl.flatten(hv)
-        del g, hv
-    if iters and axis.model_index == 0:  # meanwhile its Lanczos
-        whole = lanczos(dataset_matvec(whole_loss, params, batches), fl.size, iters, v0=v)
-        ref["T"] = [whole.alphas.tolist(), whole.betas.tolist()]
-        ref["ritz"] = sorted(ritz_decomposition(whole).eigvals.tolist())
-        del whole
+    if ref is None:
+        ref = {}
+        whole_loss = losses.lm_loss_fn(model)
+        if checker:  # the whole model in one process
+            ref["loss"], g, hv, _, ref["hvp_s"] = _loss_grad_hvp(whole_loss, params, batches[0],
+                                                                 fl.unflatten(v))
+            ref["grad"], ref["hvp"] = fl.flatten(g), fl.flatten(hv)
+            del g, hv
+        if iters and axis.model_index == 0:  # meanwhile its Lanczos
+            whole = lanczos(dataset_matvec(whole_loss, params, batches), fl.size, iters, v0=v)
+            ref["T"] = [whole.alphas.tolist(), whole.betas.tolist()]
+            ref["ritz"] = sorted(ritz_decomposition(whole).eigvals.tolist())
+            del whole
     dist.barrier()
-    local, on_axis, splits = _lm_parts(model, params, axis, mode)
-    loss_fn = losses.lm_loss_fn(on_axis)
-    tangent = shard_params(fl.unflatten(v), splits, axis)
+    local, loss_fn, splits, to_layout, from_layout = _on_axis(mode, model, params, axis)
+    laid_out = to_layout(params)
+    tangent = shard_params(to_layout(fl.unflatten(v)), splits, axis)
     torch.cuda.reset_peak_memory_stats()
     res["loss"], g, hv, res["grad_s"], res["hvp_s"] = _loss_grad_hvp(
         loss_fn, local, batches[0], tangent)
@@ -4460,13 +4554,13 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False) 
         with collective_clock() as clock:
             _synced(lambda: hvp(loss_fn, local, batches[0], tangent))
         res["collectives"] = {"hvp_s": clock["s"], "calls": clock["calls"],
-                              "bytes": clock["bytes"]}
+                              "bytes": clock["bytes"], "by": clock["by"]}
     split_bytes = sum(local[k].numel() for k, s in splits.items() if s is not None)
-    whole_split = sum(params[k].numel() for k, s in splits.items() if s is not None)
+    whole_split = sum(laid_out[k].numel() for k, s in splits.items() if s is not None)
     res["split_share"] = split_bytes / whole_split if whole_split else 0.0
     res["param_bytes"] = sum(t.numel() * t.element_size() for t in local.values())
-    G = fl.flatten(gather_model_axis(g, axis, splits))
-    H = fl.flatten(gather_model_axis(hv, axis, splits))
+    G = fl.flatten(from_layout(gather_model_axis(g, axis, splits)))
+    H = fl.flatten(from_layout(gather_model_axis(hv, axis, splits)))
     del g, hv
     if iters:
         layout = ModelAxisLayout(local, splits, axis.num_model, axis.model_index)
@@ -4484,6 +4578,7 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False) 
         res["basis_block"] = list(lres.basis.shape)
         sh = p_shard(both, layout.size)
         first = gather_model_axis(sh.gather(lres.basis[0].contiguous()), axis, layout)
+        first = fl.flatten(from_layout(Flattener(laid_out).unflatten(first)))
         res["first_row_rel"] = rel_l2(first, v / torch.linalg.vector_norm(v))
         del first
         rows = lres.basis
@@ -4500,7 +4595,7 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False) 
                     "whole_hvp_s": ref["hvp_s"]})
     if "T" in ref:
         res["T_ref"], res["ritz_ref"] = ref["T"], ref["ritz"]
-    return res
+    return res, ref
 
 
 def _pair_check(kernels, rows, g, c) -> dict:
@@ -4589,38 +4684,55 @@ def pythia_on_axis(axis, pythia_ref: dict, argv: list) -> dict:
 
 
 def model_axis_rank(*, pythia_ref: dict, pythia_argv: list) -> dict:
-    """Phase 17 on one of the two gloo ranks, after 16b in the same spawn:
-    17a-17d, each model built whole from its seed on every rank, then
-    split; the ranks share the whole-model references."""
+    """Phases 17 and 18 on one of the two gloo ranks, after 16b in the same
+    spawn: 17c first (its two ranks fill most of the card, so it runs
+    before the others have allocated anything), then 17a, 17b, 17e, 18 and
+    17d, each model built whole from its seed on every rank, then split;
+    the ranks share the whole-model references, and 17e and 18 reuse
+    17b's and 17a's."""
     import torch.distributed as dist
 
     from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from hessian_llm_vision_tpu_torch.models.moe import make_ep_mesh
     from hessian_llm_vision_tpu_torch.parallel.mesh import make_mesh
+    from hessian_llm_vision_tpu_torch.parallel.pipeline import make_pipeline_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     axis, ep_axis = make_mesh(1, MA_RANKS), make_ep_mesh(1, MA_RANKS)
-    res = {"rank": axis.model_index, "mesh": axis.shape, "ep_mesh": ep_axis.shape}
+    pp_axis = make_pipeline_mesh(MA_RANKS // PP_STAGES, PP_STAGES)
+    res = {"rank": axis.model_index, "mesh": axis.shape, "ep_mesh": ep_axis.shape,
+           "pp_mesh": pp_axis.shape}
     t_start = t0 = time.perf_counter()
+    res["17c"] = pythia_on_axis(axis, pythia_ref, pythia_argv)
+    res["17c"]["s"] = time.perf_counter() - t0
+    _free()
+    t0 = time.perf_counter()
     cfg = GPT2Config.gpt2_124m()
     with torch.device(CARD):
         model = GPT2LMHead(cfg, generator=torch.Generator(CARD).manual_seed(MA_SEED))
     params = {n: p.detach() for n, p in model.named_parameters()}
     res["gpt2_params"] = sum(p.numel() for p in params.values())
     tp_batches = _token_batches(cfg.vocab_size, MA_TP_SHAPE, MA_TP_BATCHES, MA_SEED)
-    res["17a"] = _vs_whole("tp", model, params, tp_batches, axis, iters=MA_ITERS, timed=True)
+    res["17a"], ref_a = _vs_whole("tp", model, params, tp_batches, axis, iters=MA_ITERS,
+                                  timed=True)
     res["17a"]["s"] = time.perf_counter() - t0
     _free()
     t0 = time.perf_counter()
     sp_batches = _token_batches(cfg.vocab_size, MA_SP_SHAPE, 1, MA_SEED + 1)
-    res["17b"] = _vs_whole("sp", model, params, sp_batches, axis)
+    res["17b"], ref_b = _vs_whole("sp", model, params, sp_batches, axis)
     res["17b"]["s"] = time.perf_counter() - t0
-    del model, params
     _free()
     t0 = time.perf_counter()
-    res["17c"] = pythia_on_axis(axis, pythia_ref, pythia_argv)
-    res["17c"]["s"] = time.perf_counter() - t0
+    res["17e"] = _vs_whole("tpsp", model, params, sp_batches, axis, timed=True, ref=ref_b)[0]
+    res["17e"]["s"] = time.perf_counter() - t0
+    del ref_b
+    _free()
+    t0 = time.perf_counter()
+    res["18"] = _vs_whole("pp", model, params, tp_batches, pp_axis, iters=MA_ITERS,
+                          timed=True, ref=ref_a)[0]
+    res["18"]["s"] = time.perf_counter() - t0
+    del model, params, ref_a
     _free()
     t0 = time.perf_counter()
     for gating, top_k in (("dense", 0), ("top2", 2)):
@@ -4629,7 +4741,7 @@ def model_axis_rank(*, pythia_ref: dict, pythia_argv: list) -> dict:
             model = GPT2LMHead(cfg, generator=torch.Generator(CARD).manual_seed(MA_SEED))
         params = {n: p.detach() for n, p in model.named_parameters()}
         batches = _token_batches(cfg.vocab_size, MA_MOE_SHAPE, 1, MA_SEED + 2)
-        res[f"17d_{gating}"] = _vs_whole("ep", model, params, batches, ep_axis)
+        res[f"17d_{gating}"] = _vs_whole("ep", model, params, batches, ep_axis)[0]
         del model, params
         _free()
     res["17d_s"] = time.perf_counter() - t0
@@ -4639,15 +4751,92 @@ def model_axis_rank(*, pythia_ref: dict, pythia_argv: list) -> dict:
 
 
 def axes_alone(train_cli, kernels, spectral) -> tuple[dict, dict]:
-    """13b with 17c's reference, then phases 16b and 17 (the kernels
+    """13b with 17c's reference, then phases 16b, 17 and 18 (the kernels
     built)."""
     res, ref = pythia_lanczos_sgd(train_cli, kernels, spectral)
     return axes_two_ranks(ref, res["max_length"])
 
 
+def tp_sp_and_pipeline(res: list, T_ref: np.ndarray, ritz_ref: np.ndarray) -> tuple:
+    """17e's and 18's summary (merged into 17's line), printed lines and
+    gates, from each rank's ``model_axis_rank`` and 17a's whole-model T
+    and Ritz values."""
+    lead, last = res[0], res[-1]
+    e, pp = last["17e"], {**lead["18"], **last["18"]}
+    pp["T"] = lead["18"]["T"]
+    T18, ritz18 = np.concatenate(pp["T"]), np.asarray(pp["ritz"])
+    bubble = (PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1)
+    pp_block = pp_block_columns()
+    per_iter = 2  # CGS2: two projections an iteration
+    summary = {
+        "17e_tp_sp": {k: e[k] for k in ("loss_rel", "grad_rel", "hvp_rel", "hvp_s", "grad_s",
+                                        "whole_hvp_s", "s")}
+        | {"split_share": [r["17e"]["split_share"] for r in res],
+           "param_bytes": [r["17e"]["param_bytes"] for r in res],
+           "collectives": [r["17e"]["collectives"] for r in res],
+           "hvp_s_per_rank": [r["17e"]["hvp_s"] for r in res],
+           "peak_bytes": [r["17e"]["peak_bytes"] for r in res]},
+        "18_pipeline": {k: pp[k] for k in ("loss_rel", "grad_rel", "hvp_rel", "first_row_rel",
+                                           "basis_block", "lanczos_s", "hvp_s", "grad_s",
+                                           "whole_hvp_s", "s")}
+        | {"stages": PP_STAGES, "microbatches": PP_MICRO, "bubble": bubble,
+           "T_max_abs_diff": float(np.abs(T18 - T_ref).max()),
+           "ritz_max_rel": float(np.abs(ritz18 - ritz_ref).max() / np.abs(ritz_ref).max()),
+           "split_share": [r["18"]["split_share"] for r in res],
+           "param_bytes": [r["18"]["param_bytes"] for r in res],
+           "launches": [r["18"]["launches"] for r in res],
+           "pair": [r["18"]["pair"] for r in res],
+           "collectives": [r["18"]["collectives"] for r in res],
+           "hvp_s_per_rank": [r["18"]["hvp_s"] for r in res],
+           "peak_bytes": [r["18"]["peak_bytes"] for r in res]},
+    }
+    for r in res:
+        t, c = r["17e"], r["17e"]["collectives"]
+        print(f"17e rank {r['rank']}: TP x SP HVP {t['hvp_s']:.4f} s (17b's whole model "
+              f"{e['whole_hvp_s']:.4f} s); its model's gloo collectives {c['hvp_s']:.4f} s of an "
+              f"HVP in {c['calls']} calls, {c['bytes']} bytes; params {t['param_bytes']} bytes, "
+              f"peak {t['peak_bytes']} bytes", flush=True)
+        t, c = r["18"], r["18"]["collectives"]
+        moved = c["by"]["broadcast"]
+        print(f"18 rank {r['rank']}: pipelined HVP {t['hvp_s']:.4f} s (17a's whole model "
+              f"{pp['whole_hvp_s']:.4f} s), {PP_STAGES} stages, {PP_MICRO} microbatches, bubble "
+              f"{bubble:.4f}; the shifts and the exit {moved['s']:.4f} s of an HVP in "
+              f"{moved['calls']} calls, {moved['bytes']} bytes; the gradient and loss sums "
+              f"{c['by']['sum']['s']:.4f} s in {c['by']['sum']['calls']} calls, "
+              f"{c['by']['sum']['bytes']} bytes; params {t['param_bytes']} bytes, peak "
+              f"{t['peak_bytes']} bytes; the Lanczos {t['lanczos_s']:.2f} s", flush=True)
+    gates = {
+        "17e TP x SP loss within 1e-6 of 17b's whole model": e["loss_rel"] <= MA_LOSS_RTOL,
+        "17e gathered grad and HVP within 1e-5": max(e["grad_rel"], e["hvp_rel"]) <= MA_REL,
+        "17e half of the split leaves' bytes on each rank": all(
+            abs(r["17e"]["split_share"] - 0.5) < 1e-9 for r in res),
+        "18 pipelined loss within 1e-6 of 17a's whole model": pp["loss_rel"] <= MA_LOSS_RTOL,
+        "18 gathered grad and HVP within 1e-5": max(pp["grad_rel"], pp["hvp_rel"]) <= MA_REL,
+        "18 T within 1e-4": np.allclose(T18, T_ref, rtol=DP_T_TOL, atol=DP_T_TOL),
+        "18 every rank's T the same": all(r["18"]["T"] == pp["T"] for r in res),
+        "18 Ritz values within 1e-3":
+            summary["18_pipeline"]["ritz_max_rel"] <= DP_RITZ_RTOL,
+        "18 the basis's first row the start vector": pp["first_row_rel"] <= MA_REL,
+        f"18 each rank's block (10, {pp_block})": all(
+            r["18"]["basis_block"] == [MA_ITERS, pp_block] for r in res),
+        "18 half of the block bytes on each rank": all(
+            abs(r["18"]["split_share"] - 0.5) < 1e-9 for r in res),
+        "18 the pair on each rank, pass 1 then pass 2 per projection": all(
+            r["18"]["launches"] == {"rank_k_dots": per_iter * MA_ITERS,
+                                    "rank_k_axpy": per_iter * MA_ITERS} for r in res),
+        "18 the pair against its plain version": all(
+            p["rel_l2_dots"] <= 1e-5 and p["rel_l2_apply"] <= 1e-5 and p["bitwise_repeatable"]
+            and p["dtype"] == "torch.float32"
+            for p in summary["18_pipeline"]["pair"]),
+        "18 pass 1's bulk path at P_local": all(p["dots_plan"]["bulk"]
+                                                for p in summary["18_pipeline"]["pair"]),
+    }
+    return summary, gates
+
+
 def model_axis_gates(res: list, q: dict, without_jax: bool) -> dict:
-    """Phase 17's summary and gates, from each rank's ``model_axis_rank``
-    and 13b's unsharded reference ``q``."""
+    """Phase 17's and 18's summary and gates, from each rank's
+    ``model_axis_rank`` and 13b's unsharded reference ``q``."""
     lead, last = res[0], res[-1]  # rank 0 holds the whole Lanczos, the last rank the rest
     a, b = {**lead["17a"], **last["17a"]}, last["17b"]
     a["T"] = lead["17a"]["T"]
@@ -4703,6 +4892,8 @@ def model_axis_gates(res: list, q: dict, without_jax: bool) -> dict:
         "17d_s": last["17d_s"],
         "modules_without_jax": without_jax,
     }
+    new, new_gates = tp_sp_and_pipeline(res, T_ref, ritz_ref)
+    summary.update(new)
     print(json.dumps({"model_axis_two_ranks": summary}), flush=True)
     for r in res:
         t = r["17a"]
@@ -4745,6 +4936,7 @@ def model_axis_gates(res: list, q: dict, without_jax: bool) -> dict:
         **{f"17d {g} EP loss, grad and HVP": last[f"17d_{g}"]["loss_rel"] <= MA_LOSS_RTOL
            and max(last[f"17d_{g}"]["grad_rel"], last[f"17d_{g}"]["hvp_rel"]) <= MA_REL
            for g in ("dense", "top2")},
+        **new_gates,
         "the ranks ran without JAX": summary["modules_without_jax"],
     })
     return summary
@@ -5019,17 +5211,20 @@ def main() -> int:
                    "pair on each half of P, --probe_parallel)")
     dp1 = data_axis_one_rank(spectrum_cli, kernels)
     print(f"phase 16a took {time.perf_counter() - t0:.1f} s")
-    phase(17, "the model axis on the same two gloo ranks (one spawn for 16b and 17): GPT-2 124M "
-              "tensor-parallel (loss, grad, HVP, the Lanczos with its basis on the model axis) "
-              "and sequence-parallel at seq1024, Pythia-1.4B tensor-parallel against 13b's "
-              "step 0, gpt2-moe expert-parallel (dense and top-2)")
+    phase(17, "the model axis on the same two gloo ranks (one spawn for 16b, 17 and 18): GPT-2 "
+              "124M tensor-parallel (loss, grad, HVP, the Lanczos with its basis on the model "
+              "axis), sequence-parallel at seq1024 and both on one axis (17e), Pythia-1.4B "
+              "tensor-parallel against 13b's step 0, gpt2-moe expert-parallel (dense and top-2); "
+              "phase 18, GPT-2 124M pipelined over two stages (loss, grad, HVP, the Lanczos with "
+              "its basis on the pipeline axis)")
     t1 = time.perf_counter()
     dp2, ma = axes_two_ranks(fam["13ab"].pop("17c_reference"),
                              fam["13ab"]["13b_lanczos_sgd"]["max_length"])
     print(f"phase 16b took {max(dp2['s']):.1f} s in the ranks")
-    print(f"phase 17 took {ma['s']:.1f} s in the ranks")
-    print(f"phases 16b and 17 took {time.perf_counter() - t1:.1f} s (one spawn)")
-    print(f"phase 16 took {time.perf_counter() - t0:.1f} s (16a, 16b and 17)")
+    print(f"phase 17 took {ma['s']:.1f} s in the ranks (17e {ma['17e_tp_sp']['s']:.1f} s, "
+          f"phase 18 {ma['18_pipeline']['s']:.1f} s of it)")
+    print(f"phases 16b, 17 and 18 took {time.perf_counter() - t1:.1f} s (one spawn)")
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s (16a, 16b, 17 and 18)")
     lw = rest["12cdf"]
     by_path = {"phase4_train_4_steps": launches,
                "phase7b_spectrum": headline["rank_k_launches"],
@@ -5076,7 +5271,9 @@ def main() -> int:
                "phase16a_one_rank_host_loop": dp1["launches"],
                **{f"phase16b_sharded_lanczos_rank{i}": c for i, c in enumerate(dp2["launches"])},
                **{f"phase17a_model_axis_lanczos_rank{i}": c
-                  for i, c in enumerate(ma["17a_tp"]["launches"])}}
+                  for i, c in enumerate(ma["17a_tp"]["launches"])},
+               **{f"phase18_pipeline_lanczos_rank{i}": c
+                  for i, c in enumerate(ma["18_pipeline"]["launches"])}}
     # the T-only spectra (7b, 8c's in-core CGS2 and Hutch++, 9a-9d), GN/NGD
     # and Adam with snapshots take no rank-k apply; every other path must
     # have launched both kernels

@@ -1,34 +1,49 @@
-"""Collectives on the model axis that ``torch.func`` can differentiate.
+"""Collectives on a mesh's axes that ``torch.func`` can differentiate.
 
 The JAX package shards a model with annotations and lets XLA's partitioner
 put the collectives into the program, where ``jvp(grad(loss))`` sees them
 as ordinary primitives.  PyTorch has no partitioner, so a tensor-, sequence-
-or expert-parallel model carries its collectives in its own forward, and
-the curvature transforms must differentiate through them twice.  Each
-collective here is a ``torch.autograd.Function`` in the functorch style
-(``forward`` without ``ctx``, ``setup_context``, ``backward`` and a ``jvp``
-staticmethod), so ``torch.func.grad``, ``torch.func.jvp`` and their
-composition all see it:
+or expert-parallel model, and the GPipe pipeline, carry their collectives
+in their own forward, and the curvature transforms must differentiate
+through them twice.  Each collective here is a ``torch.autograd.Function``
+in the functorch style (``forward`` without ``ctx``, ``setup_context``,
+``backward`` and a ``jvp`` staticmethod), so ``torch.func.grad``,
+``torch.func.jvp`` and their composition all see it.  On the model axis:
 
 * :func:`copy_to_model` (Megatron's *f*): identity forward and jvp, sum
-  over the model axis backward.  It sits where a replicated tensor enters
-  work that each rank does only part of.
-* :func:`reduce_from_model` (Megatron's *g*): sum over the model axis
-  forward and jvp, identity backward.  It sits where each rank's partial
-  result becomes the replicated whole.
+  over the axis backward.  It sits where a replicated tensor enters work
+  that each rank does only part of.
+* :func:`reduce_from_model` (Megatron's *g*): sum over the axis forward and
+  jvp, identity backward.  It sits where each rank's partial result
+  becomes the replicated whole.
 * :func:`gather_from_model`: the ranks' slices concatenated along a
   dimension; backward the reduce-scatter (a sum, then this rank's slice),
   for a gathered tensor that each rank consumes only in part (the keys and
-  values of sequence-parallel attention).
+  values of sequence-parallel attention, a T-slice entering a column-
+  parallel layer), and :func:`reduce_scatter_to_model`, its transpose (the
+  partial sums of a row-parallel layer back to this rank's T-slice).
+
+For the pipeline (``parallel/pipeline.py``), whose model axis is its
+stage axis: :func:`copy_params` (parameters entering the loss, each
+gradient summed over the axes it names, all in one backward),
+:func:`reduce_from_axis` (a rank's share of the loss summed over an axis),
+:func:`shift_stages` (the residual stream to the next stage) and
+:func:`scatter_from_last_stage` (the last stage's outputs to their ranks).
 
 Under ``jvp(grad(f))`` a ``backward`` is itself differentiated by the outer
 ``jvp``, and a c10d call cannot take a functorch-wrapped tensor; so every
 ``backward`` calls the conjugate Function's ``apply``, and only a
 ``forward`` or a ``jvp`` (which see plain tensors) calls c10d.  A forward
-sums a copy, never its input in place.  Every collective runs on the mesh's
-model group with ``all_reduce`` alone: gloo runs nothing else on CUDA
-tensors, so a gather is the sum of zero-padded buffers.  Every rank must
-issue the same collectives in the same order, or the group hangs.
+sums a copy, never its input in place.  The model group runs ``all_reduce``
+and ``broadcast`` alone: gloo runs nothing else on CUDA tensors, so a
+gather is the sum of zero-padded buffers.  Every rank must issue the same
+collectives in the same order, or the group hangs.  The pipeline's ranks
+run different graphs, so its Functions take a ``link``: a tensor derived
+from the parameters on every rank, saved and handed to the conjugate in
+``backward``.  A Function's ``jvp`` runs only where one of its inputs
+carries a tangent, and a cotangent can be a fresh zero on one rank and
+not on another; the link carries a tangent on every rank, so every rank
+runs every ``jvp``.
 """
 
 from __future__ import annotations
@@ -37,10 +52,23 @@ import torch
 import torch.distributed as dist
 
 
-def _sum_over_model(t: torch.Tensor, mesh) -> torch.Tensor:
+def _axis(mesh, axis: str) -> tuple:
+    """``(group, ranks, this rank's index)`` of one of ``mesh``'s axes:
+    "model" (its second axis), "data" (its first) or "mesh" (every rank)."""
+    if axis == "model":
+        return mesh.model_group, mesh.num_model, mesh.model_index
+    if axis == "data":
+        return mesh.data_group, mesh.num_data, mesh.data_index
+    if axis == "mesh":
+        return mesh.group, mesh.size, mesh.index
+    raise ValueError(f"no axis {axis!r} (model, data or mesh)")
+
+
+def _sum_over(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     out = t.clone()
-    if mesh.model_group is not None and mesh.num_model > 1:
-        dist.all_reduce(out, group=mesh.model_group)
+    group, n, _ = _axis(mesh, axis)
+    if group is not None and n > 1:
+        dist.all_reduce(out, group=group)
     return out
 
 
@@ -56,40 +84,48 @@ def _gather_over_model(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     return buf
 
 
-class _CopyToModel(torch.autograd.Function):
+def _broadcast_over_model(t: torch.Tensor, mesh, src: int) -> torch.Tensor:
+    """``t`` of model index ``src`` on every rank of the model axis, in
+    place (``t`` contiguous, of one shape on every rank); returns ``t``."""
+    if mesh.model_group is not None and mesh.num_model > 1:
+        dist.broadcast(t, src=mesh.rank_at(mesh.data_index, src), group=mesh.model_group)
+    return t
+
+
+class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(x, mesh):
+    def forward(x, mesh, axis):
         return x.view_as(x)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.mesh = inputs[1]
+        ctx.mesh, ctx.axis = inputs[1], inputs[2]
 
     @staticmethod
     def backward(ctx, grad):
-        return _ReduceFromModel.apply(grad, ctx.mesh), None
+        return _ReduceFrom.apply(grad, ctx.mesh, ctx.axis), None, None
 
     @staticmethod
-    def jvp(ctx, x_t, _mesh_t):
+    def jvp(ctx, x_t, _mesh_t, _axis_t):
         return x_t.view_as(x_t)
 
 
-class _ReduceFromModel(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(x, mesh):
-        return _sum_over_model(x, mesh)
+    def forward(x, mesh, axis):
+        return _sum_over(x, mesh, axis)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.mesh = inputs[1]
+        ctx.mesh, ctx.axis = inputs[1], inputs[2]
 
     @staticmethod
     def backward(ctx, grad):
-        return _CopyToModel.apply(grad, ctx.mesh), None
+        return _CopyTo.apply(grad, ctx.mesh, ctx.axis), None, None
 
     @staticmethod
-    def jvp(ctx, x_t, _mesh_t):
-        return _sum_over_model(x_t, ctx.mesh)
+    def jvp(ctx, x_t, _mesh_t, _axis_t):
+        return _sum_over(x_t, ctx.mesh, ctx.axis)
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -99,33 +135,285 @@ class _GatherFromModel(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, ctx.mesh, ctx.dim = inputs
-        ctx.size = x.shape[ctx.dim]
+        _, ctx.mesh, ctx.dim = inputs
 
     @staticmethod
     def backward(ctx, grad):
-        whole = _ReduceFromModel.apply(grad, ctx.mesh)
-        return whole.narrow(ctx.dim, ctx.mesh.model_index * ctx.size, ctx.size), None, None
+        return _ReduceScatterModel.apply(grad, ctx.mesh, ctx.dim), None, None
 
     @staticmethod
     def jvp(ctx, x_t, _mesh_t, _dim_t):
         return _gather_over_model(x_t, ctx.mesh, ctx.dim)
 
 
+def _reduce_scatter(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    size = x.shape[dim] // mesh.num_model
+    return _sum_over(x, mesh).narrow(dim, mesh.model_index * size, size).contiguous()
+
+
+class _ReduceScatterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(x, mesh, dim):
+        return _reduce_scatter(x, mesh, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.mesh, ctx.dim = inputs
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherFromModel.apply(grad, ctx.mesh, ctx.dim), None, None
+
+    @staticmethod
+    def jvp(ctx, x_t, _mesh_t, _dim_t):
+        return _reduce_scatter(x_t, ctx.mesh, ctx.dim)
+
+
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` unchanged; its gradient summed over the model axis."""
-    return _CopyToModel.apply(x, mesh)
+    return _CopyTo.apply(x, mesh, "model")
 
 
 def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` summed over the model axis; its gradient passed through."""
-    return _ReduceFromModel.apply(x, mesh)
+    return _ReduceFrom.apply(x, mesh, "model")
+
+
+def reduce_from_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` summed over ``mesh``'s ``axis`` ("model", "data" or "mesh");
+    its gradient passed through."""
+    return _ReduceFrom.apply(x, mesh, axis)
 
 
 def gather_from_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     """The model ranks' ``x`` concatenated along ``dim`` in rank order (all
     of equal shape); the gradient reduce-scattered back."""
     return _GatherFromModel.apply(x, mesh, dim % x.dim())
+
+
+def reduce_scatter_to_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """``x`` summed over the model axis, then this rank's slice of ``dim``
+    (``dim`` divides by the axis); the gradient gathered back."""
+    return _ReduceScatterModel.apply(x, mesh, dim % x.dim())
+
+
+# ------------------------------------------------------------ the pipeline
+
+def _sum_params(mesh, axes: tuple, ts) -> tuple:
+    """Each tensor of ``ts`` summed over its axis of ``axes`` (None: kept),
+    one all-reduce of their concatenation per axis, in a fixed order."""
+    out = list(ts)
+    for axis in ("data", "model", "mesh"):
+        idx = [i for i, a in enumerate(axes) if a == axis]
+        if not idx:
+            continue
+        flat = _sum_over(torch.cat([ts[i].reshape(-1) for i in idx]), mesh, axis)
+        off = 0
+        for i in idx:
+            n = ts[i].numel()
+            out[i] = flat[off:off + n].view_as(ts[i])
+            off += n
+    return tuple(out)
+
+
+def _like(t: torch.Tensor) -> tuple:
+    return tuple(t.shape), t.dtype, t.device
+
+
+def _tangent(t_t, like: tuple) -> torch.Tensor:
+    """A tangent, or zeros where an input carries none."""
+    if t_t is not None:
+        return t_t
+    shape, dtype, device = like
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+class _CopyParams(torch.autograd.Function):
+    @staticmethod
+    def forward(mesh, axes, *ts):
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.axes = inputs[0], inputs[1]
+        ctx.save_for_backward(inputs[2])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (link,) = ctx.saved_tensors
+        return (None, None) + _SumParams.apply(ctx.mesh, ctx.axes, link, *grads)
+
+    @staticmethod
+    def jvp(ctx, _mesh_t, _axes_t, *ts_t):
+        return tuple(t.view_as(t) for t in ts_t)
+
+
+class _SumParams(torch.autograd.Function):
+    @staticmethod
+    def forward(mesh, axes, link, *ts):
+        return _sum_params(mesh, axes, ts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.axes = inputs[0], inputs[1]
+        ctx.like = [_like(t) for t in inputs[3:]]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None) + _CopyParams.apply(ctx.mesh, ctx.axes, *grads)
+
+    @staticmethod
+    def jvp(ctx, _mesh_t, _axes_t, _link_t, *ts_t):
+        return _sum_params(ctx.mesh, ctx.axes,
+                           tuple(_tangent(t, like) for t, like in zip(ts_t, ctx.like)))
+
+
+def copy_params(ts, mesh, axes) -> tuple:
+    """``ts`` unchanged, each gradient summed over its axis of ``axes``
+    ("model", "data", "mesh" or None), in one backward node: however many
+    of them a rank uses, every rank runs the same all-reduces."""
+    return _CopyParams.apply(mesh, tuple(axes), *ts)
+
+
+def _shift(x: torch.Tensor, mesh, moves: tuple) -> torch.Tensor:
+    """Model index ``dst`` receives ``x`` of model index ``src`` for each
+    ``(src, dst)`` of ``moves`` (one broadcast each, ``src != dst``); a
+    rank that receives nothing gets zeros."""
+    me = mesh.model_index
+    out = torch.zeros_like(x)
+    for src, dst in moves:
+        buf = x.contiguous() if me == src else torch.empty_like(x)
+        _broadcast_over_model(buf, mesh, src)
+        if me == dst:
+            out = buf
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(x, link, mesh, moves):
+        return _shift(x, mesh, moves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.moves, ctx.like = inputs[2], inputs[3], _like(inputs[0])
+        ctx.save_for_backward(inputs[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (link,) = ctx.saved_tensors
+        back = tuple((dst, src) for src, dst in ctx.moves)
+        return _Shift.apply(grad, link, ctx.mesh, back), None, None, None
+
+    @staticmethod
+    def jvp(ctx, x_t, _link_t, _mesh_t, _moves_t):
+        return _shift(_tangent(x_t, ctx.like), ctx.mesh, ctx.moves)
+
+
+def shift_stages(x: torch.Tensor, link: torch.Tensor, mesh, moves) -> torch.Tensor:
+    """For each ``(src, dst)`` stage pair of ``moves``, stage ``dst``'s
+    result is stage ``src``'s ``x`` (every rank passes a tensor of one
+    shape); zeros where nothing arrives.  Linear: the jvp is itself, the
+    transpose the reverse moves."""
+    return _Shift.apply(x, link, mesh, tuple(moves))
+
+
+def _replicated(parts: tuple) -> bool:
+    return all(p == parts[0] for p in parts)
+
+
+def _from_last(x: torch.Tensor, mesh, parts: tuple) -> torch.Tensor:
+    """Rows ``parts[r]`` of the last stage's ``x`` on stage r."""
+    S, me = mesh.num_model, mesh.model_index
+    last = S - 1
+    if _replicated(parts):
+        buf = x.contiguous().clone() if me == last else torch.empty_like(x)
+        return _broadcast_over_model(buf, mesh, last)
+    out = None
+    for r, (lo, hi) in enumerate(parts[:last]):
+        if hi > lo:
+            buf = (x[lo:hi].contiguous() if me == last
+                   else x.new_empty((hi - lo,) + tuple(x.shape[1:])))
+            _broadcast_over_model(buf, mesh, last)
+            if me == r:
+                out = buf
+    if me == last:
+        lo, hi = parts[last]
+        out = x[lo:hi].clone()
+    if out is None:
+        lo, hi = parts[me]
+        out = x.new_zeros((hi - lo,) + tuple(x.shape[1:]))
+    return out
+
+
+def _to_last(g: torch.Tensor, mesh, parts: tuple) -> torch.Tensor:
+    """The transpose of :func:`_from_last`: every stage's rows ``parts[r]``
+    back to the last stage (summed where they overlap); zeros elsewhere."""
+    S, me = mesh.num_model, mesh.model_index
+    last = S - 1
+    rows = max(hi for _, hi in parts)
+    if _replicated(parts):
+        total = _sum_over(g, mesh)
+        return total if me == last else torch.zeros_like(total)
+    out = g.new_zeros((rows,) + tuple(g.shape[1:]))
+    for r, (lo, hi) in enumerate(parts[:last]):
+        if hi > lo:
+            buf = g.contiguous() if me == r else g.new_empty((hi - lo,) + tuple(g.shape[1:]))
+            _broadcast_over_model(buf, mesh, r)
+            if me == last:
+                out[lo:hi] += buf
+    if me == last:
+        lo, hi = parts[last]
+        out[lo:hi] += g
+    return out
+
+
+class _FromLastStage(torch.autograd.Function):
+    @staticmethod
+    def forward(x, link, mesh, parts):
+        return _from_last(x, mesh, parts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.parts, ctx.like = inputs[2], inputs[3], _like(inputs[0])
+        ctx.save_for_backward(inputs[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (link,) = ctx.saved_tensors
+        return _ToLastStage.apply(grad, link, ctx.mesh, ctx.parts), None, None, None
+
+    @staticmethod
+    def jvp(ctx, x_t, _link_t, _mesh_t, _parts_t):
+        return _from_last(_tangent(x_t, ctx.like), ctx.mesh, ctx.parts)
+
+
+class _ToLastStage(torch.autograd.Function):
+    @staticmethod
+    def forward(g, link, mesh, parts):
+        return _to_last(g, mesh, parts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.parts, ctx.like = inputs[2], inputs[3], _like(inputs[0])
+        ctx.save_for_backward(inputs[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (link,) = ctx.saved_tensors
+        return _FromLastStage.apply(grad, link, ctx.mesh, ctx.parts), None, None, None
+
+    @staticmethod
+    def jvp(ctx, g_t, _link_t, _mesh_t, _parts_t):
+        return _to_last(_tangent(g_t, ctx.like), ctx.mesh, ctx.parts)
+
+
+def scatter_from_last_stage(x: torch.Tensor, link: torch.Tensor, mesh, parts) -> torch.Tensor:
+    """Rows ``parts[r] = (lo, hi)`` of the last stage's ``x`` (leading
+    dim) on stage r, every stage passing an ``x`` of one shape; the
+    transpose gathers them back to the last stage.  Equal parts on every
+    stage: a broadcast (the transpose sums the stages' cotangents)."""
+    return _FromLastStage.apply(x, link, mesh, tuple(tuple(p) for p in parts))
 
 
 def model_max(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -136,14 +424,18 @@ def model_max(x: torch.Tensor, mesh) -> torch.Tensor:
     return both.amax(-1).detach()
 
 
-def vocab_parallel_embedding(table: torch.Tensor, ids: torch.Tensor, mesh) -> torch.Tensor:
+def vocab_parallel_embedding(table: torch.Tensor, ids: torch.Tensor, mesh,
+                             scatter_dim=None) -> torch.Tensor:
     """Rows of a vocab-sharded embedding: this rank holds ``table``, the
     contiguous rows ``[m·V/n, (m+1)·V/n)``; an id outside them reads zeros
-    here, and the sum over the model axis gives every id its row."""
+    here, and the sum over the model axis gives every id its row (with
+    ``scatter_dim``, then this rank's slice of that dimension)."""
     rows = table.shape[0]
     local = ids - mesh.model_index * rows
     inside = (local >= 0) & (local < rows)
     picked = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+    if scatter_dim is not None:
+        return reduce_scatter_to_model(picked, mesh, scatter_dim)
     return reduce_from_model(picked, mesh)
 
 

@@ -20,9 +20,10 @@ the JAX model's (``models/precision.py``): block -> attention / MLP
 sublayer -> attention scores, the innermost winning; every matmul runs
 through :func:`precision.matmul` / :func:`precision.einsum`.  With
 ``n_experts > 0`` every block's MLP is the mixture of experts of
-``models/moe.py`` (``h_{i}.moe``).  Dropout and an untied head of the JAX
-config are not ported; :class:`GPT2Config` raises on any non-default value
-of them.
+``models/moe.py`` (``h_{i}.moe``).  ``tie_word_embeddings=False`` gives
+the untied head ``lm_head.kernel`` (C, V) without bias, computed in at
+least f32 as flax's Dense without a dtype does.  Dropout is not ported:
+:class:`GPT2Config` raises on any other value than 0.
 
 The model axis of a mesh (``parallel/``) splits the model in one of two
 ways.  ``model_parallel`` (``parallel.param_sharding.model_parallel_config``):
@@ -35,8 +36,15 @@ each layer reads from its leaves' shapes whether it is split.
 ``seq_sharding`` (``parallel.seq_parallel.seq_parallel_config``): rank m of
 the model axis runs tokens ``[m·T/n, (m+1)·T/n)`` of the residual stream,
 at their positions, and attention gathers keys and values along T; the
-loss closure sums every parameter's gradient over the axis.  The two on
-one axis are not ported (ROADMAP A13c).
+loss closure sums the gradient of every leaf a rank holds whole over the
+axis.  Both on one axis (Megatron's sequence parallelism): the residual
+stream, the norms and the residual adds run on the rank's T-slice; the
+slice is gathered along T before each column-parallel layer (its
+gradient reduce-scattered back), and a row-parallel layer's partial sums
+are summed and sliced back to T (:func:`dense_rows`); attention then sees
+every position of its own heads.  A vocab-parallel embedding looks up
+every position and keeps its slice, a vocab-parallel head gathers the
+positions.  Each is the same function as the whole model.
 
 :class:`Dense`, :class:`LayerNorm` and :func:`init_weights` are shared
 with the NeoX and LLaMA modules.
@@ -58,6 +66,7 @@ from hessian_llm_vision_tpu_torch.models.collectives import (
     copy_to_model,
     gather_from_model,
     reduce_from_model,
+    reduce_scatter_to_model,
     vocab_parallel_embedding,
 )
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
@@ -65,17 +74,16 @@ from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
 # JAX config fields the port does not implement, with the only value it takes
 _UNPORTED_DEFAULTS = {
     "dropout": 0.0,
-    "tie_word_embeddings": True,
 }
 
 
 def check_model_axis(config) -> None:
-    """Tensor (or expert) and sequence parallelism on one model axis are
-    refused, naming the slice that ports them."""
-    if config.model_parallel is not None and config.seq_sharding is not None:
-        raise NotImplementedError(
-            f"{type(config).__name__}: model_parallel and seq_sharding on one model axis are "
-            "not ported yet (ROADMAP A13c)")
+    """``model_parallel`` and ``seq_sharding`` together must split one
+    mesh's model axis."""
+    sp, mp = config.seq_sharding, config.model_parallel
+    if sp is not None and mp is not None and sp.mesh is not mp:
+        raise ValueError(f"{type(config).__name__}: model_parallel and seq_sharding must "
+                         "split the model axis of one mesh")
 
 
 def seq_slice(input_ids: torch.Tensor, seq_sharding) -> tuple[torch.Tensor, int]:
@@ -95,28 +103,41 @@ def gather_kv(k: torch.Tensor, v: torch.Tensor, seq_sharding) -> tuple:
     return gather_from_model(k, mesh, 1), gather_from_model(v, mesh, 1)
 
 
-def dense_rows(layer: "Dense", x: torch.Tensor, mesh, whole: int) -> torch.Tensor:
+def dense_rows(layer: "Dense", x: torch.Tensor, mesh, whole: int,
+               seq_sharding=None) -> torch.Tensor:
     """``x @ kernel + bias`` of a fan-in layer; when ``kernel`` holds this
     rank's rows of ``whole`` (row-parallel), the product is summed over
-    the model axis before the bias."""
+    the model axis before the bias, and under ``seq_sharding`` then cut
+    back to this rank's T-slice (dim 1)."""
     if layer.kernel.shape[0] == whole:
         return layer(x)
-    y = reduce_from_model(precision.matmul(x, _as(layer.kernel, x)), mesh)
+    y = precision.matmul(x, _as(layer.kernel, x))
+    y = (reduce_from_model(y, mesh) if seq_sharding is None
+         else reduce_scatter_to_model(y, mesh, 1))
     return y if layer.bias is None else y + _as(layer.bias, x)
 
 
-def split_input(x: torch.Tensor, mesh, split: bool) -> torch.Tensor:
+def split_input(x: torch.Tensor, mesh, split: bool, seq_sharding=None) -> torch.Tensor:
     """The input of a column-parallel layer (``split``): its gradient summed
-    over the model axis."""
-    return copy_to_model(x, mesh) if split else x
+    over the model axis; under ``seq_sharding`` every rank's T-slice
+    gathered along T (dim 1), the gradient reduce-scattered back."""
+    if not split:
+        return x
+    return copy_to_model(x, mesh) if seq_sharding is None else gather_from_model(x, mesh, 1)
 
 
-def embed(table: torch.Tensor, ids: torch.Tensor, vocab_size: int, mesh) -> torch.Tensor:
-    """Rows of ``table`` for ``ids``; vocab-parallel when ``table`` holds
-    this rank's rows of ``vocab_size``."""
+def embed(table: torch.Tensor, ids: torch.Tensor, vocab_size: int, mesh,
+          seq_sharding=None) -> torch.Tensor:
+    """Rows of ``table`` for the whole ``ids`` (B, T), or under
+    ``seq_sharding`` for this rank's T-slice of them; vocab-parallel when
+    ``table`` holds this rank's rows of ``vocab_size`` (every position
+    looked up, then summed over the model axis and, under
+    ``seq_sharding``, cut to the T-slice)."""
+    mine = ids if seq_sharding is None else seq_slice(ids, seq_sharding)[0]
     if table.shape[0] == vocab_size:
-        return table[ids]
-    return vocab_parallel_embedding(table, ids, mesh)
+        return table[mine]
+    return vocab_parallel_embedding(table, ids, mesh, scatter_dim=None if seq_sharding is None
+                                    else 1)
 
 
 def check_dtype(config) -> None:
@@ -152,12 +173,13 @@ class GPT2Config:
     moe_top_k: int = 0
     moe_capacity_factor: float = 1.25
     # the model axis (parallel/): a Mesh whose model axis splits the layers
-    # this rank holds in part (tensor and expert parallelism), or a
+    # this rank holds in part (tensor and expert parallelism), and/or a
     # seq_parallel.seq_sharding whose model axis splits the tokens
     model_parallel: object = None
     seq_sharding: object = None
     # not ported: any value other than the default raises
     dropout: float = 0.0
+    # False: an untied head lm_head.kernel (C, V), no bias
     tie_word_embeddings: bool = True
 
     def __post_init__(self):
@@ -169,9 +191,6 @@ class GPT2Config:
                 )
         check_dtype(self)
         check_model_axis(self)
-        if self.seq_sharding is not None and self.moe_top_k:
-            raise NotImplementedError("top-k MoE routing under sequence parallelism is not "
-                                      "ported (each rank would route its own tokens)")
         precision.per_layer_precision(self.block_matmul_precision, self.n_layer)
         for p in (self.attn_matmul_precision, self.mlp_matmul_precision,
                   self.attn_scores_precision):
@@ -269,18 +288,19 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x):
         cfg = self.config
-        B, T, C = x.shape
-        D = cfg.head_dim
+        sp, D = cfg.seq_sharding, cfg.head_dim
         H = self.c_attn.kernel.shape[1] // (3 * D)  # this rank's heads
-        x = split_input(x, cfg.model_parallel, H < cfg.n_head)
+        split = H < cfg.n_head
+        x = split_input(x, cfg.model_parallel, split, sp)  # every position under TP x SP
+        B, T, C = x.shape
         q, k, v = (t.reshape(B, T, H, D) for t in self.c_attn(x).split(H * D, dim=-1))
         offset = 0
-        if cfg.seq_sharding is not None:
-            k, v = gather_kv(k, v, cfg.seq_sharding)
-            offset = cfg.seq_sharding.mesh.model_index * T
+        if sp is not None and not split:
+            k, v = gather_kv(k, v, sp)
+            offset = sp.mesh.model_index * T
         with precision.precision_scope(cfg.attn_scores_precision):
             y = causal_attention(q, k, v, block_q=cfg.attn_block_q, q_offset=offset)
-        return dense_rows(self.c_proj, y.reshape(B, T, H * D), cfg.model_parallel, C)
+        return dense_rows(self.c_proj, y.reshape(B, T, H * D), cfg.model_parallel, C, sp)
 
 
 class MLPBlock(nn.Module):
@@ -291,9 +311,10 @@ class MLPBlock(nn.Module):
         self.c_proj = Dense(4 * config.n_embd, config.n_embd)
 
     def forward(self, x):
-        mesh, width = self.config.model_parallel, 4 * self.config.n_embd
-        x = split_input(x, mesh, self.c_fc.kernel.shape[1] < width)
-        return dense_rows(self.c_proj, F.gelu(self.c_fc(x), approximate="tanh"), mesh, width)
+        cfg = self.config
+        mesh, sp, width = cfg.model_parallel, cfg.seq_sharding, 4 * cfg.n_embd
+        x = split_input(x, mesh, self.c_fc.kernel.shape[1] < width, sp)
+        return dense_rows(self.c_proj, F.gelu(self.c_fc(x), approximate="tanh"), mesh, width, sp)
 
 
 class Block(nn.Module):
@@ -320,7 +341,8 @@ class Block(nn.Module):
 
 
 class GPT2LMHead(nn.Module):
-    """GPT-2 with tied LM head; ``forward(input_ids) -> logits (B, T, V)``.
+    """GPT-2 with LM head (tied to ``wte``, or ``lm_head``);
+    ``forward(input_ids) -> logits (B, T, V)``.
 
     Parameters are created on the default device (the CPU, or the device
     of an enclosing ``with torch.device(...)``) and initialised from
@@ -338,6 +360,8 @@ class GPT2LMHead(nn.Module):
         for i in range(config.n_layer):
             self.add_module(f"h_{i}", Block(config))
         self.ln_f = LayerNorm(config.n_embd)
+        if not config.tie_word_embeddings:
+            self.lm_head = Dense(config.n_embd, config.vocab_size, use_bias=False)
         self._init_weights(generator)
 
     @torch.no_grad()
@@ -348,14 +372,13 @@ class GPT2LMHead(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, return_hidden: bool = False):
         """``input_ids`` (B, T) -> logits (B, T, V); under ``seq_sharding``
-        this rank's T-slice of them, and under a vocab-parallel ``wte`` its
-        slice of V."""
+        this rank's T-slice of them, and under a vocab-parallel head its
+        slice of V (of every position under both)."""
         cfg = self.config
-        lo = 0
-        if cfg.seq_sharding is not None:
-            input_ids, lo = seq_slice(input_ids, cfg.seq_sharding)
-        T = input_ids.shape[1]
-        tok = embed(self.wte, input_ids, cfg.vocab_size, cfg.model_parallel)
+        sp, mesh = cfg.seq_sharding, cfg.model_parallel
+        lo = 0 if sp is None else seq_slice(input_ids, sp)[1]
+        tok = embed(self.wte, input_ids, cfg.vocab_size, mesh, sp)
+        T = tok.shape[1]
         pos = self.wpe[lo:lo + T][None]
         if cfg.dtype == torch.bfloat16:
             x = tok.to(cfg.dtype) + pos.to(cfg.dtype)
@@ -370,18 +393,24 @@ class GPT2LMHead(nn.Module):
             # final pre-logit states; pair with output_kernel() for the
             # chunked-vocab loss (losses.chunked_causal_lm_loss)
             return x
-        x = split_input(x, cfg.model_parallel, self.wte.shape[0] < cfg.vocab_size)
+        if not cfg.tie_word_embeddings:
+            kernel = self.lm_head.kernel
+            x = split_input(x, mesh, kernel.shape[1] < cfg.vocab_size, sp)
+            return precision.matmul(at_least_f32(x), kernel)
+        x = split_input(x, mesh, self.wte.shape[0] < cfg.vocab_size, sp)
         return at_least_f32(precision.einsum("btc,vc->btv", x, _as(self.wte, x)))
 
     @staticmethod
     def output_kernel(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """(C, V) output projection: ``logits = hidden @ kernel``."""
+        if "lm_head.kernel" in params:
+            return params["lm_head.kernel"]
         return params["wte"].T
 
 
 def num_params(config: GPT2Config) -> int:
     """Closed-form parameter count (124,439,808 for the 1024-position 124M,
-    79,787,184 for ``moe_80m``)."""
+    79,787,184 for ``moe_80m``; an untied head adds V·C)."""
     c, v, p, l = config.n_embd, config.vocab_size, config.n_positions, config.n_layer
     attn = (3 * c * c + 3 * c) + (c * c + c)
     if config.n_experts:
@@ -390,4 +419,5 @@ def num_params(config: GPT2Config) -> int:
     else:
         mlp = (4 * c * c + 4 * c) + (4 * c * c + c)
     per_block = attn + mlp + 4 * c
-    return v * c + p * c + l * per_block + 2 * c
+    head = 0 if config.tie_word_embeddings else v * c
+    return v * c + p * c + l * per_block + 2 * c + head

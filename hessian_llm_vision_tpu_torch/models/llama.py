@@ -15,7 +15,8 @@ under ``model_parallel`` q/k/v and gate/up split by columns, o/down by
 rows, ``embed_tokens`` / ``lm_head`` the vocabulary, and k/v stay whole
 (their gradient summed over the axis where they are used) when the kv
 heads do not divide the axis; under ``seq_sharding`` a rank's tokens take
-their rotary angles at their own positions.
+their rotary angles at their own positions (under both, split heads see
+every position at its own).
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ from hessian_llm_vision_tpu_torch.models.gpt2 import (
     embed,
     gather_kv,
     init_weights,
-    seq_slice,
     split_input,
 )
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
@@ -141,23 +141,26 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x):
         cfg = self.config
-        B, T, C = x.shape
-        D, mesh = cfg.head_dim, cfg.model_parallel
+        D, mesh, sp = cfg.head_dim, cfg.model_parallel, cfg.seq_sharding
         Hq = self.q_proj.kernel.shape[1] // D  # this rank's query heads
         Hk = self.k_proj.kernel.shape[1] // D  # and kv heads (all of them when not split)
-        x = split_input(x, mesh, Hq < cfg.num_heads)
+        split = Hq < cfg.num_heads
+        x = split_input(x, mesh, split, sp)  # every position under TP x SP
+        B, T, C = x.shape
         q = self.q_proj(x).reshape(B, T, Hq, D)
-        if Hq < cfg.num_heads and Hk == cfg.kv_heads:
+        if split and Hk == cfg.kv_heads and sp is None:
             # whole k and v under split queries: their gradient summed over the axis
+            # (under seq_sharding the loss closure sums every whole leaf's)
             k = precision.matmul(x, _as(copy_to_model(self.k_proj.kernel, mesh), x))
             v = precision.matmul(x, _as(copy_to_model(self.v_proj.kernel, mesh), x))
         else:
             k, v = self.k_proj(x), self.v_proj(x)
         k, v = k.reshape(B, T, Hk, D), v.reshape(B, T, Hk, D)
-        offset = 0 if cfg.seq_sharding is None else cfg.seq_sharding.mesh.model_index * T
+        sliced = sp is not None and not split
+        offset = sp.mesh.model_index * T if sliced else 0
         q, k = _rope_full(q, k, cfg.rope_theta, offset)
-        if cfg.seq_sharding is not None:
-            k, v = gather_kv(k, v, cfg.seq_sharding)
+        if sliced:
+            k, v = gather_kv(k, v, sp)
         group = cfg.num_heads // cfg.kv_heads
         if group > 1:  # grouped-query: each kv head serves its group of query heads
             k = k.repeat_interleave(group, dim=2)
@@ -166,7 +169,7 @@ class LlamaAttention(nn.Module):
             first = mesh.model_index * Hq
             k, v = k[:, :, first:first + Hq], v[:, :, first:first + Hq]
         y = causal_attention(q, k, v, block_q=cfg.attn_block_q, q_offset=offset)
-        return dense_rows(self.o_proj, y.reshape(B, T, Hq * D), mesh, C)
+        return dense_rows(self.o_proj, y.reshape(B, T, Hq * D), mesh, C, sp)
 
 
 class LlamaMLP(nn.Module):
@@ -181,9 +184,11 @@ class LlamaMLP(nn.Module):
         self.down_proj = Dense(I, C, use_bias=False)
 
     def forward(self, x):
-        mesh, width = self.config.model_parallel, self.config.intermediate_size
-        x = split_input(x, mesh, self.gate_proj.kernel.shape[1] < width)
-        return dense_rows(self.down_proj, F.silu(self.gate_proj(x)) * self.up_proj(x), mesh, width)
+        cfg = self.config
+        mesh, sp, width = cfg.model_parallel, cfg.seq_sharding, cfg.intermediate_size
+        x = split_input(x, mesh, self.gate_proj.kernel.shape[1] < width, sp)
+        return dense_rows(self.down_proj, F.silu(self.gate_proj(x)) * self.up_proj(x), mesh, width,
+                          sp)
 
 
 class LlamaBlock(nn.Module):
@@ -226,9 +231,8 @@ class LlamaLMHead(nn.Module):
         """``input_ids`` (B, T) -> logits (B, T, V), or this rank's slices of
         them under the model axis (``models/gpt2.py``)."""
         cfg = self.config
-        if cfg.seq_sharding is not None:
-            input_ids, _ = seq_slice(input_ids, cfg.seq_sharding)
-        x = embed(self.embed_tokens, input_ids, cfg.vocab_size, cfg.model_parallel)
+        sp = cfg.seq_sharding
+        x = embed(self.embed_tokens, input_ids, cfg.vocab_size, cfg.model_parallel, sp)
         if cfg.dtype == torch.bfloat16:
             x = x.to(cfg.dtype)
         per_prec = precision.per_layer_precision(cfg.block_matmul_precision, cfg.num_layers)
@@ -238,7 +242,7 @@ class LlamaLMHead(nn.Module):
         x = self.norm(x)
         if return_hidden:
             return x
-        x = split_input(x, cfg.model_parallel, self.lm_head.kernel.shape[1] < cfg.vocab_size)
+        x = split_input(x, cfg.model_parallel, self.lm_head.kernel.shape[1] < cfg.vocab_size, sp)
         return at_least_f32(self.lm_head(x))
 
     @staticmethod

@@ -31,6 +31,7 @@ from torch.func import functional_call
 from hessian_llm_vision_tpu_torch.models import precision
 from hessian_llm_vision_tpu_torch.models.collectives import (
     copy_to_model,
+    gather_from_model,
     reduce_from_model,
     vocab_parallel_log_likelihood,
 )
@@ -48,7 +49,9 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
     return -logp.gather(-1, labels[:, None]).squeeze(-1).mean()
 
 
-def _token_log_likelihood(logits, targets, vocab_mesh=None):
+def token_log_likelihood(logits, targets, vocab_mesh=None):
+    """``log softmax(logits)[target]`` per position, in at least f32
+    (``vocab_mesh``: ``logits`` are this rank's slice of the vocabulary)."""
     if vocab_mesh is not None:
         return vocab_parallel_log_likelihood(at_least_f32(logits), targets, vocab_mesh)
     logp = F.log_softmax(at_least_f32(logits), dim=-1)
@@ -85,7 +88,7 @@ def causal_lm_loss(
     of the positions, and ``input_ids`` the whole sequences."""
     first, stop, w = _targets(input_ids, attention_mask, include_padding, logits.shape[1],
                               seq_mesh)
-    token_ll = _token_log_likelihood(logits[:, :stop - first], input_ids[:, first + 1:stop + 1],
+    token_ll = token_log_likelihood(logits[:, :stop - first], input_ids[:, first + 1:stop + 1],
                                      vocab_mesh)
     total = (token_ll * w[:, first:stop]).sum()
     if seq_mesh is not None:
@@ -112,21 +115,25 @@ def chunked_causal_lm_loss(
     dense logits.  ``vocab_mesh``: ``out_kernel`` holds this rank's columns
     of the vocabulary (the hidden states enter it through
     ``copy_to_model``); ``seq_mesh``: ``hidden`` is this rank's T-slice and
-    ``input_ids`` the whole sequences.  The JAX package's per-chunk
+    ``input_ids`` the whole sequences; both: the T-slices are gathered
+    first, and every rank's loss covers every position.  The JAX package's per-chunk
     rematerialisation is not ported: under autodiff each chunk's logits
     stay live.
     """
+    gathered = vocab_mesh is not None and seq_mesh is not None
+    if gathered:  # a vocab-split head sees every position; the gradient scattered back
+        hidden, seq_mesh = gather_from_model(hidden, seq_mesh, 1), None
     first, stop, w = _targets(input_ids, attention_mask, include_padding, hidden.shape[1],
                               seq_mesh)
     h = at_least_f32(hidden[:, :stop - first])
-    if vocab_mesh is not None:
+    if vocab_mesh is not None and not gathered:
         h = copy_to_model(h, vocab_mesh)
     targets = input_ids[:, first + 1:stop + 1]
     wl = w[:, first:stop]
     wk = at_least_f32(out_kernel)
     partials = []
     for s in range(0, stop - first, chunk):
-        ll = _token_log_likelihood(precision.matmul(h[:, s : s + chunk], wk),
+        ll = token_log_likelihood(precision.matmul(h[:, s : s + chunk], wk),
                                    targets[:, s : s + chunk], vocab_mesh)
         partials.append((ll * wl[:, s : s + chunk]).sum())
     total = torch.stack(partials).sum()
@@ -148,17 +155,20 @@ def lm_loss_fn(
     ``output_kernel`` (GPT-2's tied ``wte``, NeoX's ``embed_out``,
     LLaMA's ``lm_head``); ``None`` = dense logits.
 
-    On the model axis (the config's ``model_parallel`` or ``seq_sharding``)
-    ``params`` are this rank's: a vocab-parallel head gives vocab-parallel
-    logits, and under ``seq_sharding`` every parameter enters the model
-    through ``copy_to_model`` (each rank's tokens give part of every
-    gradient) and the loss is the sum over the axis of the ranks' token
-    losses over the whole batch's count.
+    On the model axis (the config's ``model_parallel`` and/or
+    ``seq_sharding``) ``params`` are this rank's: a vocab-parallel head
+    gives vocab-parallel logits, and under ``seq_sharding`` every leaf that
+    the rank holds whole enters the model through ``copy_to_model`` (each
+    rank's tokens give part of its gradient; a leaf split over the axis
+    sees every position) and the loss is the sum over the axis of the
+    ranks' token losses over the whole batch's count (a vocab-split head
+    gives every rank every position's logits and the whole loss).
     """
     cfg = getattr(model, "config", None)
     mp = getattr(cfg, "model_parallel", None)
     sp = getattr(cfg, "seq_sharding", None)
     seq_mesh = None if sp is None else sp.mesh
+    whole = {} if sp is None else {n: p.shape for n, p in model.named_parameters()}
 
     def vocab_mesh(width: int):
         return mp if mp is not None and width < cfg.vocab_size else None
@@ -166,14 +176,16 @@ def lm_loss_fn(
     def inputs(params):
         if seq_mesh is None:
             return params
-        return {k: copy_to_model(p, seq_mesh) for k, p in params.items()}
+        return {k: copy_to_model(p, seq_mesh) if p.shape == whole.get(k) else p
+                for k, p in params.items()}
 
     def loss(params, batch):
-        logits = functional_call(model, inputs(params), (batch["input_ids"],))
+        ids = batch["input_ids"]
+        logits = functional_call(model, inputs(params), (ids,))
         return causal_lm_loss(
-            logits, batch["input_ids"], batch.get("attention_mask"),
+            logits, ids, batch.get("attention_mask"),
             include_padding=include_padding, vocab_mesh=vocab_mesh(logits.shape[-1]),
-            seq_mesh=seq_mesh,
+            seq_mesh=seq_mesh if logits.shape[1] < ids.shape[1] else None,
         )
 
     def loss_chunked(params, batch):

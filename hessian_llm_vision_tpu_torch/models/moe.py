@@ -22,6 +22,12 @@ replicated, so every rank computes the same dispatch and keeps its
 experts' slots.  The gate's probabilities and the tokens reach the
 experts through ``copy_to_model``, so their gradients are summed over the
 axis and come out whole on every rank.
+
+Under sequence parallelism (``config.seq_sharding``) dense gating runs on
+the rank's T-slice; top-k routing gathers every rank's slice first and
+keeps its own after, so the capacity and the slot counts run over every
+token of the sequences, as in the JAX package.  Expert and sequence
+parallelism on one axis are refused.
 """
 
 from __future__ import annotations
@@ -34,7 +40,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from hessian_llm_vision_tpu_torch.models import precision
-from hessian_llm_vision_tpu_torch.models.collectives import copy_to_model, reduce_from_model
+from hessian_llm_vision_tpu_torch.models.collectives import (
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+)
 from hessian_llm_vision_tpu_torch.models.gpt2 import Dense, _as
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
 
@@ -61,9 +71,16 @@ class MoEMLP(nn.Module):
 
     def forward(self, x):
         cfg = self.config
+        local = self.w1.shape[0]  # this rank's experts: all of them, or E/ep under EP
+        sp = cfg.seq_sharding
+        if sp is not None and local < cfg.n_experts:
+            raise NotImplementedError("expert and sequence parallelism on one model axis are "
+                                      "not ported")
+        T = x.shape[1]
+        if sp is not None and cfg.moe_top_k:  # route every token of the sequences
+            x = gather_from_model(x, sp.mesh, 1)
         probs = torch.softmax(at_least_f32(self.gate(x)), dim=-1).to(x.dtype)
         w1, b1, w2, b2 = (_as(p, x) for p in (self.w1, self.b1, self.w2, self.b2))
-        local = w1.shape[0]  # this rank's experts: all of them, or E/ep under EP
         mesh, first = cfg.model_parallel, 0
         if local < cfg.n_experts:
             x, probs = copy_to_model(x, mesh), copy_to_model(probs, mesh)
@@ -71,6 +88,8 @@ class MoEMLP(nn.Module):
         if cfg.moe_top_k:
             y = _topk_moe(x, probs, w1, b1, w2, b2, cfg.moe_top_k, cfg.moe_capacity_factor,
                           first)
+            if sp is not None:  # this rank's T-slice
+                y = y[:, sp.mesh.model_index * T:(sp.mesh.model_index + 1) * T]
         else:
             h = F.gelu(precision.einsum("btc,ecf->btef", x, w1) + b1, approximate="tanh")
             y = precision.einsum("btef,efc->btec", h, w2) + b2

@@ -17,7 +17,7 @@ is the model axis: under ``model_parallel`` ``query_key_value`` splits per
 head and ``attention.dense`` by rows, ``dense_h_to_4h`` / ``dense_4h_to_h``
 split the MLP's width, and ``embed_in`` / ``embed_out`` the vocabulary;
 under ``seq_sharding`` a rank's tokens take their rotary angles at their
-own positions.
+own positions (under both, split heads see every position at its own).
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ from hessian_llm_vision_tpu_torch.models.gpt2 import (
     embed,
     gather_kv,
     init_weights,
-    seq_slice,
     split_input,
 )
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
@@ -137,19 +136,21 @@ class NeoXAttention(nn.Module):
 
     def forward(self, x):
         cfg = self.config
-        B, T, C = x.shape
-        D = cfg.head_dim
+        sp, D = cfg.seq_sharding, cfg.head_dim
         H = self.query_key_value.kernel.shape[1] // (3 * D)  # this rank's heads
-        x = split_input(x, cfg.model_parallel, H < cfg.num_heads)
+        split = H < cfg.num_heads
+        x = split_input(x, cfg.model_parallel, split, sp)  # every position under TP x SP
+        B, T, C = x.shape
         q, k, v = (t.reshape(B, T, H, D) for t in self.query_key_value(x).split(H * D, dim=-1))
-        offset = 0 if cfg.seq_sharding is None else cfg.seq_sharding.mesh.model_index * T
+        sliced = sp is not None and not split
+        offset = sp.mesh.model_index * T if sliced else 0
         rot_dim = int(D * cfg.rotary_pct)
         if rot_dim > 0:
             q, k = _rotary(q, k, cfg.rotary_emb_base, rot_dim, offset)
-        if cfg.seq_sharding is not None:
-            k, v = gather_kv(k, v, cfg.seq_sharding)
+        if sliced:
+            k, v = gather_kv(k, v, sp)
         y = causal_attention(q, k, v, block_q=cfg.attn_block_q, q_offset=offset)
-        return dense_rows(self.dense, y.reshape(B, T, H * D), cfg.model_parallel, C)
+        return dense_rows(self.dense, y.reshape(B, T, H * D), cfg.model_parallel, C, sp)
 
 
 class NeoXMLP(nn.Module):
@@ -160,10 +161,11 @@ class NeoXMLP(nn.Module):
         self.dense_4h_to_h = Dense(4 * config.hidden_size, config.hidden_size)
 
     def forward(self, x):
-        mesh, width = self.config.model_parallel, 4 * self.config.hidden_size
-        x = split_input(x, mesh, self.dense_h_to_4h.kernel.shape[1] < width)
+        cfg = self.config
+        mesh, sp, width = cfg.model_parallel, cfg.seq_sharding, 4 * cfg.hidden_size
+        x = split_input(x, mesh, self.dense_h_to_4h.kernel.shape[1] < width, sp)
         h = F.gelu(self.dense_h_to_4h(x), approximate="tanh")
-        return dense_rows(self.dense_4h_to_h, h, mesh, width)
+        return dense_rows(self.dense_4h_to_h, h, mesh, width, sp)
 
 
 class NeoXBlock(nn.Module):
@@ -206,9 +208,8 @@ class NeoXLMHead(nn.Module):
         """``input_ids`` (B, T) -> logits (B, T, V), or this rank's slices of
         them under the model axis (``models/gpt2.py``)."""
         cfg = self.config
-        if cfg.seq_sharding is not None:
-            input_ids, _ = seq_slice(input_ids, cfg.seq_sharding)
-        x = embed(self.embed_in, input_ids, cfg.vocab_size, cfg.model_parallel)
+        sp = cfg.seq_sharding
+        x = embed(self.embed_in, input_ids, cfg.vocab_size, cfg.model_parallel, sp)
         if cfg.dtype == torch.bfloat16:
             x = x.to(cfg.dtype)
         per_prec = precision.per_layer_precision(cfg.block_matmul_precision, cfg.num_layers)
@@ -218,7 +219,7 @@ class NeoXLMHead(nn.Module):
         x = self.final_layer_norm(x)
         if return_hidden:
             return x
-        x = split_input(x, cfg.model_parallel, self.embed_out.kernel.shape[1] < cfg.vocab_size)
+        x = split_input(x, cfg.model_parallel, self.embed_out.kernel.shape[1] < cfg.vocab_size, sp)
         return at_least_f32(self.embed_out(x))
 
     @staticmethod

@@ -6,8 +6,11 @@ parameters replicate, and the Krylov basis splits along P
 (``param_sharding``), sequence parallelism (``seq_parallel``) and expert
 parallelism (``models/moe.py``), with the differentiable collectives of
 ``models/collectives.py`` inside the model, and the basis split over both
-axes.  The GPipe pipeline is ROADMAP A13c.  ``parallel.spawn`` (n ranks in
-new interpreters) and ``parallel.dryrun`` are imported on their own.
+axes.  The GPipe pipeline (``pipeline``): GPT-2's blocks stacked by
+stage over the second axis of a ``('data', 'pp')`` mesh, the microbatches
+rotated through the stages inside a differentiable loss.
+``parallel.spawn`` (n ranks in new interpreters) and ``parallel.dryrun``
+are imported on their own.
 """
 
 from hessian_llm_vision_tpu_torch.parallel.dist_init import (
@@ -37,6 +40,14 @@ from hessian_llm_vision_tpu_torch.parallel.param_sharding import (
     model_parallel_config,
     shard_params_for_tp,
     tp_spec_tree,
+)
+from hessian_llm_vision_tpu_torch.parallel.pipeline import (
+    make_pipeline_mesh,
+    make_pipelined_lm_loss,
+    pipeline_apply,
+    pipeline_param_sharding,
+    stack_pipeline_params,
+    unstack_pipeline_params,
 )
 from hessian_llm_vision_tpu_torch.parallel.probe_parallel import (
     probe_parallel_spectrum_host,
@@ -71,4 +82,10 @@ __all__ = [
     "seq_sharding",
     "seq_parallel_config",
     "probe_parallel_spectrum_host",
+    "make_pipeline_mesh",
+    "make_pipelined_lm_loss",
+    "pipeline_apply",
+    "pipeline_param_sharding",
+    "stack_pipeline_params",
+    "unstack_pipeline_params",
 ]

@@ -13,7 +13,11 @@ parallel params with a data-parallel loss and the basis split over both
 axes (a fused LanczosSGD step, the host-loop spectrum, two steps of the
 host trainer), the sequence-parallel host-loop spectrum at batch size 1,
 and Lanczos through the expert-parallel MoE GPT-2, each held to one
-process on the whole model.  The pipeline part is ROADMAP A13c.
+process on the whole model.  The pipeline (:func:`dryrun_pipeline_rank`,
+on every n): 2 stages when n is even, else 1, the rest of the ranks on the
+data axis; a 3-iteration Lanczos on the Hessian of the pipelined loss
+(2 microbatches, each split over the data axis), its basis on the
+pipeline axis, held to one process on the whole model.
 
     python -c "from hessian_llm_vision_tpu_torch.parallel.dryrun import \\
         dryrun_multichip; dryrun_multichip(4)"
@@ -242,14 +246,62 @@ def dryrun_model_rank(mesh) -> dict:
     return out
 
 
+def dryrun_pipeline_rank(mesh) -> dict:
+    """One rank's share of the pipeline part of :func:`dryrun_multichip`
+    on the ranks of ``mesh``: GPT-2's blocks over 2 stages (1 on an odd
+    number of ranks), a batch of ``2·2·n_data`` sequences in 2 microbatches
+    split over the data axis, and a 3-iteration Lanczos on the pipelined
+    Hessian with the basis on the pipeline axis.  Rank 0 alone runs the
+    whole model's and reports the difference of the two T."""
+    from hessian_llm_vision_tpu_torch.curvature.operators import HessianOperator
+    from hessian_llm_vision_tpu_torch.krylov.lanczos import lanczos
+    from hessian_llm_vision_tpu_torch.models import losses
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from hessian_llm_vision_tpu_torch.parallel.mesh import basis_sharding
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params
+    from hessian_llm_vision_tpu_torch.parallel.pipeline import (
+        make_pipeline_mesh,
+        make_pipelined_lm_loss,
+        pipeline_param_sharding,
+        stack_pipeline_params,
+    )
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener, ModelAxisLayout
+
+    n, lead = mesh.size, mesh.index == 0
+    stages = 2 if n % 2 == 0 else 1
+    pm = make_pipeline_mesh(n // stages, stages)
+    cfg = GPT2Config(vocab_size=VOCAB, n_positions=64, n_embd=32, n_layer=2, n_head=2)
+    model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0))
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    fl = Flattener(params)
+    stacked = stack_pipeline_params(params, cfg.n_layer, stages)
+    splits = pipeline_param_sharding(stacked, pm)
+    local = shard_params(stacked, splits, pm)
+    loss = make_pipelined_lm_loss(model, pm, num_microbatches=2, data_axis="data")
+    ids = np.random.RandomState(4).randint(0, VOCAB, size=(2 * 2 * pm.num_data, SEQ))
+    batch = {"input_ids": torch.as_tensor(ids)}
+    v = torch.randn(fl.size, generator=torch.Generator().manual_seed(5))
+    v_rank = Flattener(local).flatten(shard_params(
+        stack_pipeline_params(fl.unflatten(v), cfg.n_layer, stages), splits, pm))
+    layout = ModelAxisLayout(local, splits, pm.num_model, pm.model_index)
+    op = HessianOperator(loss, local, batch)
+    res = lanczos(op.matvec, op.dim, 3, v0=v_rank, basis_sharding=basis_sharding(pm, layout))
+    out = {"mesh": pm.shape, "microbatches": 2, "batch": list(ids.shape),
+           "alpha0": float(res.alphas[0]), "finite": bool(torch.isfinite(res.alphas).all())}
+    if lead:
+        whole = HessianOperator(losses.lm_loss_fn(model), params, batch)
+        out["T_diff"] = _t_diff(res, lanczos(whole.matvec, fl.size, 3, v0=v))
+    return out
+
+
 def dryrun_all(mesh) -> dict:
-    """:func:`dryrun_rank`, and :func:`dryrun_model_rank` on an even mesh
-    of at least 4 ranks."""
+    """:func:`dryrun_rank`, :func:`dryrun_model_rank` on an even mesh of at
+    least 4 ranks, and :func:`dryrun_pipeline_rank`."""
     out = dryrun_rank(mesh)
     n = mesh.size
     out["model_axis"] = dryrun_model_rank(mesh) if n >= 4 and n % 2 == 0 else (
         "needs an even number of ranks, at least 4")
-    out["pipeline"] = "not ported yet (ROADMAP A13c)"
+    out["pipeline"] = dryrun_pipeline_rank(mesh)
     return out
 
 

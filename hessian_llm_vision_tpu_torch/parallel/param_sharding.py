@@ -146,9 +146,7 @@ def shard_params_for_tp(params: Mapping[str, torch.Tensor], mesh,
 def model_parallel_config(cfg: Any, mesh) -> Any:
     """``cfg`` (GPT-2, NeoX or LLaMA) whose layers split over ``mesh``'s
     model axis wherever their leaves are this rank's slices (tensor
-    parallelism, and expert parallelism for the MoE GPT-2)."""
-    if getattr(cfg, "seq_sharding", None) is not None:
-        raise NotImplementedError(
-            "tensor and sequence parallelism on one model axis are not ported yet "
-            "(ROADMAP A13c)")
+    parallelism, and expert parallelism for the MoE GPT-2); beside a
+    ``seq_sharding`` of the same mesh, tensor and sequence parallelism on
+    one axis."""
     return dataclasses.replace(cfg, model_parallel=mesh)

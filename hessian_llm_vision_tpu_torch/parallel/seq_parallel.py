@@ -9,11 +9,15 @@ sequence at their own positions (``wpe``, rotary), gathers keys and values
 along T in attention (``models/collectives.py::gather_from_model``),
 and the loss (``models/losses.py``) takes each rank's targets from the
 whole ``input_ids``, sums its token losses over the axis and divides by
-the whole batch's count.  Every parameter enters the model through
-``copy_to_model``, so gradients and HVPs come out whole and equal on every
-rank of the axis.  The batch axis splits over ``data_axis`` as usual
-(``parallel.mesh.shard_batch`` and a ``ShardedLoss``), or replicates (None:
-the bs1 long-context case this exists for).
+the whole batch's count.  Every leaf a rank holds whole enters the model
+through ``copy_to_model``, so gradients and HVPs come out whole and equal
+on every rank of the axis.  Beside ``model_parallel`` on the same mesh
+(``param_sharding.model_parallel_config``), tensor and sequence
+parallelism share the axis: the T-slices are gathered before each
+column-parallel layer and the row-parallel partial sums reduce-scattered
+back (``models/gpt2.py``).  The batch axis splits over ``data_axis`` as
+usual (``parallel.mesh.shard_batch`` and a ``ShardedLoss``), or replicates
+(None: the bs1 long-context case this exists for).
 """
 
 from __future__ import annotations

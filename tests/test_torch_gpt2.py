@@ -121,13 +121,43 @@ def test_convert_round_trip_and_param_count():
     assert num_params(GPT2Config.gpt2_124m(n_positions=512)) == 124_046_592
 
 
+def test_untied_head_matches_flax():
+    """``tie_word_embeddings=False``: the flax ``lm_head`` (C, V) kernel,
+    carried by name, gives flax's logits and losses."""
+    jmodel, jparams, model, ids = _pair(tie_word_embeddings=False)
+    assert model.lm_head.kernel.shape == (32, 256) and model.lm_head.bias is None
+    assert "lm_head" in jparams
+    jlogits = np.asarray(jmodel.apply({"params": jparams}, jnp.asarray(ids)))
+    with torch.no_grad():
+        logits = model(torch.as_tensor(ids)).numpy()
+    np.testing.assert_allclose(logits, jlogits, rtol=1e-5, atol=1e-5)
+    mask = np.ones_like(ids)
+    mask[2, 6:] = 0
+    jbatch = {"input_ids": jnp.asarray(ids), "attention_mask": jnp.asarray(mask)}
+    batch = {"input_ids": torch.as_tensor(ids), "attention_mask": torch.as_tensor(mask)}
+    params = dict(model.named_parameters())
+    jl = float(jlosses.lm_loss_fn(jmodel)(jparams, jbatch))
+    with torch.no_grad():
+        for chunk in (None, 5):
+            tl = float(losses.lm_loss_fn(model, loss_chunk=chunk)(params, batch))
+            np.testing.assert_allclose(tl, jl, rtol=1e-5)
+
+
+def test_untied_head_flat_order_and_param_count():
+    _, jparams, model, _ = _pair(tie_word_embeddings=False)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    np.testing.assert_array_equal(Flattener(params).flatten(params).numpy(),
+                                  np.asarray(JFlattener(jparams).flatten(jparams)))
+    assert GPT2LMHead.output_kernel(params) is params["lm_head.kernel"]
+    cfg = GPT2Config.tiny(tie_word_embeddings=False)
+    assert num_params(cfg) == sum(p.numel() for p in model.parameters())
+    assert num_params(cfg) == jnum_params(JGPT2Config.tiny(tie_word_embeddings=False))
+
+
 # dtype bfloat16 and the precision fields are ported (test_torch_precision_model.py),
-# the MoE fields too (test_torch_lm_families.py); seq_sharding is ported
-# (test_torch_model_parallel.py), but not beside a split model axis
-@pytest.mark.parametrize("field,value", [
-    ("dropout", 0.1), ("seq_sharding", "seq"), ("tie_word_embeddings", False),
-])
+# the MoE fields too (test_torch_lm_families.py), seq_sharding beside model_parallel
+# (test_torch_pipeline.py) and the untied head (above)
+@pytest.mark.parametrize("field,value", [("dropout", 0.1)])
 def test_unported_config_fields_raise(field, value):
-    beside = {"model_parallel": "mesh"} if field == "seq_sharding" else {}
     with pytest.raises(NotImplementedError, match="not ported"):
-        GPT2Config.tiny(**{field: value}, **beside)
+        GPT2Config.tiny(**{field: value})

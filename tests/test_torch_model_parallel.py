@@ -4,7 +4,8 @@ sharded models on its 8-device CPU mesh, on the same numpy inputs and the
 JAX params carried over by ``models/convert.py``.
 
 Two spawns: 2 ranks (every TP, SP and EP case on a model axis of 2, and
-the Lanczos with its basis on the model axis) and 4 ranks (a data 2 x
+the Lanczos with its basis on the model axis; the 2-stage pipeline cases
+of ``tests/test_torch_pipeline.py`` ride in it) and 4 ranks (a data 2 x
 model 2 mesh: the DP x TP case, which catches a data-parallel sum over
 every rank, its Lanczos with the basis split over both axes, and
 ``parallel/dryrun.py``'s model-axis half).  Each spawns once per run with
@@ -50,6 +51,7 @@ from hessian_llm_vision_tpu_torch.models.convert import params_from_jax, shard_f
 from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from hessian_llm_vision_tpu_torch.models.llama import LlamaConfig
 from hessian_llm_vision_tpu_torch.models.moe import make_ep_mesh, moe_param_sharding
+from hessian_llm_vision_tpu_torch.models.moe import shard_params_for_ep as shard_params_ep
 from hessian_llm_vision_tpu_torch.models.pythia import NeoXConfig
 from hessian_llm_vision_tpu_torch.models import collectives
 from hessian_llm_vision_tpu_torch.parallel.mesh import Mesh
@@ -81,12 +83,25 @@ CASES = {
     "neox_tp": ("neox", NEOX_KW, "tp", None),
     "llama_tp": ("llama", LLAMA_KW, "tp", 8),
     "llama_kv1_tp": ("llama", dict(LLAMA_KW, num_kv_heads=1), "tp", None),
+    "gpt2_untied_tp": ("gpt2", dict(GPT2_KW, tie_word_embeddings=False), "tp", None),
     "gpt2_sp": ("gpt2", GPT2_KW, "sp", 8),
     "neox_sp": ("neox", NEOX_KW, "sp", None),
     "llama_sp": ("llama", LLAMA_KW, "sp", None),
     "moe_dense_ep": ("gpt2", MOE_KW, "ep", None),
     "moe_top2_ep": ("gpt2", dict(MOE_KW, moe_top_k=2, moe_capacity_factor=2.0), "ep", None),
+    "moe_top2_sp": ("gpt2", dict(MOE_KW, moe_top_k=2, moe_capacity_factor=2.0), "sp", None),
 }
+#: the JAX pipeline tests' GPT-2 (``tests/distributed/test_pipeline.py:31``)
+PIPE_KW = dict(vocab_size=64, n_positions=T, n_embd=16, n_layer=4, n_head=2)
+#: name -> (stages, data ranks, microbatches, config overrides, attention
+#: mask); the JAX fast suite's pp2 and dp2 x pp2 cases and its (1, 4) mesh
+PIPELINE = {
+    "pp2": (2, 1, 2, {}, False),
+    "pp2_untied_mask": (2, 1, 4, {"tie_word_embeddings": False}, True),
+    "dp2xpp2": (2, 2, 4, {}, False),
+    "pp4": (4, 1, 4, {}, False),
+}
+PIPELINE_TWO = ("pp2", "pp2_untied_mask")  # in the 2-rank spawn
 _JAX = {"gpt2": (JGPT2Config, JGPT2LMHead), "neox": (JNeoXConfig, JNeoXLMHead),
         "llama": (JLlamaConfig, JLlamaLMHead)}
 
@@ -148,10 +163,39 @@ def _rank_case(name: str, **extra) -> dict:
     return {k: inp[k] for k in ("family", "config", "mode", "chunk", "params", "ids", "v")} | extra
 
 
+@functools.lru_cache(maxsize=None)
+def _pipeline_inputs(name: str) -> dict:
+    """A pipeline case's JAX model and params and the numpy inputs that the
+    ranks get: 8 sequences of T tokens (an attention mask with two padded
+    tails where the case has one) and a tangent in the plain model's JAX
+    flat order."""
+    stages, data, micro, over, masked = PIPELINE[name]
+    kw = dict(PIPE_KW, **over)
+    model, params = _init("gpt2", tuple(sorted(kw.items())))
+    ids = np.random.RandomState(5).randint(0, kw["vocab_size"], size=(8, T))
+    mask = None
+    if masked:
+        mask = np.ones_like(ids)
+        mask[1, 10:] = 0
+        mask[6, 4:] = 0
+    v = np.random.RandomState(6).standard_normal(JFlattener(params).size).astype(np.float32)
+    return {"config": kw, "stages": stages, "data": data, "microbatches": micro, "ids": ids,
+            "mask": mask, "v": v, "model": model, "jax_params": params,
+            "params": {k: t.numpy() for k, t in params_from_jax(params).items()}}
+
+
+def _pipeline_rank_case(name: str, **extra) -> dict:
+    inp = _pipeline_inputs(name)
+    keys = ("config", "stages", "data", "microbatches", "ids", "mask", "v", "params")
+    return {k: inp[k] for k in keys} | extra
+
+
 #: the NeoX and LLaMA sequence-parallel cases are held to the JAX package's
-#: tensor-parallel run of the same params and inputs (each of its compiles
-#: costs about 10 s here; its own tests pin SP, TP and unsharded together)
-_SAME_FUNCTION = {"neox_sp": "neox_tp", "llama_sp": "llama_tp"}
+#: tensor-parallel run of the same params and inputs, and the top-2 MoE's to
+#: its expert-parallel run (each of its compiles costs about 10 s here; its
+#: own tests pin SP, TP and unsharded together, and the JAX package computes
+#: the same function whatever the sharding)
+_SAME_FUNCTION = {"neox_sp": "neox_tp", "llama_sp": "llama_tp", "moe_top2_sp": "moe_top2_ep"}
 
 
 def _jax_sharded(name: str) -> dict:
@@ -230,9 +274,10 @@ def jax_ref(tmp_path_factory):
 def two(tmp_path_factory):
     def produce(workdir):
         cases = {name: _rank_case(name) for name in CASES}
+        pipeline = {name: _pipeline_rank_case(name) for name in PIPELINE_TWO}
         return run_ranks(f"{RANKS}:model_axis_two", 2, workdir, threads=1,
                          timeout=SPAWN_TIMEOUT, kwargs={"cases": cases, "lanczos_case": "gpt2_tp",
-                                                        "iters": ITERS})
+                                                        "iters": ITERS, "pipeline": pipeline})
 
     return _shared(tmp_path_factory, "two", produce)
 
@@ -344,16 +389,28 @@ def test_leaves_stay_whole_where_they_do_not_divide():
 
 
 def test_tensor_and_sequence_parallel_on_one_axis_are_refused():
+    """What stays refused on the model axis: the sequence on the data axis,
+    tensor and sequence parallelism over two different meshes, and expert
+    and sequence parallelism on one axis (tensor and sequence parallelism
+    on one axis run: ``tests/test_torch_pipeline.py``)."""
     axis = Mesh(1, 2)
-    for cfg in (GPT2Config.tiny(), NeoXConfig.tiny(), LlamaConfig.tiny()):
-        with pytest.raises(NotImplementedError, match="A13c"):
-            model_parallel_config(seq_parallel_config(cfg, axis), axis)
-        with pytest.raises(NotImplementedError, match="A13c"):
-            seq_parallel_config(model_parallel_config(cfg, axis), axis)
     with pytest.raises(ValueError, match="model axis"):
         seq_parallel_config(GPT2Config.tiny(), axis, seq_axis="data")
-    with pytest.raises(NotImplementedError, match="top-k"):
-        seq_parallel_config(GPT2Config.tiny(n_experts=4, moe_top_k=2), axis)
+    for cfg in (GPT2Config.tiny(), NeoXConfig.tiny(), LlamaConfig.tiny()):
+        both = seq_parallel_config(model_parallel_config(cfg, axis), axis)
+        assert both.model_parallel is axis and both.seq_sharding.mesh is axis
+        with pytest.raises(ValueError, match="one mesh"):
+            seq_parallel_config(model_parallel_config(cfg, axis), Mesh(1, 2))
+    inp = _inputs("moe_top2_ep")
+    ep = Mesh(1, 2, axis_names=("data", "ep"))
+    cfg = seq_parallel_config(model_parallel_config(GPT2Config(**inp["config"]), ep), ep,
+                              seq_axis="ep")
+    params = {k: torch.as_tensor(v) for k, v in inp["params"].items()}
+    with torch.device("meta"):
+        model = GPT2LMHead(cfg)
+    experts = shard_params_ep(params, ep)
+    with pytest.raises(NotImplementedError, match="expert and sequence"):
+        torch.func.functional_call(model, experts, (torch.as_tensor(inp["ids"]),))
 
 
 def test_expert_specs_and_the_ep_mesh_without_a_group():

@@ -216,7 +216,8 @@ def probes(mesh, *, params, x, y, per_probe, v0s, ggn_v0s, cli_argv):
 
 def _lm(family: str, cfg_kw: dict, axis=None, mode: str = "tp"):
     """The port's model of ``family`` at ``cfg_kw``, on the model axis of
-    ``axis`` by ``mode`` ("tp" and "ep": split leaves; "sp": split tokens)."""
+    ``axis`` by ``mode`` ("tp" and "ep": split leaves; "sp": split tokens;
+    "tpsp": both)."""
     from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from hessian_llm_vision_tpu_torch.models.llama import LlamaConfig, LlamaLMHead
     from hessian_llm_vision_tpu_torch.models.pythia import NeoXConfig, NeoXLMHead
@@ -227,8 +228,10 @@ def _lm(family: str, cfg_kw: dict, axis=None, mode: str = "tp"):
                              "llama": (LlamaConfig, LlamaLMHead)}[family]
     cfg = config_cls(**cfg_kw)
     if axis is not None:
-        cfg = (seq_parallel_config(cfg, axis, data_axis=None) if mode == "sp"
-               else model_parallel_config(cfg, axis))
+        if mode != "sp":
+            cfg = model_parallel_config(cfg, axis)
+        if mode in ("sp", "tpsp"):
+            cfg = seq_parallel_config(cfg, axis, data_axis=None)
     return cfg, model_cls(cfg)
 
 
@@ -236,7 +239,7 @@ def _splits(mode: str, params: dict, axis, cfg) -> dict:
     from hessian_llm_vision_tpu_torch.models.moe import ep_layout
     from hessian_llm_vision_tpu_torch.parallel.param_sharding import tp_layout
 
-    if mode == "tp":
+    if mode in ("tp", "tpsp"):
         return tp_layout(params, axis, cfg)
     if mode == "ep":
         return ep_layout(params, axis)
@@ -312,9 +315,12 @@ def _model_axis_lanczos(case: dict, axis, iters: int, data_mesh=None) -> dict:
     }
 
 
-def model_axis_two(mesh, *, cases: dict, lanczos_case: str, iters: int) -> dict:
+def model_axis_two(mesh, *, cases: dict, lanczos_case: str, iters: int,
+                   pipeline: dict) -> dict:
     """Every case on the model axis of 2 ranks (a 1 x 2 mesh, the EP cases
-    on a 1 x 2 ``ep`` mesh), and the model-axis Lanczos of ``lanczos_case``."""
+    on a 1 x 2 ``ep`` mesh), the model-axis Lanczos of ``lanczos_case``,
+    and the ``pipeline`` cases on a 1 x 2 ``('data', 'pp')`` mesh
+    (``tests/test_torch_pipeline.py``)."""
     from hessian_llm_vision_tpu_torch.models.moe import make_ep_mesh
     from hessian_llm_vision_tpu_torch.parallel.mesh import make_mesh
 
@@ -323,6 +329,8 @@ def model_axis_two(mesh, *, cases: dict, lanczos_case: str, iters: int) -> dict:
     for name, case in cases.items():
         out[name] = _model_axis_case(case, ep_axis if case["mode"] == "ep" else axis)
     out["lanczos"] = _model_axis_lanczos(cases[lanczos_case], axis, iters)
+    for name, case in pipeline.items():
+        out[name] = _pipeline_case(case)
     return out
 
 
@@ -339,3 +347,134 @@ def model_axis_four(mesh, *, case: dict, iters: int) -> dict:
             "case": _model_axis_case(case, grid, data_mesh=grid),
             "lanczos": _model_axis_lanczos(case, grid, iters, data_mesh=grid),
             "dryrun": dryrun_model_rank(mesh)}
+
+
+# ------------------------------------------------------- the pipeline
+# (tests/test_torch_pipeline.py)
+
+def _pipeline_case(case: dict) -> dict:
+    """GPT-2 pipelined over ``case["stages"]`` stages of a ``(data,
+    stages)`` mesh, ``case["microbatches"]`` microbatches (each split over
+    the data axis when it has more than one rank): the loss, the gathered
+    gradient and HVP in the stacked tree's flat order (the JAX package's),
+    and with ``case["iters"]`` the Lanczos with its basis on the pipeline
+    axis, from the plain model's flat vector ``case["v"]``."""
+    from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss, hvp
+    from hessian_llm_vision_tpu_torch.curvature.operators import HessianOperator
+    from hessian_llm_vision_tpu_torch.models.convert import gather_model_axis
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params
+    from hessian_llm_vision_tpu_torch.parallel.pipeline import (
+        make_pipeline_mesh,
+        make_pipelined_lm_loss,
+        pipeline_param_sharding,
+        stack_pipeline_params,
+    )
+    from hessian_llm_vision_tpu_torch.utils.flatten import ModelAxisLayout
+
+    params = {k: torch.as_tensor(v) for k, v in case["params"].items()}
+    cfg = GPT2Config(**case["config"])
+    S, L = case["stages"], cfg.n_layer
+    with torch.device("meta"):
+        model = GPT2LMHead(cfg)
+    pm = make_pipeline_mesh(case["data"], S)
+    stacked = stack_pipeline_params(params, L, S)
+    splits = pipeline_param_sharding(stacked, pm)
+    local = shard_params(stacked, splits, pm)
+    fl, sfl = Flattener(params), Flattener(stacked)
+    tangent = shard_params(stack_pipeline_params(fl.unflatten(torch.as_tensor(case["v"])), L, S),
+                           splits, pm)
+    loss_fn = make_pipelined_lm_loss(model, pm, num_microbatches=case["microbatches"],
+                                     data_axis="data" if case["data"] > 1 else None)
+    batch = {"input_ids": torch.as_tensor(case["ids"])}
+    if case.get("mask") is not None:
+        batch["attention_mask"] = torch.as_tensor(case["mask"])
+    loss, grad = grad_and_loss(loss_fn, local, batch)
+    hv = hvp(loss_fn, local, batch, tangent)
+    whole = gather_model_axis(local, pm, splits)
+    split_numel = sum(local[k].numel() for k, s in splits.items() if s is not None)
+    out = {"mesh": pm.shape, "index": (pm.data_index, pm.model_index), "loss": float(loss),
+           "grad": _np(sfl.flatten(gather_model_axis(grad, pm, splits))),
+           "hvp": _np(sfl.flatten(gather_model_axis(hv, pm, splits))),
+           "round_trip": all(torch.equal(whole[k], stacked[k]) for k in stacked),
+           "split_share": split_numel / sum(stacked[k].numel() for k, s in splits.items()
+                                            if s is not None)}
+    if case.get("iters"):
+        layout = ModelAxisLayout(local, splits, pm.num_model, pm.model_index)
+        both = basis_sharding(pm, layout)
+        op = HessianOperator(loss_fn, local, batch)
+        res = lanczos(op.matvec, layout.size, case["iters"], v0=Flattener(local).flatten(tangent),
+                      basis_sharding=both)
+        sh = p_shard(both, layout.size)
+        out.update({
+            "alphas": _np(res.alphas), "betas": _np(res.betas),
+            "basis_block": list(res.basis.shape),
+            "basis": np.stack([_np(gather_model_axis(sh.gather(r.contiguous()), pm, layout))
+                               for r in res.basis])})
+    return out
+
+
+def _pipeline_apply_check(M: int, scatter: bool) -> dict:
+    """``pipeline_apply`` alone over 4 stages of a tanh layer each, M
+    microbatches (3: uneven shares, one stage without any), the exit
+    scattered or replicated: a readout of each rank's share of the
+    microbatches summed over the axis, its gradient and HVP in this rank's
+    stage against the same computation in one process."""
+    from hessian_llm_vision_tpu_torch.models.collectives import reduce_from_axis
+    from hessian_llm_vision_tpu_torch.parallel.pipeline import (
+        exit_parts,
+        make_pipeline_mesh,
+        pipeline_apply,
+    )
+
+    pm = make_pipeline_mesh(1, 4)
+    s = pm.model_index
+    gen = torch.Generator().manual_seed(M)
+    W, V = (torch.randn(4, 1, 3, 3, generator=gen) for _ in range(2))
+    x, c = (torch.randn(M, 2, 3, generator=gen) for _ in range(2))
+    lo, hi = exit_parts(M, 4, True)[s]  # this rank's share of the readout
+
+    def stage(bp, h):
+        return torch.tanh(h @ bp["w"][0])
+
+    def pipelined(w):
+        out = pipeline_apply(stage, {"w": w}, x, pm, scatter_outputs=scatter)
+        mine = out if scatter else out[lo:hi]
+        return reduce_from_axis((mine * c[lo:hi]).sum(), pm, "model")
+
+    def whole(w):
+        h = x
+        for r in range(4):
+            h = torch.tanh(h @ w[r, 0])
+        return (h * c).sum()
+
+    grad = torch.func.grad(pipelined)(W[s:s + 1])
+    hv = torch.func.jvp(torch.func.grad(pipelined), (W[s:s + 1],), (V[s:s + 1],))[1]
+    want_grad = torch.func.grad(whole)(W)
+    want_hv = torch.func.jvp(torch.func.grad(whole), (W,), (V,))[1]
+    return {"value_rel": abs(float(pipelined(W[s:s + 1])) - float(whole(W)))
+            / abs(float(whole(W))),
+            "grad_rel": float((grad[0] - want_grad[s]).norm() / want_grad[s].norm()),
+            "hvp_rel": float((hv[0] - want_hv[s]).norm() / want_hv[s].norm()),
+            "rows": int(hi - lo)}
+
+
+def pipeline_four(mesh, *, pipeline: dict, tpsp: dict, lanczos_case: str, iters: int) -> dict:
+    """Four ranks: the ``pipeline`` cases (dp2 x pp2, pp4 with its Lanczos),
+    the ``tpsp`` cases (tensor and sequence parallelism on the model axis
+    of a data 2 x model 2 mesh, the batch split over the data axis), the
+    Lanczos of ``lanczos_case`` with its basis over both axes,
+    ``parallel/dryrun.py``'s pipeline part and ``pipeline_apply`` alone."""
+    from hessian_llm_vision_tpu_torch.parallel.dryrun import dryrun_pipeline_rank
+    from hessian_llm_vision_tpu_torch.parallel.mesh import make_mesh
+
+    out = {name: _pipeline_case(case) for name, case in pipeline.items()}
+    grid = make_mesh(2, 2)
+    out["grid"] = (grid.data_index, grid.model_index)
+    for name, case in tpsp.items():
+        out[name] = _model_axis_case(case, grid, data_mesh=grid)
+    out["lanczos"] = _model_axis_lanczos(tpsp[lanczos_case], grid, iters, data_mesh=grid)
+    out["dryrun"] = dryrun_pipeline_rank(mesh)
+    out["apply"] = {f"M{M}_{'scatter' if scatter else 'replicate'}": _pipeline_apply_check(
+        M, scatter) for M in (3, 4) for scatter in (True, False)}
+    return out
