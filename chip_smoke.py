@@ -283,7 +283,32 @@ Phases (any failure exits non-zero and prints no result line):
      leaves), each kernel 20 times a rank, T within 1e-4 and Ritz values
      within 1e-3 of 17a's whole-model Lanczos, the basis's first row the
      start vector, the pair against its plain version there (1e-5, bit for
-     bit repeated, pass 1's bulk path).
+     bit repeated, pass 1's bulk path); then one HVP of the plain pipeline
+     and one with remat_ticks=True, each from a peak reset: the remat HVP
+     within 1e-6 of 18's own, each rank's two peaks printed.
+ 19. (run after phase 6, on its GPT-2 124M model and params, seed 0, 512
+     positions) (a) one HVP on each of three arms at bs16 x seq512 (bs8 if
+     an arm does not fit, printed): dense attention and logits; query
+     blocks and loss chunks of 128 rematerialised (the JAX defaults); the
+     same blocks and chunks without remat; and the whole loss as one
+     rematerialised region (hvp_fn(remat=True)): each within 1e-5 of the
+     dense HVP, the two blocked arms equal bit for bit (or the difference
+     printed), the remat arm's peak below the plain blocked arm's; each
+     arm's HVP ms (CUDA events after a warm call) and peak beside the
+     reckoned bytes of one layer's scores and of the logits; (b) phase 4's
+     LanczosSGD through cli.train.main with --attn_block_q 128
+     --loss_chunk 128 for a refresh and a frozen step: step 0's loss
+     within 1e-5 and lambda_max within 1e-3 of phase 4's, each kernel once
+     a step at (10, 124,046,592) bf16; (c) TF32 under --linearized: the
+     auto ladder resolved for --linearized probes its blocks-TF32 rung,
+     and at bs4 x seq512 the linearized HVP under blocks-TF32 (outer
+     "high") lies within 1e-5 of the eager HVP under that spec and farther
+     than that from the fp32 linearized HVP (the same traced graphs
+     replayed with TF32 off), its graphs holding the head's products as
+     flag_einsum nodes; (d) dropout 0.1:
+     deterministic=True equals dropout 0 bit for bit, deterministic=False
+     differs and repeats bit for bit from one generator seed, one c_proj
+     output keeps 0.9 +- 0.01 of its entries, each scaled by 1/0.9.
 Phase 3 also checks (4, 124,046,592) in both dtypes, (8, 124,046,592) and
 (16, 124,046,592) in bf16 -- the deflation projector's, the empirical
 Fisher's and the CGS2 pass's shapes, timed only (4, P) in bf16 since phase 13
@@ -342,7 +367,8 @@ PATH_SHAPES = ((torch.bfloat16, 4), (torch.float32, 4), (torch.bfloat16, 8), (to
 # are checked untimed (their last times stand in PERF.md)
 PATH_TIMED = ((torch.bfloat16, 4),)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-COST_CALLS = 200  # calls per host-time reading (a quarter of it at P = 124M)
+# calls per host-time reading (a quarter of it at P = 124M; 200 before phase 19)
+COST_CALLS = 100
 FP32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 KERNEL_SRC = "hessian_llm_vision_tpu_torch/ops/csrc/rank_k.cu"
 TPU_KERNELS = {
@@ -445,8 +471,11 @@ TINY_NEW_RTOL = 1e-5  # 9g card against CPU, extremes of max |lambda|
 # later (16.6x it after 600 steps; PERF.md)
 STDLIB = os.path.dirname(os.__file__)
 ADAM_N = 300
-ADAM_ARGV = ["--model", "gpt2", "--batch_size", "8", "--max_length", "512", "--attn_block_q",
-             "256", "--loss_chunk", "256", "--optimiser", "adam", "--lr", "1e-3",
+# dense attention and logits since phase 19 (the JAX protocol's 256-query
+# blocks and 256-position chunks, now rematerialised, cost ~20-100% more a
+# step by host; 19b drives the blocked path, and its values are the same)
+ADAM_ARGV = ["--model", "gpt2", "--batch_size", "8", "--max_length", "512",
+             "--optimiser", "adam", "--lr", "1e-3",
              "--num_batches", str(ADAM_N), "--dataset", f"local:{STDLIB}"]
 # 10a: the resumed run's per-step losses against the uninterrupted run's;
 # the first card reading was 0.0 (bit-identical over 200 steps), so the
@@ -790,6 +819,31 @@ MA_TIMEOUT = 420.0
 # seq512, 17a's start vector, held to 17a's whole-model references
 PP_STAGES = 2
 PP_MICRO = 2
+PP_REMAT_REL = 1e-6  # 18's remat_ticks HVP against 18's own (the same products)
+# phase 19: rematerialisation, TF32 under --linearized and dropout, at
+# GPT-2 124M with phase 6's model (seed 0, 512 positions).  19a: one HVP
+# per arm at REMAT_SHAPE (REMAT_FALLBACK_SHAPE if the plain blocked arm
+# does not fit), query blocks and loss chunks of REMAT_BLOCK
+REMAT_SHAPE, REMAT_FALLBACK_SHAPE = (16, 512), (8, 512)
+REMAT_BLOCK = 128
+REMAT_REL = 1e-5  # each arm's HVP against the dense one, rel-L2
+REMAT_ITERS = 1  # timed HVPs per arm after a warm one (CUDA events)
+# 19b: phase 4's LanczosSGD run with the blocks and chunks, a refresh and
+# a frozen step, held to phase 4's step 0
+REMAT_TRAIN_STEPS = 2
+REMAT_TRAIN_ARGV = [a if a != "4" else str(REMAT_TRAIN_STEPS) for a in TRAIN_ARGV] + [
+    "--attn_block_q", str(REMAT_BLOCK), "--loss_chunk", str(REMAT_BLOCK)]
+REMAT_LOSS_RTOL, REMAT_EIG_RTOL = 1e-5, 1e-3
+# 19c: the linearized HVP under blocks-TF32 (outer "high") against the eager
+# one, at LIN_TF32_SHAPE; the auto ladder probed under --linearized
+LIN_TF32_SHAPE = (4, 512)
+LIN_TF32_REL = 1e-5
+LIN_AUTO_ARGV = ["--model", "gpt2", "--dataset", "random", "--num_batches", "1",
+                 "--batch_size", "2", "--max_length", "512", "--host_loop", "--linearized",
+                 "--lanczos_iters", "2", "--precision_check_iters", "2"]
+# 19d: dropout 0.1; the kept fraction of one c_proj output
+DROPOUT, DROPOUT_SHAPE = 0.1, (8, 512)
+DROPOUT_KEPT_TOL = 0.01
 CARD = torch.device("cuda")
 
 
@@ -821,14 +875,14 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 def timings(kernel, plain, library, *, nbytes: float, flops: float, big: bool = False) -> dict:
     """Kernel and library call timed in turns on one card: 10 warm-up
-    launches each, then 5 rounds of (kernel, library, library, kernel), 20
-    launches a timing, nvidia-smi sampled beside; median and min-max of the
-    10 timings of each (``big``: 2 warm-up launches, 3 rounds, 4 launches a
-    timing, for a shape whose library call takes tens of ms).  Then the
-    plain version, and the bound."""
+    launches each, then 3 rounds (5 before phase 19) of (kernel, library,
+    library, kernel), 20 launches a timing, nvidia-smi sampled beside;
+    median and min-max of the 6 timings of each (``big``: 2 warm-up
+    launches, 3 rounds, 4 launches a timing, for a shape whose library call
+    takes tens of ms).  Then the plain version, and the bound."""
     from hessian_llm_vision_tpu_torch.utils.cuda_timing import in_turns, smi_samples, time_ms
 
-    turns = dict(rounds=3, iters=4, warmup=2) if big else dict(rounds=5, iters=20, warmup=10)
+    turns = dict(rounds=3, iters=4, warmup=2) if big else dict(rounds=3, iters=20, warmup=10)
     with smi_samples() as smi:
         t = in_turns({"kernel": kernel, "library": library}, **turns)
     plain_ms = time_ms(plain, iters=5, warmup=1)
@@ -1023,11 +1077,12 @@ def streaming_rates(checks: dict) -> dict:
     return out
 
 
-def step_breakdown() -> dict:
+def step_breakdown(keep: dict) -> dict:
     """Device time of the pieces of a GPT-2 124M LanczosSGD step at the
     main path's shapes (bs8, seq512, "sum" HVPs, fp32 matmuls), by CUDA
     events: the loss forward, one gradient, one HVP (a refresh runs k of
-    them), and the flatten/update work around them."""
+    them), and the flatten/update work around them.  The model and its
+    params go into ``keep`` for phase 19."""
     from hessian_llm_vision_tpu_torch.curvature.hvp import grad_and_loss, hvp_fn
     from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from hessian_llm_vision_tpu_torch.models.losses import lm_loss_fn
@@ -1055,14 +1110,15 @@ def step_breakdown() -> dict:
             params[name].sub_(lr * momentum[name])
 
     with torch.no_grad():
-        forward_ms = time_ms(lambda: loss_fn(params, batch), iters=5, warmup=1)
+        forward_ms = time_ms(lambda: loss_fn(params, batch), iters=3, warmup=1)
     C, L, V = cfg.n_embd, cfg.n_layer, cfg.vocab_size
+    keep.update(model=model, params=params)
     return {
         "forward_ms": forward_ms,
         "grad_ms": time_ms(lambda: fl.flatten(grad_and_loss(loss_fn, params, batch)[1]),
-                           iters=5, warmup=1),
-        "hvp_ms": time_ms(lambda: fl.flatten(hvp(params, batch, v)), iters=5, warmup=1),
-        "update_ms": time_ms(update, iters=5, warmup=1),
+                           iters=3, warmup=1),
+        "hvp_ms": time_ms(lambda: fl.flatten(hvp(params, batch, v)), iters=3, warmup=1),
+        "update_ms": time_ms(update, iters=3, warmup=1),
         # matmul operations of one forward, from the shapes
         "forward_flops": B * T * (L * (24 * C * C + 4 * T * C) + 2 * C * V),
         "P": fl.size,
@@ -4501,7 +4557,7 @@ def _on_axis(mode: str, model, params: dict, axis) -> tuple:
 
 
 def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False,
-              ref=None) -> tuple[dict, dict]:
+              ref=None, remat_ticks=False) -> tuple[dict, dict]:
     """One model on the axis against the same model whole in one process:
     loss, gathered gradient and HVP (the last rank runs the whole model's,
     and compares), and with ``iters`` the Lanczos with its basis on the
@@ -4509,7 +4565,9 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False,
     whole model's (rank 0 runs it, and compares).  ``timed``: one more HVP,
     with the model's collectives timed apart.  ``ref``: the whole model's
     numbers of an earlier call on the same params, batches and start
-    vector, reused.  Returns (this run's numbers, the references)."""
+    vector, reused.  ``remat_ticks`` ("pp"): one more HVP of the plain
+    pipeline and one with each tick rematerialised, each from a peak
+    reset.  Returns (this run's numbers, the references)."""
     import torch.distributed as dist
 
     from hessian_llm_vision_tpu_torch.curvature.hvp import hvp
@@ -4562,6 +4620,23 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False,
     G = fl.flatten(from_layout(gather_model_axis(g, axis, splits)))
     H = fl.flatten(from_layout(gather_model_axis(hv, axis, splits)))
     del g, hv
+    if remat_ticks:
+        from hessian_llm_vision_tpu_torch.parallel.pipeline import make_pipelined_lm_loss
+
+        with torch.device("meta"):
+            meta = type(model)(model.config)
+        res["remat_ticks"] = {}
+        for name, fn in (("plain", loss_fn), ("remat_ticks", make_pipelined_lm_loss(
+                meta, axis, num_microbatches=PP_MICRO, remat_ticks=True))):
+            _free()
+            torch.cuda.reset_peak_memory_stats()
+            out, secs = _synced(lambda fn=fn: hvp(fn, local, batches[0], tangent))
+            res["remat_ticks"][f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated()
+            res["remat_ticks"][f"{name}_hvp_s"] = secs
+            if name == "remat_ticks":
+                res["remat_ticks"]["hvp_rel"] = rel_l2(
+                    fl.flatten(from_layout(gather_model_axis(out, axis, splits))), H)
+            del out
     if iters:
         layout = ModelAxisLayout(local, splits, axis.num_model, axis.model_index)
         both = basis_sharding(axis, layout)
@@ -4730,7 +4805,7 @@ def model_axis_rank(*, pythia_ref: dict, pythia_argv: list) -> dict:
     _free()
     t0 = time.perf_counter()
     res["18"] = _vs_whole("pp", model, params, tp_batches, pp_axis, iters=MA_ITERS,
-                          timed=True, ref=ref_a)[0]
+                          timed=True, ref=ref_a, remat_ticks=True)[0]
     res["18"]["s"] = time.perf_counter() - t0
     del model, params, ref_a
     _free()
@@ -4788,7 +4863,8 @@ def tp_sp_and_pipeline(res: list, T_ref: np.ndarray, ritz_ref: np.ndarray) -> tu
            "pair": [r["18"]["pair"] for r in res],
            "collectives": [r["18"]["collectives"] for r in res],
            "hvp_s_per_rank": [r["18"]["hvp_s"] for r in res],
-           "peak_bytes": [r["18"]["peak_bytes"] for r in res]},
+           "peak_bytes": [r["18"]["peak_bytes"] for r in res],
+           "remat_ticks": [r["18"]["remat_ticks"] for r in res]},
     }
     for r in res:
         t, c = r["17e"], r["17e"]["collectives"]
@@ -4805,6 +4881,11 @@ def tp_sp_and_pipeline(res: list, T_ref: np.ndarray, ritz_ref: np.ndarray) -> tu
               f"{c['by']['sum']['s']:.4f} s in {c['by']['sum']['calls']} calls, "
               f"{c['by']['sum']['bytes']} bytes; params {t['param_bytes']} bytes, peak "
               f"{t['peak_bytes']} bytes; the Lanczos {t['lanczos_s']:.2f} s", flush=True)
+        rt = t["remat_ticks"]
+        print(f"18 rank {r['rank']}: an HVP from a peak reset, plain {rt['plain_hvp_s']:.4f} s "
+              f"peak {rt['plain_peak_bytes']} bytes; remat_ticks {rt['remat_ticks_hvp_s']:.4f} s "
+              f"peak {rt['remat_ticks_peak_bytes']} bytes, rel-L2 to 18's HVP "
+              f"{rt['hvp_rel']:.3e}", flush=True)
     gates = {
         "17e TP x SP loss within 1e-6 of 17b's whole model": e["loss_rel"] <= MA_LOSS_RTOL,
         "17e gathered grad and HVP within 1e-5": max(e["grad_rel"], e["hvp_rel"]) <= MA_REL,
@@ -4830,6 +4911,8 @@ def tp_sp_and_pipeline(res: list, T_ref: np.ndarray, ritz_ref: np.ndarray) -> tu
             for p in summary["18_pipeline"]["pair"]),
         "18 pass 1's bulk path at P_local": all(p["dots_plan"]["bulk"]
                                                 for p in summary["18_pipeline"]["pair"]),
+        "18 the remat_ticks HVP within 1e-6 of 18's own": all(
+            r["18"]["remat_ticks"]["hvp_rel"] <= PP_REMAT_REL for r in res),
     }
     return summary, gates
 
@@ -4940,6 +5023,262 @@ def model_axis_gates(res: list, q: dict, without_jax: bool) -> dict:
         "the ranks ran without JAX": summary["modules_without_jax"],
     })
     return summary
+
+
+# ------------------------------------------------------------------ phase 19
+
+def _chunked_loss(model, chunk: int, remat: bool):
+    """``lm_loss_fn(model, loss_chunk=chunk)`` with the chunks'
+    rematerialisation switched by ``remat`` (the closure keeps it on)."""
+    from torch.func import functional_call
+
+    from hessian_llm_vision_tpu_torch.models.losses import chunked_causal_lm_loss
+
+    def loss(params, batch):
+        ids = batch["input_ids"]
+        hidden = functional_call(model, params, (ids,), {"return_hidden": True})
+        return chunked_causal_lm_loss(hidden, model.output_kernel(params), ids,
+                                      batch.get("attention_mask"), chunk=chunk, remat=remat)
+
+    loss.model_config = model.config
+    return loss
+
+
+def _hvp_arm(loss_fn, params: dict, batch: dict, v: torch.Tensor, *, remat=False) -> dict:
+    """One arm of 19a: its HVP (flat), the peak from a reset around one HVP
+    and that peak over what was allocated before it, then the ms of one HVP
+    by CUDA events over ``REMAT_ITERS`` calls (the first call warmed it)."""
+    from hessian_llm_vision_tpu_torch.curvature.hvp import hvp_fn
+    from hessian_llm_vision_tpu_torch.utils.cuda_timing import time_ms
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    fl = Flattener(params)
+    hvp, vt = hvp_fn(loss_fn, remat=remat), fl.unflatten(v)
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fl.flatten(hvp(params, batch, vt))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = time_ms(lambda: hvp(params, batch, vt), iters=REMAT_ITERS, warmup=0)
+    return {"hvp": out, "peak_bytes": peak, "working_set_bytes": peak - base, "hvp_ms": ms}
+
+
+def remat_124m(keep: dict) -> dict:
+    """Phase 19a: one HVP per arm on phase 6's model (see the docstring)."""
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2LMHead
+    from hessian_llm_vision_tpu_torch.models.losses import lm_loss_fn
+
+    model, params = keep["model"], keep["params"]
+    cfg = model.config
+    with torch.device("meta"):
+        blocked = GPT2LMHead(dataclasses.replace(cfg, attn_block_q=REMAT_BLOCK))
+        plain = GPT2LMHead(dataclasses.replace(cfg, attn_block_q=REMAT_BLOCK, attn_remat=False))
+    arms = {"dense": lm_loss_fn(model), "blocked_remat": lm_loss_fn(blocked, loss_chunk=REMAT_BLOCK),
+            "blocked_no_remat": _chunked_loss(plain, REMAT_BLOCK, remat=False)}
+    v = torch.randn(P_124M, generator=torch.Generator(device=CARD).manual_seed(19), device=CARD)
+    v /= torch.linalg.vector_norm(v)
+    for shape in (REMAT_SHAPE, REMAT_FALLBACK_SHAPE):
+        ids = torch.randint(0, cfg.vocab_size, shape, device=CARD,
+                            generator=torch.Generator(device=CARD).manual_seed(7))
+        batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids)}
+        try:
+            res = {name: _hvp_arm(fn, params, batch, v) for name, fn in arms.items()}
+            res["whole_loss_remat"] = _hvp_arm(arms["dense"], params, batch, v, remat=True)
+            break
+        except torch.cuda.OutOfMemoryError:
+            res = None
+            _free()
+            print(f"19a: an arm does not fit at bs{shape[0]} x seq{shape[1]}", flush=True)
+    if res is None:
+        raise SystemExit("19a: no batch fits every arm")
+    B, T = shape
+    dense = res["dense"]["hvp"]
+    a, b = res["blocked_remat"]["hvp"], res["blocked_no_remat"]["hvp"]
+    bitwise = bool(torch.equal(a, b))
+    out = {"batch": list(shape), "block": REMAT_BLOCK,
+           "scores_bytes_one_layer": B * cfg.n_head * T * T * 4,
+           "logits_bytes": B * (T - 1) * cfg.vocab_size * 4,
+           "rel_l2_vs_dense": {k: rel_l2(r["hvp"], dense) for k, r in res.items() if k != "dense"},
+           "blocked_arms_bitwise_equal": bitwise,
+           "blocked_arms_max_abs_diff": float((a - b).abs().max())}
+    for name, r in res.items():
+        out[name] = {k: r[k] for k in ("hvp_ms", "peak_bytes", "working_set_bytes")}
+        print(f"19a {name} at bs{B} x seq{T}: HVP {r['hvp_ms']:.2f} ms, peak {r['peak_bytes']} "
+              f"bytes ({r['working_set_bytes']} over what was allocated before)", flush=True)
+    if not bitwise:
+        print(f"19a: the blocked arms differ by at most {out['blocked_arms_max_abs_diff']:.3e}: "
+              "the recompute's backward sums the blocks' contributions to K and V in "
+              "another order", flush=True)
+    del res, a, b, dense
+    _free()
+    print(json.dumps({"remat_124m": out}), flush=True)
+    check_gates("19a rematerialisation", {
+        "every arm within 1e-5 of the dense HVP": all(
+            x <= REMAT_REL for x in out["rel_l2_vs_dense"].values()),
+        "the remat arm's peak below the plain blocked arm's":
+            out["blocked_remat"]["peak_bytes"] < out["blocked_no_remat"]["peak_bytes"],
+    })
+    return out
+
+
+def remat_training(train_cli, kernels, phase4: list) -> dict:
+    """Phase 19b: phase 4's LanczosSGD with the remat blocks and chunks."""
+    records, counts = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with _adjust_calls(kernels, keep=False) as (calls, _):
+        train_cli.main(REMAT_TRAIN_ARGV, on_step=lambda s, r: (records.append(r),
+                                                               counts.append(dict(kernels.LAUNCHES))))
+    per_step = [{n: c[n] - (counts[i - 1][n] if i else 0) for n in TPU_KERNELS}
+                for i, c in enumerate(counts)]
+    out = {"steps": records, "launches_per_step": per_step, "launches": dict(kernels.LAUNCHES),
+           "adjust_calls": [list(c) for c in calls],
+           "loss_rel_vs_phase4": _rel(records[0]["loss"], phase4[0]["loss"]),
+           "eig_max_rel_vs_phase4": _rel(records[0]["eig_max"], phase4[0]["eig_max"]),
+           "refresh_step_s": records[0]["seconds"], "phase4_refresh_step_s": phase4[0]["seconds"],
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps({"remat_training": out}), flush=True)
+    check_gates("19b LanczosSGD with the remat blocks and chunks", {
+        f"{REMAT_TRAIN_STEPS} steps": len(records) == REMAT_TRAIN_STEPS,
+        "step 0's loss within 1e-5 of phase 4's": out["loss_rel_vs_phase4"] <= REMAT_LOSS_RTOL,
+        "step 0's lambda_max within 1e-3 of phase 4's":
+            out["eig_max_rel_vs_phase4"] <= REMAT_EIG_RTOL,
+        "each kernel once a step": per_step == [dict.fromkeys(TPU_KERNELS, 1)] * len(records),
+        "every adjust at (10, P) bf16": [c[1:] for c in calls] == [
+            ((10, P_124M), "torch.bfloat16")] * len(records),
+    })
+    return out
+
+
+def linearized_tf32(spectrum_cli, keep: dict) -> dict:
+    """Phase 19c: the auto ladder under --linearized, and the linearized HVP
+    under blocks-TF32 against the eager one and the fp32 linearized one
+    (one trace, replayed in fp32)."""
+    from hessian_llm_vision_tpu_torch.cli.precision import resolve_auto_precision
+    from hessian_llm_vision_tpu_torch.cli.workloads import build_workload
+    from hessian_llm_vision_tpu_torch.curvature.hvp import _precision_context, hvp_fn
+    from hessian_llm_vision_tpu_torch.curvature.linearized import linearized_hvp_programs
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2LMHead
+    from hessian_llm_vision_tpu_torch.models.losses import lm_loss_fn
+    from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+    args = spectrum_cli.build_parser().parse_args(LIN_AUTO_ARGV)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        wl = resolve_auto_precision(args, build_workload(args, CARD))
+    ladder = text.getvalue()
+    print(ladder, end="", flush=True)
+    del wl
+    _free()
+    model, params = keep["model"], keep["params"]
+    with torch.device("meta"):
+        tf32 = GPT2LMHead(dataclasses.replace(model.config, block_matmul_precision="TF32_TF32_F32"))
+    fl = Flattener(params)
+    ids = torch.randint(0, model.config.vocab_size, LIN_TF32_SHAPE, device=CARD,
+                        generator=torch.Generator(device=CARD).manual_seed(23))
+    batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids)}
+    v = torch.randn(fl.size, generator=torch.Generator(device=CARD).manual_seed(24), device=CARD)
+    loss = lm_loss_fn(tf32)
+    resid_p, tangent_p = linearized_hvp_programs(loss, "mean", "high", fl)
+    t0 = time.perf_counter()
+    consts = resid_p(params, batch)
+    torch.cuda.synchronize()
+    out = {"trace_and_residual_pass_s": time.perf_counter() - t0}
+    hv = {"tf32": tangent_p(v, consts),
+          "eager": fl.flatten(hvp_fn(loss, precision="high")(params, batch, fl.unflatten(v)))}
+    sp = consts[0]
+    flags = [n.args[3] for g in (sp.residual, sp.tangent) for n in g.graph.nodes
+             if "flag_einsum" in str(n.target)]
+    out.update(flag_einsum_nodes=len(flags), flag_einsum_tf32_args=sorted(map(str, set(flags))))
+    # the fp32 linearized HVP: the same graphs replayed with every product
+    # in fp32 (TF32 off; the flag nodes ask for it off too), as a trace of
+    # the fp32 model would run them
+    del consts
+    with torch.no_grad(), _precision_context("high"):
+        res = sp.residual(*(params[n] for n in sp.names), *(batch[k] for k in sp.batch_keys))
+        tangents = fl.unflatten(v)
+        hv["fp32"] = fl.flatten(dict(zip(sp.names, sp.tangent(
+            *res, *(tangents[n] for n in sp.names)))))
+    del res, tangents
+    _free()
+    out.update({"rel_l2_linearized_vs_eager_tf32": rel_l2(hv["tf32"], hv["eager"]),
+                "rel_l2_tf32_vs_fp32_linearized": rel_l2(hv["tf32"], hv["fp32"]),
+                "batch": list(LIN_TF32_SHAPE)})
+    del hv
+    _free()
+    print(json.dumps({"linearized_tf32": out}), flush=True)
+    check_gates("19c TF32 under --linearized", {
+        "the auto ladder probes blocks-TF32 under --linearized":
+            "probed blocks-TF32 + head high: err" in ladder and "dropped" not in ladder,
+        "the linearized HVP within 1e-5 of the eager one under blocks-TF32":
+            out["rel_l2_linearized_vs_eager_tf32"] <= LIN_TF32_REL,
+        "and farther than that from the fp32 linearized HVP":
+            out["rel_l2_tf32_vs_fp32_linearized"] > LIN_TF32_REL,
+        "the head's products traced as flag_einsum nodes with the flag off":
+            out["flag_einsum_nodes"] > 0 and out["flag_einsum_tf32_args"] == ["False"],
+    })
+    return out
+
+
+def dropout_124m(keep: dict) -> dict:
+    """Phase 19d: dropout 0.1 on phase 6's model and one c_proj output."""
+    from torch.func import functional_call
+
+    from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2LMHead
+
+    model, params = keep["model"], keep["params"]
+    with torch.device("meta"):
+        drop = GPT2LMHead(dataclasses.replace(model.config, dropout=DROPOUT))
+    gen = torch.Generator(device=CARD).manual_seed(29)
+    ids = torch.randint(0, model.config.vocab_size, DROPOUT_SHAPE, generator=gen, device=CARD)
+
+    def run(m, **kw):
+        return functional_call(m, params, (ids,), kw)
+
+    attn = {k[len("h_0.attn."):]: t for k, t in params.items() if k.startswith("h_0.attn.")}
+    x = torch.randn(*DROPOUT_SHAPE, model.config.n_embd, generator=gen, device=CARD)
+    with torch.no_grad():
+        plain, det = run(model), run(drop, deterministic=True)
+        a, b, c = (run(drop, deterministic=False,
+                       generator=torch.Generator(device=CARD).manual_seed(s)) for s in (31, 31, 32))
+        y_det = functional_call(drop.h_0.attn, attn, (x,))
+        y = functional_call(drop.h_0.attn, attn, (x,), {
+            "deterministic": False, "generator": torch.Generator(device=CARD).manual_seed(33)})
+    kept = y != 0
+    out = {"deterministic_equals_dropout_0": bool(torch.equal(det, plain)),
+           "stochastic_differs": not torch.equal(a, plain),
+           "same_seed_repeats": bool(torch.equal(a, b)),
+           "other_seed_differs": not torch.equal(a, c),
+           "c_proj_kept_fraction": float(kept.float().mean()),
+           "kept_scaled_by_1_over_keep": bool(torch.equal(y[kept], (y_det / (1 - DROPOUT))[kept]))}
+    del plain, det, a, b, c, y, y_det
+    _free()
+    print(json.dumps({"dropout_124m": out}), flush=True)
+    check_gates("19d dropout", {
+        "deterministic=True equals dropout 0 bit for bit": out["deterministic_equals_dropout_0"],
+        "deterministic=False differs, repeats from a seed, differs across seeds":
+            out["stochastic_differs"] and out["same_seed_repeats"] and out["other_seed_differs"],
+        "a c_proj output keeps 0.9 +- 0.01": abs(out["c_proj_kept_fraction"] - (1 - DROPOUT))
+        <= DROPOUT_KEPT_TOL,
+        "the kept entries scaled by 1/0.9": out["kept_scaled_by_1_over_keep"],
+    })
+    return out
+
+
+def remat_and_rest(train_cli, spectrum_cli, kernels, keep: dict, phase4: list) -> dict:
+    """Phase 19a-19d, each with its seconds."""
+    res = {}
+    for key, fn in (("19a", lambda: remat_124m(keep)),
+                    ("19b", lambda: remat_training(train_cli, kernels, phase4)),
+                    ("19c", lambda: linearized_tf32(spectrum_cli, keep)),
+                    ("19d", lambda: dropout_124m(keep))):
+        t0 = time.perf_counter()
+        res[key] = fn()
+        res[key]["s"] = time.perf_counter() - t0
+        print(f"phase {key} took {res[key]['s']:.1f} s", flush=True)
+    return res
 
 
 def main() -> int:
@@ -5071,9 +5410,18 @@ def main() -> int:
     print(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(6, "where a 124M training step's time goes")
-    breakdown = step_breakdown()
+    keep = {}
+    breakdown = step_breakdown(keep)
     print(json.dumps({"step_breakdown": breakdown}))
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase(19, "(on phase 6's model) rematerialisation at GPT-2 124M: dense, remat and "
+                   "plain blocked HVPs, whole-loss remat, LanczosSGD with the blocks and "
+                   "chunks; TF32 under --linearized; dropout")
+    p19 = remat_and_rest(train_cli, spectrum_cli, kernels, keep, records)
+    del keep
+    _free()
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s")
 
     t0 = phase(7, "spectrum: gpt2-tiny card vs CPU, the GPT-2 124M headline job, "
                   "its HVP against a float64 central difference")
@@ -5227,6 +5575,7 @@ def main() -> int:
     print(f"phase 16 took {time.perf_counter() - t0:.1f} s (16a, 16b, 17 and 18)")
     lw = rest["12cdf"]
     by_path = {"phase4_train_4_steps": launches,
+               "phase19b_remat_train_2_steps": p19["19b"]["launches"],
                "phase7b_spectrum": headline["rank_k_launches"],
                "phase8a_thick_restart": ext["8a_thick_restart"]["rank_k_launches"],
                "phase8b_host_loop_and_deflated_kpm": ext["8b_deflated_kpm"]["rank_k_launches"],

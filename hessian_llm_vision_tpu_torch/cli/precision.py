@@ -73,26 +73,6 @@ def lm_loss_factory(wl: Workload, args) -> Optional[Callable]:
     return make_loss_fn
 
 
-def traced_ladder(rungs, describe, what: str) -> list:
-    """The rungs of a precision ladder that ``--linearized`` /
-    ``--refresh_linearized`` can run, ``describe(rung) -> (label, loss_fn,
-    outer precision)``: a ``make_fx`` trace keeps the dtype casts of the
-    bf16 and float64 tiers but not a TF32 flag switched per product, so a
-    rung whose fp32 and TF32 products mix (``models.precision.
-    tf32_switches``) is dropped, with a line saying so."""
-    from hessian_llm_vision_tpu_torch.models.precision import tf32_switches
-
-    kept = []
-    for rung in rungs:
-        label, loss_fn, prec = describe(rung)
-        if tf32_switches(getattr(loss_fn, "model_config", None), prec):
-            print(f"[{what}] {label}: dropped under --linearized (a traced graph keeps no "
-                  "per-product TF32 flag)")
-        else:
-            kept.append(rung)
-    return kept
-
-
 def _probe_batch(batch: dict) -> dict:
     """At most 4 sequences, as the JAX CLI's probe (its reorthogonalised
     basis and the HVP working set had to share a 16 GB chip); precision
@@ -151,9 +131,6 @@ def resolve_auto_precision(args, wl: Workload, attr: str = "hvp_precision",
 
     cfg = wl.model.config
     candidates = default_candidates()
-    if getattr(args, "linearized", False):
-        candidates = traced_ladder(candidates, lambda c: (c[0], factory(c[1]), "high"),
-                                   "auto-precision")
     probe_batch = _probe_batch(wl.batches[0])
     ritz_iters = getattr(args, "precision_check_iters", 10)
     plan_path = getattr(args, "precision_plan", None)

@@ -303,7 +303,8 @@ def _make_operator(args, wl):
                                batch_size=wl.batch_size, dataset_size=n_total)
     return DatasetHessianOperator(wl.loss_fn, wl.params, batches,
                                   normalization=args.normalization,
-                                  batch_size=wl.batch_size, dataset_size=n_total)
+                                  batch_size=wl.batch_size, dataset_size=n_total,
+                                  remat=False)  # as the JAX CLI: the memory is not needed here
 
 
 def main(argv=None, on_iter: Optional[Callable[[int, float], None]] = None):

@@ -63,7 +63,6 @@ from hessian_llm_vision_tpu_torch.cli.precision import (
     referee_loss_fn_for,
     report_precision_probe,
     resolve_mixed_precision,
-    traced_ladder,
 )
 from hessian_llm_vision_tpu_torch.cli.train_optimizers import (
     HOST_TRAINERS,
@@ -207,9 +206,6 @@ def _install_guard(args, wl, trainer, state0, accum):
 
     factory = lm_loss_factory(wl, args)
     tiers = default_tiers(factory, wl.loss_fn)
-    if args.refresh_linearized:
-        tiers = traced_ladder(tiers, lambda t: (t.label, t.loss_fn, t.precision),
-                              "precision-guard")
     referee = factory(None) if factory is not None else wl.loss_fn
     start = 0 if args.refresh_precision == "auto" else tier_index_for(
         tiers, args.refresh_precision)

@@ -24,6 +24,7 @@ import torch
 
 from hessian_llm_vision_tpu_torch.curvature.hvp import Params, _precision_context
 from hessian_llm_vision_tpu_torch.curvature.operators import LinearOperator
+from hessian_llm_vision_tpu_torch.utils import remat
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
 
 ModelFn = Callable[[Params, Any], torch.Tensor]
@@ -114,12 +115,14 @@ def ef_apply(G: torch.Tensor, v: torch.Tensor, n: int,
 
 
 def _grad_chunks(loss_fn_per_example, params, batch, chunk, precision, fl):
-    """Per-example gradients, one (chunk, P) f32 block at a time."""
+    """Per-example gradients, one (chunk, P) f32 block at a time; the
+    loss's rematerialised regions run plainly under ``vmap``
+    (``utils/remat.py``)."""
     n = next(iter(batch.values())).shape[0]
     grad_one = torch.func.grad(loss_fn_per_example)
     for s in range(0, n, chunk):
         ex = {k: x[s:s + chunk] for k, x in batch.items()}
-        with _precision_context(precision):
+        with _precision_context(precision), remat.plain():
             g = torch.func.vmap(lambda e: fl.flatten(grad_one(params, e)))(ex)
         yield g
 

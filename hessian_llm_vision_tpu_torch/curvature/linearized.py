@@ -40,7 +40,7 @@ from hessian_llm_vision_tpu_torch.curvature.hvp import (
     _precision_context,
     _scaled_loss_fn,
 )
-from hessian_llm_vision_tpu_torch.models.precision import no_flag_switch
+from hessian_llm_vision_tpu_torch.utils import remat
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
 
 
@@ -66,9 +66,9 @@ def _trace_split(loss_fn, normalization, batch_size, dataset_size, params, batch
     """Trace the HVP on fake tensors and split it at the tangent.
 
     The trace runs inside ``precision``'s outer scope, so the graphs keep
-    every bf16 or float64 cast of the model's scopes; a scope that needs
-    the TF32 flag switched per product raises (the graphs replay under
-    the outer scope's flag alone)."""
+    every bf16 or float64 cast of the model's scopes and every product
+    whose TF32 flag differs from the outer scope's as a ``flag_einsum``
+    node (``models/precision.py``), which sets its flag when replayed."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     names, bkeys = list(params), list(batch)
@@ -77,8 +77,7 @@ def _trace_split(loss_fn, normalization, batch_size, dataset_size, params, batch
     def hvp_of(flat_p, flat_b, flat_t):
         scaled = _scaled_loss_fn(loss_fn, dict(zip(bkeys, flat_b)), normalization,
                                  batch_size, dataset_size)
-        with (_precision_context(precision, loss_fn), no_flag_switch("--linearized"),
-              fwAD.dual_level()):
+        with _precision_context(precision, loss_fn), remat.plain(), fwAD.dual_level():
             duals = {n: fwAD.make_dual(p, t) for n, p, t in zip(names, flat_p, flat_t)}
             grads = torch.func.grad(scaled)(duals)
             return [fwAD.unpack_dual(grads[n]).tangent for n in names]
@@ -183,13 +182,16 @@ def residual_bytes(
     *,
     normalization: str = "mean",
     batch_size: Optional[int] = None,
+    precision: Optional[str] = None,
 ) -> int:
     """Bytes the residuals hold beyond the params and the batch, counted
     on the trace's fake tensors: nothing runs, and meta-device templates
     give the same count as real tensors.  Views count once with their
-    base, as they do in memory."""
+    base, as they do in memory.  ``precision``: the outer scope the
+    residual program runs under (its bf16 casts change the count)."""
+    _precision_context(precision)  # validate eagerly
     sp = _trace_split(loss_fn, normalization, batch_size, None,
-                      dict(params_template), dict(batch_template))
+                      dict(params_template), dict(batch_template), precision)
     return _distinct_storage_bytes(sp.fake)
 
 

@@ -72,7 +72,7 @@ def DatasetHessianOperator(
     normalization: str = "dataset",
     batch_size: Optional[int] = None,
     dataset_size: Optional[int] = None,
-    remat: bool = False,
+    remat: bool = True,
     precision: Optional[str] = "high",
     flattener: Optional[Flattener] = None,
 ) -> LinearOperator:
@@ -81,10 +81,11 @@ def DatasetHessianOperator(
     Normalization over the WHOLE dataset (as ``krylov.driver
     .dataset_spectrum_host``): ``"dataset"`` / ``"mean"`` give the Hessian
     of the dataset-mean loss, ``"sum"`` that of the dataset-summed loss
-    (= dataset_size x mean).  ``remat=True`` (the JAX package's default)
-    is not ported yet and raises.  For a data-parallel ``ShardedLoss`` the
-    batches are this rank's rows, and the default ``batch_size`` is the
-    global one (the rows times the ranks).
+    (= dataset_size x mean).  ``remat=True`` (the default, as in the JAX
+    package) recomputes each batch's forward in its backward (``hvp_fn``).
+    For a data-parallel ``ShardedLoss`` the batches are this rank's rows,
+    and the default ``batch_size`` is the global one (the rows times the
+    ranks).
     """
     fl = flattener or Flattener(params)
     num_batches = len(batches)

@@ -12,9 +12,15 @@ Two paths behind one function:
 
 * ``block_q=None`` (or ``>= T``): dense (B, H, T, T) scores.
 * ``block_q=N``: a loop over query blocks, each attending to all T keys
-  under the causal mask.  The values equal the dense path's; the JAX
-  package's per-block rematerialisation is not ported, so this path saves
-  no memory under autodiff yet.
+  under the causal mask.  The values equal the dense path's.  With
+  ``remat`` (the default, as in the JAX package) each block's scores,
+  mask, softmax and product with V run as one rematerialised region
+  (``utils/remat.py``) that saves only its query block, K and V: under
+  ``grad`` and ``jvp(grad(.))`` no (B, H, block, T) tile outlives its
+  block, where the loop without remat keeps every block's.  K and V are
+  the same tensors for every block, saved once by storage.  ``unroll``
+  (the JAX scan's) changes nothing in eager PyTorch, whose loop is always
+  unrolled; the values are identical either way.
 
 ``q_offset``: the queries are positions ``[q_offset, q_offset + Tq)`` of
 the keys' ``[0, Tk)``, as on a rank of a sequence-parallel model, whose
@@ -29,6 +35,7 @@ import torch
 
 from hessian_llm_vision_tpu_torch.models import precision
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
+from hessian_llm_vision_tpu_torch.utils.remat import remat as rematerialised
 
 _NEG_INF = torch.finfo(torch.float32).min
 
@@ -46,6 +53,8 @@ def causal_attention(
     v: torch.Tensor,
     *,
     block_q: int | None = None,
+    remat: bool = True,
+    unroll: bool = False,
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Causal softmax attention.  q (B, Tq, H, D), k and v (B, Tk, H, D)
@@ -70,5 +79,11 @@ def causal_attention(
     out = []
     for s in range(0, T, block_q):
         mask = pos[s : s + block_q, None] >= keys[None, :]
-        out.append(_masked_softmax_attend(q[:, s : s + block_q], k, v, mask, scale))
+
+        def body(qb, k, v, mask):
+            return _masked_softmax_attend(qb, k, v, mask, scale)
+
+        qb = q[:, s : s + block_q]
+        out.append(rematerialised(body, qb, k, v, consts=(mask,)) if remat
+                   else body(qb, k, v, mask))
     return torch.cat(out, dim=1)

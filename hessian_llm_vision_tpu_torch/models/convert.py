@@ -12,6 +12,16 @@ imports JAX.  On the model axis of a mesh, :func:`shard_for_tp` and
 :func:`gather_model_axis` puts the ranks' slices (or their flat vectors)
 back into the flax layout, so the tests compare with the JAX package leaf
 by leaf and in its flat order.
+
+:func:`gpt2_from_torch_state_dict`, :func:`neox_from_torch_state_dict` and
+:func:`llama_from_torch_state_dict` read a Hugging Face state dict that is
+already in memory (tensors or arrays, HF's names; ``transformers`` is not
+imported) into the port's ``state_dict``, as the JAX package's converters
+of those names read it into flax params: HF GPT-2's ``Conv1D`` weights are
+already (in, out); NeoX's fused ``query_key_value`` is split per head into
+[all q | all k | all v]; every ``nn.Linear`` weight (out, in) of NeoX and
+LLaMA is transposed.  The ``*_from_pretrained`` wrappers, which need a
+download, are not ported.
 """
 
 from __future__ import annotations
@@ -115,6 +125,101 @@ def gather_model_axis(local, mesh, layout) -> Any:
     if isinstance(local, torch.Tensor):
         return Flattener(whole).flatten(whole)
     return whole
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+def _hf_getter(sd: Mapping[str, Any], prefix: str, keep=()):
+    """``key -> f32 array`` of ``sd`` with DataParallel's ``module.`` and,
+    when any key has it, ``prefix`` stripped (except the keys in ``keep``)."""
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    if any(k.startswith(prefix) for k in sd):
+        sd = {(k if k in keep else k.removeprefix(prefix)): v for k, v in sd.items()}
+    return sd, lambda key: _np(sd[key])
+
+
+def gpt2_from_torch_state_dict(sd: Mapping[str, Any], config) -> dict[str, torch.Tensor]:
+    """HF ``GPT2LMHeadModel`` state dict (``transformer.``-prefixed or bare
+    keys; the tied ``lm_head.weight`` ignored) -> the port's GPT-2
+    ``state_dict``."""
+    sd, g = _hf_getter(sd, "transformer.")
+    params: dict = {"wte": g("wte.weight"), "wpe": g("wpe.weight"),
+                    "ln_f": {"scale": g("ln_f.weight"), "bias": g("ln_f.bias")}}
+    for i in range(config.n_layer):
+        p = f"h.{i}."
+
+        def dense(name, p=p):  # Conv1D weight (in, out) == the port's kernel layout
+            return {"kernel": g(p + name + ".weight"), "bias": g(p + name + ".bias")}
+
+        params[f"h_{i}"] = {
+            "ln_1": {"scale": g(p + "ln_1.weight"), "bias": g(p + "ln_1.bias")},
+            "ln_2": {"scale": g(p + "ln_2.weight"), "bias": g(p + "ln_2.bias")},
+            "attn": {"c_attn": dense("attn.c_attn"), "c_proj": dense("attn.c_proj")},
+            "mlp": {"c_fc": dense("mlp.c_fc"), "c_proj": dense("mlp.c_proj")},
+        }
+    return params_from_jax(params)
+
+
+def neox_from_torch_state_dict(sd: Mapping[str, Any], config) -> dict[str, torch.Tensor]:
+    """HF ``GPTNeoXForCausalLM`` state dict -> the port's NeoX
+    ``state_dict``."""
+    sd, g = _hf_getter(sd, "gpt_neox.")
+
+    def linear(prefix):  # nn.Linear weight (out, in) -> kernel (in, out)
+        return {"kernel": g(prefix + ".weight").T, "bias": g(prefix + ".bias")}
+
+    H, D, C = config.num_heads, config.head_dim, config.hidden_size
+    params: dict = {
+        "embed_in": g("embed_in.weight"),
+        "final_layer_norm": {"scale": g("final_layer_norm.weight"),
+                             "bias": g("final_layer_norm.bias")},
+        "embed_out": {"kernel": g("embed_out.weight").T},
+    }
+    for i in range(config.num_layers):
+        p = f"layers.{i}."
+        # HF packs the qkv rows per head, [h0 q, h0 k, h0 v, h1 q, ...]
+        w = g(p + "attention.query_key_value.weight").reshape(H, 3, D, C)
+        b = g(p + "attention.query_key_value.bias").reshape(H, 3, D)
+        qkv = {"kernel": np.concatenate([w[:, j].reshape(H * D, C) for j in range(3)]).T,
+               "bias": np.concatenate([b[:, j].reshape(H * D) for j in range(3)])}
+        params[f"layer_{i}"] = {
+            "input_layernorm": {"scale": g(p + "input_layernorm.weight"),
+                                "bias": g(p + "input_layernorm.bias")},
+            "post_attention_layernorm": {"scale": g(p + "post_attention_layernorm.weight"),
+                                         "bias": g(p + "post_attention_layernorm.bias")},
+            "attention": {"query_key_value": qkv, "dense": linear(p + "attention.dense")},
+            "mlp": {"dense_h_to_4h": linear(p + "mlp.dense_h_to_4h"),
+                    "dense_4h_to_h": linear(p + "mlp.dense_4h_to_h")},
+        }
+    return params_from_jax(params)
+
+
+def llama_from_torch_state_dict(sd: Mapping[str, Any], config) -> dict[str, torch.Tensor]:
+    """HF ``LlamaForCausalLM`` state dict -> the port's LLaMA ``state_dict``
+    (bias-free projections transposed; a checkpoint without
+    ``lm_head.weight``, saved with tied embeddings, takes the embedding)."""
+    sd, g = _hf_getter(sd, "model.", keep=("lm_head.weight",))
+
+    def linear(prefix):
+        return {"kernel": g(prefix + ".weight").T}
+
+    head = linear("lm_head") if "lm_head.weight" in sd else {"kernel": g("embed_tokens.weight").T}
+    params: dict = {"embed_tokens": g("embed_tokens.weight"),
+                    "norm": {"scale": g("norm.weight")}, "lm_head": head}
+    for i in range(config.num_layers):
+        p = f"layers.{i}."
+        params[f"layer_{i}"] = {
+            "input_layernorm": {"scale": g(p + "input_layernorm.weight")},
+            "post_attention_layernorm": {"scale": g(p + "post_attention_layernorm.weight")},
+            "self_attn": {n: linear(p + "self_attn." + n)
+                          for n in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "mlp": {n: linear(p + "mlp." + n) for n in ("gate_proj", "up_proj", "down_proj")},
+        }
+    return params_from_jax(params)
 
 
 # the GPT-2 names, kept for their callers

@@ -22,8 +22,12 @@ through :func:`precision.matmul` / :func:`precision.einsum`.  With
 ``n_experts > 0`` every block's MLP is the mixture of experts of
 ``models/moe.py`` (``h_{i}.moe``).  ``tie_word_embeddings=False`` gives
 the untied head ``lm_head.kernel`` (C, V) without bias, computed in at
-least f32 as flax's Dense without a dtype does.  Dropout is not ported:
-:class:`GPT2Config` raises on any other value than 0.
+least f32 as flax's Dense without a dtype does.  ``dropout`` > 0 drops
+after attention's ``c_proj`` and after the MLP's ``c_proj``, as flax does,
+when the model runs with ``deterministic=False`` (the MoE MLP has none, as
+in JAX); the masks come from a torch ``Generator`` (``generator``, else
+torch's global one), so they do not reproduce flax's, as the probe vectors
+do not.  Every loss closure runs the model deterministic.
 
 The model axis of a mesh (``parallel/``) splits the model in one of two
 ways.  ``model_parallel`` (``parallel.param_sharding.model_parallel_config``):
@@ -70,11 +74,6 @@ from hessian_llm_vision_tpu_torch.models.collectives import (
     vocab_parallel_embedding,
 )
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
-
-# JAX config fields the port does not implement, with the only value it takes
-_UNPORTED_DEFAULTS = {
-    "dropout": 0.0,
-}
 
 
 def check_model_axis(config) -> None:
@@ -156,6 +155,10 @@ class GPT2Config:
     n_head: int = 12
     # query-block size of the attention loop (None = dense (B,H,T,T) path)
     attn_block_q: Optional[int] = None
+    # rematerialise each query block of that loop (utils/remat.py); unroll:
+    # the JAX scan's, the same values here (models/attention.py)
+    attn_remat: bool = True
+    attn_unroll: bool = False
     # compute dtype (float32 or bfloat16); params always f32
     dtype: torch.dtype = torch.float32
     # matmul precision of the transformer blocks (None = the caller's):
@@ -177,18 +180,15 @@ class GPT2Config:
     # seq_parallel.seq_sharding whose model axis splits the tokens
     model_parallel: object = None
     seq_sharding: object = None
-    # not ported: any value other than the default raises
+    # dropout rate after attention's and the MLP's c_proj, applied only
+    # when the model runs with deterministic=False
     dropout: float = 0.0
     # False: an untied head lm_head.kernel (C, V), no bias
     tie_word_embeddings: bool = True
 
     def __post_init__(self):
-        for name, default in _UNPORTED_DEFAULTS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"GPT2Config.{name}={getattr(self, name)!r} is not ported "
-                    f"yet (only {default!r})"
-                )
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"GPT2Config.dropout={self.dropout!r} is not in [0, 1)")
         check_dtype(self)
         check_model_axis(self)
         precision.per_layer_precision(self.block_matmul_precision, self.n_layer)
@@ -266,6 +266,18 @@ def _as(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return p.to(x.dtype) if x.dtype == torch.bfloat16 else p
 
 
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout``: each entry kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)``, else zeroed; ``x`` itself when
+    ``deterministic`` or ``rate`` is 0.  The mask is drawn from
+    ``generator`` (on ``x``'s device), else from torch's global RNG."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class LayerNorm(nn.Module):
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -286,7 +298,7 @@ class CausalSelfAttention(nn.Module):
         self.c_attn = Dense(config.n_embd, 3 * config.n_embd)
         self.c_proj = Dense(config.n_embd, config.n_embd)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         cfg = self.config
         sp, D = cfg.seq_sharding, cfg.head_dim
         H = self.c_attn.kernel.shape[1] // (3 * D)  # this rank's heads
@@ -299,8 +311,10 @@ class CausalSelfAttention(nn.Module):
             k, v = gather_kv(k, v, sp)
             offset = sp.mesh.model_index * T
         with precision.precision_scope(cfg.attn_scores_precision):
-            y = causal_attention(q, k, v, block_q=cfg.attn_block_q, q_offset=offset)
-        return dense_rows(self.c_proj, y.reshape(B, T, H * D), cfg.model_parallel, C, sp)
+            y = causal_attention(q, k, v, block_q=cfg.attn_block_q, remat=cfg.attn_remat,
+                                 unroll=cfg.attn_unroll, q_offset=offset)
+        y = dense_rows(self.c_proj, y.reshape(B, T, H * D), cfg.model_parallel, C, sp)
+        return dropout(y, cfg.dropout, deterministic, generator)
 
 
 class MLPBlock(nn.Module):
@@ -310,11 +324,12 @@ class MLPBlock(nn.Module):
         self.c_fc = Dense(config.n_embd, 4 * config.n_embd)
         self.c_proj = Dense(4 * config.n_embd, config.n_embd)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         cfg = self.config
         mesh, sp, width = cfg.model_parallel, cfg.seq_sharding, 4 * cfg.n_embd
         x = split_input(x, mesh, self.c_fc.kernel.shape[1] < width, sp)
-        return dense_rows(self.c_proj, F.gelu(self.c_fc(x), approximate="tanh"), mesh, width, sp)
+        h = dense_rows(self.c_proj, F.gelu(self.c_fc(x), approximate="tanh"), mesh, width, sp)
+        return dropout(h, cfg.dropout, deterministic, generator)
 
 
 class Block(nn.Module):
@@ -331,13 +346,14 @@ class Block(nn.Module):
         else:
             self.mlp = MLPBlock(config)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         cfg = self.config
         with precision.precision_scope(cfg.attn_matmul_precision):
-            x = x + self.attn(self.ln_1(x))
+            x = x + self.attn(self.ln_1(x), deterministic, generator)
         with precision.precision_scope(cfg.mlp_matmul_precision):
-            mlp = self.moe if cfg.n_experts else self.mlp
-            return x + mlp(self.ln_2(x))
+            if cfg.n_experts:
+                return x + self.moe(self.ln_2(x))
+            return x + self.mlp(self.ln_2(x), deterministic, generator)
 
 
 class GPT2LMHead(nn.Module):
@@ -370,10 +386,13 @@ class GPT2LMHead(nn.Module):
         nn.init.normal_(self.wpe, 0.0, 0.01, generator=generator)
         init_weights(self, generator)
 
-    def forward(self, input_ids: torch.Tensor, return_hidden: bool = False):
+    def forward(self, input_ids: torch.Tensor, return_hidden: bool = False, *,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
         """``input_ids`` (B, T) -> logits (B, T, V); under ``seq_sharding``
         this rank's T-slice of them, and under a vocab-parallel head its
-        slice of V (of every position under both)."""
+        slice of V (of every position under both).  ``deterministic=False``
+        applies ``config.dropout`` with masks from ``generator``
+        (:func:`dropout`; under the model axis each rank draws its own)."""
         cfg = self.config
         sp, mesh = cfg.seq_sharding, cfg.model_parallel
         lo = 0 if sp is None else seq_slice(input_ids, sp)[1]
@@ -387,7 +406,7 @@ class GPT2LMHead(nn.Module):
         per_prec = precision.per_layer_precision(cfg.block_matmul_precision, cfg.n_layer)
         for i in range(cfg.n_layer):
             with precision.precision_scope(per_prec[i]):
-                x = getattr(self, f"h_{i}")(x)
+                x = getattr(self, f"h_{i}")(x, deterministic, generator)
         x = self.ln_f(x)
         if return_hidden:
             # final pre-logit states; pair with output_kernel() for the

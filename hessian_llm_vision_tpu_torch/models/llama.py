@@ -61,6 +61,10 @@ class LlamaConfig:
     dtype: torch.dtype = torch.float32
     # query-block size of the attention loop (None = dense)
     attn_block_q: Optional[int] = None
+    # rematerialise each query block of that loop (utils/remat.py); unroll:
+    # the JAX scan's, the same values here (models/attention.py)
+    attn_remat: bool = True
+    attn_unroll: bool = False
     # matmul precision of the transformer blocks (models/precision.py)
     block_matmul_precision: object = None
     # the model axis, as GPT2Config's (models/gpt2.py)
@@ -168,7 +172,8 @@ class LlamaAttention(nn.Module):
         if k.shape[2] != Hq:  # this rank's query heads of the whole kv heads
             first = mesh.model_index * Hq
             k, v = k[:, :, first:first + Hq], v[:, :, first:first + Hq]
-        y = causal_attention(q, k, v, block_q=cfg.attn_block_q, q_offset=offset)
+        y = causal_attention(q, k, v, block_q=cfg.attn_block_q, remat=cfg.attn_remat,
+                             unroll=cfg.attn_unroll, q_offset=offset)
         return dense_rows(self.o_proj, y.reshape(B, T, Hq * D), mesh, C, sp)
 
 

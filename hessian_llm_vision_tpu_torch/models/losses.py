@@ -35,6 +35,7 @@ from hessian_llm_vision_tpu_torch.models.collectives import (
     reduce_from_model,
     vocab_parallel_log_likelihood,
 )
+from hessian_llm_vision_tpu_torch.utils.remat import remat as remat_region
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -96,6 +97,40 @@ def causal_lm_loss(
     return -total / torch.clamp(w.sum(), min=1.0)
 
 
+_HEAD_PRECISIONS = (None, "default", "high", "highest", "act_high", "weight_high")
+
+
+def head_product(h: torch.Tensor, wk: torch.Tensor, head_precision: Optional[str]) -> torch.Tensor:
+    """``h @ wk`` of the vocab head at ``head_precision``, the JAX package's
+    five names mapped onto the card's tiers (``models/precision.py``):
+
+    ==================  ==========================================================
+    ``None``            the innermost scope's tier (inherited)
+    ``"high"``,         the fp32 tier
+    ``"highest"``
+    ``"default"``       the bf16 tier (bf16 operands, f32 accumulation)
+    ``"act_high"``      the weight operand rounded to bf16, then an fp32 product
+    ``"weight_high"``   the activation operand rounded to bf16, then an fp32
+                        product
+    ==================  ==========================================================
+
+    The TPU's "act_high" / "weight_high" split one operand into bf16
+    passes (2 of the MXU's); the card has no per-operand pass count, so
+    the port rounds the other operand once and multiplies in fp32: an
+    interim deviation, with the same operand kept exact."""
+    if head_precision not in _HEAD_PRECISIONS:
+        raise ValueError(f"head_precision {head_precision!r}; expected one of {_HEAD_PRECISIONS}")
+    if head_precision is None:
+        return precision.matmul(h, wk)
+    if head_precision == "act_high":
+        wk = wk.to(torch.bfloat16).to(wk.dtype)
+    elif head_precision == "weight_high":
+        h = h.to(torch.bfloat16).to(h.dtype)
+    tier = "default" if head_precision == "default" else "high"
+    with precision.precision_scope(tier):
+        return precision.matmul(h, wk)
+
+
 def chunked_causal_lm_loss(
     hidden: torch.Tensor,
     out_kernel: torch.Tensor,
@@ -104,6 +139,9 @@ def chunked_causal_lm_loss(
     *,
     chunk: int = 128,
     include_padding: bool = False,
+    remat: bool = True,
+    unroll: bool = False,
+    head_precision: Optional[str] = None,
     vocab_mesh=None,
     seq_mesh=None,
 ) -> torch.Tensor:
@@ -112,13 +150,20 @@ def chunked_causal_lm_loss(
 
     ``hidden`` (B, T, C) are the final pre-logit states, ``out_kernel``
     (C, V) the output projection.  Equal to :func:`causal_lm_loss` on the
-    dense logits.  ``vocab_mesh``: ``out_kernel`` holds this rank's columns
-    of the vocabulary (the hidden states enter it through
-    ``copy_to_model``); ``seq_mesh``: ``hidden`` is this rank's T-slice and
-    ``input_ids`` the whole sequences; both: the T-slices are gathered
-    first, and every rank's loss covers every position.  The JAX package's per-chunk
-    rematerialisation is not ported: under autodiff each chunk's logits
-    stay live.
+    dense logits.  With ``remat`` (the default, as in the JAX package)
+    each chunk's projection, log-softmax and gather run as one
+    rematerialised region (``utils/remat.py``) that saves only its slice
+    of ``hidden`` and the kernel, so under ``grad`` and ``jvp(grad(.))``
+    no chunk's (B, chunk, V) logits outlive it; without, every chunk's
+    stay live.  ``unroll`` (the JAX scan's) changes nothing here: the
+    values are identical.  ``head_precision``: :func:`head_product`.
+    ``vocab_mesh``: ``out_kernel`` holds this rank's columns of the
+    vocabulary (the hidden states enter it through ``copy_to_model``), and
+    the log-softmax's sums over the model axis run inside each region, so
+    its backward issues them again, in the same order on every rank;
+    ``seq_mesh``: ``hidden`` is this rank's T-slice and ``input_ids`` the
+    whole sequences; both: the T-slices are gathered first, and every
+    rank's loss covers every position.
     """
     gathered = vocab_mesh is not None and seq_mesh is not None
     if gathered:  # a vocab-split head sees every position; the gradient scattered back
@@ -133,9 +178,14 @@ def chunked_causal_lm_loss(
     wk = at_least_f32(out_kernel)
     partials = []
     for s in range(0, stop - first, chunk):
-        ll = token_log_likelihood(precision.matmul(h[:, s : s + chunk], wk),
-                                   targets[:, s : s + chunk], vocab_mesh)
-        partials.append((ll * wl[:, s : s + chunk]).sum())
+        hc, tc, wc = h[:, s : s + chunk], targets[:, s : s + chunk], wl[:, s : s + chunk]
+
+        def body(hc, wk, tc, wc):
+            ll = token_log_likelihood(head_product(hc, wk, head_precision), tc, vocab_mesh)
+            return (ll * wc).sum()
+
+        partials.append(remat_region(body, hc, wk, consts=(tc, wc)) if remat
+                        else body(hc, wk, tc, wc))
     total = torch.stack(partials).sum()
     if seq_mesh is not None:
         total = reduce_from_model(total, seq_mesh)
@@ -147,13 +197,17 @@ def lm_loss_fn(
     *,
     include_padding: bool = False,
     loss_chunk: Optional[int] = None,
+    loss_chunk_unroll: bool = False,
+    head_precision: Optional[str] = None,
 ) -> Callable[[Mapping[str, torch.Tensor], Mapping[str, torch.Tensor]], torch.Tensor]:
     """LM loss closure for any LM head of the port (GPT-2, NeoX, LLaMA).
 
     ``loss_chunk``: compute the vocab projection + CE in sequence chunks of
-    this size (:func:`chunked_causal_lm_loss`) against the model's own
-    ``output_kernel`` (GPT-2's tied ``wte``, NeoX's ``embed_out``,
-    LLaMA's ``lm_head``); ``None`` = dense logits.
+    this size (:func:`chunked_causal_lm_loss`, each chunk rematerialised)
+    against the model's own ``output_kernel`` (GPT-2's tied ``wte``,
+    NeoX's ``embed_out``, LLaMA's ``lm_head``); ``None`` = dense logits.
+    ``loss_chunk_unroll`` and ``head_precision`` go to the chunked loss
+    (the dense path ignores them, as in the JAX package).
 
     On the model axis (the config's ``model_parallel`` and/or
     ``seq_sharding``) ``params`` are this rank's: a vocab-parallel head
@@ -197,7 +251,8 @@ def lm_loss_fn(
         return chunked_causal_lm_loss(
             hidden, kernel, batch["input_ids"],
             batch.get("attention_mask"), chunk=loss_chunk,
-            include_padding=include_padding, vocab_mesh=vocab_mesh(kernel.shape[1]),
+            include_padding=include_padding, unroll=loss_chunk_unroll,
+            head_precision=head_precision, vocab_mesh=vocab_mesh(kernel.shape[1]),
             seq_mesh=seq_mesh,
         )
 
@@ -234,3 +289,18 @@ def classification_loss_fn_bn(
         return softmax_cross_entropy(logits, batch["label"])
 
     return loss
+
+
+def per_example_lm_losses(model: torch.nn.Module, params: Mapping[str, torch.Tensor],
+                          batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Per-sequence LM losses (B,): each sequence's mean next-token CE over
+    its unmasked targets (all of them without ``attention_mask``), the
+    reference's loss-per-batch evaluator."""
+    ids = batch["input_ids"]
+    logits = functional_call(model, params, (ids,))
+    token_ll = token_log_likelihood(logits[:, :-1], ids[:, 1:])
+    mask = batch.get("attention_mask")
+    if mask is not None:
+        m = mask[:, 1:].to(token_ll.dtype)
+        return -(token_ll * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
+    return -token_ll.mean(-1)

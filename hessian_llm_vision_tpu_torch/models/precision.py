@@ -53,6 +53,13 @@ tier when they run and fix it for that product:
   want (:func:`outer_precision` reads the config that the loss closure
   carries), so blocks-TF32 under an fp32 head runs its block products
   plain and only the head switches.
+
+The switched product is the custom op ``hlv_port::flag_einsum`` (an
+einsum with its TF32 flag as an argument, with a fake implementation and
+a batching rule), which :class:`_FlagEinsum`'s forward, backward and jvp
+each call: a graph traced by ``make_fx`` (``curvature/linearized.py``)
+keeps it as a node, so the replayed graph switches the flag per product
+as the eager HVP does.
 """
 
 from __future__ import annotations
@@ -161,6 +168,25 @@ def _pushed(tier: str):
         s.pop()
 
 
+def rescoped(fn):
+    """``fn`` run under the scopes open now, wherever and whenever it is
+    called: the recompute of a rematerialised region (``utils/remat.py``)
+    runs in a backward pass, after its scopes have closed, and on CUDA on
+    autograd's device thread, whose stack is its own."""
+    tiers = list(_stack())
+
+    def run(*args):
+        s = _stack()
+        saved = s[:]
+        s[:] = tiers
+        try:
+            return fn(*args)
+        finally:
+            s[:] = saved
+
+    return run
+
+
 def precision_scope(prec: Optional[str]):
     """Context manager: the products inside run at ``prec``'s tier; a no-op
     for ``None``."""
@@ -211,9 +237,9 @@ def _ambient_tf32(tiers) -> bool:
 def tf32_switches(config, prec: Optional[str]) -> bool:
     """Whether some product of a model with this config, run inside
     ``outer_precision(prec, config)``, needs the TF32 flag switched per
-    product (:class:`_FlagEinsum`): its fp32 and TF32 products mix.  A
-    graph traced by ``make_fx`` cannot keep such a switch.  ``config``
-    None (a model without scopes): never."""
+    product (:class:`_FlagEinsum`, a ``flag_einsum`` node in a traced
+    graph): its fp32 and TF32 products mix.  ``config`` None (a model
+    without scopes): never."""
     if config is None:
         return False
     tiers = {FP32 if t is None else t for t in _product_tiers(config, tier_of(prec))}
@@ -239,22 +265,6 @@ def outer_precision(prec: Optional[str], config=None):
         yield
 
 
-_tracing = threading.local()
-
-
-@contextlib.contextmanager
-def no_flag_switch(why: str):
-    """Inside the block, a product whose TF32 flag differs from the ambient
-    one raises: a graph traced by ``make_fx`` keeps dtype casts but not a
-    global flag set while tracing."""
-    saved = getattr(_tracing, "why", None)
-    _tracing.why = why
-    try:
-        yield
-    finally:
-        _tracing.why = saved
-
-
 def _grad_equations(eq: str) -> Tuple[str, str]:
     ins, out = eq.replace(" ", "").split("->")
     a, b = ins.split(",")
@@ -275,16 +285,42 @@ def _tf32(on: bool):
         m.allow_tf32 = saved
 
 
+@torch.library.custom_op("hlv_port::flag_einsum", mutates_args=())
+def flag_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, tf32: bool) -> torch.Tensor:
+    """Two-operand ``torch.einsum`` with cuBLAS's TF32 flag at ``tf32``
+    while it runs (no derivative of its own: :class:`_FlagEinsum`'s)."""
+    with _tf32(tf32):
+        return torch.einsum(eq, a, b)
+
+
+@flag_einsum.register_fake
+def _flag_einsum_fake(eq, a, b, tf32):
+    return torch.einsum(eq, a, b)
+
+
+def _flag_einsum_vmap(info, in_dims, eq, a, b, tf32):
+    """The batch dimension as a new leading index of the equation."""
+    ins, out = eq.replace(" ", "").split("->")
+    z = next(c for c in "zyxwvutsrqponmlkjihgfedcbaZYXWVUTSRQPONMLKJIHGFEDCBA" if c not in eq)
+    terms = []
+    for t, term, d in ((a, ins.split(",")[0], in_dims[1]), (b, ins.split(",")[1], in_dims[2])):
+        terms.append((t, term) if d is None else (t.movedim(d, 0), z + term))
+    (a, ta), (b, tb) = terms
+    return flag_einsum(f"{ta},{tb}->{z}{out}", a, b, tf32), 0
+
+
+torch.library.register_vmap(flag_einsum, _flag_einsum_vmap)
+
+
 class _FlagEinsum(torch.autograd.Function):
     """Two-operand einsum whose forward, backward and tangent products all
-    run with cuBLAS's TF32 flag at ``tf32``."""
+    run with cuBLAS's TF32 flag at ``tf32`` (each a :func:`flag_einsum`)."""
 
     generate_vmap_rule = True
 
     @staticmethod
     def forward(eq, a, b, tf32):
-        with _tf32(tf32):
-            return torch.einsum(eq, a, b)
+        return flag_einsum(eq, a, b, tf32)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -304,13 +340,12 @@ class _FlagEinsum(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, _eq, ta, tb, _tf32_flag):
         a, b = ctx.saved_tensors
-        with _tf32(ctx.tf32):
-            out = None
-            if ta is not None:
-                out = torch.einsum(ctx.eq, ta, b)
-            if tb is not None:
-                t = torch.einsum(ctx.eq, a, tb)
-                out = t if out is None else out + t
+        out = None
+        if ta is not None:
+            out = flag_einsum(ctx.eq, ta, b, ctx.tf32)
+        if tb is not None:
+            t = flag_einsum(ctx.eq, a, tb, ctx.tf32)
+            out = t if out is None else out + t
         return out
 
 
@@ -329,14 +364,6 @@ def _tiered(eq: str, a: torch.Tensor, b: torch.Tensor, plain):
     want = tier == TF32
     if torch.backends.cuda.matmul.allow_tf32 == want:
         return plain()
-    why = getattr(_tracing, "why", None)
-    if why is not None:
-        raise ValueError(
-            f"{why}: a {tier} product inside a TF32-{'off' if want else 'on'} "
-            "scope needs the TF32 flag switched per product, which a traced graph "
-            "does not keep; use a uniform precision (--hvp_precision) or a bf16/"
-            "float64 block tier"
-        )
     return _FlagEinsum.apply(eq, a, b, want)
 
 

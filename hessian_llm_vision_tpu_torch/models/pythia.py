@@ -58,6 +58,10 @@ class NeoXConfig:
     dtype: torch.dtype = torch.float32
     # query-block size of the attention loop (None = dense)
     attn_block_q: Optional[int] = None
+    # rematerialise each query block of that loop (utils/remat.py); unroll:
+    # the JAX scan's, the same values here (models/attention.py)
+    attn_remat: bool = True
+    attn_unroll: bool = False
     # matmul precision of the transformer blocks (models/precision.py)
     block_matmul_precision: object = None
     # the model axis, as GPT2Config's (models/gpt2.py)
@@ -149,7 +153,8 @@ class NeoXAttention(nn.Module):
             q, k = _rotary(q, k, cfg.rotary_emb_base, rot_dim, offset)
         if sliced:
             k, v = gather_kv(k, v, sp)
-        y = causal_attention(q, k, v, block_q=cfg.attn_block_q, q_offset=offset)
+        y = causal_attention(q, k, v, block_q=cfg.attn_block_q, remat=cfg.attn_remat,
+                             unroll=cfg.attn_unroll, q_offset=offset)
         return dense_rows(self.dense, y.reshape(B, T, H * D), cfg.model_parallel, C, sp)
 
 

@@ -35,9 +35,12 @@ parameters (:func:`pipeline_param_sharding`) is a model-axis layout
 and ``krylov.sharded.ModelShard`` (the Krylov basis on the pipeline axis)
 take it unchanged.
 
-``remat_ticks=True`` (the JAX package's per-tick checkpointing) is not
-ported: ``torch.utils.checkpoint`` does not compose with the ``torch.func``
-transforms (ROADMAP, beside ``hvp_fn(remat=True)``).
+``remat_ticks=True`` (the JAX package's per-tick checkpointing) runs each
+tick's stage work -- the embedding on stage 0 and the stage's blocks -- as
+one rematerialised region (``utils/remat.py``) that saves its inputs only:
+the residual stream it receives and the stage's parameters.  The shifts,
+the exit and the parameter sums stay outside the regions, so a backward
+recompute issues no collective that another rank does not expect.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from __future__ import annotations
 from typing import Any, Callable, Mapping, Optional
 
 import torch
+import torch.utils._pytree as pytree
 from torch.func import functional_call
 
 from hessian_llm_vision_tpu_torch.models import precision
@@ -58,10 +62,9 @@ from hessian_llm_vision_tpu_torch.models.collectives import (
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32, token_log_likelihood
 from hessian_llm_vision_tpu_torch.parallel.mesh import Mesh, make_mesh
 from hessian_llm_vision_tpu_torch.parallel.param_sharding import Split
+from hessian_llm_vision_tpu_torch.utils.remat import remat
 
 BLOCKS = "blocks."
-_REMAT = ("remat_ticks=True is not ported: torch.utils.checkpoint does not compose with "
-          "torch.func (ROADMAP, remat)")
 
 
 def make_pipeline_mesh(num_data: int, num_stages: int) -> Mesh:
@@ -195,9 +198,10 @@ def pipeline_apply(stage_fn: Callable[[Mapping[str, torch.Tensor], torch.Tensor]
     each rank's share: the transpose of the exit sums the ranks'
     cotangents at the last stage, so the caller sums its results over the
     axis (``make_pipelined_lm_loss`` sums its loss shares).
+    ``remat_ticks``: each tick's work on a stage (stage 0's embedding of its
+    microbatch, then the stage's blocks) is rematerialised; the leaves of
+    ``input_consts`` must then be tensors.
     """
-    if remat_ticks:
-        raise NotImplementedError(_REMAT)
     _check_pp_axis(mesh, pp_axis)
     S, s = mesh.num_model, mesh.model_index
     M = inputs.shape[0]
@@ -209,6 +213,20 @@ def pipeline_apply(stage_fn: Callable[[Mapping[str, torch.Tensor], torch.Tensor]
     def enter(m):
         mb = inputs[m, rows]
         return input_fn(input_consts, mb) if input_fn is not None else mb
+
+    names = list(local)
+    const_leaves, const_spec = pytree.tree_flatten(input_consts)
+
+    def work(carry, *tensors):
+        """Stage s's tick: the tensors are its blocks' leaves, then on stage
+        0 the microbatch's activations, or the embedding's consts and the
+        microbatch's raw inputs."""
+        x = carry
+        if s == 0:
+            rest = tensors[len(names):]
+            x = carry + (rest[0] if input_fn is None else input_fn(
+                pytree.tree_unflatten(list(rest[:-1]), const_spec), rest[-1]))
+        return stage_fn(dict(zip(names, tensors[:len(names)])), x)
 
     # the activations' shape and dtype, the same on every rank: one
     # microbatch entered without a graph
@@ -223,8 +241,12 @@ def pipeline_apply(stage_fn: Callable[[Mapping[str, torch.Tensor], torch.Tensor]
     for t in range(last_tick + 1):
         m = t - s
         if 0 <= m < M:
-            x = carry + enter(m) if s == 0 else carry
-            x = stage_fn(local, x)
+            args, consts = (carry, *local.values()), ()
+            if s == 0 and input_fn is None:
+                args += (inputs[m, rows],)
+            elif s == 0:
+                args, consts = args + tuple(const_leaves), (inputs[m, rows],)
+            x = remat(work, *args, consts=consts) if remat_ticks else work(*args, *consts)
             if s == S - 1:
                 outs.append(x)
             carry = x
@@ -255,7 +277,8 @@ def make_pipelined_lm_loss(model, mesh: Mesh, *, num_microbatches: int, pp_axis:
     share of the whole batch's mean (with the attention mask, unless
     ``include_padding``) is summed over the mesh, so the loss, and the
     gradient of every leaf a rank holds, are the whole model's on every
-    rank.  The result is the usual ``loss_fn(params, batch)``:
+    rank.  ``remat_ticks``: :func:`pipeline_apply`'s.  The result is the
+    usual ``loss_fn(params, batch)``:
     ``curvature/hvp.py``, ``HessianOperator``, ``krylov.driver`` and
     ``lanczos`` with ``basis_sharding(mesh, ModelAxisLayout(...))`` take it
     unchanged."""
@@ -266,8 +289,6 @@ def make_pipelined_lm_loss(model, mesh: Mesh, *, num_microbatches: int, pp_axis:
     if cfg.model_parallel is not None:
         raise ValueError("make_pipelined_lm_loss does not support cfg.model_parallel: the "
                          "pipeline mesh has no model axis besides its stages")
-    if remat_ticks:
-        raise NotImplementedError(_REMAT)
     _check_pp_axis(mesh, pp_axis)
     split = _data_split(mesh, data_axis)
     block_prec = precision.uniform_precision(cfg.block_matmul_precision)
@@ -304,7 +325,8 @@ def make_pipelined_lm_loss(model, mesh: Mesh, *, num_microbatches: int, pp_axis:
 
         ym = pipeline_apply(stage_fn, blocks, idm, mesh, input_fn=embed,
                             input_consts=(p["wte"], p["wpe"]), pp_axis=pp_axis,
-                            data_axis=data_axis, scatter_outputs=True)
+                            data_axis=data_axis, scatter_outputs=True,
+                            remat_ticks=remat_ticks)
         lo, hi = parts[mesh.model_index]
         rows = _data_rows(B // M, mesh, split)
         n, b = ym.shape[:2]

@@ -382,6 +382,40 @@ def test_residual_bytes_abstract_concrete_and_positive(pair, case):
     assert linearized.concrete_residual_bytes(resid_p(params, batch)) == n
 
 
+@pytest.mark.parametrize("overrides,switched", [
+    ({"block_matmul_precision": "TF32_TF32_F32"}, {False}),
+    ({"mlp_matmul_precision": "TF32_TF32_F32"}, {True}),
+    ({"attn_block_q": 8, "mlp_matmul_precision": "TF32_TF32_F32"}, {True}),
+], ids=["tf32_blocks_fp32_head", "fp32_with_tf32_mlps", "the_same_blocked"])
+def test_linearized_keeps_the_flag_switched_products(pair, overrides, switched):
+    """Under an fp32 outer scope the traced splits hold each product whose
+    TF32 flag differs from the ambient one as a ``flag_einsum`` node with
+    that flag (once refused): the fp32 head's with ``tf32=False`` under
+    TF32 blocks (the ambient flag on), the MLPs' with ``tf32=True`` under
+    an fp32 majority; query blocks (rematerialised in the eager HVP) trace
+    plainly.  The tangent map equals the eager HVP within 1e-6 and
+    ``tf32_switches`` predicts the nodes.  ``residual_bytes(precision=)``
+    counts the residuals of that outer scope."""
+    from hessian_llm_vision_tpu_torch.models import precision
+
+    model = GPT2LMHead(GPT2Config.tiny(**overrides), generator=torch.Generator().manual_seed(5))
+    params, batch = {n: p.detach() for n, p in model.named_parameters()}, pair["batches"][0]
+    loss = losses.lm_loss_fn(model, loss_chunk=8 if "attn_block_q" in overrides else None)
+    sp = linearized._trace_split(loss, "mean", None, None, params, batch, "high")
+    flags = [n.args[3] for g in (sp.residual, sp.tangent) for n in g.graph.nodes
+             if n.target is torch.ops.hlv_port.flag_einsum.default]
+    assert set(flags) == switched and precision.tf32_switches(model.config, "high")
+    fl = Flattener(params)
+    v = torch.as_tensor(_vector(fl.size, 6))
+    eager = fl.flatten(hvp_fn(loss, precision="high")(params, batch, fl.unflatten(v)))
+    traced = linearized.linearized_matvec(loss, params, batch, precision="high", flattener=fl)(v)
+    assert rel_l2(traced.numpy(), eager.numpy()) <= 1e-6
+    high = linearized.residual_bytes(loss, params, batch, precision="high")
+    resid_p, _ = linearized.linearized_hvp_programs(loss, "mean", "high", fl)
+    assert linearized.concrete_residual_bytes(resid_p(params, batch)) == high
+    assert linearized.residual_bytes(loss, params, batch, precision="default") != high
+
+
 def test_linearized_spectrum_host_matches_jax(pair, capsys):
     p = pair
     v0 = _vector(p["fl"].size, 12)

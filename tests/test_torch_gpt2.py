@@ -154,10 +154,43 @@ def test_untied_head_flat_order_and_param_count():
     assert num_params(cfg) == jnum_params(JGPT2Config.tiny(tie_word_embeddings=False))
 
 
-# dtype bfloat16 and the precision fields are ported (test_torch_precision_model.py),
-# the MoE fields too (test_torch_lm_families.py), seq_sharding beside model_parallel
-# (test_torch_pipeline.py) and the untied head (above)
+# every config field is ported: dtype bfloat16 and the precision fields
+# (test_torch_precision_model.py), the MoE fields (test_torch_lm_families.py),
+# seq_sharding beside model_parallel (test_torch_pipeline.py), the untied head
+# (above), attn_remat / attn_unroll (test_torch_remat.py) and dropout (below)
 @pytest.mark.parametrize("field,value", [("dropout", 0.1)])
-def test_unported_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        GPT2Config.tiny(**{field: value})
+def test_dropout_deterministic_matches_flax(field, value):
+    """A dropout config (once refused) run deterministic: the flax logits
+    within 1e-5, and the port's dropout-0 model's bit for bit; a rate out
+    of [0, 1) raises."""
+    jmodel, jparams, model, ids = _pair(**{field: value})
+    _, _, plain, _ = _pair()
+    jlogits = np.asarray(jmodel.apply({"params": jparams}, jnp.asarray(ids), deterministic=True))
+    with torch.no_grad():
+        logits = model(torch.as_tensor(ids), deterministic=True)
+        assert torch.equal(logits, plain(torch.as_tensor(ids)))
+    np.testing.assert_allclose(logits.numpy(), jlogits, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="dropout"):
+        GPT2Config.tiny(dropout=1.0)
+
+
+def test_dropout_draws_masks_from_a_generator():
+    """``deterministic=False``: each entry kept with probability 0.9 and
+    scaled by 1/0.9 (flax's ``nn.Dropout``), the masks drawn from the
+    generator: the same seed repeats the logits bit for bit, another seed
+    does not, and neither equals the deterministic logits."""
+    from hessian_llm_vision_tpu_torch.models.gpt2 import dropout
+
+    x = torch.randn(400, 250, generator=torch.Generator().manual_seed(0))
+    y = dropout(x, 0.1, False, torch.Generator().manual_seed(1))
+    kept = y != 0
+    assert abs(float(kept.float().mean()) - 0.9) <= 0.01
+    assert torch.equal(y[kept], x[kept] / 0.9)
+    assert dropout(x, 0.1, True, None) is x and dropout(x, 0.0, False, None) is x
+    _, _, model, ids = _pair(dropout=0.1)
+    x = torch.as_tensor(ids)
+    with torch.no_grad():
+        det = model(x)
+        a, b, c = (model(x, deterministic=False, generator=torch.Generator().manual_seed(s))
+                   for s in (5, 5, 6))
+    assert torch.equal(a, b) and not torch.equal(a, c) and not torch.equal(a, det)

@@ -196,20 +196,26 @@ def _run(argv):
 
 
 def test_precision_ladder_on_llama():
-    """The default auto probes its rungs on a LLaMA config; --linearized
-    drops the blocks-TF32 rung, read from the LLaMA tier map."""
+    """The default auto probes its rungs on a LLaMA config, under
+    --linearized too (the blocks-TF32 rung, once dropped, is kept); TF32
+    blocks under an fp32 head run traced (once refused), with the same
+    Ritz values as the eager HVPs."""
     base = ["--model", "llama-tiny"] + SPEC[:-2] + ["--lanczos_iters", "4"]
     out = _run(base)
     assert "[auto-precision] referee (highest)" in out and "auto precision plan:" in out
     assert "probed mixed (all blocks 1-pass bf16): err" in out
     out = _run(base + ["--linearized"])
-    assert "[auto-precision] blocks-TF32 + head high: dropped under --linearized" in out
-    assert "auto precision plan:" in out
-    out = _run(base + ["--hvp_precision", "high", "--block_precision", "TF32_TF32_F32"])
-    assert "top-5 Ritz" in out
-    with pytest.raises(ValueError, match="per-product TF32|TF32 flag switched per product"):
-        _run(base + ["--hvp_precision", "high", "--block_precision", "TF32_TF32_F32",
-                     "--linearized"])
+    assert "dropped under --linearized" not in out
+    assert "probed blocks-TF32 + head high: err" in out and "auto precision plan:" in out
+    tf32 = base + ["--hvp_precision", "high", "--block_precision", "TF32_TF32_F32"]
+    eager, traced = _run(tf32), _run(tf32 + ["--linearized"])
+    assert "linearized residual pass" in traced
+    assert _top5(traced) == pytest.approx(_top5(eager), rel=1e-4, abs=1e-4)
+
+
+def _top5(out: str) -> list:
+    line = next(ln for ln in out.splitlines() if ln.startswith("top-5 Ritz"))
+    return [float(x) for x in line.split("[", 1)[1].rstrip("]").split(",")]
 
 
 def test_refresh_guard_on_llama(tmp_path, capsys):

@@ -90,6 +90,8 @@ CASES = {
     "moe_dense_ep": ("gpt2", MOE_KW, "ep", None),
     "moe_top2_ep": ("gpt2", dict(MOE_KW, moe_top_k=2, moe_capacity_factor=2.0), "ep", None),
     "moe_top2_sp": ("gpt2", dict(MOE_KW, moe_top_k=2, moe_capacity_factor=2.0), "sp", None),
+    # query blocks and loss chunks, both rematerialised, on a vocab-split head
+    "gpt2_tp_remat": ("gpt2", dict(GPT2_KW, attn_block_q=8), "tp", 8),
 }
 #: the JAX pipeline tests' GPT-2 (``tests/distributed/test_pipeline.py:31``)
 PIPE_KW = dict(vocab_size=64, n_positions=T, n_embd=16, n_layer=4, n_head=2)
@@ -102,6 +104,7 @@ PIPELINE = {
     "pp4": (4, 1, 4, {}, False),
 }
 PIPELINE_TWO = ("pp2", "pp2_untied_mask")  # in the 2-rank spawn
+PIPELINE_REMAT = "pp2_untied_mask_remat_ticks"  # the second, remat_ticks=True, in it too
 _JAX = {"gpt2": (JGPT2Config, JGPT2LMHead), "neox": (JNeoXConfig, JNeoXLMHead),
         "llama": (JLlamaConfig, JLlamaLMHead)}
 
@@ -195,7 +198,8 @@ def _pipeline_rank_case(name: str, **extra) -> dict:
 #: its expert-parallel run (each of its compiles costs about 10 s here; its
 #: own tests pin SP, TP and unsharded together, and the JAX package computes
 #: the same function whatever the sharding)
-_SAME_FUNCTION = {"neox_sp": "neox_tp", "llama_sp": "llama_tp", "moe_top2_sp": "moe_top2_ep"}
+_SAME_FUNCTION = {"neox_sp": "neox_tp", "llama_sp": "llama_tp", "moe_top2_sp": "moe_top2_ep",
+                  "gpt2_tp_remat": "gpt2_tp"}
 
 
 def _jax_sharded(name: str) -> dict:
@@ -275,6 +279,7 @@ def two(tmp_path_factory):
     def produce(workdir):
         cases = {name: _rank_case(name) for name in CASES}
         pipeline = {name: _pipeline_rank_case(name) for name in PIPELINE_TWO}
+        pipeline[PIPELINE_REMAT] = _pipeline_rank_case("pp2_untied_mask", remat_ticks=True)
         return run_ranks(f"{RANKS}:model_axis_two", 2, workdir, threads=1,
                          timeout=SPAWN_TIMEOUT, kwargs={"cases": cases, "lanczos_case": "gpt2_tp",
                                                         "iters": ITERS, "pipeline": pipeline})
@@ -460,6 +465,16 @@ def test_model_axis_round_trips_and_halves(two):
     kv1 = two[0]["result"]["llama_kv1_tp"]["split"]
     assert "layer_0.self_attn.q_proj.kernel" in kv1
     assert "layer_0.self_attn.k_proj.kernel" not in kv1
+
+
+def test_model_axis_remat_is_the_plain_model_axis(two):
+    """Rematerialised query blocks and loss chunks on the model axis, the
+    chunks' log-softmax sums over a vocab-split head issued again in each
+    recompute: the plain tensor-parallel model's loss within 1e-6 and its
+    gradient and HVP within 1e-5 on every rank (and the JAX package's,
+    through ``test_model_axis_matches_jax``)."""
+    for rank in two:
+        _check(rank["result"]["gpt2_tp_remat"], rank["result"]["gpt2_tp"])
 
 
 def test_model_axis_lanczos_matches_jax(two, jax_ref):

@@ -81,6 +81,7 @@ from test_torch_model_parallel import (  # noqa: F401  (the 2-rank spawn is a fi
     NEOX_KW,
     PIPE_KW,
     PIPELINE,
+    PIPELINE_REMAT,
     PIPELINE_TWO,
     RANKS,
     REL,
@@ -322,6 +323,54 @@ def test_one_stage_without_a_group_is_the_whole_model(name):
     assert _rel(fl.flatten(unstack_pipeline_params(hv)), fl.flatten(want_hv)) <= REL
 
 
+@pytest.mark.parametrize("name", PIPELINE_TWO)
+def test_one_stage_remat_ticks_is_the_plain_pipeline(name):
+    """``remat_ticks=True`` (once refused) on a mesh of one rank: the loss,
+    gradient and HVP of the plain pipeline within 1e-6, the same products
+    recomputed in each tick's backward."""
+    model, params, batch = _one_rank_case(name)
+    fl = Flattener(params)
+    mesh = make_pipeline_mesh(1, 1)
+    stacked = stack_pipeline_params(params, 4, 1)
+    v = stack_pipeline_params(fl.unflatten(torch.as_tensor(_pipeline_inputs(name)["v"])), 4, 1)
+    sfl = Flattener(stacked)
+    out = {}
+    for remat in (False, True):
+        loss_fn = make_pipelined_lm_loss(model, mesh, num_microbatches=4, remat_ticks=remat)
+        loss, grad = grad_and_loss(loss_fn, stacked, batch)
+        out[remat] = (float(loss), sfl.flatten(grad), sfl.flatten(hvp(loss_fn, stacked, batch, v)))
+    assert abs(out[True][0] - out[False][0]) <= 1e-6 * abs(out[False][0])
+    assert _rel(out[True][1], out[False][1]) <= 1e-6
+    assert _rel(out[True][2], out[False][2]) <= 1e-6
+
+
+def test_pipeline_apply_remat_ticks_alone():
+    """``pipeline_apply(remat_ticks=True)`` on one stage of two tanh
+    layers, the activations entering as inputs (no ``input_fn``): the
+    plain apply's value, gradients (stage and inputs) and HVP within 1e-6."""
+    mesh = make_pipeline_mesh(1, 1)
+    gen = torch.Generator().manual_seed(2)
+    W, V = (torch.randn(1, 2, 5, 5, generator=gen) / 3 for _ in range(2))
+    x = torch.randn(3, 2, 5, generator=gen)
+
+    def stage(bp, h):
+        for j in range(bp["w"].shape[0]):
+            h = torch.tanh(h @ bp["w"][j])
+        return h
+
+    def run(remat):
+        def f(w, x):
+            return (pipeline_apply(stage, {"w": w}, x, mesh, remat_ticks=remat) ** 2).sum()
+        grads = torch.func.grad(f, argnums=(0, 1))(W, x)
+        hv = torch.func.jvp(lambda w: torch.func.grad(f)(w, x), (W,), (V,))[1]
+        return f(W, x), grads, hv
+
+    (v0, g0, h0), (v1, g1, h1) = run(False), run(True)
+    assert abs(float(v1) - float(v0)) <= 1e-6 * abs(float(v0))
+    for a, b in list(zip(g1, g0)) + [(h1, h0)]:
+        assert _rel(a.reshape(-1), b.reshape(-1)) <= 1e-6
+
+
 def test_refusals():
     model, params, batch = _one_rank_case("pp2")
     mesh = make_pipeline_mesh(1, 1)
@@ -333,11 +382,6 @@ def test_refusals():
     with pytest.raises(ValueError, match="model_parallel"):
         make_pipelined_lm_loss(GPT2LMHead(GPT2Config(**PIPE_KW, model_parallel=axis)), mesh,
                                num_microbatches=2)
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_pipelined_lm_loss(model, mesh, num_microbatches=2, remat_ticks=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        pipeline_apply(lambda p, x: x, {"w": torch.zeros(1, 1)}, torch.zeros(2, 1, 3), mesh,
-                       remat_ticks=True)
     per_layer = GPT2LMHead(GPT2Config(**PIPE_KW, block_matmul_precision=(
         "high", "default", "high", "high")))
     with pytest.raises(ValueError, match="uniform"):
@@ -357,6 +401,17 @@ def test_pipeline_on_two_stages_matches_jax(two, jax_ref, name):
     for rank in two:
         _check(rank["result"][name], ref["pipe"])
     _check(ref["pipe"], ref["plain"])  # the JAX pipeline is the JAX model (docstring)
+
+
+def test_pipeline_remat_ticks_on_two_stages_matches_jax(two, jax_ref):
+    """``remat_ticks=True`` (once refused) on the untied, masked case: the
+    JAX pipelined loss at the bars and the plain pipeline's loss within
+    1e-6, gradient and HVP within 1e-5 on both ranks (each tick's
+    recompute issues no collective)."""
+    ref = jax_ref("pp2_untied_mask")
+    for rank in two:
+        _check(rank["result"][PIPELINE_REMAT], ref["pipe"])
+        _check(rank["result"][PIPELINE_REMAT], rank["result"]["pp2_untied_mask"])
 
 
 def test_pipeline_holds_half_of_the_blocks_a_stage(two):

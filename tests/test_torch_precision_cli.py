@@ -105,16 +105,38 @@ def test_auto_is_the_default_and_its_plan_persists(jax_checkpoint, tmp_path):
     assert os.path.isfile(other)
 
 
-def test_linearized_runs_under_the_default_auto():
-    """--linearized with the default auto: the blocks-TF32 rung, whose
-    TF32 blocks under an fp32 head a traced graph cannot keep, is dropped
-    before any probe, and the plan's arm runs (on the CPU the bf16 arm
-    misses the bar, so the fp32 referee: the spectrum of 'high')."""
+def _flag_products(monkeypatch) -> list:
+    """The TF32 argument of every ``flag_einsum`` node of the linearized
+    splits traced while the block runs (collected into the returned list)."""
+    from hessian_llm_vision_tpu_torch.curvature import linearized
+
+    flags, trace = [], linearized._trace_split
+
+    def recording(*args, **kwargs):
+        sp = trace(*args, **kwargs)
+        flags.extend(n.args[3] for g in (sp.residual, sp.tangent) for n in g.graph.nodes
+                     if "flag_einsum" in str(n.target))
+        return sp
+
+    monkeypatch.setattr(linearized, "_trace_split", recording)
+    return flags
+
+
+def test_linearized_runs_under_the_default_auto(monkeypatch):
+    """--linearized with the default auto keeps the blocks-TF32 rung (once
+    dropped: a traced graph now keeps each flag-switched product as a
+    ``flag_einsum`` node) and runs the plan's arm: on the CPU, where TF32
+    is fp32, blocks-TF32 itself, whose traced graph holds the fp32 head's
+    products with the flag off under the TF32 blocks' ambient flag (the
+    spectrum of 'high')."""
     lin = ["--num_batches", "1", "--linearized"]
+    flags = _flag_products(monkeypatch)
     (spec, _), out = _run(TINY + lin)
-    assert ("[auto-precision] blocks-TF32 + head high: dropped under --linearized" in out)
-    assert "probed blocks-TF32" not in out and "probed mixed (all blocks 1-pass bf16)" in out
-    assert "auto precision plan: referee fallback (highest)" in out
+    assert "dropped under --linearized" not in out
+    assert "probed blocks-TF32 + head high: err" in out
+    assert "probed mixed (all blocks 1-pass bf16)" in out
+    assert "auto precision plan: blocks-TF32 + head high" in out
+    assert flags and set(flags) == {False}
     (high, _), _ = _run(TINY + lin + ["--hvp_precision", "high"])
     torch.testing.assert_close(spec.eigvals, high.eigvals)
 
@@ -199,14 +221,14 @@ def test_train_auto_guard_runs_three_steps(tmp_path, capsys):
 
 def test_train_refresh_linearized_with_the_auto_guard(tmp_path, capsys):
     """--refresh_linearized --refresh_precision auto: the guard's ladder
-    drops the blocks-TF32 rung and the traced refreshes run."""
+    keeps the blocks-TF32 rung (once dropped) and the traced refreshes run."""
     records = []
     train.main(["--model", "gpt2-tiny", "--batch_size", "4", "--max_length", "16", "--cpu",
                 "--optimiser", "lanczos-host", "--k", "3", "--refresh_every", "1",
                 "--max_steps", "2", "--refresh_linearized", "--refresh_precision", "auto",
                 "--out", str(tmp_path)], on_step=lambda s, r: records.append(r))
     out = capsys.readouterr().out
-    assert "[precision-guard] blocks-TF32 + head high: dropped under --linearized" in out
+    assert "dropped under --linearized" not in out
     assert "[precision-guard] refresh tier resolved:" in out
     assert len(records) == 2 and all(np.isfinite(v) for r in records for v in r.values())
 

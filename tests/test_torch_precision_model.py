@@ -51,7 +51,11 @@ class _Record(TorchDispatchMode):
         self.kinds = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in MATMULS:
+        if func is torch.ops.hlv_port.flag_einsum.default:
+            # the flag-switched product (one matmul), seen whole by the mode:
+            # f32 operands under the flag it carries
+            self.kinds.append("tf32" if args[3] else "fp32")
+        elif func in MATMULS:
             dtypes = {a.dtype for a in args if isinstance(a, torch.Tensor)}
             if dtypes == {torch.bfloat16}:
                 self.kinds.append("bf16")
@@ -186,9 +190,13 @@ def test_linearized_keeps_dtype_tiers_and_refuses_a_tf32_switch():
     plain = fl.flatten(hvp_fn(loss, precision="high")(params, batch, fl.unflatten(v)))
     lin = linearized_matvec(loss, params, batch, precision="high")(v)
     assert float((lin - plain).norm() / plain.norm()) <= 1e-6
+    # a TF32 block under an fp32 outer scope (once refused) traces: its
+    # products are flag_einsum nodes, and the tangent map is the eager HVP's
     model, params, batch = _model(block_matmul_precision=("TF32_TF32_F32", None, None))
-    with pytest.raises(ValueError, match="--linearized: a tf32 product"):
-        linearized_matvec(losses.lm_loss_fn(model), params, batch, precision="high")
+    loss = losses.lm_loss_fn(model)
+    plain = fl.flatten(hvp_fn(loss, precision="high")(params, batch, fl.unflatten(v)))
+    lin = linearized_matvec(loss, params, batch, precision="high")(v)
+    assert float((lin - plain).norm() / plain.norm()) <= 1e-6
     # a uniform TF32 outer scope needs no switch: it traces
     model, params, batch = _model()
     linearized_matvec(losses.lm_loss_fn(model), params, batch, precision="TF32_TF32_F32")
@@ -208,9 +216,9 @@ def test_linearized_keeps_dtype_tiers_and_refuses_a_tf32_switch():
         "tf32_scores_in_bf16", "tf32_mlp"])
 def test_tf32_switches_predicts_the_flag_switching_products(overrides, outer, switches,
                                                             monkeypatch):
-    """``tf32_switches`` (which the CLIs read to drop rungs under
-    --linearized) says exactly when an HVP inside the outer scope that
-    reads the loss's config runs some product through ``_FlagEinsum``."""
+    """``tf32_switches`` says exactly when an HVP inside the outer scope
+    that reads the loss's config runs some product through ``_FlagEinsum``
+    (a ``flag_einsum`` node in a traced graph)."""
     model, params, batch = _model(**overrides)
     calls = []
     apply = precision._FlagEinsum.apply

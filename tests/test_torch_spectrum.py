@@ -146,8 +146,11 @@ def test_operator_wrappers_and_default_blocks(pair):
         p["loss"], p["params"], p["batches"][0], {m: m == n for m in p["params"]})(v)
         for n in p["params"])
     assert rel_l2(full.numpy(), parts.numpy()) <= 1e-6
-    with pytest.raises(NotImplementedError, match="remat"):
-        operators.DatasetHessianOperator(p["loss"], p["params"], p["batches"], remat=True)
+    # remat=True (once refused, now the default, as in JAX) is the plain operator
+    v = torch.as_tensor(_vector(p["fl"].size, 9))
+    assert rel_l2(operators.DatasetHessianOperator(p["loss"], p["params"], p["batches"])(v).numpy(),
+                  operators.DatasetHessianOperator(p["loss"], p["params"], p["batches"],
+                                                   remat=False)(v).numpy()) <= 1e-6
 
 
 # -------------------------------------------------------------- host driver

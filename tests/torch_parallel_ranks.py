@@ -385,7 +385,8 @@ def _pipeline_case(case: dict) -> dict:
     tangent = shard_params(stack_pipeline_params(fl.unflatten(torch.as_tensor(case["v"])), L, S),
                            splits, pm)
     loss_fn = make_pipelined_lm_loss(model, pm, num_microbatches=case["microbatches"],
-                                     data_axis="data" if case["data"] > 1 else None)
+                                     data_axis="data" if case["data"] > 1 else None,
+                                     remat_ticks=case.get("remat_ticks", False))
     batch = {"input_ids": torch.as_tensor(case["ids"])}
     if case.get("mask") is not None:
         batch["attention_mask"] = torch.as_tensor(case["mask"])
