@@ -234,7 +234,7 @@ Phases (any failure exits non-zero and prints no result line):
      the rank's block, an all-reduce of w, pass 2 (each kernel 20 times a
      rank), T within 1e-4 and Ritz values within 1e-3 of rank 0's unsharded
      run, each rank's pair against its plain version (1e-5, bit for bit
-     repeated, pass 1's bulk path); --probe_parallel --probes 2 through
+     repeated, pass 1's aligned ring); --probe_parallel --probes 2 through
      cli.spectrum.main on both ranks equal to --probes 2 in one process
      within 1e-4, rank 0 alone printing the report and writing the
      artifact; the ranks without JAX; one {"data_axis_two_ranks": ...} line.
@@ -252,7 +252,7 @@ Phases (any failure exits non-zero and prints no result line):
      each CGS2 projection pass 1 on the rank's block, an all-reduce of w,
      pass 2 (each kernel 20 times a rank), T within 1e-4 and Ritz values
      within 1e-3 of the whole model's, the pair against its plain version
-     there (1e-5, bit for bit repeated, pass 1's bulk path); (b) the same
+     there (1e-5, bit for bit repeated, pass 1's aligned ring); (b) the same
      model sequence-parallel over 2 at bs1 x seq1024: loss, gradient and
      HVP; (c) Pythia-1.4B tensor-parallel over 2 (embed_in and embed_out
      vocab-parallel) on 13b's weights and first batch: the loss within 1e-6
@@ -283,7 +283,7 @@ Phases (any failure exits non-zero and prints no result line):
      leaves), each kernel 20 times a rank, T within 1e-4 and Ritz values
      within 1e-3 of 17a's whole-model Lanczos, the basis's first row the
      start vector, the pair against its plain version there (1e-5, bit for
-     bit repeated, pass 1's bulk path); then one HVP of the plain pipeline
+     bit repeated, pass 1's aligned ring); then one HVP of the plain pipeline
      and one with remat_ticks=True, each from a peak reset: the remat HVP
      within 1e-6 of 18's own, each rank's two peaks printed.
  19. (run after phase 6, on its GPT-2 124M model and params, seed 0, 512
@@ -314,8 +314,9 @@ Phase 3 also checks (4, 124,046,592) in both dtypes, (8, 124,046,592) and
 Fisher's and the CGS2 pass's shapes, timed only (4, P) in bf16 since phase 13
 -- and times phase 12's per-leaf shapes (4, 2,359,296) and (4, 38,597,376)
 in both dtypes, phase 14's (10, 33,638,218) and (10, 23,528,522) in both
-dtypes (P = 2 mod 8: pass 1's scalar kernel, pass 2's direct kernel
-without vector loads) and 13b's (4, 1,414,647,808) in bf16, the first with k x P
+dtypes (P = 2 mod 8: every row after the first off 16 bytes, pass 1's
+shifted ring, pass 2's direct kernel without vector loads) and 13b's
+(4, 1,414,647,808) in bf16, the first with k x P
 >= 2**31 at full width (V alone 11.3 GB), where pass 1 is held to a
 float64 w on two draws (within 1e-5 and no farther than cuBLAS's f32 sum,
 which on some draws lies 1e-5 off itself), and 15b's (10, 14,913,093) in
@@ -324,9 +325,17 @@ f32 (P = 5 mod 8, the same two paths), 16b's (10, 62,023,296) in f32
 rank's block, and each pipeline rank's in phase 18); it checks small leaves at
 unaligned offsets of g, the bf16 MLP leaf with g 1-7 elements off 16
 bytes, and (256, 2**24) bf16, whose pass 2 sweeps each chunk's rows in 22
-stages.  Every phase prints its wall seconds on a line of its own.  Then
-it prints one JSON line of kernels (launches per
-path), the card line, and finally {"ok": true, "device": {...}}.
+stages.  Then pass 1's alignment sweep: f32 and bf16 bases, V's base off
+16 bytes by every element offset, g's by 0-3 elements, P of every class
+mod the 16-byte vector (a few chunks long, and 1 to 8), k in 1, 3, 10, 17,
+35 -- 3200 points, each within 1e-5 rel-L2 of the plain version (or, where
+the two f32 sums of a w near zero differ more, within 1e-5 of the size of
+its terms from a float64 w), bit for bit on repeat and as on fresh copies
+of V and g, the aligned ring exactly where V, g and P are whole 16-byte
+vectors, no call reaching the plain version.  Every phase prints its wall
+seconds on a line of its own.  Then it prints one JSON line of kernels
+(launches per path), the card line, and finally {"ok": true, "device":
+{...}}.
 
 Imports torch, numpy and the port only (no JAX: the card machine has none);
 16b's, 17's and 18's ranks import this file for ``axes_rank``.
@@ -646,11 +655,25 @@ ROW_SWEEP = (torch.bfloat16, 256, 1 << 24)
 PYTHIA_SHAPE = (torch.bfloat16, 4, PYTHIA_P)
 DOTS_F64_LIMIT = 1e-5
 PHASE3_SEED = 1234
+# phase 3's alignment sweep of pass 1: both dtypes, V's base off 16 bytes
+# by every element offset (0 .. vec - 1), g's by 0-3 elements, P of every
+# class mod the 16-byte vector, a few chunks long (3 x 2048 + 5 vec + class)
+# and at most one vector (1 + class), k of these; each point within
+# SWEEP_DOTS_LIMIT rel-L2 of the plain version, bit for bit on repeat and
+# as on fresh copies of V and g.  Where the two f32 sums lie farther apart
+# (a w whose terms sum to near zero: the card readings held 3 of 3200
+# points up to 6.4e-4 from the plain version, the fresh copies' w the same
+# bits, and either sum the nearer to float64), the point is held instead to
+# a float64 w: within SWEEP_DOTS_LIMIT of the size of its terms,
+# |c| (|V| |g|)
+SWEEP_KS = (1, 3, 10, 17, 35)
+SWEEP_DOTS_LIMIT = 1e-5
 # phase 14: the vision models at their published CIFAR-10 widths, on the
 # random-image path (both data directories empty).  P at 10 classes, 32x32x3:
-# both are 2 mod 8, so a (k, P) basis row is not 16-byte aligned and the
-# rank-k pair takes pass 1's scalar kernel and pass 2's direct kernel
-# without vector loads
+# both are 2 mod 8, so every (k, P) basis row after the first is off 16
+# bytes and the rank-k pair takes pass 1's shifted ring (each row's aligned
+# interior bulk-copied, its ends loaded by the producer warp) and pass 2's
+# direct kernel without vector loads
 VGG16_P = 33_638_218
 RESNET50_P = 23_528_522
 VISION_SHAPES = ((10, VGG16_P), (10, RESNET50_P))  # phase 3, timed in both dtypes
@@ -728,7 +751,8 @@ FORGET_CURVE_ATOL = 2 / 600
 # and the plain product: with wd 0 the momentum sums projected gradients
 FORGET_DRIFT_LIMIT = 1e-3
 # 15b: the CLI's VGG-16 (256-wide classifier, 5 classes; P = 14,913,093 =
-# 5 mod 8, so the rows of its f32 basis are not 16-byte aligned) on seeded
+# 5 mod 8, so the rows of its f32 basis are not 16-byte aligned: pass 1's
+# shifted ring) on seeded
 # random CIFAR-10 pickles of CIFAR_PER_BATCH images each, 256 images a task
 # (--subsample under one image takes the CLI's fallback of 256), task B in
 # minibatches of 64 at the CLI's lr 0.1, a k=10 basis by thick restart.
@@ -777,7 +801,7 @@ DP_ONE_ITERS = 4
 # batch of 8 random sequences of DP_SEQ tokens split 4 + 4; the P-sharded
 # Lanczos stores DP_ITERS rows of each rank's half of P, so the rank-k pair
 # runs at DP_SHAPE on each rank (P/2 = 62,023,296: aligned rows, pass 1's
-# bulk path), timed in phase 3
+# aligned ring), timed in phase 3
 DP_RANKS = 2
 DP_SEQ = 256
 DP_ITERS = 10
@@ -950,8 +974,8 @@ def phase(n: int, title: str):
 def phase3_shapes() -> list[tuple]:
     """Phase 3's shapes before phase 14's and 13b's, in the order they
     draw from its generator: (dtype, k, P, g offset, timed).  (35, P): k*P >
-    2**31 needs 64-bit offsets; P = 20001 takes the scalar-load path (P not
-    a multiple of the 16-byte vector)."""
+    2**31 needs 64-bit offsets; P = 20001 takes both passes' unaligned paths
+    (P not a multiple of the 16-byte vector)."""
     out = [(dtype, k, p, 0, p == P_124M and k in TIMED_KS) for dtype in TIMED_DTYPES
            for k, p in ((10, P_124M), (35, P_124M), (35, 16384), (3, 20000), (5, 20001))]
     out += [(dtype, k, P_124M, 0, (dtype, k) in PATH_TIMED) for dtype, k in PATH_SHAPES]
@@ -1046,6 +1070,72 @@ def check_rank_k(kernels, spectral, dtype, k, p, gen, timed: bool, g_offset: int
     res["ok"] = bool(ok)
     print(json.dumps(res), flush=True)
     return res
+
+
+def dots_alignment_sweep(kernels, spectral) -> dict:
+    """Pass 1 at every alignment class (SWEEP_KS's comment): V a view that
+    many elements into a buffer, g a slice of another.  Per point: w
+    against the plain version (cuBLAS's f32 sum) and both against a
+    float64 w; w again, and w of fresh copies of V and g (whose rows sit at
+    other shifts), bit for bit.  Counts the points whose plan took the
+    aligned ring (V, g and P all whole 16-byte vectors: offset 0 of both
+    and P = 0 mod vec), the launches, and every call of the wrappers' plain
+    version, which a CUDA call must never reach.  Reads the card once, at
+    the end."""
+    gen = torch.Generator(device=CARD).manual_seed(PHASE3_SEED + 1)
+    plain, fell_back = kernels.rank_k_dots_reference, []
+    kernels.rank_k_dots_reference = lambda *a: fell_back.append(1) or plain(*a)
+    points, aligned, expect_aligned = [], 0, 0
+    before = kernels.LAUNCHES["rank_k_dots"]
+
+    def norm(x):
+        return torch.linalg.vector_norm(x)
+
+    try:
+        for dtype in TIMED_DTYPES:
+            vec = 16 // torch.empty((), dtype=dtype).element_size()
+            for cls in range(vec):
+                for p in (3 * 2048 + 5 * vec + cls, 1 + cls):
+                    for k in SWEEP_KS:
+                        vbuf = torch.randn(k * p + vec, generator=gen, device=CARD).to(dtype)
+                        gbuf = torch.randn(p + 4, generator=gen, device=CARD)
+                        c = torch.randn(k, generator=gen, device=CARD)
+                        for v_off in range(vec):
+                            V = vbuf[v_off:v_off + k * p].view(k, p)
+                            for g_off in range(4):
+                                g = gbuf[g_off:g_off + p]
+                                w = kernels.rank_k_dots(g, V, c)
+                                again = kernels.rank_k_dots(g, V, c)
+                                copied = kernels.rank_k_dots(g.clone(), V.clone(), c)
+                                ref = spectral.rank_k_dots_reference(g, V, c).double()
+                                w64 = c.double() * (V.double() @ g.double())
+                                # the size of the terms each w sums
+                                scale = c.double().abs() * (V.double().abs() @ g.double().abs())
+                                wd = w.double()
+                                points.append(torch.stack([
+                                    norm(wd - ref) / norm(ref), norm(wd - w64) / norm(w64),
+                                    norm(ref - w64) / norm(w64), norm(wd - w64) / norm(scale),
+                                    ((w != again).any() | (w != copied).any()).double()]))
+                                aligned += kernels.dots_launch_plan(
+                                    k, p, dtype, CARD, (V.data_ptr(), g.data_ptr())).aligned
+                                expect_aligned += v_off == 0 and g_off == 0 and p % vec == 0
+    finally:
+        kernels.rank_k_dots_reference = plain
+    errs, f64, plain_f64, of_terms, differ = torch.stack(points).cpu().unbind(1)
+    far = errs > SWEEP_DOTS_LIMIT  # the two f32 sums of a w near zero differ
+    return {"points": len(points), "launches": kernels.LAUNCHES["rank_k_dots"] - before,
+            "max_rel_l2_dots": float(errs.max()),
+            "beyond_limit": int(far.sum()),
+            # per such point: w and the plain version against float64, and
+            # w's distance from float64 over the size of its terms
+            "beyond_limit_vs_f64": torch.stack([f64, plain_f64, of_terms], 1)[far].tolist(),
+            "within_limit_or_of_its_terms": bool(torch.all(~far | (of_terms <= SWEEP_DOTS_LIMIT))),
+            "max_rel_l2_dots_vs_f64": float(f64.max()),
+            "max_rel_l2_plain_vs_f64": float(plain_f64.max()),
+            "max_dots_vs_f64_of_terms": float(of_terms.max()),
+            "bitwise_repeatable_and_as_fresh_copies": not bool(differ.any()),
+            "aligned_points": aligned, "expected_aligned_points": expect_aligned,
+            "plain_version_calls": len(fell_back)}
 
 
 def streaming_rates_torch() -> dict:
@@ -2646,7 +2736,7 @@ def layerwise_training_124m(train_cli, kernels, spectral) -> dict:
         dots = kernels.dots_launch_plan(V.shape[0], size, V.dtype, CARD, ptrs)
         axpy = kernels.axpy_launch_plan(V.shape[0], size, V.dtype, CARD, ptrs)
         plans.append({"leaf": label, "k": V.shape[0], "P": size, "g_byte_offset": 4 * off,
-                      "g_aligned": ptrs[1] % 16 == 0, "dots_bulk": dots.bulk,
+                      "g_aligned": ptrs[1] % 16 == 0, "dots_aligned": dots.aligned,
                       "axpy": {f: getattr(axpy, f) for f in ("ring", "vec_v", "vec_g", "rows",
                                                               "nblocks")}})
     print(json.dumps({"12c_launch_plans": plans}))
@@ -2660,7 +2750,7 @@ def layerwise_training_124m(train_cli, kernels, spectral) -> dict:
                   "replay_rel": rel_l2(update, replay - p_old),
                   "refresh_masked_hvps": sum(a[3] for a in trainer.active),
                   "launch_plans": {"g_aligned": sum(p["g_aligned"] for p in plans),
-                                   "dots_bulk": sum(p["dots_bulk"] for p in plans),
+                                   "dots_aligned": sum(p["dots_aligned"] for p in plans),
                                    "axpy_ring": sum(p["axpy"]["ring"] for p in plans),
                                    "leaves": len(plans)},
                   "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
@@ -4206,7 +4296,7 @@ def data_axis_gates(res: list, artifact: bool, without_jax: bool) -> dict:
         "the pair against its plain version": all(
             p["rel_l2_dots"] <= 1e-5 and p["rel_l2_apply"] <= 1e-5 and p["bitwise_repeatable"]
             for p in summary["pair"]),
-        "pass 1's bulk path at P/2": all(p["dots_plan"]["bulk"] for p in summary["pair"]),
+        "pass 1's aligned ring at P/2": all(p["dots_plan"]["aligned"] for p in summary["pair"]),
         "--probe_parallel --probes 2 = --probes 2": summary["probe_parallel_max_rel"]
         <= PROBE_PAR_RTOL,
         "rank 0 alone reports and writes the artifact": artifact and all(
@@ -4909,8 +4999,8 @@ def tp_sp_and_pipeline(res: list, T_ref: np.ndarray, ritz_ref: np.ndarray) -> tu
             p["rel_l2_dots"] <= 1e-5 and p["rel_l2_apply"] <= 1e-5 and p["bitwise_repeatable"]
             and p["dtype"] == "torch.float32"
             for p in summary["18_pipeline"]["pair"]),
-        "18 pass 1's bulk path at P_local": all(p["dots_plan"]["bulk"]
-                                                for p in summary["18_pipeline"]["pair"]),
+        "18 pass 1's aligned ring at P_local": all(p["dots_plan"]["aligned"]
+                                                   for p in summary["18_pipeline"]["pair"]),
         "18 the remat_ticks HVP within 1e-6 of 18's own": all(
             r["18"]["remat_ticks"]["hvp_rel"] <= PP_REMAT_REL for r in res),
     }
@@ -5005,8 +5095,8 @@ def model_axis_gates(res: list, q: dict, without_jax: bool) -> dict:
         "17a the pair against its plain version": all(
             p["rel_l2_dots"] <= 1e-5 and p["rel_l2_apply"] <= 1e-5 and p["bitwise_repeatable"]
             for p in summary["17a_tp"]["pair"]),
-        "17a pass 1's bulk path at P_local": all(p["dots_plan"]["bulk"]
-                                                 for p in summary["17a_tp"]["pair"]),
+        "17a pass 1's aligned ring at P_local": all(p["dots_plan"]["aligned"]
+                                                    for p in summary["17a_tp"]["pair"]),
         "17b loss within 1e-6": b["loss_rel"] <= MA_LOSS_RTOL,
         "17b gathered grad and HVP within 1e-5": max(b["grad_rel"], b["hvp_rel"]) <= MA_REL,
         "17c loss within 1e-6 of 13b's": summary["17c_pythia_tp"]["loss_rel"] <= MA_LOSS_RTOL,
@@ -5353,6 +5443,18 @@ def main() -> int:
     failed = [key for key, r in checks.items() if not r["ok"]]
     if failed:
         raise SystemExit(f"rank-k kernel disagrees with its plain version at {failed}")
+    sweep = dots_alignment_sweep(kernels, spectral)
+    print(json.dumps({"dots_alignment_sweep": sweep}))
+    check_gates("3 pass 1's alignment sweep", {
+        f"within {SWEEP_DOTS_LIMIT} of the plain version, or of its terms from float64":
+            sweep["within_limit_or_of_its_terms"],
+        "bit for bit on repeat and as on fresh copies of V and g":
+            sweep["bitwise_repeatable_and_as_fresh_copies"],
+        "the kernel at every point, three times": sweep["launches"] == 3 * sweep["points"],
+        "no CUDA call reached the plain version": sweep["plain_version_calls"] == 0,
+        "the aligned ring exactly where V, g and P are whole vectors":
+            sweep["aligned_points"] == sweep["expected_aligned_points"],
+    })
     sweep_plan = checks[ROW_SWEEP]["axpy_plan"]
     if not (sweep_plan["ring"] and sweep_plan["rows"] < ROW_SWEEP[1]):
         raise SystemExit(f"the many-row check did not reach pass 2's row sweeps: {sweep_plan}")

@@ -11,15 +11,17 @@ Kernels (plain versions: ``ops/spectral.py::rank_k_dots_reference`` and
 ``rank_k_axpy_reference``):
 
 * ``rank_k_dots``  -- ``w = c ⊙ (V g)``, replaces the TPU ``_dots_kernel``;
-  its launch (grid, chunks, ring of stages) is :func:`dots_plan`, plain
-  Python that the CPU tests check;
+  its launch (grid, chunks, ring of stages, aligned or shifted) is
+  :func:`dots_plan`, plain Python that the CPU tests check;
 * ``rank_k_axpy``  -- ``out = g + Vᵀ w``, replaces the TPU ``_axpy_kernel``;
   its launch (ring or direct kernel, grid, rows per stage, stages) is
   :func:`axpy_plan`.
 
-Each plan is made once per (device, dtype, k, P, alignment of V and g) and
-cached with the SM count and the occupancy, so a call does its checks,
-allocates its outputs and makes one ctypes call.
+Each plan is made once per (device, dtype, k, P, address mod 16 of V and
+g) and cached with the SM count and the occupancy, so a call does its
+checks, allocates its output and makes one ctypes call.  Pass 1 also keeps,
+per device and stream, a scratch buffer of its blocks' partial sums and
+the count by which its last block finds itself (the kernel leaves it 0).
 
 Each wrapper runs the plain version when its tensors lie on the CPU.  On
 CUDA tensors it checks its operands, allocates outputs with
@@ -170,7 +172,7 @@ def _rank_k_lib() -> ctypes.CDLL:
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             for dt in _SUFFIX.values():
                 dots = getattr(lib, f"rank_k_dots_{dt}")
-                dots.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32, i32, ptr]
+                dots.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ctypes.POINTER(i32), ptr]
                 dots.restype = i32
                 occupancy = getattr(lib, f"rank_k_dots_blocks_per_sm_{dt}")
                 occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
@@ -196,32 +198,37 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte load
 _MAX_ROWS = 16  # kMaxRows: rows of V per sweep of pass 1
 _BLOCK_SMEM = 232_448  # 227 KB: the shared memory one block may use on Hopper
-# the rings' static shared memory, rounded up: pass 1's 16 mbarriers and
-# its warps' double sums (1152 bytes), pass 2's 16 mbarriers (128 bytes)
+# the rings' static shared memory, rounded up: pass 1's 16 mbarriers, its
+# warps' double sums and its last-block flag (1156 bytes), pass 2's 16
+# mbarriers (128 bytes)
 _DOTS_STATIC_SMEM = 2048
 _STATIC_SMEM = 1024
 # the ring: two stages of 2048 elements of P, the fastest shape measured
 # (PERF.md); fewer elements per stage where two such stages would not fit
 _CHUNK = 2048
 _STAGES = 2
+_SHIFT_PAD = 128  # kShiftPad: slack of each slot of the shifted ring (128-byte slots)
 
 
 @dataclasses.dataclass(frozen=True)
 class DotsPlan:
-    """How ``rank_k_dots`` launches pass 1 for one (k, P, basis dtype).
+    """How ``rank_k_dots`` launches pass 1 for one (k, P, basis dtype) and
+    alignment of V and g.
 
-    ``bulk``: the shared-memory ring of bulk copies; else the scalar kernel
-    (V's rows not 16-byte aligned).  ``vec``: elements of V per 16 bytes (1
-    on the scalar path).  ``rows``: rows of V per sweep; each sweep streams g
-    again.  ``chunk``: elements of P per stage; ``stages``: stages in the
-    ring; ``smem_bytes``: the ring's dynamic shared memory, which the kernel
-    is launched with.  ``nblocks``: the grid, at most ``blocks_per_sm`` x the
-    SM count, so every block is resident at once.  Block b streams chunks b, b + nblocks, ... of P (the
-    scalar kernel: elements, grid-stride), so at any time the grid reads one
-    window of each row.
+    ``aligned``: V and g start 16-byte aligned and P is whole 16-byte
+    vectors of V, so every row and chunk is bulk-copied whole; else the
+    shifted ring, whose slots carry ``_SHIFT_PAD`` bytes of slack and whose
+    producer warp loads the ends of each operand's chunk that no aligned
+    copy covers.  ``vec``: elements of V per 16 bytes.  ``rows``: rows of V
+    per sweep; each sweep streams g again.  ``chunk``: elements of P per
+    stage; ``stages``: stages in the ring; ``smem_bytes``: the ring's
+    dynamic shared memory, which the kernel is launched with.  ``nblocks``:
+    the grid, at most ``blocks_per_sm`` x the SM count, so every block is
+    resident at once.  Block b streams chunks b, b + nblocks, ... of P, so
+    at any time the grid reads one window of each row.
     """
 
-    bulk: bool
+    aligned: bool
     vec: int
     rows: int
     chunk: int
@@ -231,30 +238,34 @@ class DotsPlan:
     blocks_per_sm: int
 
 
+def dots_stage_bytes(chunk: int, rows: int, es: int, aligned: bool) -> int:
+    """One stage of pass 1's ring: g's slot (f32), then ``rows`` slots of V
+    of ``es``-byte elements, each with ``_SHIFT_PAD`` bytes of slack on the
+    shifted ring."""
+    pad = 0 if aligned else _SHIFT_PAD
+    return 4 * chunk + pad + rows * (chunk * es + pad)
+
+
 def dots_plan(
     k: int, p: int, dtype: torch.dtype, *, ptrs: Iterable[int], sms: int,
     blocks_per_sm: Callable[[bool, int], int],
 ) -> DotsPlan:
     """Pass 1's launch for a (k, P) basis of ``dtype`` whose V and g start at
-    ``ptrs``, on a card of ``sms`` SMs.  ``blocks_per_sm(bulk, smem_bytes)``
-    says how many blocks of the chosen kernel fit on one SM."""
-    es = 16 // _VEC[dtype]
-    rows = -(-k // -(-k // _MAX_ROWS))  # balanced sweeps of at most 16 rows
-    bulk = p % _VEC[dtype] == 0 and all(ptr % 16 == 0 for ptr in ptrs)
-    if not bulk:
-        resident = blocks_per_sm(False, 0)
-        nblocks = max(1, min(resident * sms, -(-p // _THREADS)))
-        return DotsPlan(False, 1, rows, 0, 0, 0, nblocks, resident)
+    ``ptrs``, on a card of ``sms`` SMs.  ``blocks_per_sm(aligned,
+    smem_bytes)`` says how many blocks of the chosen ring fit on one SM."""
     vec = _VEC[dtype]
-    chunk = _CHUNK  # stays whole vectors: two stages of one vector take at most 576 bytes
-    while _STAGES * chunk * (4 + rows * es) > _BLOCK_SMEM - _DOTS_STATIC_SMEM:
+    es = 16 // vec
+    rows = -(-k // -(-k // _MAX_ROWS))  # balanced sweeps of at most 16 rows
+    aligned = p % vec == 0 and all(ptr % 16 == 0 for ptr in ptrs)
+    chunk = _CHUNK  # halved at most once (16 f32 rows): stays whole vectors
+    while _STAGES * dots_stage_bytes(chunk, rows, es, aligned) > _BLOCK_SMEM - _DOTS_STATIC_SMEM:
         chunk //= 2
-    smem_bytes = _STAGES * chunk * (4 + rows * es)
-    resident = blocks_per_sm(True, smem_bytes)
+    smem_bytes = _STAGES * dots_stage_bytes(chunk, rows, es, aligned)
+    resident = blocks_per_sm(aligned, smem_bytes)
     if resident < 1:
         raise RuntimeError(f"rank_k_dots: no block of {smem_bytes} bytes fits an SM")
     nblocks = max(1, min(resident * sms, -(-p // chunk)))
-    return DotsPlan(True, vec, rows, chunk, _STAGES, smem_bytes, nblocks, resident)
+    return DotsPlan(aligned, vec, rows, chunk, _STAGES, smem_bytes, nblocks, resident)
 
 
 # pass 2 (rank_k.cu: kAxpyUnroll; kRingVecs bounds _RING_GROUPS, kMaxStages _RING_STAGES)
@@ -346,13 +357,15 @@ def axpy_plan(
 
 # ----------------------------------------------------------------------------
 # launch path: per call, the checks, the outputs and one ctypes call; the SM
-# count, the occupancy and each plan are looked up once per process
+# count, the occupancy, each plan and pass 1's scratch are made once
 # ----------------------------------------------------------------------------
 
 _sm_counts: dict[int, int] = {}
 _resident: dict[tuple, int] = {}
 _plans: dict[tuple, object] = {}
 _fns: dict[tuple, object] = {}
+_scratch: dict[tuple, tuple] = {}  # (device, stream) -> (tensor, its partials' floats, pointer)
+_dots_args: dict[int, tuple] = {}  # id(plan) -> (plan, its launch ints as a C array)
 
 
 def _device_index(device) -> int:
@@ -381,8 +394,8 @@ def _occupancy(kernel: str, index: int, dtype: torch.dtype, flag: bool, smem_byt
 def _plan(kind: str, index: int, dtype: torch.dtype, k: int, p: int, ptrs: tuple[int, ...],
           **force):
     """The plan of ``kind`` ("dots" or "axpy"), made once per (device, dtype,
-    k, P, alignment of each pointer, forced path)."""
-    key = (kind, index, dtype, k, p, tuple([ptr % 16 == 0 for ptr in ptrs]), *force.values())
+    k, P, address mod 16 of each pointer, forced path)."""
+    key = (kind, index, dtype, k, p, tuple([ptr & 15 for ptr in ptrs]), *force.values())
     plan = _plans.get(key)
     if plan is None:
         make = dots_plan if kind == "dots" else axpy_plan
@@ -403,6 +416,31 @@ def _fn(name: str, dtype: torch.dtype):
     return fn
 
 
+def _dots_scratch(index: int, stream: int, floats: int) -> int:
+    """The address of pass 1's scratch on device ``index`` for ``stream``:
+    16 bytes whose first 4 count the blocks that have finished (0 between
+    launches), then room for ``floats`` partial sums.  One buffer per
+    stream, so launches that use it run in order; it grows (zeroed) when a
+    call needs more."""
+    held = _scratch.get((index, stream))
+    if held is None or held[1] < floats:
+        floats = max(floats, 2 * held[1]) if held else floats
+        buf = torch.zeros(4 + floats, dtype=torch.float32, device=torch.device("cuda", index))
+        held = _scratch[(index, stream)] = (buf, floats, buf.data_ptr())
+    return held[2]
+
+
+def _dots_launch_ints(plan: DotsPlan, k: int):
+    """``plan``'s ints as the C array ``rank_k_dots_*`` takes: k, nblocks,
+    aligned, chunk, stages, rows, smem_bytes (made once per plan)."""
+    held = _dots_args.get(id(plan))
+    if held is None or held[0] is not plan:
+        ints = (ctypes.c_int * 7)(k, plan.nblocks, int(plan.aligned), plan.chunk, plan.stages,
+                                  plan.rows, plan.smem_bytes)
+        held = _dots_args[id(plan)] = (plan, ints)
+    return held[1]
+
+
 def dots_launch_plan(
     k: int, p: int, dtype: torch.dtype, device, ptrs: Iterable[int] = (),
 ) -> DotsPlan:
@@ -420,13 +458,13 @@ def axpy_launch_plan(
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     for t in tensors:  # a loop, not all(): this runs on every call
-        if t.device.type != "cpu":
+        if not t.is_cpu:
             return False
     return True
 
 
 def _check_operands(g: torch.Tensor, basis: torch.Tensor) -> None:
-    if not (g.is_cuda and basis.is_cuda and g.device == basis.device):
+    if not (g.is_cuda and basis.is_cuda and g.get_device() == basis.get_device()):
         raise ValueError(f"rank-k kernel: g ({g.device}) and basis ({basis.device}) must share one CUDA device")
     if basis.dtype not in _SUFFIX:
         raise TypeError(f"rank-k kernel: basis dtype {basis.dtype} not supported (float32 or bfloat16)")
@@ -453,13 +491,13 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _launch(fn, index: int, *args) -> int:
-    """``fn(*args, stream)`` on device ``index``'s current stream, entering
-    the device only when it is not the current one."""
-    if index == torch.cuda.current_device():
-        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+def _launch(fn, index: int, stream: int, *args) -> int:
+    """``fn(*args, stream)`` on device ``index``, entering the device only
+    when it is not the current one."""
+    if index == torch._C._cuda_getDevice():  # torch.cuda.current_device() without its checks
+        return fn(*args, stream)
     with torch.cuda.device(index):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        return fn(*args, stream)
 
 
 def rank_k_dots(g: torch.Tensor, basis: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
@@ -471,17 +509,22 @@ def rank_k_dots(g: torch.Tensor, basis: torch.Tensor, coeffs: torch.Tensor) -> t
     k, p = basis.shape
     if coeffs.numel() != k:
         raise ValueError(f"rank_k_dots: {coeffs.numel()} coeffs for k={k}")
-    device, index = g.device, g.device.index
-    c = _f32_on(coeffs, device)
+    index = g.get_device()
+    c = coeffs  # the common case, checked without making device objects
+    if not (c.dtype is torch.float32 and c.is_cuda and c.get_device() == index
+            and c.is_contiguous()):
+        c = _f32_on(coeffs, g.device)
     v_ptr, g_ptr = basis.data_ptr(), g.data_ptr()
-    plan = _plan("dots", index, basis.dtype, k, p, (v_ptr, g_ptr))
-    # partials (k, nblocks) and w (k,) in one allocation
-    buf = torch.empty(k * (plan.nblocks + 1), dtype=torch.float32, device=device)
-    partials = buf.data_ptr()
-    w = buf[k * plan.nblocks:]
-    err = _launch(_fn("rank_k_dots", basis.dtype), index,
-                  v_ptr, g_ptr, c.data_ptr(), partials, w.data_ptr(), k, p, plan.nblocks,
-                  int(plan.bulk), plan.chunk, plan.stages, plan.rows, plan.smem_bytes)
+    # _plan's key, looked up here first: this runs on every call
+    plan = _plans.get(("dots", index, basis.dtype, k, p, (v_ptr & 15, g_ptr & 15)))
+    if plan is None:
+        plan = _plan("dots", index, basis.dtype, k, p, (v_ptr, g_ptr))
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    scratch = _dots_scratch(index, stream, k * plan.nblocks)
+    w = g.new_empty(k)  # f32 on g's device
+    err = _launch(_fn("rank_k_dots", basis.dtype), index, stream,
+                  v_ptr, g_ptr, c.data_ptr(), scratch, w.data_ptr(), p,
+                  _dots_launch_ints(plan, k))
     _raise_on(err, "rank_k_dots")
     LAUNCHES["rank_k_dots"] += 1
     return w
@@ -499,12 +542,13 @@ def rank_k_axpy(
     k, p = basis.shape
     if w.numel() != k:
         raise ValueError(f"rank_k_axpy: {w.numel()} weights for k={k}")
-    device, index = g.device, g.device.index
+    device, index = g.device, g.get_device()
     w = _f32_on(w, device)
     v_ptr, g_ptr = basis.data_ptr(), g.data_ptr()
     plan = _plan("axpy", index, basis.dtype, k, p, (v_ptr, g_ptr), ring=ring)
     out = torch.empty(p, dtype=torch.float32, device=device)
     err = _launch(_fn("rank_k_axpy", basis.dtype), index,
+                  torch._C._cuda_getCurrentRawStream(index),
                   v_ptr, g_ptr, w.data_ptr(), out.data_ptr(), k, p, plan.nblocks,
                   int(plan.ring), int(plan.vec_v), int(plan.vec_g), plan.chunk, plan.stages,
                   plan.rows, plan.smem_bytes)

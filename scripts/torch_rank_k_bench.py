@@ -1,16 +1,20 @@
 """Time the rank-k kernel pair of the PyTorch port on one CUDA card, pass 2's
 two paths included, beside the one-call library yardsticks.
 
-    python3 scripts/torch_rank_k_bench.py [--other DIR] [--out FILE]
+    python3 scripts/torch_rank_k_bench.py [--other DIR] [--shape K,P ...] [--out FILE]
 
 At (10, P), (4, P) and (35, P) with P = 124,046,592 (GPT-2 124M), the MLP
-leaf (4, 2,359,296) and ``wte`` (4, 38,597,376), with bf16 and f32 bases,
-in turns (A B ... B A, CUDA events, 20 calls a timing):
+leaf (4, 2,359,296), ``wte`` (4, 38,597,376) and the rows that are not
+16-byte aligned -- VGG-16's (10, 33,638,218), ResNet-50's (10, 23,528,522)
+and the forget CLI's VGG-16 (10, 14,913,093) -- (or only the ``--shape``s
+given), with bf16 and f32 bases, in turns (A B ... B A, CUDA events, 20
+calls a timing):
 
-* pass 2: ``rank_k_axpy`` as planned, forced onto its ring and onto its
-  direct kernel, and ``torch.addmv``; at (10, P) and (35, P) also the ring
+* pass 2: ``rank_k_axpy`` as planned, forced onto its ring (aligned rows
+  only) and onto its direct kernel, and ``torch.addmv``; at (10, P) and (35, P) also the ring
   with one and with two 16-byte groups of a stage row per consumer;
-* pass 1: ``rank_k_dots`` and ``torch.mv``;
+* pass 1: ``rank_k_dots`` and ``torch.mv``, and at aligned V and g the
+  shifted ring forced onto them (the path unaligned inputs take);
 * with ``--other DIR`` (the root of another checkout of the repository,
   e.g. the parent commit unpacked by ``git archive``) also that checkout's
   ``rank_k_axpy`` and ``rank_k_dots``, built from its own sources.
@@ -44,7 +48,8 @@ from hessian_llm_vision_tpu_torch.ops import kernels  # noqa: E402
 from hessian_llm_vision_tpu_torch.utils.cuda_timing import in_turns  # noqa: E402
 
 P = chip_smoke.P_124M
-SHAPES = ((10, P), (4, P), (35, P), (4, 2_359_296), (4, 38_597_376))
+SHAPES = ((10, P), (4, P), (35, P), (4, 2_359_296), (4, 38_597_376), (10, 33_638_218),
+          (10, 23_528_522), (10, 14_913_093))
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -64,6 +69,26 @@ def ring_groups(n: int) -> None:
     kernels._plans.clear()
 
 
+def shifted_ring(g, V, w):
+    """``rank_k_dots`` with pass 1's shifted ring forced onto aligned V and
+    g (its plan made as for a V off 16 bytes, at the same k and P)."""
+    k, p = V.shape
+    index, ptrs = V.get_device(), (V.data_ptr(), g.data_ptr())
+    aligned = kernels._plan("dots", index, V.dtype, k, p, ptrs)
+    key = ("dots", index, V.dtype, k, p, (ptrs[0] & 15, ptrs[1] & 15))
+    shifted = kernels.dots_plan(
+        k, p, V.dtype, ptrs=(2, 0), sms=kernels._sms(index),
+        blocks_per_sm=lambda a, smem: kernels._occupancy("rank_k_dots", index, V.dtype, a, smem))
+
+    def run():
+        kernels._plans[key] = shifted
+        try:
+            return kernels.rank_k_dots(g, V, w)
+        finally:
+            kernels._plans[key] = aligned
+    return run
+
+
 def summary(t: dict) -> dict:
     return {n: {"ms": r["ms"], "min": r["min"], "max": r["max"]} for n, r in t.items()}
 
@@ -77,9 +102,12 @@ def bench(dtype, k, p, gen, other) -> dict:
     ptrs = (V.data_ptr(), g.data_ptr())
     axpy = {"rank_k_axpy": lambda: kernels.rank_k_axpy(g, V, w),
             "addmv": lambda: torch.addmv(gl, V.t(), wl),
-            "ring": lambda: kernels.rank_k_axpy(g, V, w, ring=True),
             "direct": lambda: kernels.rank_k_axpy(g, V, w, ring=False)}
+    if p % (16 // V.element_size()) == 0:  # the ring takes only aligned rows
+        axpy["ring"] = lambda: kernels.rank_k_axpy(g, V, w, ring=True)
     dots = {"rank_k_dots": lambda: kernels.rank_k_dots(g, V, w), "mv": lambda: torch.mv(V, gl)}
+    if kernels.dots_launch_plan(k, p, dtype, dev, ptrs).aligned:
+        dots["shifted"] = shifted_ring(g, V, w)
     if other is not None:
         axpy["other_rank_k_axpy"] = lambda: other.rank_k_axpy(g, V, w)
         dots["other_rank_k_dots"] = lambda: other.rank_k_dots(g, V, w)
@@ -117,6 +145,8 @@ def bench(dtype, k, p, gen, other) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="root of another checkout whose kernels to time alongside")
+    ap.add_argument("--shape", action="append", metavar="K,P",
+                    help="time only this (k, P) (repeatable; default: every shape above)")
     ap.add_argument("--out", default=os.path.join(ROOT, "runs", "rank_k_bench.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -130,8 +160,9 @@ def main(argv=None) -> int:
         other.build()
     gen = torch.Generator(device="cuda").manual_seed(2024)
     lines = []
+    shapes = [tuple(int(x) for x in sh.split(",")) for sh in args.shape] if args.shape else SHAPES
     for dtype in DTYPES:
-        for k, p in SHAPES:
+        for k, p in shapes:
             lines.append({"rank_k_bench": bench(dtype, k, p, gen, other)})
             print(json.dumps(lines[-1]), flush=True)
     lines.append({"streaming_rate_tb_s": chip_smoke.streaming_rates_torch(),

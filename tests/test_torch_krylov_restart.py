@@ -388,7 +388,7 @@ def test_rank_k_plan_holds_thick_restart_rows_at_124m(k):
     assert 1 <= k <= kernels._MAX_K
     for dtype in (torch.float32, torch.bfloat16):
         plan = kernels.dots_plan(k, P_124M, dtype, ptrs=(0, 1 << 20), sms=132,
-                                 blocks_per_sm=lambda bulk, smem: 2 if bulk else 8)
-        assert plan.bulk and plan.rows == -(-k // -(-k // 16))
+                                 blocks_per_sm=lambda aligned, smem: 2)
+        assert plan.aligned and plan.rows == -(-k // -(-k // 16))
         assert plan.smem_bytes <= 232_448 - 1024 and plan.nblocks == 264
         assert plan.chunk * plan.nblocks <= P_124M and k * P_124M < 2**63

@@ -1,10 +1,13 @@
 """Launch arithmetic of the rank-k kernels (``ops/kernels.py::dots_plan`` and
 ``axpy_plan``) on the CPU: the chunks (or tiles) that the blocks of the plan
-the wrapper hands ``rank_k.cu`` take cover P exactly once, every bulk copy
-is 16-byte aligned, and the grid and ring stay within the resident blocks
-and the shared memory of one block; each alignment class takes its path,
-and each plan is made once per device, dtype, k, P and alignment.  The
-kernels themselves are checked on the card by chip_smoke.py."""
+the wrapper hands ``rank_k.cu`` take cover P exactly once; pass 1's copies
+(the bulk copy of each operand's aligned interior, the ends its producer
+warp loads from global memory) cover every row of V and g exactly once at
+any alignment, every bulk copy is 16-byte aligned and stays inside its
+operand; the grid and ring stay within the resident blocks and the shared
+memory of one block; each alignment class takes its path, and each plan is
+made once per device, dtype, k, P and address mod 16.  The kernels
+themselves are checked on the card by chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -16,23 +19,29 @@ from hessian_llm_vision_tpu_torch.utils import cuda_timing
 SMS = 132  # H100 SXM
 BLOCK_SMEM = 232_448  # 227 KB
 TX_LIMIT = 1 << 20  # bytes one mbarrier phase can count
+DOTS_KS = [1, 3, 10, 17, 35]
+# V's and g's bases in the alignment sweeps: 256-byte aligned allocations,
+# moved by whole elements as views and slices are
+V_BASE, G_BASE = 1 << 20, 1 << 24
 
 
-def _h100_resident(bulk: bool, smem: int) -> int:
-    """Resident blocks per SM as the occupancy API would count them: 2048
-    threads and 228 KB (1 KB reserved per block) per SM."""
-    if not bulk:
-        return 2048 // 256
-    return min(2048 // 288, 233_472 // (smem + 1024 + 1024))
+def _h100_resident(aligned: bool, smem: int) -> int:
+    """Resident ring blocks per SM as the occupancy API would count them:
+    2048 threads and 228 KB (1 KB reserved per block) per SM."""
+    return min(2048 // 288, 233_472 // (smem + kernels._DOTS_STATIC_SMEM + 1024))
 
 
 def _plan(k, p, dtype, resident=_h100_resident, ptrs=(0, 1 << 20)):
     return kernels.dots_plan(k, p, dtype, ptrs=ptrs, sms=SMS, blocks_per_sm=resident)
 
 
+def _es(dtype):
+    return torch.empty((), dtype=dtype).element_size()
+
+
 def _copies(plan, p):
-    """Per block, the (start, size) of each chunk its producer thread copies
-    (of g and of every row of V), in the kernel's order: b, b + grid, ..."""
+    """Per block, the (start, size) of each chunk its producer takes (of g
+    and of every row of V), in the kernel's order: b, b + grid, ..."""
     nchunks = -(-p // plan.chunk)
     out = []
     for b in range(plan.nblocks):
@@ -41,18 +50,94 @@ def _copies(plan, p):
     return out
 
 
+def _pieces(base, es, pos, n):
+    """rank_k.cu::piece of one operand (``es``-byte elements from byte
+    address ``base``) at chunks [pos, pos + n): its address mod 16, the
+    elements before its first 16-byte boundary, and the whole 16-byte
+    vectors after them (bytes), over all chunks at once."""
+    a = base + pos * es
+    shift = a % 16
+    head = np.minimum((16 - shift) % 16 // es, n)
+    nbytes = (n - head) * es // 16 * 16
+    return shift, head, nbytes
+
+
+def _check_ring(plan, k, p, dtype, v_base, g_base):
+    """Model pass 1's producer (rank_k.cu::rank_k_dots_kernel) on every
+    chunk of every sweep: returns the number of elements of g and V that the
+    producer warp loads from global memory."""
+    es = _es(dtype)
+    vec = 16 // es
+    assert plan.aligned == (p % vec == 0 and v_base % 16 == 0 and g_base % 16 == 0)
+    assert plan.vec == vec and plan.chunk * es % 128 == 0  # whole 128-byte lines of each row and g
+    pad = 0 if plan.aligned else kernels._SHIFT_PAD
+    g_slot, v_slot = 4 * plan.chunk + pad, plan.chunk * es + pad
+    stage = g_slot + plan.rows * v_slot
+    assert stage == kernels.dots_stage_bytes(plan.chunk, plan.rows, es, plan.aligned)
+    # the ring fits one block's shared memory; a stage fits one barrier phase
+    assert plan.smem_bytes == plan.stages * stage and 1 <= plan.stages <= 8
+    assert plan.smem_bytes + kernels._DOTS_STATIC_SMEM <= BLOCK_SMEM and stage < TX_LIMIT
+    assert stage % 128 == 0 and g_slot % 128 == 0 and v_slot % 128 == 0  # slots start 128-aligned
+    pos = np.arange(-(-p // plan.chunk), dtype=np.int64) * plan.chunk
+    n = np.minimum(plan.chunk, p - pos)
+    ends = 0
+    for r0 in range(0, k, plan.rows):
+        nr = min(plan.rows, k - r0)
+        tx = np.zeros_like(pos)
+        # (operand's base, element bytes, its slot's offset in the stage)
+        operands = [(g_base, 4, 0)] + [(v_base + (r0 + r) * p * es, es, g_slot + r * v_slot)
+                                       for r in range(nr)]
+        for base, e, slot in operands:
+            shift, head, nbytes = _pieces(base, e, pos, n)
+            assert np.all(shift == base % 16)  # one shift in every chunk
+            tail = n - head - nbytes // e
+            assert np.all((head >= 0) & (head < 16 // e) & (tail >= 0) & (tail < 16 // e))
+            if plan.aligned:
+                assert not head.any() and not tail.any() and not shift.any()
+            ends += int(head.sum() + tail.sum())
+            # the chunk's ends and interior tile the operand's [0, P) exactly once
+            first = pos + head  # first element of the interior
+            spans = np.concatenate([np.stack([pos, first], 1), np.stack([first, first + nbytes // e], 1),
+                                    np.stack([first + nbytes // e, pos + n], 1)])
+            spans = spans[spans[:, 1] > spans[:, 0]]
+            spans = spans[np.argsort(spans[:, 0])]
+            assert spans[0, 0] == 0 and spans[-1, 1] == p
+            assert np.all(spans[:-1, 1] == spans[1:, 0])
+            # every bulk copy: source, destination and size 16-byte aligned,
+            # the destination where the consumers read element e
+            # (rank_k.cu::slot_offset + e * es of the slot; on the shifted
+            # ring lying against 128-byte lines as its source does), the
+            # source inside the operand's bytes
+            live = nbytes > 0
+            src = base + first * e
+            at = (base + pos * e) % 128 if not plan.aligned else np.zeros_like(pos)  # slot_offset
+            assert np.all(at == at[0])  # the same place in every chunk
+            dst = slot + at + head * e
+            assert np.all(src[live] % 16 == 0) and np.all(dst[live] % 16 == 0)
+            assert plan.aligned or np.all((dst[live] - src[live]) % 128 == 0)
+            assert np.all(nbytes % 16 == 0)
+            assert np.all(src >= base) and np.all(src + nbytes <= base + p * e)
+            # the slot holds the chunk from its offset; a shifted slot reads
+            # 4- or 8-byte words where its shift allows, 16 where it is 0
+            assert np.all(at + n * e <= (g_slot if slot == 0 else v_slot))
+            assert np.all((slot + at) % 16 == shift)
+            tx += nbytes
+        assert np.all(tx < TX_LIMIT)
+    return ends
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("k", [1, 3, 10, 35])
-@pytest.mark.parametrize("p", [124_046_592, 16384, 20000, 20001, 7, 1])
+@pytest.mark.parametrize("p", [124_046_592, 33_638_218, 14_913_093, 16384, 20000, 20001, 7, 1])
 def test_dots_plan_covers_p_once_with_aligned_copies(p, k, dtype):
-    es = torch.empty((), dtype=dtype).element_size()
+    """Every P takes the ring: its blocks' chunks tile [0, P) exactly once,
+    and each row's copies cover it once (V and g at aligned bases; rows of a
+    P that is not whole vectors lie off 16 bytes)."""
+    es = _es(dtype)
     plan = _plan(k, p, dtype)
     assert 1 <= plan.nblocks <= plan.blocks_per_sm * SMS
     assert 1 <= plan.rows <= 16 and -(-k // plan.rows) == -(-k // 16)  # fewest sweeps
-    if p * es % 16:  # V's rows are not 16-byte aligned: the scalar kernel
-        assert not plan.bulk and plan.vec == 1 and plan.smem_bytes == 0
-        return
-    assert plan.bulk and plan.vec * es == 16
+    assert plan.vec * es == 16 and plan.aligned == (p * es % 16 == 0)
     copies = _copies(plan, p)
     assert all(len(starts) > 0 for starts, _ in copies)  # no idle block
     starts = np.concatenate([s for s, _ in copies])
@@ -62,30 +147,57 @@ def test_dots_plan_covers_p_once_with_aligned_copies(p, k, dtype):
     ends = starts[order] + sizes[order]
     assert starts[order][0] == 0 and ends[-1] == p and np.all(ends[:-1] == starts[order][1:])
     assert np.all((sizes > 0) & (sizes <= plan.chunk))
-    leftover = p - int(sizes.sum())  # what consumers would read from global memory
-    assert leftover == 0 < plan.vec
-    # every copy of g (f32) and of each row of V starts and ends 16-byte aligned
-    for elem in (4, es):
-        assert np.all(starts * elem % 16 == 0) and np.all((starts + sizes) * elem % 16 == 0)
-    assert np.all(np.arange(k, dtype=np.int64) * p * es % 16 == 0)  # row starts
-    # the ring fits one block's shared memory; a stage fits one barrier phase
-    stage = plan.chunk * (4 + plan.rows * es)
-    assert plan.smem_bytes == plan.stages * stage and 1 <= plan.stages <= 8
-    assert plan.smem_bytes + 1024 <= BLOCK_SMEM and stage < TX_LIMIT
+    assert np.all(starts * es % 16 == 0) and np.all(starts * 4 % 16 == 0)  # whole vectors
+    # every chunk of each row (of the first 10 at a large P: their shifts
+    # repeat within 8 rows)
+    loaded = _check_ring(plan, min(k, 10) if p > 1 << 22 else k, p, dtype, 0, 1 << 20)
+    assert (loaded == 0) == plan.aligned
 
 
 @pytest.mark.parametrize("resident", [1, 2, 7])
-@pytest.mark.parametrize("p", [124_046_592, 2_000_001])  # ring, scalar
+@pytest.mark.parametrize("p", [124_046_592, 2_000_001])  # aligned, shifted ring
 def test_dots_plan_grid_never_exceeds_resident_blocks(p, resident):
-    plan = _plan(10, p, torch.float32, resident=lambda bulk, smem: resident)
-    assert plan.blocks_per_sm == resident
+    plan = _plan(10, p, torch.float32, resident=lambda aligned, smem: resident)
+    assert plan.blocks_per_sm == resident and plan.aligned == (p % 4 == 0)
     assert plan.nblocks == resident * SMS  # P is large enough to fill one wave
 
 
 @pytest.mark.parametrize("ptrs", [(8, 0), (0, 4), (2,)])
-def test_dots_plan_unaligned_pointer_takes_scalar_kernel(ptrs):
-    assert not _plan(10, 16384, torch.bfloat16, ptrs=ptrs).bulk
-    assert _plan(10, 16384, torch.bfloat16, ptrs=(0, 16, 4096)).bulk
+def test_dots_plan_unaligned_pointer_takes_shifted_ring(ptrs):
+    """A V or g off 16 bytes takes the shifted ring (slack in every slot),
+    with the aligned ring's chunk, stages and grid."""
+    plan = _plan(10, 16384, torch.bfloat16, ptrs=ptrs)
+    aligned = _plan(10, 16384, torch.bfloat16, ptrs=(0, 16, 4096))
+    assert aligned.aligned and not plan.aligned
+    assert (plan.chunk, plan.stages, plan.nblocks) == (aligned.chunk, aligned.stages, aligned.nblocks)
+    assert plan.smem_bytes == aligned.smem_bytes + 2 * kernels._SHIFT_PAD * (plan.rows + 1)
+
+
+def _alignment_classes():
+    """(dtype, P mod vec) for both dtypes: every class of P a 16-byte vector
+    of V leaves over."""
+    return [pytest.param(dtype, cls, id=f"{name}-P{cls}")
+            for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+            for cls in range(16 // _es(dtype))]
+
+
+@pytest.mark.parametrize("k", DOTS_KS)
+@pytest.mark.parametrize("dtype, p_class", _alignment_classes())
+def test_dots_ring_covers_rows_once_at_any_alignment(dtype, p_class, k):
+    """V's base off 16 bytes by every element offset, g's by 0-3 elements,
+    P = p_class (mod vec) a few chunks long, and P = 1 + p_class: the
+    producer's bulk copies and loaded ends cover each row of V and g once,
+    aligned, inside the operands, in slots that fit the plan's stages."""
+    es = _es(dtype)
+    vec = 16 // es
+    for p in (3 * 2048 + 5 * vec + p_class, 1 + p_class):
+        for v_off in range(vec):
+            for g_off in range(4):
+                v_base, g_base = V_BASE + v_off * es, G_BASE + 4 * g_off
+                plan = _plan(k, p, dtype, ptrs=(v_base, g_base))
+                assert plan.nblocks == -(-p // plan.chunk)  # a small P: one chunk a block
+                loaded = _check_ring(plan, k, p, dtype, v_base, g_base)
+                assert (loaded == 0) == plan.aligned
 
 
 @pytest.mark.parametrize(
@@ -96,16 +208,19 @@ def test_dots_plan_unaligned_pointer_takes_scalar_kernel(ptrs):
 )
 def test_dots_plan_ring_is_two_stages_halved_until_they_fit(k, dtype, chunk):
     """Two stages of 2048 elements; f32 with 16 rows a sweep (2 x 139,264
-    bytes) does not fit 227 KB, so its chunk halves once."""
-    es = torch.empty((), dtype=dtype).element_size()
-    plan = _plan(k, 1 << 20, dtype)
-    assert (plan.chunk, plan.stages) == (chunk, 2)
-    assert plan.smem_bytes == 2 * chunk * (4 + plan.rows * es)
+    bytes) does not fit 227 KB, so its chunk halves once, on the shifted
+    ring too (2 x 141,440 bytes)."""
+    es = _es(dtype)
+    for p, pad in ((1 << 20, 0), ((1 << 20) + 1, kernels._SHIFT_PAD)):
+        plan = _plan(k, p, dtype)
+        assert (plan.chunk, plan.stages, plan.aligned) == (chunk, 2, pad == 0)
+        assert plan.smem_bytes == 2 * (chunk * (4 + plan.rows * es) + pad * (plan.rows + 1))
 
 
 def test_dots_plan_raises_when_no_block_fits():
-    with pytest.raises(RuntimeError, match="fits an SM"):
-        _plan(10, 1 << 20, torch.float32, resident=lambda bulk, smem: 0)
+    for p in (1 << 20, (1 << 20) + 1):  # the aligned and the shifted ring
+        with pytest.raises(RuntimeError, match="fits an SM"):
+            _plan(10, p, torch.float32, resident=lambda aligned, smem: 0)
 
 
 def test_ptxas_usage_reads_registers_and_spills_by_kernel():
@@ -134,6 +249,7 @@ def test_smi_summary_takes_min_and_max_and_skips_bad_lines():
 # ---- pass 2: axpy_plan ------------------------------------------------------
 
 P_124M = 124_046_592
+VGG16_P = 33_638_218  # VGG-16 at 10 classes: 2 mod 8
 STATIC_SMEM = 1024  # ring barriers (128 bytes), rounded up as the plan does
 
 
@@ -146,10 +262,6 @@ def _axpy_resident(ring: bool, smem: int) -> int:
 
 def _aplan(k, p, dtype, resident=_axpy_resident, ptrs=(0, 1 << 20), ring=None):
     return kernels.axpy_plan(k, p, dtype, ptrs=ptrs, sms=SMS, blocks_per_sm=resident, ring=ring)
-
-
-def _es(dtype):
-    return torch.empty((), dtype=dtype).element_size()
 
 
 def _ring_chunks(plan, p):
@@ -303,7 +415,8 @@ def test_axpy_plan_raises_when_no_block_fits(ring):
 
 def test_plans_are_cached_per_device_dtype_k_p_and_alignment(monkeypatch):
     """The launch path makes each plan once: the SM count and the occupancy
-    are asked only for a new (device, dtype, k, P, alignment, path)."""
+    are asked only for a new (device, dtype, k, P, address mod 16 of V and
+    g, path)."""
     asked = []
     monkeypatch.setattr(kernels, "_plans", {})
     monkeypatch.setattr(kernels, "_sms", lambda index: asked.append(("sms", index)) or SMS)
@@ -324,6 +437,54 @@ def test_plans_are_cached_per_device_dtype_k_p_and_alignment(monkeypatch):
     assert kernels._plan("axpy", 0, f32, 4, P_124M, (0, 4)).vec_g is False
     assert isinstance(kernels._plan("dots", 0, f32, 4, P_124M, (0, 16)), kernels.DotsPlan)
     assert len(kernels._plans) == 2 + len(others)
+    # pass 1: one plan per address mod 16 of V and of g, and per P (P mod vec
+    # decides the shifts of the rows); the same residues share a plan
+    dots = kernels._plan("dots", 0, bf16, 10, VGG16_P, (2, 4))
+    assert not dots.aligned
+    # the key rank_k_dots looks up before it calls _plan
+    assert kernels._plans[("dots", 0, bf16, 10, VGG16_P, (2, 4))] is dots
+    assert kernels._plan("dots", 0, bf16, 10, VGG16_P, (4096 + 2, 1 << 20 | 4)) is dots
+    shifted = [kernels._plan("dots", 0, bf16, 10, VGG16_P, ptrs)
+               for ptrs in ((4, 4), (2, 8), (0, 0), (2, 0))]
+    assert len({id(p) for p in shifted + [dots]}) == 5
+    assert [p.aligned for p in shifted] == [False] * 4  # P = 2 mod 8: rows off 16 bytes
+    assert kernels._plan("dots", 0, bf16, 10, VGG16_P - 2, (0, 0)).aligned
+    assert len(kernels._plans) == 2 + len(others) + 6
+
+
+def test_dots_scratch_is_per_device_and_stream_and_grows(monkeypatch):
+    """Pass 1's scratch (the finished-block count, then the partials) is
+    zeroed once per (device, stream) and reused; a call that needs more
+    floats gets a new zeroed buffer of at least twice the old."""
+    made, real_zeros = [], torch.zeros
+
+    def zeros(n, dtype, device):
+        made.append((n, device.index))
+        return real_zeros(n, dtype=dtype)
+
+    monkeypatch.setattr(kernels, "_scratch", {})
+    monkeypatch.setattr(kernels.torch, "zeros", zeros)
+    first = kernels._dots_scratch(0, 7, 40)
+    assert kernels._dots_scratch(0, 7, 40) == first and kernels._dots_scratch(0, 7, 10) == first
+    assert made == [(44, 0)]
+    kernels._dots_scratch(0, 8, 40)  # another stream
+    kernels._dots_scratch(1, 7, 40)  # another device
+    assert made[1:] == [(44, 0), (44, 1)]
+    assert kernels._dots_scratch(0, 7, 50) != first and made[-1] == (4 + 80, 0)
+    assert kernels._dots_scratch(0, 7, 80) == kernels._dots_scratch(0, 7, 50)
+    assert len(made) == 4 and kernels._scratch[(0, 7)][1] == 80
+
+
+def test_dots_launch_ints_are_the_plan_in_the_c_order(monkeypatch):
+    """rank_k_dots_* take the plan as one int array (k, nblocks, aligned,
+    chunk, stages, rows, smem_bytes), made once per plan."""
+    monkeypatch.setattr(kernels, "_dots_args", {})
+    for ptrs, aligned in (((0, 16), 1), ((2, 16), 0)):
+        plan = _plan(10, 16384, torch.bfloat16, ptrs=ptrs)
+        ints = kernels._dots_launch_ints(plan, 10)
+        assert list(ints) == [10, plan.nblocks, aligned, plan.chunk, plan.stages, plan.rows,
+                              plan.smem_bytes]
+        assert kernels._dots_launch_ints(plan, 10) is ints
 
 
 def test_f32_operand_is_copied_only_when_needed():
