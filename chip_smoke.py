@@ -265,7 +265,11 @@ Phases (any failure exits non-zero and prints no result line):
      refresh (4 iterations from the gradient) within 1e-4, each rank's
      parameter bytes
      and peak; (d) gpt2-moe expert-parallel over 2, dense and top-2 gating,
-     bs4 x seq256: loss, gradient and HVP; (e) GPT-2 124M tensor- and
+     bs4 x seq256: loss, gradient and HVP; (f) then the same models expert-
+     and sequence-parallel on the one axis, held to (d)'s whole-model
+     references at (d)'s bars, half of the experts' bytes a rank; every
+     phase 16-18 prints the collective path it took (native on 16a's NCCL
+     rank, padded/broadcast on the gloo ranks); (e) GPT-2 124M tensor- and
      sequence-parallel on the one model axis at 17b's bs1 x seq1024, held
      to 17b's whole-model references: loss, gradient and HVP, half of the
      split leaves' bytes a rank, one more HVP with the model's gloo
@@ -358,6 +362,7 @@ import sys
 import tempfile
 import time
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -4084,7 +4089,9 @@ def data_axis_one_rank(spectrum_cli, kernels) -> dict:
     try:
         mesh = make_mesh()
         res = {"group_up": up, "backend": dist.get_backend(), "world_size": dist.get_world_size(),
-               "mesh": mesh.shape}
+               "mesh": mesh.shape,
+               "collective_path": mesh.collective_path(torch.zeros(1, device=CARD), "data")}
+        print(f"16a: one NCCL rank, the {res['collective_path']} collective path", flush=True)
         sharded = make_sharded_loss(wl.loss_fn, mesh)
         local = [shard_batch(b, mesh) for b in wl.batches]
         (l_1, g_1), res["grad_s"] = _synced(lambda: grad_and_loss(wl.loss_fn, wl.params,
@@ -4124,6 +4131,7 @@ def data_axis_one_rank(spectrum_cli, kernels) -> dict:
     scale = float(t_1.alphas.abs().max())
     check_gates("16a one NCCL rank", {
         "a NCCL group of one rank": up and res["backend"] == "nccl" and res["world_size"] == 1,
+        "NCCL takes the native path": res["collective_path"] == "native",
         "DP grad within 1e-5": res["grad_rel"] <= DP_HVP_RTOL,
         "DP HVP within 1e-5": res["hvp_rel"] <= DP_HVP_RTOL,
         "host-loop T within 1e-4": res["T_max_abs_diff"] <= DP_T_TOL * max(1.0, scale),
@@ -4156,7 +4164,8 @@ def data_axis_rank(mesh, *, tmp: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lead = mesh.index == 0
-    res = {"rank": mesh.index, "device": torch.cuda.get_device_name(0)}
+    res = {"rank": mesh.index, "device": torch.cuda.get_device_name(0),
+           "collective_path": mesh.collective_path(torch.zeros(1, device=CARD), "data")}
     wl = build_workload(spectrum_cli.build_parser().parse_args(DP_ONE_ARGV), CARD)
     batch = {k: t[:, :DP_SEQ] for k, t in wl.batches[0].items()}  # 8 x DP_SEQ tokens
     local = shard_batch(batch, mesh)
@@ -4177,7 +4186,7 @@ def data_axis_rank(mesh, *, tmp: str) -> dict:
         dist.barrier()
         times["hvp_local_s"].append(_synced(lambda: op_local(v))[1])
         dist.barrier()
-        times["gloo_all_reduce_P_s"].append(_synced(lambda: mesh.all_reduce_(buf))[1])
+        times["gloo_all_reduce_P_s"].append(_synced(lambda: mesh.sum_(buf, "data"))[1])
         dist.barrier()
         times["gloo_gather_P_s"].append(_synced(lambda: sh.gather(sh.part(buf)))[1])
     res["times"] = {k: statistics.median(t) for k, t in times.items()}
@@ -4275,6 +4284,8 @@ def data_axis_gates(res: list, artifact: bool, without_jax: bool) -> dict:
     print(json.dumps({"data_axis_two_ranks": summary}), flush=True)
     for r in res:
         t = r["times"]
+        print(f"16b rank {r['rank']}: the {r['collective_path']} collective path (gloo on CUDA "
+              "tensors)", flush=True)
         print(f"16b rank {r['rank']}: DP HVP {t['hvp_dp_s']:.4f} s, of which the local HVP "
               f"{t['hvp_local_s']:.4f} s; gloo all-reduce of a P-vector on CUDA tensors "
               f"{t['gloo_all_reduce_P_s']:.4f} s, gather from halves "
@@ -4282,6 +4293,8 @@ def data_axis_gates(res: list, artifact: bool, without_jax: bool) -> dict:
     per_iter = 2  # CGS2: two sharded projections an iteration
     check_gates("16b two gloo ranks on one card", {
         "two ranks, 4 + 4 rows": [r["local_rows"] for r in res] == [4, 4],
+        "gloo on CUDA tensors takes the padded/broadcast path": all(
+            r["collective_path"] == "padded/broadcast" for r in res),
         "DP HVP within 1e-5 of the whole batch's": summary["hvp_rel_vs_whole_batch"]
         <= DP_HVP_RTOL,
         "each rank holds (rows, P/2)": summary["basis_blocks"] == [list(DP_SHAPE[1:])] * 2,
@@ -4421,7 +4434,7 @@ def tree_dot(a: dict, b, shapes: dict, splits=None, axis=None) -> float:
             y = shard_leaf(y, split, axis.model_index, axis.num_model)
         total += torch.dot(a[name].reshape(-1).double(), y.reshape(-1).double())
     if axis is not None:
-        axis.all_reduce_model_(total)
+        axis.sum_(total, "model")
     return float(total)
 
 
@@ -4548,46 +4561,11 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-_PRIMITIVES = {"sum": "_sum_over", "gather": "_gather_over_model",
-               "broadcast": "_broadcast_over_model"}
-
-
-@contextlib.contextmanager
-def collective_clock():
-    """The seconds, calls and bytes of the model's own collectives
-    (``models/collectives.py``) inside the block, each synchronised: in
-    all, and by kind ("sum": all-reduces; "gather"; "broadcast": the
-    pipeline's shifts and exit)."""
-    from hessian_llm_vision_tpu_torch.models import collectives
-
-    clock = {"s": 0.0, "calls": 0, "bytes": 0,
-             "by": {k: {"s": 0.0, "calls": 0, "bytes": 0} for k in _PRIMITIVES}}
-    plain = {k: getattr(collectives, name) for k, name in _PRIMITIVES.items()}
-
-    def timed(kind, fn):
-        def run(t, *args):
-            out, s = _synced(lambda: fn(t, *args))
-            for c in (clock, clock["by"][kind]):
-                c["s"] += s
-                c["calls"] += 1
-                c["bytes"] += out.numel() * out.element_size()
-            return out
-        return run
-
-    for kind, name in _PRIMITIVES.items():
-        setattr(collectives, name, timed(kind, plain[kind]))
-    try:
-        yield clock
-    finally:
-        for kind, name in _PRIMITIVES.items():
-            setattr(collectives, name, plain[kind])
-
-
 def _lm_parts(model, params: dict, axis, mode: str):
     """(this rank's params, the model on the axis, the splits) of a whole
-    model: "tp"/"ep" split leaves, "sp" the tokens, "tpsp" both.  The
-    axis's model is built on the meta device: only ``params`` hold
-    memory."""
+    model: "tp"/"ep" split leaves, "sp" the tokens, "tpsp" and "epsp"
+    both.  The axis's model is built on the meta device: only ``params``
+    hold memory."""
     from hessian_llm_vision_tpu_torch.models.moe import ep_layout
     from hessian_llm_vision_tpu_torch.parallel.param_sharding import (
         model_parallel_config,
@@ -4596,14 +4574,15 @@ def _lm_parts(model, params: dict, axis, mode: str):
     )
     from hessian_llm_vision_tpu_torch.parallel.seq_parallel import seq_parallel_config
 
-    cfg = model.config
+    cfg, seq_axis = model.config, axis.axis_names[1]
     if mode == "sp":
         splits, cfg_axis = dict.fromkeys(params), seq_parallel_config(cfg, axis, data_axis=None)
     else:
-        splits = tp_layout(params, axis, cfg) if mode != "ep" else ep_layout(params, axis)
+        splits = (ep_layout(params, axis, ep_axis=seq_axis) if mode in ("ep", "epsp")
+                  else tp_layout(params, axis, cfg))
         cfg_axis = model_parallel_config(cfg, axis)
-        if mode == "tpsp":
-            cfg_axis = seq_parallel_config(cfg_axis, axis, data_axis=None)
+        if mode in ("tpsp", "epsp"):
+            cfg_axis = seq_parallel_config(cfg_axis, axis, seq_axis=seq_axis, data_axis=None)
     with torch.device("meta"):
         on_axis = type(model)(cfg_axis)
     return shard_params(params, splits, axis), on_axis, splits
@@ -4617,11 +4596,11 @@ def _loss_grad_hvp(loss_fn, params, batch, v) -> tuple:
     return float(loss), grad, hv, grad_s, hvp_s
 
 
-def _on_axis(mode: str, model, params: dict, axis) -> tuple:
+def _on_axis(mode: str, model, params: dict, axis, micro: int = PP_MICRO) -> tuple:
     """(this rank's params, its loss closure, the splits, the whole model's
     names to the layout's and back) on the axis: ``_lm_parts``'s modes, or
-    "pp": the blocks stacked into ``PP_STAGES`` stages of the pipeline mesh
-    ``axis``, ``PP_MICRO`` microbatches."""
+    "pp": the blocks stacked into the stages of the pipeline mesh ``axis``
+    (its second axis), ``micro`` microbatches."""
     from hessian_llm_vision_tpu_torch.models import losses
     from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params
     from hessian_llm_vision_tpu_torch.parallel.pipeline import (
@@ -4642,12 +4621,13 @@ def _on_axis(mode: str, model, params: dict, axis) -> tuple:
     splits = pipeline_param_sharding(stacked, axis)
     with torch.device("meta"):
         meta = type(model)(model.config)
-    loss_fn = make_pipelined_lm_loss(meta, axis, num_microbatches=PP_MICRO)
+    loss_fn = make_pipelined_lm_loss(meta, axis, num_microbatches=micro)
     return shard_params(stacked, splits, axis), loss_fn, splits, stack, unstack_pipeline_params
 
 
 def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False,
-              ref=None, remat_ticks=False) -> tuple[dict, dict]:
+              ref=None, remat_ticks=False, micro=PP_MICRO,
+              clock_lanczos=False) -> tuple[dict, dict]:
     """One model on the axis against the same model whole in one process:
     loss, gathered gradient and HVP (the last rank runs the whole model's,
     and compares), and with ``iters`` the Lanczos with its basis on the
@@ -4657,7 +4637,9 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False,
     numbers of an earlier call on the same params, batches and start
     vector, reused.  ``remat_ticks`` ("pp"): one more HVP of the plain
     pipeline and one with each tick rematerialised, each from a peak
-    reset.  Returns (this run's numbers, the references)."""
+    reset.  ``micro``: the pipeline's microbatches.  ``clock_lanczos``: the
+    Lanczos's collectives counted by kind (each synchronised).  Returns
+    (this run's numbers, the references)."""
     import torch.distributed as dist
 
     from hessian_llm_vision_tpu_torch.curvature.hvp import hvp
@@ -4668,7 +4650,7 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False,
     from hessian_llm_vision_tpu_torch.models import losses
     from hessian_llm_vision_tpu_torch.models.convert import gather_model_axis
     from hessian_llm_vision_tpu_torch.ops import kernels
-    from hessian_llm_vision_tpu_torch.parallel.mesh import basis_sharding
+    from hessian_llm_vision_tpu_torch.parallel.mesh import basis_sharding, collective_clock
     from hessian_llm_vision_tpu_torch.parallel.param_sharding import shard_params
     from hessian_llm_vision_tpu_torch.utils.flatten import Flattener, ModelAxisLayout
 
@@ -4691,7 +4673,8 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False,
             ref["ritz"] = sorted(ritz_decomposition(whole).eigvals.tolist())
             del whole
     dist.barrier()
-    local, loss_fn, splits, to_layout, from_layout = _on_axis(mode, model, params, axis)
+    local, loss_fn, splits, to_layout, from_layout = _on_axis(mode, model, params, axis, micro)
+    res["collective_path"] = axis.collective_path(v, "model")
     laid_out = to_layout(params)
     tangent = shard_params(to_layout(fl.unflatten(v)), splits, axis)
     torch.cuda.reset_peak_memory_stats()
@@ -4717,7 +4700,7 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False,
             meta = type(model)(model.config)
         res["remat_ticks"] = {}
         for name, fn in (("plain", loss_fn), ("remat_ticks", make_pipelined_lm_loss(
-                meta, axis, num_microbatches=PP_MICRO, remat_ticks=True))):
+                meta, axis, num_microbatches=micro, remat_ticks=True))):
             _free()
             torch.cuda.reset_peak_memory_stats()
             out, secs = _synced(lambda fn=fn: hvp(fn, local, batches[0], tangent))
@@ -4734,10 +4717,13 @@ def _vs_whole(mode: str, model, params, batches, axis, *, iters=0, timed=False,
         del tangent
         kernels.reset_launch_counts()
         dist.barrier()
-        lres, res["lanczos_s"] = _synced(lambda: lanczos(
-            dataset_matvec(loss_fn, local, batches), layout.size, iters, v0=v_rank,
-            basis_sharding=both))
+        with collective_clock() if clock_lanczos else contextlib.nullcontext() as clock:
+            lres, res["lanczos_s"] = _synced(lambda: lanczos(
+                dataset_matvec(loss_fn, local, batches), layout.size, iters, v0=v_rank,
+                basis_sharding=both))
         res["launches"] = dict(kernels.LAUNCHES)
+        if clock_lanczos:
+            res["lanczos_collectives"] = clock
         res["T"] = [lres.alphas.tolist(), lres.betas.tolist()]
         res["ritz"] = sorted(ritz_decomposition(lres).eigvals.tolist())
         res["basis_block"] = list(lres.basis.shape)
@@ -4785,7 +4771,7 @@ def _token_batches(vocab: int, shape: tuple, n: int, seed: int) -> list:
     return [{"input_ids": torch.as_tensor(i, device=CARD)} for i in ids]
 
 
-def pythia_on_axis(axis, pythia_ref: dict, argv: list) -> dict:
+def pythia_on_axis(axis, pythia_ref: dict, argv: list, keep: Optional[dict] = None) -> dict:
     """17c: Pythia-1.4B tensor-parallel on 13b's weights (the train CLI's
     init from its seed) and first batch: the loss, one gradient, two HVPs
     and 13b's first refresh (a 4-iteration host loop from the gradient,
@@ -4840,9 +4826,13 @@ def pythia_on_axis(axis, pythia_ref: dict, argv: list) -> dict:
     lsh.host_recurrence_step = recorded
     try:
         dist.barrier()
-        _, res["host_loop_s"] = _synced(lambda: trainer.refresh_spectrum(local, batch, g_rank))
+        (_, basis), res["host_loop_s"] = _synced(lambda: trainer.refresh_spectrum(
+            local, batch, g_rank))
     finally:
         lsh.host_recurrence_step = step
+    if keep is not None:  # the refresh's (k, P_local) block, the gradient and the shard
+        keep.update(basis=basis, grad=g_rank, shard=trainer.sh)
+    del basis
     res["T"] = T
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
     return res
@@ -4906,8 +4896,10 @@ def model_axis_rank(*, pythia_ref: dict, pythia_argv: list) -> dict:
             model = GPT2LMHead(cfg, generator=torch.Generator(CARD).manual_seed(MA_SEED))
         params = {n: p.detach() for n, p in model.named_parameters()}
         batches = _token_batches(cfg.vocab_size, MA_MOE_SHAPE, 1, MA_SEED + 2)
-        res[f"17d_{gating}"] = _vs_whole("ep", model, params, batches, ep_axis)[0]
-        del model, params
+        res[f"17d_{gating}"], ref_d = _vs_whole("ep", model, params, batches, ep_axis)
+        # 17f: expert and sequence parallelism on the one axis, on 17d's references
+        res[f"17f_{gating}"] = _vs_whole("epsp", model, params, batches, ep_axis, ref=ref_d)[0]
+        del model, params, ref_d
         _free()
     res["17d_s"] = time.perf_counter() - t0
     dist.barrier()
@@ -4963,14 +4955,16 @@ def tp_sp_and_pipeline(res: list, T_ref: np.ndarray, ritz_ref: np.ndarray) -> tu
               f"HVP in {c['calls']} calls, {c['bytes']} bytes; params {t['param_bytes']} bytes, "
               f"peak {t['peak_bytes']} bytes", flush=True)
         t, c = r["18"], r["18"]["collectives"]
-        moved = c["by"]["broadcast"]
+        moved = {k: sum(c["by"][kind][k] for kind in ("send_recv", "broadcast"))
+                 for k in ("s", "calls", "bytes")}
         print(f"18 rank {r['rank']}: pipelined HVP {t['hvp_s']:.4f} s (17a's whole model "
               f"{pp['whole_hvp_s']:.4f} s), {PP_STAGES} stages, {PP_MICRO} microbatches, bubble "
-              f"{bubble:.4f}; the shifts and the exit {moved['s']:.4f} s of an HVP in "
-              f"{moved['calls']} calls, {moved['bytes']} bytes; the gradient and loss sums "
-              f"{c['by']['sum']['s']:.4f} s in {c['by']['sum']['calls']} calls, "
-              f"{c['by']['sum']['bytes']} bytes; params {t['param_bytes']} bytes, peak "
-              f"{t['peak_bytes']} bytes; the Lanczos {t['lanczos_s']:.2f} s", flush=True)
+              f"{bubble:.4f}; the shifts and the exit ({t['collective_path']}) {moved['s']:.4f} s "
+              f"of an HVP in {moved['calls']} calls, {moved['bytes']} bytes; the gradient and "
+              f"loss sums {c['by']['all_reduce']['s']:.4f} s in "
+              f"{c['by']['all_reduce']['calls']} calls, {c['by']['all_reduce']['bytes']} bytes; "
+              f"params {t['param_bytes']} bytes, peak {t['peak_bytes']} bytes; the Lanczos "
+              f"{t['lanczos_s']:.2f} s", flush=True)
         rt = t["remat_ticks"]
         print(f"18 rank {r['rank']}: an HVP from a peak reset, plain {rt['plain_hvp_s']:.4f} s "
               f"peak {rt['plain_peak_bytes']} bytes; remat_ticks {rt['remat_ticks_hvp_s']:.4f} s "
@@ -5058,10 +5052,12 @@ def model_axis_gates(res: list, q: dict, without_jax: bool) -> dict:
                           "s": c[0]["s"], "reference_grad_s": q["grad_s"],
                           "reference_products_s": q["products_s"],
                           "reference_peak_bytes": q["peak_bytes"]},
-        **{f"17d_ep_{g}": {k: last[f"17d_{g}"][k] for k in ("loss_rel", "grad_rel", "hvp_rel",
-                                                             "hvp_s", "whole_hvp_s")}
-           | {"split_share": [r[f"17d_{g}"]["split_share"] for r in res]}
-           for g in ("dense", "top2")},
+        **{f"17{p}_{name}_{g}": {k: last[f"17{p}_{g}"][k] for k in (
+            "loss_rel", "grad_rel", "hvp_rel", "hvp_s", "whole_hvp_s")}
+           | {"split_share": [r[f"17{p}_{g}"]["split_share"] for r in res]}
+           for p, name in (("d", "ep"), ("f", "ep_sp")) for g in ("dense", "top2")},
+        "collective_paths": sorted({r[k]["collective_path"] for r in res
+                                    for k in ("17a", "17b", "17e", "18", "17f_dense")}),
         "17d_s": last["17d_s"],
         "modules_without_jax": without_jax,
     }
@@ -5070,6 +5066,8 @@ def model_axis_gates(res: list, q: dict, without_jax: bool) -> dict:
     print(json.dumps({"model_axis_two_ranks": summary}), flush=True)
     for r in res:
         t = r["17a"]
+        print(f"17 rank {r['rank']}: the model's collectives took the "
+              f"{t['collective_path']} path (gloo on CUDA tensors)", flush=True)
         print(f"17a rank {r['rank']}: TP HVP {t['hvp_s']:.4f} s (whole model on one process "
               f"{a['whole_hvp_s']:.4f} s); its model's gloo collectives "
               f"{t['collectives']['hvp_s']:.4f} s of an HVP in {t['collectives']['calls']} calls, "
@@ -5106,9 +5104,13 @@ def model_axis_gates(res: list, q: dict, without_jax: bool) -> dict:
                                                           atol=DP_T_TOL),
         "17c vocab-parallel embed_in and embed_out":
             c[0]["vocab_parallel"] == ["embed_in", "embed_out.kernel"],
-        **{f"17d {g} EP loss, grad and HVP": last[f"17d_{g}"]["loss_rel"] <= MA_LOSS_RTOL
-           and max(last[f"17d_{g}"]["grad_rel"], last[f"17d_{g}"]["hvp_rel"]) <= MA_REL
-           for g in ("dense", "top2")},
+        **{f"17{p} {g} {name} loss, grad and HVP": last[f"17{p}_{g}"]["loss_rel"] <= MA_LOSS_RTOL
+           and max(last[f"17{p}_{g}"]["grad_rel"], last[f"17{p}_{g}"]["hvp_rel"]) <= MA_REL
+           for p, name in (("d", "EP"), ("f", "EP x SP on one axis")) for g in ("dense", "top2")},
+        "17f half of the experts' bytes on each rank": all(
+            abs(r[f"17f_{g}"]["split_share"] - 0.5) < 1e-9 for r in res for g in ("dense", "top2")),
+        "the gloo ranks on CUDA tensors take the padded/broadcast path":
+            summary["collective_paths"] == ["padded/broadcast"],
         **new_gates,
         "the ranks ran without JAX": summary["modules_without_jax"],
     })

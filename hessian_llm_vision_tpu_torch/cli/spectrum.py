@@ -9,8 +9,11 @@ per-leaf or per-block spectra, the linearized and the parameter-shaped
 low-precision host loops, and the spectrum artifact with an optional stem
 plot.  Flag names and defaults are the JAX CLI's.  ``--probe_parallel``
 splits the probes of ``--probes N`` over the ranks of a
-``torch.distributed`` group (``parallel/probe_parallel.py``; launch with
-``torchrun``, one rank per card, and rank 0 writes the artifact).
+``torch.distributed`` group (``parallel/probe_parallel.py``), one rank per
+card: under ``torchrun`` it joins torchrun's group; launched plainly on a
+host with more than one card it starts one NCCL rank per card itself
+(``parallel/spawn.py``), as the JAX CLI uses every local chip; on one card
+or the CPU the probes run in turn.  Rank 0 prints and writes the artifact.
 
 Runs on the first CUDA device (under ``torchrun``, the rank's own) unless
 ``--cpu`` is given; without ``--cpu`` and without a card it exits with an
@@ -46,13 +49,19 @@ Examples:
       --dataset random --num_batches 4 --batch_size 8 --max_length 512 \\
       --attn_block_q 512 --loss_chunk 512 --lanczos_iters 35 --host_loop \\
       --fused_iter --vector_seed 997 --out_spectrum spec
-  torchrun --nproc_per_node 4 -m hessian_llm_vision_tpu_torch.cli.spectrum \\
+  python -m hessian_llm_vision_tpu_torch.cli.spectrum --model gpt2 \\
+      --host_loop --probes 8 --probe_parallel --out_spectrum spec  # every card
+  torchrun --standalone --nproc_per_node 4 -m hessian_llm_vision_tpu_torch.cli.spectrum \\
       --model gpt2 --host_loop --probes 8 --probe_parallel --out_spectrum spec
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
+import sys
+import tempfile
 from typing import Callable, Optional
 
 import torch
@@ -150,9 +159,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "the scale, the recurrence), with or without this flag")
     p.add_argument("--probe_parallel", action="store_true",
                    help="with --host_loop --probes N: split the N probes over the "
-                   "ranks of a torch.distributed group (torchrun; N a multiple of "
-                   "the ranks), each running its probes in turn; rank 0 writes "
-                   "the artifact. Alone, the probes run one after another")
+                   "ranks of a torch.distributed group (N a multiple of the ranks), "
+                   "each running its probes in turn; rank 0 writes the artifact. "
+                   "Under torchrun it joins its group; launched plainly on a host "
+                   "with several cards it starts one NCCL rank per card; on one "
+                   "card or --cpu the probes run one after another")
     p.add_argument("--linearized", action="store_true",
                    help="with --host_loop + a single batch: pay the primal "
                    "forward+backward ONCE and run every Lanczos iteration "
@@ -321,7 +332,12 @@ def main(argv=None, on_iter: Optional[Callable[[int, float], None]] = None):
         _refuse_layerwise_drops(args)
     if args.probe_parallel:
         from hessian_llm_vision_tpu_torch.parallel import dist_init
+        from hessian_llm_vision_tpu_torch.parallel.probe_parallel import rank_plan
 
+        ranks = rank_plan(torch.cuda.device_count(), args.probes, cpu=args.cpu,
+                          launched=dist_init.launched())
+        if ranks:
+            return over_cards(list(sys.argv[1:] if argv is None else argv), ranks)
         # torchrun's group (a no-op when one is up, or without torchrun);
         # a NCCL rank makes its own card current before device_for reads it
         dist_init.initialize(cpu=args.cpu)
@@ -344,6 +360,41 @@ def main(argv=None, on_iter: Optional[Callable[[int, float], None]] = None):
     if args.host_loop:
         return host_loop_main(args, wl, device, on_iter)
     return incore_main(args, wl, _make_operator, device)
+
+
+def over_cards(argv: list, ranks: int):
+    """``main(argv)`` on ``ranks`` NCCL ranks, one per card of this host,
+    started here (``parallel/spawn.py``) in this working directory; rank 0's
+    output is printed and its ``(spectrum, results)`` returned."""
+    from hessian_llm_vision_tpu_torch.parallel.spawn import run_ranks
+
+    print(f"probe-parallel: starting {ranks} NCCL ranks, one per card", flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        out = run_ranks(f"{__name__}:rank_main", ranks, workdir, backend="nccl",
+                        kwargs={"argv": argv}, timeout=None, cwd=os.getcwd())
+    print(out[0]["log"], end="", flush=True)
+    print(f"probe-parallel: ranks on cards {[r['result']['card'] for r in out]}", flush=True)
+    return out[0]["result"]["out"]
+
+
+def rank_main(mesh, *, argv: list) -> dict:
+    """One rank of :func:`over_cards`: the CLI in the group; its results on
+    the host and its card."""
+    card = torch.cuda.current_device() if torch.cuda.is_available() else None
+    return {"out": _on_host(main(argv)), "card": card}
+
+
+def _on_host(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _on_host(getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):  # a NamedTuple (Spectrum)
+        return type(obj)(*(_on_host(x) for x in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_on_host(x) for x in obj)
+    return obj
 
 
 if __name__ == "__main__":

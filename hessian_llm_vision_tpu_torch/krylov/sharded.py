@@ -7,7 +7,7 @@ row and Lanczos vector.  The pad columns of the last rank are zero and
 stay zero.  The curvature product still takes the whole vector, so:
 
 * before each product the vector is put back together from the slices
-  (:meth:`PShard.gather`: one broadcast per rank);
+  (:meth:`PShard.gather`: one all-gather of equal, padded blocks);
 * the product's result (replicated on every rank, for a data-parallel
   loss after its all-reduce) goes back to slices by keeping this rank's
   range (:meth:`PShard.local`);
@@ -25,13 +25,14 @@ split leaves, the replicated leaves whole), and its Krylov vectors hold its
 *owned* part (those slices and its share of the replicated leaves, so
 that every parameter is counted once, padded to a multiple of 8 entries),
 split further over the data axis.  Before each product the replicated part
-is put back together over the model axis (one all-reduce of zero-padded
-shares); the product's replicated part comes out equal on every model
+is put back together over the model axis (one all-gather of equal,
+padded shares); the product's replicated part comes out equal on every model
 rank, and each keeps its share.  Dot products, norms and the rank-k pair's
 ``w`` sum over the whole mesh.
 
-Only ``all_reduce`` and ``broadcast`` are used: gloo runs just those two on
-CUDA tensors, and two ranks sharing one card can only use gloo.
+The collectives are the mesh's (``parallel/mesh.py``): NCCL's (or gloo's,
+on CPU tensors) all-gather and all-reduce; on gloo with CUDA tensors (two
+ranks sharing one card) the all-gather is one broadcast per rank.
 """
 
 from __future__ import annotations
@@ -85,21 +86,16 @@ class PShard:
 
     def gather(self, loc: torch.Tensor) -> torch.Tensor:
         """The whole (P,) vector from every rank's slice (``size`` or
-        ``width`` long): rank r broadcasts its slice into its range."""
+        ``width`` long): one all-gather of the ranks' ``size`` blocks."""
         if self.n == 1:
             return loc[:self.dim]
-        buf = loc.new_empty(self.size * self.n)
-        for r in range(self.n):
-            view = buf[r * self.size:(r + 1) * self.size]
-            if r == self.mesh.data_index:
-                view[:loc.shape[0]].copy_(loc)
-                view[loc.shape[0]:].zero_()
-            self.mesh.broadcast_(view, r)
-        return buf[:self.dim]
+        if loc.shape[0] < self.size:
+            loc = torch.cat([loc, loc.new_zeros(self.size - loc.shape[0])])
+        return self.mesh.all_gather(loc, "data")[:self.dim]
 
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks that split P, in place."""
-        return self.mesh.all_reduce_(t) if self.n > 1 else t
+        return self.mesh.sum_(t, "data") if self.n > 1 else t
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """The whole vectors' dot product from two slices, 0-d."""
@@ -167,26 +163,17 @@ class ModelShard(PShard):
 
     def gather(self, loc: torch.Tensor) -> torch.Tensor:
         """The rank vector from every rank's part: the owned vector over the
-        data axis (one broadcast per data rank), then the replicated
-        leaves over the model axis (one all-reduce of zero-padded shares)."""
+        data axis, then the replicated leaves over the model axis, each one
+        all-gather of equal blocks (the shares zero-padded to ``share``)."""
         lay, mesh = self.layout, self.mesh
-        owned = loc
-        if mesh.num_data > 1:
-            buf = loc.new_empty(self.size * mesh.num_data)
-            for r in range(mesh.num_data):
-                view = buf[r * self.size:(r + 1) * self.size]
-                if r == mesh.data_index:
-                    view.copy_(loc)
-                mesh.broadcast_(view, r)
-            owned = buf
-        shares = owned.new_zeros(lay.share * mesh.num_model)
-        lo = mesh.model_index * lay.share
-        shares[lo:lo + lay.share_width] = lay.replicated_share(owned)
-        mesh.all_reduce_model_(shares)
-        return lay.rank_vector(owned, shares[:lay.replicated_size])
+        owned = mesh.all_gather(loc, "data") if mesh.num_data > 1 else loc
+        share = owned[lay.split_size:lay.split_size + lay.share]
+        if mesh.num_model > 1:
+            share = mesh.all_gather(share, "model")
+        return lay.rank_vector(owned, share[:lay.replicated_size])
 
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
-        return self.mesh.all_reduce_mesh_(t)
+        return self.mesh.sum_(t, "mesh")
 
     def norm(self, v: torch.Tensor) -> torch.Tensor:
         wide = torch.float64 if v.device.type == "cpu" else None

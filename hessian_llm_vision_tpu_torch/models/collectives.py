@@ -34,11 +34,14 @@ Under ``jvp(grad(f))`` a ``backward`` is itself differentiated by the outer
 ``jvp``, and a c10d call cannot take a functorch-wrapped tensor; so every
 ``backward`` calls the conjugate Function's ``apply``, and only a
 ``forward`` or a ``jvp`` (which see plain tensors) calls c10d.  A forward
-sums a copy, never its input in place.  The model group runs ``all_reduce``
-and ``broadcast`` alone: gloo runs nothing else on CUDA tensors, so a
-gather is the sum of zero-padded buffers.  Every rank must issue the same
-collectives in the same order, or the group hangs.  The pipeline's ranks
-run different graphs, so its Functions take a ``link``: a tensor derived
+sums a copy, never its input in place.  The c10d calls are the mesh's
+(``parallel/mesh.py``): a gather is NCCL's or gloo's all-gather, its
+transpose a reduce-scatter, and the pipeline's shifts and exit paired
+sends and receives, except on gloo with CUDA tensors (ranks sharing a
+card), where ``parallel.mesh.native`` makes them broadcasts (a gather
+one per rank) and all-reduces (a reduce-scatter).  Every rank must issue
+the same collectives in the same order, or the group hangs.  The
+pipeline's ranks run different graphs, so its Functions take a ``link``: a tensor derived
 from the parameters on every rank, saved and handed to the conjugate in
 ``backward``.  A Function's ``jvp`` runs only where one of its inputs
 carries a tangent, and a cotangent can be a fresh zero on one rank and
@@ -49,47 +52,32 @@ runs every ``jvp``.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
-
-
-def _axis(mesh, axis: str) -> tuple:
-    """``(group, ranks, this rank's index)`` of one of ``mesh``'s axes:
-    "model" (its second axis), "data" (its first) or "mesh" (every rank)."""
-    if axis == "model":
-        return mesh.model_group, mesh.num_model, mesh.model_index
-    if axis == "data":
-        return mesh.data_group, mesh.num_data, mesh.data_index
-    if axis == "mesh":
-        return mesh.group, mesh.size, mesh.index
-    raise ValueError(f"no axis {axis!r} (model, data or mesh)")
 
 
 def _sum_over(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
-    out = t.clone()
-    group, n, _ = _axis(mesh, axis)
-    if group is not None and n > 1:
-        dist.all_reduce(out, group=group)
+    out = t.clone(memory_format=torch.contiguous_format)
+    _, n, _ = mesh.axis(axis)
+    if n > 1:
+        mesh.sum_(out, axis)
     return out
 
 
 def _gather_over_model(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
-    n, m = mesh.num_model, mesh.model_index
-    shape = list(t.shape)
-    size = shape[dim]
-    shape[dim] = size * n
-    buf = t.new_zeros(shape)
-    buf.narrow(dim, m * size, size).copy_(t)
-    if mesh.model_group is not None and n > 1:
-        dist.all_reduce(buf, group=mesh.model_group)
-    return buf
+    """The model ranks' ``t`` concatenated along ``dim``: one all-gather
+    along dim 0 of ``t`` with ``dim`` moved first."""
+    if mesh.num_model == 1:
+        return t
+    out = mesh.all_gather(t.movedim(dim, 0), "model")
+    return out.movedim(0, dim).contiguous()
 
 
-def _broadcast_over_model(t: torch.Tensor, mesh, src: int) -> torch.Tensor:
-    """``t`` of model index ``src`` on every rank of the model axis, in
-    place (``t`` contiguous, of one shape on every rank); returns ``t``."""
-    if mesh.model_group is not None and mesh.num_model > 1:
-        dist.broadcast(t, src=mesh.rank_at(mesh.data_index, src), group=mesh.model_group)
-    return t
+def _reduce_scatter(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """``x`` summed over the model axis, this rank's block of ``dim``: one
+    reduce-scatter along dim 0 of ``x`` with ``dim`` moved first."""
+    if mesh.num_model == 1:
+        return x.clone()
+    out = mesh.reduce_scatter(x.movedim(dim, 0), "model")
+    return out.movedim(0, dim).contiguous()
 
 
 class _CopyTo(torch.autograd.Function):
@@ -144,11 +132,6 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, x_t, _mesh_t, _dim_t):
         return _gather_over_model(x_t, ctx.mesh, ctx.dim)
-
-
-def _reduce_scatter(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
-    size = x.shape[dim] // mesh.num_model
-    return _sum_over(x, mesh).narrow(dim, mesh.model_index * size, size).contiguous()
 
 
 class _ReduceScatterModel(torch.autograd.Function):
@@ -277,16 +260,12 @@ def copy_params(ts, mesh, axes) -> tuple:
 
 def _shift(x: torch.Tensor, mesh, moves: tuple) -> torch.Tensor:
     """Model index ``dst`` receives ``x`` of model index ``src`` for each
-    ``(src, dst)`` of ``moves`` (one broadcast each, ``src != dst``); a
-    rank that receives nothing gets zeros."""
-    me = mesh.model_index
-    out = torch.zeros_like(x)
-    for src, dst in moves:
-        buf = x.contiguous() if me == src else torch.empty_like(x)
-        _broadcast_over_model(buf, mesh, src)
-        if me == dst:
-            out = buf
-    return out
+    ``(src, dst)`` of ``moves`` (``src != dst``; a send and a receive on
+    the two ranks); a rank that receives nothing gets zeros."""
+    x = x.contiguous()
+    got = mesh.send_recv([(src, dst, x.shape) for src, dst in moves], lambda dst: x, x,
+                         "model")
+    return next(iter(got.values())) if got else torch.zeros_like(x)
 
 
 class _Shift(torch.autograd.Function):
@@ -328,22 +307,14 @@ def _from_last(x: torch.Tensor, mesh, parts: tuple) -> torch.Tensor:
     last = S - 1
     if _replicated(parts):
         buf = x.contiguous().clone() if me == last else torch.empty_like(x)
-        return _broadcast_over_model(buf, mesh, last)
-    out = None
-    for r, (lo, hi) in enumerate(parts[:last]):
-        if hi > lo:
-            buf = (x[lo:hi].contiguous() if me == last
-                   else x.new_empty((hi - lo,) + tuple(x.shape[1:])))
-            _broadcast_over_model(buf, mesh, last)
-            if me == r:
-                out = buf
+        return mesh.broadcast_on(buf, last, "model")
+    rest = tuple(x.shape[1:])
+    moves = [(last, r, (hi - lo,) + rest) for r, (lo, hi) in enumerate(parts[:last]) if hi > lo]
+    got = mesh.send_recv(moves, lambda r: x[parts[r][0]:parts[r][1]].contiguous(), x, "model")
+    lo, hi = parts[me]
     if me == last:
-        lo, hi = parts[last]
-        out = x[lo:hi].clone()
-    if out is None:
-        lo, hi = parts[me]
-        out = x.new_zeros((hi - lo,) + tuple(x.shape[1:]))
-    return out
+        return x[lo:hi].clone()
+    return got.get(last, x.new_zeros((hi - lo,) + rest))
 
 
 def _to_last(g: torch.Tensor, mesh, parts: tuple) -> torch.Tensor:
@@ -355,14 +326,14 @@ def _to_last(g: torch.Tensor, mesh, parts: tuple) -> torch.Tensor:
     if _replicated(parts):
         total = _sum_over(g, mesh)
         return total if me == last else torch.zeros_like(total)
-    out = g.new_zeros((rows,) + tuple(g.shape[1:]))
-    for r, (lo, hi) in enumerate(parts[:last]):
-        if hi > lo:
-            buf = g.contiguous() if me == r else g.new_empty((hi - lo,) + tuple(g.shape[1:]))
-            _broadcast_over_model(buf, mesh, r)
-            if me == last:
-                out[lo:hi] += buf
+    rest = tuple(g.shape[1:])
+    moves = [(r, last, (hi - lo,) + rest) for r, (lo, hi) in enumerate(parts[:last]) if hi > lo]
+    got = mesh.send_recv(moves, lambda dst: g.contiguous(), g, "model")
+    out = g.new_zeros((rows,) + rest)
     if me == last:
+        for r, buf in got.items():
+            lo, hi = parts[r]
+            out[lo:hi] += buf
         lo, hi = parts[last]
         out[lo:hi] += g
     return out

@@ -105,22 +105,19 @@ def gather_model_axis(local, mesh, layout) -> Any:
     -> the whole flat (P,) vector in the JAX package's flat order.
     ``layout``: a ``ModelAxisLayout``, or for a dict the ``{name: Split or
     None}`` of ``parallel.param_sharding.tp_layout`` / ``models.moe.ep_layout``.
-    One all-reduce over the model axis per split leaf."""
+    One all-gather over the model axis per split leaf."""
     from hessian_llm_vision_tpu_torch.parallel.param_sharding import unshard_leaf
     from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
 
     splits = getattr(layout, "splits", layout)
     tree = layout.fl.unflatten(local) if isinstance(local, torch.Tensor) else local
-    n, m = mesh.num_model, mesh.model_index
     whole = {}
     for name in sorted(tree, key=lambda k: tuple(k.split("."))):  # the same order on every rank
         t, split = tree[name], splits.get(name)
         if split is None:
             whole[name] = t
             continue
-        buf = t.new_zeros((n,) + tuple(t.shape))
-        buf[m] = t
-        mesh.all_reduce_model_(buf)
+        buf = mesh.all_gather(t.unsqueeze(0), "model")
         whole[name] = unshard_leaf(list(buf), split)
     if isinstance(local, torch.Tensor):
         return Flattener(whole).flatten(whole)

@@ -27,7 +27,13 @@ Under sequence parallelism (``config.seq_sharding``) dense gating runs on
 the rank's T-slice; top-k routing gathers every rank's slice first and
 keeps its own after, so the capacity and the slot counts run over every
 token of the sequences, as in the JAX package.  Expert and sequence
-parallelism on one axis are refused.
+parallelism on one axis (a config with both, on one mesh): the T-slices
+are gathered over the axis (their gradient reduce-scattered back), the
+replicated gate routes every token on every rank, each rank runs its E/n
+experts on every token, and the gate-weighted combine is reduce-scattered
+back to the rank's T-slice.  The gate is a leaf the rank holds whole, so
+under sequence parallelism its gradient is summed over the axis
+(``models/losses.py::lm_loss_fn``), which adds the other ranks' experts.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from hessian_llm_vision_tpu_torch.models.collectives import (
     copy_to_model,
     gather_from_model,
     reduce_from_model,
+    reduce_scatter_to_model,
 )
 from hessian_llm_vision_tpu_torch.models.gpt2 import Dense, _as
 from hessian_llm_vision_tpu_torch.models.losses import at_least_f32
@@ -72,29 +79,31 @@ class MoEMLP(nn.Module):
     def forward(self, x):
         cfg = self.config
         local = self.w1.shape[0]  # this rank's experts: all of them, or E/ep under EP
-        sp = cfg.seq_sharding
-        if sp is not None and local < cfg.n_experts:
-            raise NotImplementedError("expert and sequence parallelism on one model axis are "
-                                      "not ported")
+        sp, mesh = cfg.seq_sharding, cfg.model_parallel
+        ep = local < cfg.n_experts
         T = x.shape[1]
-        if sp is not None and cfg.moe_top_k:  # route every token of the sequences
+        if sp is not None and (cfg.moe_top_k or ep):  # every token of the sequences
             x = gather_from_model(x, sp.mesh, 1)
         probs = torch.softmax(at_least_f32(self.gate(x)), dim=-1).to(x.dtype)
         w1, b1, w2, b2 = (_as(p, x) for p in (self.w1, self.b1, self.w2, self.b2))
-        mesh, first = cfg.model_parallel, 0
-        if local < cfg.n_experts:
-            x, probs = copy_to_model(x, mesh), copy_to_model(probs, mesh)
+        first = 0
+        if ep:
+            if sp is None:  # replicated tokens: their gradients summed over the axis
+                x, probs = copy_to_model(x, mesh), copy_to_model(probs, mesh)
             first = mesh.model_index * local
         if cfg.moe_top_k:
             y = _topk_moe(x, probs, w1, b1, w2, b2, cfg.moe_top_k, cfg.moe_capacity_factor,
                           first)
-            if sp is not None:  # this rank's T-slice
+            if sp is not None and not ep:  # this rank's T-slice
                 y = y[:, sp.mesh.model_index * T:(sp.mesh.model_index + 1) * T]
         else:
             h = F.gelu(precision.einsum("btc,ecf->btef", x, w1) + b1, approximate="tanh")
             y = precision.einsum("btef,efc->btec", h, w2) + b2
             y = precision.einsum("btec,bte->btc", y, probs[..., first:first + local])
-        return y if local == cfg.n_experts else reduce_from_model(y, mesh)
+        if not ep:
+            return y
+        # the other ranks' experts added; under SP only this rank's T-slice kept
+        return reduce_from_model(y, mesh) if sp is None else reduce_scatter_to_model(y, mesh, 1)
 
 
 def _topk_moe(x, probs, w1, b1, w2, b2, top_k: int, cap_factor: float, first: int = 0):

@@ -9,9 +9,12 @@ needs no group, so the call then does nothing.  It does nothing either
 when a group is already up, as the JAX function does.
 
 One card admits one NCCL rank: NCCL refuses two ranks on one GPU
-("Duplicate GPU detected").  Ranks that share a card run on gloo, which
-stages CUDA tensors through host memory and runs only ``all_reduce`` and
-``broadcast`` on them; the port's collectives use only those two.
+("Duplicate GPU detected"), so a NCCL rank takes the card ``LOCAL_RANK``
+names, and a host with fewer cards than ranks is refused before the group
+starts.  A NCCL group that cannot start raises: nothing falls back to
+gloo.  Ranks that share a card run on gloo, which stages CUDA tensors
+through host memory and runs only ``all_reduce`` and ``broadcast`` on them
+(``parallel/mesh.py::native`` then pads and broadcasts).
 """
 
 from __future__ import annotations
@@ -52,7 +55,10 @@ def initialize(
     ``HashStore`` for one rank).  ``backend`` defaults to NCCL on a card
     and gloo with ``cpu=True`` or without one.  A NCCL rank makes its
     card (``LOCAL_RANK``, else the rank modulo the card count) the current
-    device.  ``timeout_s`` bounds every collective."""
+    device and binds the group to it; fewer cards on the host than its
+    ranks (``LOCAL_WORLD_SIZE``, else ``num_processes``) raise
+    ``RuntimeError`` naming both counts.  ``timeout_s`` bounds every
+    collective."""
     if dist.is_initialized():
         return True
     env = os.environ
@@ -69,10 +75,16 @@ def initialize(
     process_id = process_id or 0
     if backend is None:
         backend = "gloo" if cpu or not torch.cuda.is_available() else "nccl"
-    if backend == "nccl":
-        local = int(env.get("LOCAL_RANK", process_id % torch.cuda.device_count()))
-        torch.cuda.set_device(local)
     kwargs = {"backend": backend, "rank": process_id, "world_size": num_processes}
+    if backend == "nccl":
+        cards = torch.cuda.device_count()
+        on_host = int(env.get("LOCAL_WORLD_SIZE", num_processes))
+        local = int(env.get("LOCAL_RANK", process_id % max(cards, 1)))
+        if cards < on_host or local >= cards:
+            raise RuntimeError(f"{on_host} NCCL ranks on this host but {cards} CUDA cards: "
+                               "NCCL needs one card a rank")
+        torch.cuda.set_device(local)
+        kwargs["device_id"] = torch.device("cuda", local)
     if timeout_s is not None:
         kwargs["timeout"] = datetime.timedelta(seconds=timeout_s)
     if store is not None:
@@ -81,6 +93,12 @@ def initialize(
         kwargs["init_method"] = _init_method(coordinator_address)
     dist.init_process_group(**kwargs)
     return True
+
+
+def launched() -> bool:
+    """A group is up, or this process was started by ``torchrun`` (its
+    ``MASTER_ADDR`` or a ``WORLD_SIZE`` in the environment)."""
+    return dist.is_initialized() or "MASTER_ADDR" in os.environ or "WORLD_SIZE" in os.environ
 
 
 def is_multihost() -> bool:

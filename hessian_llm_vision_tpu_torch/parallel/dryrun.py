@@ -1,7 +1,11 @@
 """The parallel axes on n CPU ranks, one line of summary (the JAX package's
 ``__graft_entry__.py::dryrun_multichip``).
 
-``dryrun_multichip(n)`` spawns n gloo ranks on the CPU (``parallel/spawn.py``).
+``dryrun_multichip(n)`` spawns n gloo ranks on the CPU (``parallel/spawn.py``),
+or with ``backend="nccl"`` one NCCL rank per card, each rank's models and
+batches on its card; :func:`multichip_line` prints the JAX package's line
+(its keys: loss, eig_max, hostloop, seqparallel, probe_parallel, pipeline,
+moe_ep).
 The data axis (:func:`dryrun_rank`): on a tiny GPT-2 with one global batch
 of 2n sequences, the data-parallel loss, gradient and HVP (held to one
 process on the whole batch), thick restart with the basis split along P,
@@ -33,6 +37,16 @@ import numpy as np
 import torch
 
 SEQ, VOCAB = 16, 256
+
+
+def _device() -> torch.device:
+    """This rank's card on a NCCL group (``parallel/dist_init.py`` made it
+    current), else the CPU."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -67,18 +81,19 @@ def dryrun_rank(mesh) -> dict:
 
     n = mesh.num_data
     cfg = GPT2Config(vocab_size=VOCAB, n_positions=64, n_embd=32, n_layer=2, n_head=2)
+    dev = _device()
     model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0))
-    params = {k: p.detach() for k, p in model.named_parameters()}
+    params = {k: p.detach().to(dev) for k, p in model.named_parameters()}
     loss_fn = losses.lm_loss_fn(model)
     fl = Flattener(params)
     ids = np.random.RandomState(1).randint(0, VOCAB, size=(2 * n, SEQ))
-    batches = [{"input_ids": torch.as_tensor(ids)}]
+    batches = [{"input_ids": torch.as_tensor(ids, device=dev)}]
     local = [shard_batch(b, mesh) for b in batches]
     sharded = make_sharded_loss(loss_fn, mesh)
 
     loss_1, grad_1 = grad_and_loss(loss_fn, params, batches[0])
     loss_n, grad_n = grad_and_loss(sharded, params, local[0])
-    v = torch.randn(fl.size, generator=torch.Generator().manual_seed(2))
+    v = torch.randn(fl.size, generator=torch.Generator().manual_seed(2)).to(dev)
     hv_1 = HessianOperator(loss_fn, params, batches[0])(v)
     hv_n = ShardedHessianOperator(loss_fn, params, local[0], mesh)(v)
 
@@ -92,7 +107,7 @@ def dryrun_rank(mesh) -> dict:
         generator=torch.Generator().manual_seed(3))
     draws = torch.Generator().manual_seed(3)
     seq = [dataset_spectrum_host(loss_fn, params, batches, 4,
-                                 v0=torch.randn(fl.size, generator=draws))
+                                 v0=torch.randn(fl.size, generator=draws).to(dev))
            for _ in range(n)]
 
     step_cfg = LanczosSGDConfig(k=2, delta=1.0, lr=1e-2, normalization="mean")
@@ -102,6 +117,7 @@ def dryrun_rank(mesh) -> dict:
     return {
         "ranks": n,
         "params": fl.size,
+        "probe_parallel": f"{n}x4iters",
         "loss_rel": abs(float(loss_n) - float(loss_1)) / abs(float(loss_1)),
         "grad_rel": _rel(fl.flatten(grad_n), fl.flatten(grad_1)),
         "hvp_rel": _rel(hv_n, hv_1),
@@ -163,8 +179,9 @@ def dryrun_model_rank(mesh) -> dict:
     mm = make_mesh(n // 2, 2)
     ep_mesh = make_ep_mesh(n // 2, 2)
     cfg = GPT2Config(vocab_size=VOCAB, n_positions=64, n_embd=32, n_layer=2, n_head=2)
+    dev = _device()
     model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0))
-    params = {k: p.detach() for k, p in model.named_parameters()}
+    params = {k: p.detach().to(dev) for k, p in model.named_parameters()}
     loss_fn, fl = losses.lm_loss_fn(model), Flattener(params)
     splits = tp_layout(params, mm, cfg)
     tp_params = shard_params(params, splits, mm)
@@ -173,7 +190,7 @@ def dryrun_model_rank(mesh) -> dict:
     sharded = make_sharded_loss(losses.lm_loss_fn(tp_model), mm)
     both = basis_sharding(mm, layout)  # P split over data and model
     ids = np.random.RandomState(1).randint(0, VOCAB, size=(4, 2 * mm.num_data, SEQ))
-    batches = [{"input_ids": torch.as_tensor(i)} for i in ids]
+    batches = [{"input_ids": torch.as_tensor(i, device=dev)} for i in ids]
     local = [shard_batch(b, mm) for b in batches]
     out = {"mesh": mm.shape, "params": fl.size, "rank_vector": layout.size,
            "split_leaves": sum(1 for s in splits.values() if s is not None)}
@@ -191,7 +208,7 @@ def dryrun_model_rank(mesh) -> dict:
         out.update({"step_eig_max_rel": abs(float(m_n["eig_max"]) / float(m_1["eig_max"]) - 1),
                     "step_params_rel": _rel(stepped, fl.flatten(state_1.params))})
 
-    v = torch.randn(fl.size, generator=torch.Generator().manual_seed(2))
+    v = torch.randn(fl.size, generator=torch.Generator().manual_seed(2)).to(dev)
     v_rank = Flattener(tp_params).flatten(shard_params(fl.unflatten(v), splits, mm))
     host_n = dataset_spectrum_host(sharded, tp_params, local[:2], 3, v0=v_rank,
                                    basis_sharding=both)
@@ -217,7 +234,7 @@ def dryrun_model_rank(mesh) -> dict:
 
     # sequence parallelism at batch size 1 (nothing for the data axis)
     sp_model = GPT2LMHead(seq_parallel_config(cfg, mm, data_axis=None))
-    sp_batches = [{"input_ids": torch.as_tensor(i[:1])} for i in ids[2:]]
+    sp_batches = [{"input_ids": torch.as_tensor(i[:1], device=dev)} for i in ids[2:]]
     sp_n = dataset_spectrum_host(losses.lm_loss_fn(sp_model), params, sp_batches, 3, v0=v)
     out["seq_parallel_alpha0"] = float(sp_n.alphas[0])
     if lead:
@@ -227,12 +244,12 @@ def dryrun_model_rank(mesh) -> dict:
     # expert parallelism: Lanczos through the EP MoE GPT-2, its basis on the axis
     moe_cfg = dataclasses.replace(cfg, n_experts=4)
     moe = GPT2LMHead(moe_cfg, generator=torch.Generator().manual_seed(8))
-    moe_params = {k: p.detach() for k, p in moe.named_parameters()}
+    moe_params = {k: p.detach().to(dev) for k, p in moe.named_parameters()}
     ep_splits = ep_layout(moe_params, ep_mesh)
     ep_params = shard_params(moe_params, ep_splits, ep_mesh)
     ep_model = GPT2LMHead(model_parallel_config(moe_cfg, ep_mesh))
     moe_fl = Flattener(moe_params)
-    w = torch.randn(moe_fl.size, generator=torch.Generator().manual_seed(9))
+    w = torch.randn(moe_fl.size, generator=torch.Generator().manual_seed(9)).to(dev)
     w_rank = Flattener(ep_params).flatten(shard_params(moe_fl.unflatten(w), ep_splits, ep_mesh))
     ep_op = HessianOperator(losses.lm_loss_fn(ep_model), ep_params, batches[0])
     ep_n = lanczos(ep_op.matvec, ep_op.dim, 4, v0=w_rank, basis_sharding=basis_sharding(
@@ -271,16 +288,17 @@ def dryrun_pipeline_rank(mesh) -> dict:
     stages = 2 if n % 2 == 0 else 1
     pm = make_pipeline_mesh(n // stages, stages)
     cfg = GPT2Config(vocab_size=VOCAB, n_positions=64, n_embd=32, n_layer=2, n_head=2)
+    dev = _device()
     model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0))
-    params = {k: p.detach() for k, p in model.named_parameters()}
+    params = {k: p.detach().to(dev) for k, p in model.named_parameters()}
     fl = Flattener(params)
     stacked = stack_pipeline_params(params, cfg.n_layer, stages)
     splits = pipeline_param_sharding(stacked, pm)
     local = shard_params(stacked, splits, pm)
     loss = make_pipelined_lm_loss(model, pm, num_microbatches=2, data_axis="data")
     ids = np.random.RandomState(4).randint(0, VOCAB, size=(2 * 2 * pm.num_data, SEQ))
-    batch = {"input_ids": torch.as_tensor(ids)}
-    v = torch.randn(fl.size, generator=torch.Generator().manual_seed(5))
+    batch = {"input_ids": torch.as_tensor(ids, device=dev)}
+    v = torch.randn(fl.size, generator=torch.Generator().manual_seed(5)).to(dev)
     v_rank = Flattener(local).flatten(shard_params(
         stack_pipeline_params(fl.unflatten(v), cfg.n_layer, stages), splits, pm))
     layout = ModelAxisLayout(local, splits, pm.num_model, pm.model_index)
@@ -305,15 +323,46 @@ def dryrun_all(mesh) -> dict:
     return out
 
 
-def dryrun_multichip(n_devices: int = 2, *, timeout: float = 600.0) -> dict:
-    """The parallel axes on ``n_devices`` gloo ranks on the CPU; prints one
-    JSON line and returns its summary (rank 0's numbers)."""
-    from hessian_llm_vision_tpu_torch.parallel.spawn import run_ranks
+def dryrun_multichip(n_devices: int = 2, *, timeout: float = 600.0,
+                     backend: str = "gloo") -> dict:
+    """The parallel axes on ``n_devices`` ranks: gloo ranks on the CPU, or
+    with ``backend="nccl"`` one NCCL rank per card; prints the JSON line
+    and the JAX package's line, and returns the summary (rank 0's
+    numbers).  Raises if the ranks' lines differ."""
+    from hessian_llm_vision_tpu_torch.parallel import spawn
 
     with tempfile.TemporaryDirectory() as workdir:
-        ranks = run_ranks(f"{__name__}:dryrun_all", n_devices, workdir, threads=1,
-                          timeout=timeout)
-    return report(ranks[0]["result"])
+        ranks = spawn.run_ranks(f"{__name__}:dryrun_all", n_devices, workdir, backend=backend,
+                                threads=1 if backend == "gloo" else None, timeout=timeout)
+    lines = [multichip_line(r["result"]) for r in ranks]
+    if len(set(lines)) != 1:
+        raise RuntimeError("the ranks' dry runs differ:\n" + "\n".join(lines))
+    summary = report(ranks[0]["result"])
+    print(lines[0], flush=True)
+    return summary
+
+
+def multichip_line(summary: dict) -> str:
+    """The JAX package's one-line summary (``MULTICHIP_r*.json``'s tail) from
+    :func:`dryrun_all`'s: the mesh, the fused LanczosSGD step's loss and
+    eig_max on data x model, the host loop's first alpha and the host
+    trainer's loss, sequence parallelism's and expert parallelism's first
+    alphas, the probes, and the pipeline's first alpha."""
+    ma, pp = summary.get("model_axis"), summary["pipeline"]
+    if not isinstance(ma, dict):
+        ma = {"mesh": {"data": summary["ranks"], "model": 1}}
+    keys = [f"mesh={ma['mesh']}"]
+    for name, key in (("loss", "step_loss"), ("eig_max", "step_eig_max"),
+                      ("hostloop_alpha0", "host_loop_alpha0"),
+                      ("hostloop_trainer_loss", "trainer_loss"),
+                      ("seqparallel_alpha0", "seq_parallel_alpha0")):
+        if key in ma:
+            keys.append(f"{name}={ma[key]:.4f}")
+    keys.append(f"probe_parallel={summary['probe_parallel']}")
+    keys.append(f"pipeline_alpha0={pp['alpha0']:.4f}")
+    if "ep_alpha0" in ma:
+        keys.append(f"moe_ep_alpha0={ma['ep_alpha0']:.4f}")
+    return "dryrun_multichip ok: " + " ".join(keys)
 
 
 def report(summary: dict) -> dict:

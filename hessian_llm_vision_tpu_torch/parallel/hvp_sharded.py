@@ -48,7 +48,7 @@ class ShardedLoss:
 
     def reduce_mean_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` averaged over the data axis, in place; returns ``t``."""
-        self.mesh.all_reduce_(t)
+        self.mesh.sum_(t, "data")
         if self.mesh.num_data > 1:
             t.div_(self.mesh.num_data)
         return t

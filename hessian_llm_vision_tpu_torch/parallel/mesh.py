@@ -5,10 +5,22 @@ lets XLA's partitioner insert the collectives.  Here a :class:`Mesh` is the
 ranks of the default ``torch.distributed`` group on the same grid: rank r
 sits at data index ``r // num_model`` and model index ``r % num_model``
 (the JAX grid ``reshape(num_data, num_model)``).  Each rank runs its own
-Python and calls the collectives itself: ``all_reduce_`` and ``broadcast_``
-on its data group (the ranks of its model index), the differentiable
-collectives of ``models/collectives.py`` on its model group (the ranks of
-its data index), and ``all_reduce_mesh_`` on every rank.  What the model
+Python and calls the collectives itself: ``sum_(t, "data")`` on its data
+group (the ranks of its model index), the differentiable collectives of
+``models/collectives.py`` on its model group (the ranks of its data
+index), and ``sum_(t, "mesh")`` on every rank.  Every collective
+of the port goes through a :class:`Mesh` method (``sum_``, ``all_gather``,
+``reduce_scatter``, ``send_recv``, ``broadcast_on``), and :func:`native`
+picks, in this one place, how it runs from the group's backend and the
+tensor's device: NCCL's own all-gather, reduce-scatter and paired
+send/receive on NCCL, and on gloo with CPU tensors (the CPU tests); on gloo
+with CUDA tensors (ranks that share one card: gloo stages them through
+host memory and runs only ``all_reduce`` and ``broadcast`` on them) a
+gather is one broadcast per rank into its block, a reduce-scatter an
+all-reduce then this rank's block, and a send/receive one broadcast per
+move.  Both give the same numbers (a gather moves values unchanged; at
+two ranks a sum of two is the same either way).  :func:`collective_clock`
+counts the calls, bytes and seconds of each kind inside a block.  What the model
 axis splits -- a model's heads, MLP width and vocabulary (tensor
 parallelism, ``parallel/param_sharding.py``), its tokens (sequence
 parallelism, ``parallel/seq_parallel.py``) or its experts
@@ -29,9 +41,11 @@ A :class:`Sharding` says which part of an axis a rank holds:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Optional
+import time
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -72,36 +86,202 @@ class Mesh:
     def model_index(self) -> int:
         return self.index % self.num_model
 
-    def rank_at(self, data_index: int, model_index: int) -> int:
-        """The global rank at a grid position."""
-        return data_index * self.num_model + model_index
+    def axis(self, axis: str) -> tuple:
+        """``(group, ranks, this rank's index)`` of ``axis``: "data" (the
+        first), "model" (the second) or "mesh" (every rank)."""
+        if axis == "model":
+            return self.model_group, self.num_model, self.model_index
+        if axis == "data":
+            return self.data_group, self.num_data, self.data_index
+        if axis == "mesh":
+            return self.group, self.size, self.index
+        raise ValueError(f"no axis {axis!r} (model, data or mesh)")
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the data axis, in place; returns ``t``."""
-        if self.data_group is not None:
-            dist.all_reduce(t, group=self.data_group)
+    def rank_on(self, axis: str, i: int) -> int:
+        """The global rank at index ``i`` of ``axis`` (this rank's other
+        index kept; the grid is ``data_index * num_model + model_index``)."""
+        if axis == "model":
+            return self.data_index * self.num_model + i
+        if axis == "data":
+            return i * self.num_model + self.model_index
+        return i
+
+    def collective_path(self, t: torch.Tensor, axis: str = "mesh") -> str:
+        """"native" or "padded/broadcast": how the collectives of ``axis``
+        run on tensors like ``t`` (:func:`native`); "none" without a group."""
+        group = self.axis(axis)[0]
+        if group is None:
+            return "none"
+        return "native" if native(group, t) else "padded/broadcast"
+
+    def sum_(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """``t`` (contiguous: NCCL takes nothing else) summed over ``axis``
+        ("data", "model" or "mesh"), in place, without a gradient (the
+        model's own collectives are ``models/collectives.py``'s); returns
+        ``t``."""
+        group = self.axis(axis)[0]
+        _contiguous(t)
+        if group is not None:
+            _issue("all_reduce", t, lambda: dist.all_reduce(t, group=group))
         return t
 
-    def all_reduce_model_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the model axis, in place (no gradient: the model's
-        own collectives are ``models/collectives.py``'s); returns ``t``."""
-        if self.model_group is not None:
-            dist.all_reduce(t, group=self.model_group)
+    def broadcast_on(self, t: torch.Tensor, src: int, axis: str) -> torch.Tensor:
+        """``t`` of index ``src`` of ``axis`` on every rank of it, in place
+        (``t`` contiguous, of one shape on every rank); returns ``t``."""
+        group, n, _ = self.axis(axis)
+        _contiguous(t)
+        if group is not None and n > 1:
+            _issue("broadcast", t, lambda: dist.broadcast(t, src=self.rank_on(axis, src),
+                                                          group=group))
         return t
 
-    def all_reduce_mesh_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over every rank of the mesh, in place; returns ``t``."""
-        if self.group is not None:
-            dist.all_reduce(t, group=self.group)
-        return t
+    def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The ranks' ``t`` (of one shape) concatenated along dim 0 in index
+        order, a new tensor: NCCL's all-gather, or (gloo on CUDA tensors)
+        one broadcast per rank.  Without a group, the other ranks' blocks
+        are zeros."""
+        group, n, me = self.axis(axis)
+        t = t.contiguous()
+        out_shape = (n * t.shape[0],) + tuple(t.shape[1:])
+        if n == 1:
+            return t.clone()
+        if group is not None and native(group, t):
+            out = t.new_empty(out_shape)
+            _issue("all_gather", out,
+                   lambda: dist.all_gather_into_tensor(out, t, group=group))
+            return out
+        if group is None:
+            out = t.new_zeros(out_shape)
+            out.narrow(0, me * t.shape[0], t.shape[0]).copy_(t)
+            return out
+        out = t.new_empty(out_shape)
+        for i in range(n):  # rank i broadcasts its block into its place
+            block = out.narrow(0, i * t.shape[0], t.shape[0])
+            if i == me:
+                block.copy_(t)
+            _issue("all_gather", block, lambda block=block, i=i: dist.broadcast(
+                block, src=self.rank_on(axis, i), group=group))
+        return out
 
-    def broadcast_(self, t: torch.Tensor, src_index: int) -> torch.Tensor:
-        """``t`` of the rank at data index ``src_index`` (of this model
-        index) on every rank of the data axis, in place."""
-        if self.data_group is not None:
-            dist.broadcast(t, src=self.rank_at(src_index, self.model_index),
-                           group=self.data_group)
-        return t
+    def reduce_scatter(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """``t`` (dim 0 a multiple of the axis's ranks) summed over ``axis``,
+        then this rank's block of dim 0, a new tensor."""
+        group, n, me = self.axis(axis)
+        size = t.shape[0] // n
+        whole = t.contiguous()
+        if group is not None and n > 1 and native(group, whole):
+            out = whole.new_empty((size,) + tuple(whole.shape[1:]))
+            _issue("reduce_scatter", whole,
+                   lambda: dist.reduce_scatter_tensor(out, whole, group=group))
+            return out
+        if whole is t:  # summed in place: never the caller's tensor
+            whole = t.clone()
+        if group is not None and n > 1:
+            _issue("reduce_scatter", whole, lambda: dist.all_reduce(whole, group=group))
+        return whole.narrow(0, me * size, size)
+
+    def send_recv(self, moves: Sequence[tuple], send: Callable[[int], torch.Tensor],
+                  like: torch.Tensor, axis: str = "model") -> dict:
+        """Point-to-point moves on ``axis``: ``moves`` holds ``(src, dst,
+        shape)`` index pairs, the same on every rank (``src != dst``); a
+        source sends ``send(dst)`` (contiguous, of ``shape``).  Returns
+        ``{src: tensor}`` of what this rank received (``like``'s dtype and
+        device).  Natively one batch of paired sends and receives (only
+        the ranks of a move take part); else one broadcast per move, in
+        order, over the axis."""
+        group, n, me = self.axis(axis)
+        got = {}
+        if group is None or n == 1 or not moves:
+            return got
+        if native(group, like):
+            ops, probe = [], None
+            for src, dst, shape in moves:
+                if src == me:
+                    probe = send(dst)
+                    ops.append(dist.P2POp(dist.isend, probe, self.rank_on(axis, dst), group))
+                elif dst == me:
+                    got[src] = probe = like.new_empty(shape)
+                    ops.append(dist.P2POp(dist.irecv, got[src], self.rank_on(axis, src), group))
+            if ops:
+                _issue("send_recv", probe, lambda: [w.wait() for w in
+                                                    dist.batch_isend_irecv(ops)],
+                       nbytes=sum(op.tensor.numel() * op.tensor.element_size() for op in ops))
+            return got
+        for src, dst, shape in moves:
+            buf = send(dst) if src == me else like.new_empty(shape)
+            _issue("send_recv", buf, lambda buf=buf, src=src: dist.broadcast(
+                buf, src=self.rank_on(axis, src), group=group))
+            if dst == me:
+                got[src] = buf
+        return got
+
+
+def _contiguous(t: torch.Tensor) -> None:
+    """In-place collectives take contiguous tensors only (NCCL refuses others;
+    gloo on the CPU would take them, so the CPU tests check here)."""
+    if not t.is_contiguous():
+        raise ValueError(f"a collective in place on a tensor that is not contiguous "
+                         f"(shape {tuple(t.shape)}, strides {t.stride()})")
+
+
+def native(group, t: torch.Tensor) -> bool:
+    """Whether the collectives of ``group`` run NCCL's or gloo's own
+    all-gather, reduce-scatter and send/receive on ``t``: on NCCL, and on
+    gloo with a CPU tensor; not on gloo with a CUDA tensor, which gloo
+    stages through host memory and only all-reduces or broadcasts.  The one
+    place that chooses; no flag or variable does."""
+    return not t.is_cuda or dist.get_backend(group) == "nccl"
+
+
+#: the running :func:`collective_clock`'s counts, or None
+_CLOCK: Optional[dict] = None
+KINDS = ("all_reduce", "all_gather", "reduce_scatter", "send_recv", "broadcast")
+
+
+def _issue(kind: str, t: Optional[torch.Tensor], run: Callable[[], Any],
+           nbytes: Optional[int] = None) -> None:
+    """Run one collective, outside ``torch.func``'s transforms (its tensors
+    are plain: a Function's forward or jvp issues it, and gloo's own copies
+    into its output would read as mutations of a captured tensor); under
+    :func:`collective_clock` synchronised before and after, and counted
+    under ``kind`` with ``nbytes``, by default ``t``'s (the buffer that
+    crosses the axis)."""
+    if _CLOCK is None:
+        with torch._C._DisableFuncTorch():
+            run()
+        return
+    cuda = t is not None and t.is_cuda
+    if cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    with torch._C._DisableFuncTorch():
+        run()
+    if cuda:
+        torch.cuda.synchronize(t.device)
+    s = time.perf_counter() - t0
+    if nbytes is None:
+        nbytes = 0 if t is None else t.numel() * t.element_size()
+    for c in (_CLOCK, _CLOCK["by"][kind]):
+        c["s"] += s
+        c["calls"] += 1
+        c["bytes"] += nbytes
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """Counts of every collective issued inside the block, each synchronised
+    (which serialises them with the compute): ``{"s", "calls", "bytes",
+    "by": {kind: {"s", "calls", "bytes"}}}`` over :data:`KINDS` (the
+    logical kind: a padded gather counts as "all_gather" with its padded
+    bytes).  Off (no synchronisation, no cost) outside one."""
+    global _CLOCK
+    outer = _CLOCK
+    _CLOCK = {"s": 0.0, "calls": 0, "bytes": 0,
+              "by": {k: {"s": 0.0, "calls": 0, "bytes": 0} for k in KINDS}}
+    try:
+        yield _CLOCK
+    finally:
+        _CLOCK = outer
 
 
 def make_mesh(num_data: Optional[int] = None, num_model: int = 1, *,
@@ -137,9 +317,14 @@ def make_mesh(num_data: Optional[int] = None, num_model: int = 1, *,
             g = dist.new_group([d * num_model + m for m in range(num_model)])
             if rank // num_model == d:
                 model_group = g
-    return Mesh(num_data, num_model, rank, world_group,
+    mesh = Mesh(num_data, num_model, rank, world_group,
                 data_group=data_group if num_data > 1 or num_model == 1 else None,
                 model_group=model_group if num_model > 1 else None, axis_names=axis_names)
+    if dist.get_backend() == "nccl":  # each communicator up before its first send/receive
+        one = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+        for axis in ("mesh", "data", "model"):
+            mesh.sum_(one, axis)
+    return mesh
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -15,6 +15,12 @@ Every rank draws all ``n_probes`` start vectors in probe order from the
 same CPU generator and keeps its own, so probe i starts from the vector
 the sequential loop gives probe i, and the two paths agree probe for
 probe.
+
+:func:`rank_plan` is how many ranks the spectrum CLI starts itself for
+``--probe_parallel``: one NCCL rank per card of the host when it was
+launched plainly on several cards (the JAX CLI spreads its probes over
+every local chip from one process), none under ``torchrun``, on one card
+or on the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +34,26 @@ from hessian_llm_vision_tpu_torch.krylov.driver import dataset_spectrum_host
 from hessian_llm_vision_tpu_torch.krylov.lanczos import LanczosResult
 from hessian_llm_vision_tpu_torch.parallel.mesh import Mesh, make_mesh
 from hessian_llm_vision_tpu_torch.utils.flatten import Flattener
+
+
+def _check_divides(n_probes: int, n: int) -> None:
+    if n_probes % n:
+        raise ValueError(
+            f"n_probes={n_probes} must be a multiple of the mesh's data axis ({n} ranks): "
+            "pad the probe count or shrink the mesh; a silent remainder would skew "
+            "the SLQ average")
+
+
+def rank_plan(cards: int, n_probes: int, *, cpu: bool, launched: bool) -> int:
+    """The NCCL ranks to start for ``--probe_parallel`` with ``n_probes``
+    probes on a host with ``cards`` cards: 0 (run in this process: under a
+    launcher's group, ``launched``; on the CPU; on one card or none), else
+    one per card.  Raises ``ValueError`` when the cards do not divide the
+    probes."""
+    if launched or cpu or cards <= 1:
+        return 0
+    _check_divides(n_probes, cards)
+    return cards
 
 
 def probe_parallel_spectrum_host(
@@ -80,11 +106,7 @@ def probe_parallel_spectrum_host(
         raise ValueError("pass exactly one of generator / v0s")
     mesh = mesh or make_mesh()
     n = mesh.num_data
-    if n_probes % n:
-        raise ValueError(
-            f"n_probes={n_probes} must be a multiple of the mesh's data axis ({n} ranks): "
-            "pad the probe count or shrink the mesh; a silent remainder would skew "
-            "the SLQ average")
+    _check_divides(n_probes, n)
     per_rank = n_probes // n
     mine = range(mesh.data_index * per_rank, (mesh.data_index + 1) * per_rank)
     device = next(iter(params.values())).device
@@ -111,7 +133,7 @@ def probe_parallel_spectrum_host(
                 torch.cuda.synchronize(T.device)
             print(f"probe-parallel lanczos: probe {i + 1}/{n_probes} on rank 0 of {n}, "
                   f"{num_iters} iterations  {time.perf_counter() - t0:.2f}s", flush=True)
-    mesh.all_reduce_(T)  # the one collective: each probe's rows come from one rank
+    mesh.sum_(T, "data")  # the one collective: each probe's rows come from one rank
     return [LanczosResult(alphas=T[0, i].clone(), betas=T[1, i, :num_iters - 1].clone(),
                           basis=None)
             for i in range(n_probes)]

@@ -1,6 +1,8 @@
 """Run one function on n ranks of a fresh process group, each rank a new
-interpreter (the CPU tests, ``parallel/dryrun.py`` and two ranks sharing
-one card use it; ``torchrun`` is the launcher for real jobs).
+interpreter (the CPU tests, ``parallel/dryrun.py``, two ranks sharing one
+card, one NCCL rank per card of a host, and the spectrum CLI's
+``--probe_parallel`` over every card of a host use it; ``torchrun`` is the
+other launcher).
 
 ``run_ranks("module:function", n, workdir)`` starts n processes of this
 module.  Each joins a group through a ``file://`` store in ``workdir`` (no
@@ -8,7 +10,9 @@ TCP port, so concurrent callers cannot collide), calls ``function(mesh,
 **kwargs)`` with the data-axis mesh of every rank, saves what it returns
 and leaves the group.  ``target`` may also be ``path/to/file.py:function``.
 A run that outlasts ``timeout`` seconds is killed and raises, so a hang
-fails rather than waits.
+fails rather than waits.  With ``backend="nccl"`` rank r runs on card r
+(``LOCAL_RANK``), one rank per card: more ranks than the host's cards
+raise before any starts.
 
     python -m hessian_llm_vision_tpu_torch.parallel.spawn SPEC RANK
 """
@@ -46,14 +50,19 @@ def _tail(path: Path, nbytes: int = 4000) -> str:
 
 
 def run_ranks(target: str, world_size: int, workdir, *, backend: str = "gloo",
-              kwargs: Optional[dict] = None, timeout: float = 300.0,
-              threads: Optional[int] = None) -> list[dict]:
+              kwargs: Optional[dict] = None, timeout: Optional[float] = 300.0,
+              threads: Optional[int] = None, cwd=None) -> list[dict]:
     """Run ``target(mesh, **kwargs)`` on ``world_size`` new ranks; returns
     one dict per rank: ``result`` (what the function returned, loaded with
     ``torch.load``), ``modules`` (the top-level modules the rank had
     imported) and ``log`` (its stdout and stderr).  ``threads`` sets each
-    rank's intra-op threads.  Raises ``TimeoutError`` after ``timeout``
-    seconds and ``RuntimeError`` when a rank fails, with the logs' tails."""
+    rank's intra-op threads; ``cwd`` the ranks' working directory
+    (``workdir`` by default).  Raises ``TimeoutError`` after ``timeout``
+    seconds (None: no limit but the group's own collective timeout) and
+    ``RuntimeError`` when a rank fails, with the logs' tails."""
+    if backend == "nccl" and world_size > torch.cuda.device_count():
+        raise RuntimeError(f"{world_size} NCCL ranks but {torch.cuda.device_count()} CUDA "
+                           "cards: NCCL needs one card a rank")
     workdir = Path(workdir).resolve()
     workdir.mkdir(parents=True, exist_ok=True)
     store = workdir / "store"
@@ -69,14 +78,15 @@ def run_ranks(target: str, world_size: int, workdir, *, backend: str = "gloo",
     procs, logs = [], []
     for r in range(world_size):
         logs.append(workdir / f"rank{r}.log")
+        env = dict(child_env, LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world_size))
         with open(logs[-1], "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", __name__, str(spec), str(r)], stdout=log,
-                stderr=subprocess.STDOUT, env=child_env, cwd=str(workdir)))
-    deadline = time.monotonic() + timeout
+                stderr=subprocess.STDOUT, env=env, cwd=str(cwd or workdir)))
+    deadline = None if timeout is None else time.monotonic() + timeout
     try:
         for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            p.wait(timeout=None if deadline is None else max(deadline - time.monotonic(), 0.1))
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()

@@ -90,6 +90,9 @@ CASES = {
     "moe_dense_ep": ("gpt2", MOE_KW, "ep", None),
     "moe_top2_ep": ("gpt2", dict(MOE_KW, moe_top_k=2, moe_capacity_factor=2.0), "ep", None),
     "moe_top2_sp": ("gpt2", dict(MOE_KW, moe_top_k=2, moe_capacity_factor=2.0), "sp", None),
+    # expert and sequence parallelism on one axis, held to the unsharded JAX model
+    "moe_dense_epsp": ("gpt2", MOE_KW, "epsp", None),
+    "moe_top2_epsp": ("gpt2", dict(MOE_KW, moe_top_k=2, moe_capacity_factor=2.0), "epsp", None),
     # query blocks and loss chunks, both rematerialised, on a vocab-split head
     "gpt2_tp_remat": ("gpt2", dict(GPT2_KW, attn_block_q=8), "tp", 8),
 }
@@ -105,6 +108,10 @@ PIPELINE = {
 }
 PIPELINE_TWO = ("pp2", "pp2_untied_mask")  # in the 2-rank spawn
 PIPELINE_REMAT = "pp2_untied_mask_remat_ticks"  # the second, remat_ticks=True, in it too
+#: the cases run on both collective paths in the 2-rank spawn, one a kind:
+#: EP x SP top-2 (the T-slices' gathers, the combine's reduce-scatter) and
+#: the pipeline (the shifts and the exit)
+PATHS_TWO = (("moe_top2_epsp",), ("pp2",))
 _JAX = {"gpt2": (JGPT2Config, JGPT2LMHead), "neox": (JNeoXConfig, JNeoXLMHead),
         "llama": (JLlamaConfig, JLlamaLMHead)}
 
@@ -205,14 +212,14 @@ _SAME_FUNCTION = {"neox_sp": "neox_tp", "llama_sp": "llama_tp", "moe_top2_sp": "
 def _jax_sharded(name: str) -> dict:
     """The JAX package's loss, gradient and HVP of a case, its model and
     params sharded as the case says on the 8-device mesh (data 4 x model 2,
-    or data 4 x ep 2)."""
+    or data 4 x ep 2); "epsp" cases unsharded."""
     inp = _inputs(name)
     model, params, mode = inp["model"], inp["jax_params"], inp["mode"]
     if mode == "tp":
         params = jshard_for_tp(params, jmake_mesh(4, 2))
     elif mode == "ep":
         params = jshard_params_for_ep(params, jmake_ep_mesh(4, 2))
-    else:
+    elif mode != "epsp":
         model = type(model)(jseq_parallel_config(model.config, jmake_mesh(4, 2),
                                                  data_axis="data"))
     loss_fn = jlosses.lm_loss_fn(model, loss_chunk=inp["chunk"])
@@ -282,7 +289,8 @@ def two(tmp_path_factory):
         pipeline[PIPELINE_REMAT] = _pipeline_rank_case("pp2_untied_mask", remat_ticks=True)
         return run_ranks(f"{RANKS}:model_axis_two", 2, workdir, threads=1,
                          timeout=SPAWN_TIMEOUT, kwargs={"cases": cases, "lanczos_case": "gpt2_tp",
-                                                        "iters": ITERS, "pipeline": pipeline})
+                                                        "iters": ITERS, "pipeline": pipeline,
+                                                        "paths": PATHS_TWO})
 
     return _shared(tmp_path_factory, "two", produce)
 
@@ -395,9 +403,10 @@ def test_leaves_stay_whole_where_they_do_not_divide():
 
 def test_tensor_and_sequence_parallel_on_one_axis_are_refused():
     """What stays refused on the model axis: the sequence on the data axis,
-    tensor and sequence parallelism over two different meshes, and expert
-    and sequence parallelism on one axis (tensor and sequence parallelism
-    on one axis run: ``tests/test_torch_pipeline.py``)."""
+    and tensor and sequence parallelism over two different meshes (tensor
+    and sequence parallelism on one axis run: ``tests/test_torch_pipeline.py``;
+    expert and sequence parallelism on one axis run too, and give this
+    rank's T-slice of the logits)."""
     axis = Mesh(1, 2)
     with pytest.raises(ValueError, match="model axis"):
         seq_parallel_config(GPT2Config.tiny(), axis, seq_axis="data")
@@ -414,8 +423,9 @@ def test_tensor_and_sequence_parallel_on_one_axis_are_refused():
     with torch.device("meta"):
         model = GPT2LMHead(cfg)
     experts = shard_params_ep(params, ep)
-    with pytest.raises(NotImplementedError, match="expert and sequence"):
-        torch.func.functional_call(model, experts, (torch.as_tensor(inp["ids"]),))
+    logits = torch.func.functional_call(model, experts, (torch.as_tensor(inp["ids"]),))
+    assert logits.shape == (4, T // 2, inp["config"]["vocab_size"])
+    assert torch.isfinite(logits).all()
 
 
 def test_expert_specs_and_the_ep_mesh_without_a_group():
@@ -480,6 +490,51 @@ def test_model_axis_remat_is_the_plain_model_axis(two):
 def test_model_axis_lanczos_matches_jax(two, jax_ref):
     for rank in two:
         _check_lanczos(rank["result"]["lanczos"], jax_ref("lanczos"), _inputs("gpt2_tp")["v"])
+
+
+def test_expert_and_sequence_parallel_on_one_axis_hold_half_the_experts(two):
+    for rank in two:
+        for name in ("moe_dense_epsp", "moe_top2_epsp"):
+            got = rank["result"][name]
+            assert got["split_share"] == 0.5 and got["round_trip"], name
+            assert all(".moe." in k for k in got["split"]), name
+
+
+def _assert_paths_agree(native, padded, exact: bool, what: str) -> None:
+    if isinstance(native, dict):
+        assert native.keys() == padded.keys(), what
+        for k in native:
+            _assert_paths_agree(native[k], padded[k], exact, f"{what}.{k}")
+    elif isinstance(native, np.ndarray):
+        if exact:
+            np.testing.assert_array_equal(native, padded, err_msg=what)
+        else:
+            np.testing.assert_allclose(native, padded, rtol=1e-6, atol=1e-6, err_msg=what)
+    elif isinstance(native, float):
+        assert native == padded if exact else abs(native - padded) <= 1e-6 * max(1.0, abs(
+            padded)), what
+    else:
+        assert native == padded, what
+
+
+@pytest.mark.parametrize("part", ["primitives", *PATHS_TWO[0], *PATHS_TWO[1]])
+def test_native_collectives_equal_the_padded_ones_on_two_ranks(two, part):
+    """On gloo CPU ranks the native all-gather, reduce-scatter and paired
+    send/receive give what the all-reduces of zero-padded blocks and the
+    broadcasts give (the path gloo takes on CUDA tensors), bit for bit:
+    the collectives alone and the models' loss, gradient and HVP."""
+    for rank in two:
+        paths = rank["result"]["paths"]
+        assert paths["path"] == "native"
+        _assert_paths_agree(*paths[part], exact=True, what=part)
+
+
+def test_torch_func_through_the_native_collectives_on_two_ranks(two):
+    """grad, jvp and jvp(grad) through a gather, a reduce-scatter, a stage
+    shift and a sum, on each path, against the whole function."""
+    for rank in two:
+        for calc in rank["result"]["paths"]["calculus"]:
+            assert max(calc.values()) <= 1e-6, calc
 
 
 def test_ranks_import_no_jax(two, four):

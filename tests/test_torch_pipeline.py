@@ -93,13 +93,19 @@ from test_torch_model_parallel import (  # noqa: F401  (the 2-rank spawn is a fi
     _check_lanczos,
     _init,
     _pipeline_inputs,
+    _assert_paths_agree,
     _pipeline_rank_case,
+    _rank_case,
     _rel,
     _shared,
     two,
 )
 
 PIPE_ITERS = 5  # the JAX (1, 4) case's Lanczos
+#: the cases run on both collective paths on a model axis of 4 in the
+#: 4-rank spawn, one a kind: EP x SP top-2 (gathers and reduce-scatters),
+#: then the shifts, the exit and the Lanczos gathers over 4 stages
+PATHS_FOUR = (("moe_top2_epsp",), ("pp4",))
 #: name -> (family, config); tensor and sequence parallel on one axis
 TPSP = {"gpt2_tpsp": ("gpt2", GPT2_KW), "neox_tpsp": ("neox", NEOX_KW),
         "llama_tpsp": ("llama", LLAMA_KW)}
@@ -233,9 +239,11 @@ def four(tmp_path_factory):
         pipeline = {"dp2xpp2": _pipeline_rank_case("dp2xpp2"),
                     "pp4": _pipeline_rank_case("pp4", iters=PIPE_ITERS)}
         tpsp = {name: _tpsp_rank_case(name) for name in TPSP}
+        paths = {"models": {name: _rank_case(name) for name in PATHS_FOUR[0]},
+                 "pipeline": {name: pipeline[name] for name in PATHS_FOUR[1]}}
         return run_ranks(f"{RANKS}:pipeline_four", 4, workdir, threads=1, timeout=SPAWN_TIMEOUT,
                          kwargs={"pipeline": pipeline, "tpsp": tpsp,
-                                 "lanczos_case": "gpt2_tpsp", "iters": ITERS})
+                                 "lanczos_case": "gpt2_tpsp", "iters": ITERS, "paths": paths})
 
     return _shared(tmp_path_factory, "pipeline_four", produce)
 
@@ -494,6 +502,23 @@ def test_pipeline_apply_alone(four, case):
         assert max(got["grad_rel"], got["hvp_rel"]) <= REL, got
         rows.append(got["rows"])
     assert rows == ([1, 1, 1, 0] if case.startswith("M3") else [1, 1, 1, 1])
+
+
+@pytest.mark.parametrize("part", ["primitives", *PATHS_FOUR[0], *PATHS_FOUR[1]])
+def test_native_collectives_match_the_padded_ones_on_four_ranks(four, part):
+    """At four ranks the native collectives sum in another order than an
+    all-reduce: the collectives alone, the models' loss, gradient and HVP
+    and the pipeline's Lanczos agree within 1e-6."""
+    for rank in four:
+        paths = rank["result"]["paths"]
+        assert paths["path"] == "native"
+        _assert_paths_agree(*paths[part], exact=False, what=part)
+
+
+def test_torch_func_through_the_native_collectives_on_four_ranks(four):
+    for rank in four:
+        for calc in rank["result"]["paths"]["calculus"]:
+            assert max(calc.values()) <= 1e-6, calc
 
 
 def test_ranks_import_no_jax(four):

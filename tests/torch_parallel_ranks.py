@@ -158,19 +158,19 @@ def sharded_basis(mesh, *, lanczos_cases, tr_cases, quad, defl):
 
     # one sharded projection: pass 1, the all-reduce of w, pass 2
     events = []
-    dots, axpy, reduce_ = kernels.rank_k_dots, kernels.rank_k_axpy, mesh.all_reduce_
+    dots, axpy, reduce_ = kernels.rank_k_dots, kernels.rank_k_axpy, mesh.sum_
     sh = PShard(sb, 64)
     try:
         kernels.rank_k_dots = lambda *a: events.append("rank_k_dots") or dots(*a)
         kernels.rank_k_axpy = lambda *a, **k: events.append("rank_k_axpy") or axpy(*a, **k)
-        object.__setattr__(mesh, "all_reduce_",
-                           lambda t: events.append(f"all_reduce {tuple(t.shape)}") or reduce_(t))
+        object.__setattr__(mesh, "sum_", lambda t, axis: events.append(
+            f"all_reduce {tuple(t.shape)}") or reduce_(t, axis))
         rows = torch.eye(64)[:3, sh.lo:sh.lo + sh.width].contiguous()
         g = torch.arange(64, dtype=torch.float32)
         out["projection"] = _np(sh.gather(sh.project_out(sh.part(g), rows)))
     finally:
         kernels.rank_k_dots, kernels.rank_k_axpy = dots, axpy
-        object.__delattr__(mesh, "all_reduce_")
+        object.__delattr__(mesh, "sum_")
     out["events"] = events
     out["dryrun"] = dryrun_rank(mesh)  # parallel/dryrun.py's checks, in this spawn
     return out
@@ -217,7 +217,7 @@ def probes(mesh, *, params, x, y, per_probe, v0s, ggn_v0s, cli_argv):
 def _lm(family: str, cfg_kw: dict, axis=None, mode: str = "tp"):
     """The port's model of ``family`` at ``cfg_kw``, on the model axis of
     ``axis`` by ``mode`` ("tp" and "ep": split leaves; "sp": split tokens;
-    "tpsp": both)."""
+    "tpsp" and "epsp": both)."""
     from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from hessian_llm_vision_tpu_torch.models.llama import LlamaConfig, LlamaLMHead
     from hessian_llm_vision_tpu_torch.models.pythia import NeoXConfig, NeoXLMHead
@@ -230,8 +230,8 @@ def _lm(family: str, cfg_kw: dict, axis=None, mode: str = "tp"):
     if axis is not None:
         if mode != "sp":
             cfg = model_parallel_config(cfg, axis)
-        if mode in ("sp", "tpsp"):
-            cfg = seq_parallel_config(cfg, axis, data_axis=None)
+        if mode in ("sp", "tpsp", "epsp"):
+            cfg = seq_parallel_config(cfg, axis, seq_axis=axis.axis_names[1], data_axis=None)
     return cfg, model_cls(cfg)
 
 
@@ -241,8 +241,8 @@ def _splits(mode: str, params: dict, axis, cfg) -> dict:
 
     if mode in ("tp", "tpsp"):
         return tp_layout(params, axis, cfg)
-    if mode == "ep":
-        return ep_layout(params, axis)
+    if mode in ("ep", "epsp"):
+        return ep_layout(params, axis, ep_axis=axis.axis_names[1])
     return {k: None for k in params}
 
 
@@ -316,21 +316,25 @@ def _model_axis_lanczos(case: dict, axis, iters: int, data_mesh=None) -> dict:
 
 
 def model_axis_two(mesh, *, cases: dict, lanczos_case: str, iters: int,
-                   pipeline: dict) -> dict:
-    """Every case on the model axis of 2 ranks (a 1 x 2 mesh, the EP cases
-    on a 1 x 2 ``ep`` mesh), the model-axis Lanczos of ``lanczos_case``,
-    and the ``pipeline`` cases on a 1 x 2 ``('data', 'pp')`` mesh
-    (``tests/test_torch_pipeline.py``)."""
+                   pipeline: dict, paths: tuple = ((), ())) -> dict:
+    """Every case on the model axis of 2 ranks (a 1 x 2 mesh, the EP and
+    EP x SP cases on a 1 x 2 ``ep`` mesh), the model-axis Lanczos of
+    ``lanczos_case``, the ``pipeline`` cases on a 1 x 2 ``('data', 'pp')``
+    mesh (``tests/test_torch_pipeline.py``), and the native collectives
+    against the padded ones (``collective_paths``) with the cases and
+    pipeline cases that ``paths`` names."""
     from hessian_llm_vision_tpu_torch.models.moe import make_ep_mesh
     from hessian_llm_vision_tpu_torch.parallel.mesh import make_mesh
 
     axis, ep_axis = make_mesh(1, 2), make_ep_mesh(1, 2)
     out = {"model_index": axis.model_index, "ep_shape": ep_axis.shape}
     for name, case in cases.items():
-        out[name] = _model_axis_case(case, ep_axis if case["mode"] == "ep" else axis)
+        out[name] = _model_axis_case(case, ep_axis if case["mode"] in ("ep", "epsp") else axis)
     out["lanczos"] = _model_axis_lanczos(cases[lanczos_case], axis, iters)
     for name, case in pipeline.items():
         out[name] = _pipeline_case(case)
+    out["paths"] = collective_paths(2, {k: cases[k] for k in paths[0]},
+                                    {k: pipeline[k] for k in paths[1]})
     return out
 
 
@@ -460,12 +464,15 @@ def _pipeline_apply_check(M: int, scatter: bool) -> dict:
             "rows": int(hi - lo)}
 
 
-def pipeline_four(mesh, *, pipeline: dict, tpsp: dict, lanczos_case: str, iters: int) -> dict:
+def pipeline_four(mesh, *, pipeline: dict, tpsp: dict, lanczos_case: str, iters: int,
+                  paths: dict = None) -> dict:
     """Four ranks: the ``pipeline`` cases (dp2 x pp2, pp4 with its Lanczos),
     the ``tpsp`` cases (tensor and sequence parallelism on the model axis
     of a data 2 x model 2 mesh, the batch split over the data axis), the
     Lanczos of ``lanczos_case`` with its basis over both axes,
-    ``parallel/dryrun.py``'s pipeline part and ``pipeline_apply`` alone."""
+    ``parallel/dryrun.py``'s pipeline part, ``pipeline_apply`` alone, and
+    the native collectives against the padded ones on a model axis of 4
+    (``collective_paths``, with the model and pipeline cases of ``paths``)."""
     from hessian_llm_vision_tpu_torch.parallel.dryrun import dryrun_pipeline_rank
     from hessian_llm_vision_tpu_torch.parallel.mesh import make_mesh
 
@@ -478,4 +485,119 @@ def pipeline_four(mesh, *, pipeline: dict, tpsp: dict, lanczos_case: str, iters:
     out["dryrun"] = dryrun_pipeline_rank(mesh)
     out["apply"] = {f"M{M}_{'scatter' if scatter else 'replicate'}": _pipeline_apply_check(
         M, scatter) for M in (3, 4) for scatter in (True, False)}
+    paths = paths or {}
+    out["paths"] = collective_paths(4, paths.get("models", {}), paths.get("pipeline", {}))
     return out
+
+
+# ------------------------------------------- the native and padded paths
+# (tests/test_torch_model_parallel.py, tests/test_torch_pipeline.py)
+
+def _padded_too(fn) -> tuple:
+    """``(fn(), fn())``: first on the native collectives that gloo runs on
+    CPU tensors, then with ``parallel.mesh.native`` answering no, as it does
+    on gloo with CUDA tensors (zero-padded all-reduces and broadcasts)."""
+    from hessian_llm_vision_tpu_torch.parallel import mesh as mesh_module
+
+    native = fn()
+    chooser = mesh_module.native
+    mesh_module.native = lambda group, t: False
+    try:
+        padded = fn()
+    finally:
+        mesh_module.native = chooser
+    return native, padded
+
+
+def _primitives(axis) -> dict:
+    """Each collective of ``models/collectives.py`` and the Krylov gathers
+    on the model axis of ``axis``: a gather along every dimension, its
+    reduce-scatter, the stage shift, the exit to uneven and equal parts
+    and back, ``PShard.gather`` of an uneven P; returns numpy arrays."""
+    from hessian_llm_vision_tpu_torch.models import collectives as c
+    from hessian_llm_vision_tpu_torch.parallel.mesh import Mesh, Sharding
+
+    n, m = axis.num_model, axis.model_index
+    gen = torch.Generator().manual_seed(100 + m)  # each rank its own values
+    x = torch.randn(2, 3, 4, generator=gen)
+    wide = torch.randn(2 * n, 3, 2 * n, generator=gen)
+    out = {}
+    for dim in range(3):
+        out[f"gather_{dim}"] = _np(c._gather_over_model(x, axis, dim))
+        out[f"reduce_scatter_{dim}"] = _np(c._reduce_scatter(
+            wide if dim != 1 else torch.randn(2, 3 * n, 4, generator=gen), axis, dim))
+    out["shift"] = _np(c._shift(x, axis, tuple((r, r + 1) for r in range(n - 1))))
+    stacked = torch.randn(n + 1, 2, 3, generator=gen)
+    for name, parts in (("uneven", _uneven(n + 1, n)), ("equal", ((0, n + 1),) * n)):
+        out[f"from_last_{name}"] = _np(c._from_last(stacked, axis, parts))
+        lo, hi = parts[m]
+        out[f"to_last_{name}"] = _np(c._to_last(stacked[lo:hi] + m, axis, parts))
+    flat = Mesh(n, 1, m, axis.model_group, data_group=axis.model_group)  # P over these ranks
+    sh = PShard(Sharding(flat, (None, "data")), 4 * n - 1)
+    out["pshard_gather"] = _np(sh.gather(torch.arange(sh.width, dtype=torch.float32) + 10 * m))
+    return out
+
+
+def _uneven(M: int, S: int) -> tuple:
+    from hessian_llm_vision_tpu_torch.parallel.pipeline import exit_parts
+
+    return exit_parts(M, S, True)
+
+
+def _calculus(axis) -> dict:
+    """``torch.func`` grad, jvp and jvp(grad) of a function built from a
+    gather along T, a reduce-scatter back to the T-slice, a stage shift and
+    a sum over the axis, on each rank's T-slice of ``X``, against the same
+    function of the whole ``X`` in one process (rel-L2 of this rank's
+    slice)."""
+    from hessian_llm_vision_tpu_torch.models import collectives as c
+
+    n, m = axis.num_model, axis.model_index
+    gen = torch.Generator().manual_seed(7)  # the same on every rank
+    X, V = (torch.randn(2, 2 * n, 3, generator=gen) for _ in range(2))
+    W, C = torch.randn(3, 3, generator=gen), torch.randn(2, 2 * n, 3, generator=gen)
+    D = torch.randn(n, 2, 2, 3, generator=gen)
+    moves = tuple((r, r + 1) for r in range(n - 1))
+    mine = slice(2 * m, 2 * m + 2)
+
+    def on_rank(x):
+        g = c.gather_from_model(x, axis, 1)
+        y = c.reduce_scatter_to_model(torch.tanh(g @ W) * C, axis, 1)
+        s = c.shift_stages(y, x.reshape(-1)[0], axis, moves)
+        return c.reduce_from_axis((s ** 2 * D[m]).sum(), axis, "model")
+
+    def whole(x):
+        y = n * torch.tanh(x @ W) * C  # every rank's copy summed
+        return sum((y[:, 2 * (r - 1):2 * r] ** 2 * D[r]).sum() for r in range(1, n))
+
+    grad_fn = torch.func.grad
+    got = (grad_fn(on_rank)(X[:, mine]),
+           torch.func.jvp(on_rank, (X[:, mine],), (V[:, mine],))[1],
+           torch.func.jvp(grad_fn(on_rank), (X[:, mine],), (V[:, mine],))[1])
+    want = (grad_fn(whole)(X)[:, mine], torch.func.jvp(whole, (X,), (V,))[1],
+            torch.func.jvp(grad_fn(whole), (X,), (V,))[1][:, mine])
+    return {name: float((a - b).norm() / b.norm().clamp(min=1e-30))
+            for name, a, b in zip(("grad", "jvp", "hvp"), got, want)}
+
+
+def collective_paths(n: int, model_cases: dict, pipeline_cases: dict) -> dict:
+    """The native collectives against the padded ones on a model axis of
+    ``n`` ranks: the primitives, ``torch.func`` through them against the
+    whole function, and the models of ``model_cases`` (on the mesh each
+    names: "ep"/"epsp" on an ``ep`` mesh) and ``pipeline_cases`` (loss,
+    gradient and HVP), each run on both paths."""
+    from hessian_llm_vision_tpu_torch.models.moe import make_ep_mesh
+    from hessian_llm_vision_tpu_torch.parallel.mesh import make_mesh
+
+    axis = make_mesh(1, n)
+    ep_axis = make_ep_mesh(1, n)
+    out = {"path": axis.collective_path(torch.zeros(1), "model")}
+    out["primitives"] = _padded_too(lambda: _primitives(axis))
+    out["calculus"] = _padded_too(lambda: _calculus(axis))
+    for name, case in model_cases.items():
+        on = ep_axis if case["mode"] in ("ep", "epsp") else axis
+        out[name] = _padded_too(lambda case=case, on=on: _model_axis_case(case, on))
+    for name, case in pipeline_cases.items():
+        out[name] = _padded_too(lambda case=case: _pipeline_case(case))
+    return out
+
