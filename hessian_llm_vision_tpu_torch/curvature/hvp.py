@@ -30,9 +30,13 @@ from typing import Any, Callable, Mapping, Optional
 import torch
 
 from hessian_llm_vision_tpu_torch.models import precision as precision_tiers
+from hessian_llm_vision_tpu_torch.obs.timing import span
 
 Params = Mapping[str, torch.Tensor]
 LossFn = Callable[[Params, Any], torch.Tensor]
+
+
+_HVP_SPAN = span("hvp")
 
 
 class Normalization(str, enum.Enum):
@@ -134,12 +138,13 @@ def hvp_fn(
     fn = _remat_loss(local) if remat else local
 
     def _hvp(params, batch, vector):
-        scaled = _scaled_loss_fn(fn, batch, normalization, batch_size, dataset_size)
-        primals = dict(params)
-        tangents = {n: vector[n] for n in primals}  # torch pytrees compare key order
-        with _precision_context(precision, loss_fn):
-            out = torch.func.jvp(torch.func.grad(scaled), (primals,), (tangents,))[1]
-        return out if sharded is None else _mean_over_ranks(out, sharded)
+        with _HVP_SPAN:
+            scaled = _scaled_loss_fn(fn, batch, normalization, batch_size, dataset_size)
+            primals = dict(params)
+            tangents = {n: vector[n] for n in primals}  # torch pytrees compare key order
+            with _precision_context(precision, loss_fn):
+                out = torch.func.jvp(torch.func.grad(scaled), (primals,), (tangents,))[1]
+            return out if sharded is None else _mean_over_ranks(out, sharded)
 
     return _hvp
 

@@ -36,6 +36,8 @@ from hessian_llm_vision_tpu_torch.curvature.hvp import (
     split_sharded,
 )
 from hessian_llm_vision_tpu_torch.krylov.lanczos import (
+    MATVEC_SPAN,
+    UPDATE_SPAN,
     LanczosResult,
     host_recurrence_step,
     raw_start,
@@ -281,10 +283,14 @@ def _t_only(matvec, q_cur, num_iters, callback, progress, label="lanczos",
     alphas, betas = [], []
     for i in range(num_iters):
         t0 = time.perf_counter()
-        alpha, beta, q_next = host_recurrence_step(matvec(q_cur), q_cur, q_prev, beta_prev, sh)
-        q_prev, q_cur, beta_prev = q_cur, q_next, beta
-        alphas.append(alpha)
-        betas.append(beta)
+        with MATVEC_SPAN:
+            w = matvec(q_cur)
+        with UPDATE_SPAN:
+            alpha, beta, q_next = host_recurrence_step(w, q_cur, q_prev, beta_prev, sh)
+            del w
+            q_prev, q_cur, beta_prev = q_cur, q_next, beta
+            alphas.append(alpha)
+            betas.append(beta)
         _iteration_end(i, num_iters, t0, q_cur, alphas, betas, callback, progress, label)
     alphas, betas = stack_tridiag(alphas, betas)
     return LanczosResult(alphas=alphas, betas=betas, basis=None)
@@ -414,12 +420,14 @@ def single_batch_spectrum_host_fused(
     alphas, betas = [], []
     for i in range(num_iters):
         t0 = time.perf_counter()
-        w = fl.flatten(_hvp(params, batch, fl.unflatten(q_cur)))
-        alpha, beta, q_next = host_recurrence_step(w, q_cur, q_prev.float(), beta_prev)
-        q_prev.copy_(q_cur)
-        q_cur, beta_prev = q_next, beta
-        alphas.append(alpha)
-        betas.append(beta)
+        with MATVEC_SPAN:
+            w = fl.flatten(_hvp(params, batch, fl.unflatten(q_cur)))
+        with UPDATE_SPAN:
+            alpha, beta, q_next = host_recurrence_step(w, q_cur, q_prev.float(), beta_prev)
+            q_prev.copy_(q_cur)
+            q_cur, beta_prev = q_next, beta
+            alphas.append(alpha)
+            betas.append(beta)
         _iteration_end(i, num_iters, t0, q_cur, alphas, betas, callback, progress)
     alphas, betas = stack_tridiag(alphas, betas)
     return LanczosResult(alphas=alphas, betas=betas, basis=None)
@@ -588,20 +596,22 @@ def bigmodel_spectrum_host(
     alphas, betas = [], []
     for i in range(num_iters):
         t0 = time.perf_counter()
-        w = _hvp(params, batch, {n: q_cur[n].float() for n in names})
-        for n in names:  # each f32 leaf is freed as soon as it is cast
-            w[n] = w[n].to(q_dtype)
-        alpha = tdot(q_cur, w)
-        for n in names:
-            w[n] = (w[n].float() - alpha * q_cur[n].float()
-                    - beta_prev * q_prev[n].float()).to(q_dtype)
-        beta = torch.sqrt(tdot(w, w))
-        inv = 1.0 / torch.clamp(beta, min=1e-30)
-        q_prev, q_cur = q_cur, {n: (w[n].float() * inv).to(q_dtype) for n in names}
-        del w
-        beta_prev = beta
-        alphas.append(alpha)
-        betas.append(beta)
+        with MATVEC_SPAN:
+            w = _hvp(params, batch, {n: q_cur[n].float() for n in names})
+        with UPDATE_SPAN:
+            for n in names:  # each f32 leaf is freed as soon as it is cast
+                w[n] = w[n].to(q_dtype)
+            alpha = tdot(q_cur, w)
+            for n in names:
+                w[n] = (w[n].float() - alpha * q_cur[n].float()
+                        - beta_prev * q_prev[n].float()).to(q_dtype)
+            beta = torch.sqrt(tdot(w, w))
+            inv = 1.0 / torch.clamp(beta, min=1e-30)
+            q_prev, q_cur = q_cur, {n: (w[n].float() * inv).to(q_dtype) for n in names}
+            del w
+            beta_prev = beta
+            alphas.append(alpha)
+            betas.append(beta)
         _iteration_end(i, num_iters, t0, beta, alphas, betas, callback, progress)
     alphas, betas = stack_tridiag(alphas, betas)
     return LanczosResult(alphas=alphas, betas=betas, basis=None)

@@ -23,9 +23,14 @@ import numpy as np
 import torch
 
 from hessian_llm_vision_tpu_torch.krylov.sharded import PShard, normalize, p_shard
+from hessian_llm_vision_tpu_torch.obs.timing import span
 from hessian_llm_vision_tpu_torch.utils.norms import norm
 
 _EPS = 1e-30
+#: a Lanczos iteration's two spans: the operator call with its argument
+#: casts, and the rest of the iteration up to any callback
+MATVEC_SPAN = span("lanczos.matvec")
+UPDATE_SPAN = span("lanczos.update")
 
 
 class LanczosResult(NamedTuple):
@@ -114,21 +119,23 @@ def lanczos(
         basis = torch.zeros((num_iters, dim), dtype=torch.float32, device=q_cur.device)
     alphas, betas = [], []
     for i in range(num_iters):
-        if basis is not None:
-            basis[i] = q_cur
-        w = matvec(q_cur).float()
-        alpha = torch.dot(q_cur, w)
-        w = w - alpha * q_cur - beta_prev * q_prev
-        if reorth:
-            # classical Gram-Schmidt, twice (CGS2) against rows 0..i
-            Q = basis[: i + 1]
-            w = w - Q.T @ (Q @ w)
-            w = w - Q.T @ (Q @ w)
-        beta = norm(w)
-        q_prev, q_cur = q_cur, w / torch.clamp(beta, min=_EPS)
-        beta_prev = beta
-        alphas.append(alpha)
-        betas.append(beta)
+        with MATVEC_SPAN:
+            w = matvec(q_cur).float()
+        with UPDATE_SPAN:
+            if basis is not None:
+                basis[i] = q_cur
+            alpha = torch.dot(q_cur, w)
+            w = w - alpha * q_cur - beta_prev * q_prev
+            if reorth:
+                # classical Gram-Schmidt, twice (CGS2) against rows 0..i
+                Q = basis[: i + 1]
+                w = w - Q.T @ (Q @ w)
+                w = w - Q.T @ (Q @ w)
+            beta = norm(w)
+            q_prev, q_cur = q_cur, w / torch.clamp(beta, min=_EPS)
+            beta_prev = beta
+            alphas.append(alpha)
+            betas.append(beta)
     return LanczosResult(
         alphas=torch.stack(alphas), betas=torch.stack(betas)[:-1], basis=basis
     )
@@ -148,19 +155,21 @@ def _lanczos_sharded(matvec, sh: PShard, num_iters: int, q_full: torch.Tensor,
         basis = torch.zeros((num_iters, sh.size), dtype=torch.float32, device=q_cur.device)
     alphas, betas = [], []
     for i in range(num_iters):
-        if basis is not None:
-            basis[i] = q_cur
-        w = sh.local(matvec(sh.gather(q_cur)).float())
-        alpha = sh.dot(q_cur, w)
-        w = w - alpha * q_cur - beta_prev * q_prev
-        if reorth:
-            for _ in range(2):  # CGS2 against rows 0..i
-                w = sh.project_out(w, basis[: i + 1])
-        beta = sh.norm(w)
-        q_prev, q_cur = q_cur, w / torch.clamp(beta, min=_EPS)
-        beta_prev = beta
-        alphas.append(alpha)
-        betas.append(beta)
+        with MATVEC_SPAN:
+            w = sh.local(matvec(sh.gather(q_cur)).float())
+        with UPDATE_SPAN:
+            if basis is not None:
+                basis[i] = q_cur
+            alpha = sh.dot(q_cur, w)
+            w = w - alpha * q_cur - beta_prev * q_prev
+            if reorth:
+                for _ in range(2):  # CGS2 against rows 0..i
+                    w = sh.project_out(w, basis[: i + 1])
+            beta = sh.norm(w)
+            q_prev, q_cur = q_cur, w / torch.clamp(beta, min=_EPS)
+            beta_prev = beta
+            alphas.append(alpha)
+            betas.append(beta)
     return LanczosResult(alphas=torch.stack(alphas), betas=torch.stack(betas)[:-1],
                          basis=None if basis is None else sh.trim(basis))
 
@@ -210,10 +219,14 @@ def lanczos_checkpointed(
         alphas = [as_f32(a) for a in resume_state["alphas"]]
         betas = [as_f32(b) for b in resume_state["betas"]]
     for i in range(len(alphas), num_iters):
-        alpha, beta, q_next = host_recurrence_step(matvec(q_cur), q_cur, q_prev, beta_prev)
-        q_prev, q_cur, beta_prev = q_cur, q_next, beta
-        alphas.append(alpha)
-        betas.append(beta)
+        with MATVEC_SPAN:
+            w = matvec(q_cur)
+        with UPDATE_SPAN:
+            alpha, beta, q_next = host_recurrence_step(w, q_cur, q_prev, beta_prev)
+            del w
+            q_prev, q_cur, beta_prev = q_cur, q_next, beta
+            alphas.append(alpha)
+            betas.append(beta)
         if callback is not None:
             a, b = stack_tridiag(alphas, betas)
             callback(i, a.cpu().numpy(), b.cpu().numpy())

@@ -2,7 +2,7 @@
 carried across: Adam, SGD and raw SGD, and accumulation over 2
 micro-batches, over 5 steps in 2 epochs; the per-step losses and the logged
 EMAs within 1e-5, the logged step indices equal.  Also the epoch and state
-hooks, the evaluation helpers and the timers."""
+hooks, the evaluation helpers, the spans and the profiler's trace."""
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +20,7 @@ from hessian_llm_vision_tpu.train.accumulate import to_microbatches as jto_micro
 from hessian_llm_vision_tpu_torch.models import losses
 from hessian_llm_vision_tpu_torch.models.convert import gpt2_params_from_jax, gpt2_params_to_jax
 from hessian_llm_vision_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
-from hessian_llm_vision_tpu_torch.obs.timing import HVPMeter, Timer, profile_trace
+from hessian_llm_vision_tpu_torch.obs.timing import profile_trace, recording, span
 from hessian_llm_vision_tpu_torch.optim import manual
 from hessian_llm_vision_tpu_torch.train import evaluation, loop
 from hessian_llm_vision_tpu_torch.train.accumulate import to_microbatches
@@ -156,17 +156,16 @@ def test_evaluation_helpers_match_jax():
 
 
 def test_timer_meter_and_profile_trace(tmp_path):
-    timer = Timer()
-    for _ in range(2):
-        with timer.section("mm", block_on={"x": torch.ones(3) @ torch.ones(3)}):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert timer.counts == {"mm": 2} and timer.summary()["mm"] == timer.mean("mm") > 0
-    meter = HVPMeter()
-    assert meter.hvps_per_sec == 0.0
-    meter.record(10, 2.0)
-    meter.record(5, 1.0)
-    assert meter.hvps_per_sec == 5.0
-    with profile_trace(str(tmp_path / "prof")) as prof:
-        torch.ones(32, 32) @ torch.ones(32, 32)
+    """The port's spans (its timers) around products, recorded inside the
+    profiler's trace of them."""
+    mm = span("mm")
+    with mm:  # not recording: nothing kept
+        torch.ones(8, 8) @ torch.ones(8, 8)
+    with profile_trace(str(tmp_path / "prof")) as prof, recording() as rec:
+        for _ in range(2):
+            with mm:
+                torch.ones(32, 32) @ torch.ones(32, 32)
+    assert [r[0] for r in rec] == ["mm", "mm"]
+    assert rec[0][1] <= rec[0][2] <= rec[1][1] <= rec[1][2]
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
     assert any("mm" in e.key for e in prof.key_averages())
